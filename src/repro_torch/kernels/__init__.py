@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels for LoCaLUT's compute hot-spots.
+
+* :mod:`repro_torch.kernels.lut_dequant_gemm` — packed-code GEMM with
+  in-kernel value-LUT decode (CUDA C++, ``csrc/lut_dequant_gemm.cu``);
+  replaces the TPU kernel of the same name.
+* :mod:`repro_torch.kernels.build` — ``nvcc`` build at first use + ``ctypes``.
+* :mod:`repro_torch.kernels.ops` — entry points: kernel on a CUDA tensor,
+  plain version on a CPU tensor.
+* :mod:`repro_torch.kernels.ref` — the plain PyTorch versions.
+
+Still to port (ROADMAP Queue 2): ``lut_stream_gemm``, ``flash_attention``.
+"""

@@ -1,0 +1,105 @@
+"""Shared primitive layers: norms, RoPE, activations, linears (port of
+``repro.models.layers``).
+
+A "linear" parameter is a dense dict ``{"w": [K,F], ("b": [F])}``, a
+:class:`repro_torch.core.QuantizedLinear` or a
+:class:`repro_torch.core.PreparedLinear`; :func:`linear` dispatches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import PreparedLinear, QuantizedLinear, apply_linear
+
+
+def dense_init(gen: torch.Generator, k: int, f: int, *, bias: bool = False,
+               scale: float | None = None, device=None):
+    """``w ~ N(0, 1) * std`` with ``std = 1/sqrt(k)`` (or ``scale``), f32."""
+    std = scale if scale is not None else (1.0 / math.sqrt(k))
+    p = {"w": torch.randn((k, f), generator=gen, device=device, dtype=torch.float32) * std}
+    if bias:
+        p["b"] = torch.zeros((f,), dtype=torch.float32, device=device)
+    return p
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, (QuantizedLinear, PreparedLinear)):
+        return apply_linear(p, x)
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rmsnorm_init(d: int, device=None):
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_init(d: int, device=None):
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def norm(p, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-6) -> torch.Tensor:
+    """Computes in f32 and casts back to ``x.dtype``."""
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        return (y * p["g"]).to(x.dtype)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"] + p["b"]).to(x.dtype)
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return torch.nn.functional.silu(x)
+    if kind == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, *, frac: float = 1.0, device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotated ``frac`` of the head dim."""
+    rot = int(hd * frac) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               kind: str = "full") -> torch.Tensor:
+    """Rotate ``x [B, S, H, hd]`` by position.  ``kind='half'`` rotates only
+    the first half of the head dim, in interleaved pairs
+    (``x[..., 0::2]``, ``x[..., 1::2]``), not rotate-half."""
+    if kind == "none":
+        return x
+    hd = x.shape[-1]
+    frac = 0.5 if kind == "half" else 1.0
+    inv = rope_freqs(hd, theta, frac=frac, device=x.device)          # [R/2]
+    ang = positions[..., None].to(torch.float32) * inv              # [B, S, R/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    r = inv.shape[0] * 2
+    xr, xp = x[..., :r], x[..., r:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)

@@ -1,0 +1,152 @@
+"""Model facade: init / forward / prefill / decode + the LoCaLUT transform
+(port of ``repro.models.model``).
+
+:func:`quantize_model` walks a parameter tree and replaces every GEMM weight
+named in ``_QUANT_LINEAR_NAMES`` with a bit-packed
+:class:`repro_torch.core.QuantizedLinear`; embeddings and the LM head stay
+dense, as in the reference.  :func:`prepare_params` freezes each quantized
+leaf into its weight-stationary :class:`repro_torch.core.PreparedLinear`.
+Not yet ported: ``Model.calibrate`` and ``plan=`` (ROADMAP Queue 1 items 4
+and 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import devices, tree
+from repro_torch.core import LutLinearSpec, QuantizedLinear, prepare_linear, quantize_linear
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+_QUANT_LINEAR_NAMES = frozenset(
+    {
+        "wq", "wk", "wv", "wo", "wg", "wr",
+        "w_up", "w_gate", "w_down",
+        "w_kup", "w_vup", "w_dkv",
+        "in_proj", "out_proj",
+    }
+)
+
+
+def _quantize_dense(p: dict, spec: LutLinearSpec) -> QuantizedLinear:
+    """Quantize a dense ``{"w": [..., K, F], ("b")}`` leaf; leading stack
+    dims are quantized unit by unit and stacked."""
+    w, bias = p["w"], p.get("b")
+    if w.ndim == 2:
+        return quantize_linear(w, spec, bias=bias)
+    return tree.stack([
+        _quantize_dense({"w": w[i], **({"b": bias[i]} if bias is not None else {})}, spec)
+        for i in range(w.shape[0])
+    ])
+
+
+def quantize_model(params, cfg: ModelConfig, spec: LutLinearSpec):
+    """Replace GEMM weights with packed QuantizedLinear leaves (recursive)."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if (
+                    isinstance(v, dict)
+                    and isinstance(v.get("w"), torch.Tensor)
+                    and v["w"].ndim >= 2
+                    and k in _QUANT_LINEAR_NAMES
+                ):
+                    out[k] = _quantize_dense(v, spec)
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
+
+
+def _prepare_leaf(x: QuantizedLinear, **kw):
+    """Prepare one quantized leaf; a stacked leaf is prepared unit by unit
+    and restacked (the reference vmaps).  ``p`` is the same for every unit:
+    it depends only on the shapes and the spec."""
+    if x.codes.ndim == 2:
+        return prepare_linear(x, **kw)
+    return tree.stack([_prepare_leaf(tree.index(x, i), **kw)
+                       for i in range(x.codes.shape[0])])
+
+
+def prepare_params(params, **kw):
+    """Freeze every :class:`QuantizedLinear` leaf into its weight-stationary
+    :class:`repro_torch.core.PreparedLinear` form; ``kw`` forwards to
+    :func:`repro_torch.core.prepare_linear` (``n_hint`` etc.)."""
+
+    def walk(node):
+        if isinstance(node, QuantizedLinear):
+            return _prepare_leaf(node, **kw)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
+
+
+@dataclasses.dataclass
+class Model:
+    """Thin facade bundling a config with the apply functions."""
+
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, *, device="cuda", unit_fn=None) -> dict:
+        """Random f32 parameters from ``torch.Generator(device).manual_seed(seed)``
+        (see :func:`repro_torch.models.transformer.init_params`)."""
+        dev = devices.resolve(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return transformer.init_params(self.cfg, gen, device=dev, unit_fn=unit_fn)
+
+    def init_quantized(self, spec: LutLinearSpec, seed: int = 0, *, device="cuda") -> dict:
+        """:meth:`init` + :meth:`quantize`, one unit at a time: each unit is
+        drawn in f32, quantized, and only then stacked, so a full-width model
+        never holds its f32 projection weights at once."""
+        return self.init(seed, device=device,
+                         unit_fn=lambda u: quantize_model(u, self.cfg, spec))
+
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16, *, device="cuda"):
+        return transformer.init_cache(self.cfg, batch, max_seq, dtype,
+                                      device=devices.resolve(device))
+
+    def forward(self, params, tokens, **kw):
+        return transformer.forward(params, self.cfg, tokens, **kw)
+
+    def prefill(self, params, tokens, caches, *, pad_len=None):
+        """Fill caches for positions [0, S) in place; returns (last-pos logits
+        [B,1,V], caches).  ``pad_len [B]`` marks per-row left-padding: padded
+        positions become attention don't-cares and logical positions shift,
+        so a left-padded prompt prefills output-identically to the unpadded
+        one."""
+        return transformer.forward(
+            params, self.cfg, tokens, caches=caches, pos=0,
+            last_token_only=True, pad_len=pad_len,
+        )
+
+    def decode_step(self, params, token, caches, pos, *, pad_len=None):
+        """One token per sequence: token [B, 1]; ``pos`` is the cache write
+        offset — an int, or a ``[B]`` tensor of per-slot offsets (continuous
+        batching).  Caches are updated in place."""
+        return transformer.forward(
+            params, self.cfg, token, caches=caches, pos=pos, pad_len=pad_len,
+        )
+
+    def quantize(self, params, spec: LutLinearSpec):
+        return quantize_model(params, self.cfg, spec)
+
+    def prepare(self, params, **kw):
+        """Weight-stationary serve form: cache all per-call weight products."""
+        return prepare_params(params, **kw)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

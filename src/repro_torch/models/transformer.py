@@ -1,0 +1,226 @@
+"""Transformer assembly over stacked units (port of
+``repro.models.transformer`` for ``"D"`` segments: attention + FFN).
+
+Every architecture is a sequence of *segments*; each segment is a stack of
+identical *units* whose parameters are stacked along a leading
+``[n_units]`` dim, leaf for leaf as in the reference, so converted trees
+and prepared checkpoints line up.  The reference scans a unit with
+``lax.scan``; here :func:`run_segments` is a Python loop over the stack.
+Caches follow the same segmentation (``[n_units, B, Smax, Hkv, hd]``) and
+are updated in place.
+
+Only dense GQA decoders (``"D"`` units, no MoE, no MLA) are ported; other
+unit kinds raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import tree
+from repro_torch.models import attention, ffn, layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init, linear, norm
+
+
+def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
+    if cfg.layer_pattern:
+        period = len(cfg.layer_pattern)
+        n_units, rem = divmod(cfg.n_layers, period)
+        segs = [(cfg.layer_pattern, n_units)]
+        if rem:
+            segs.append((cfg.layer_pattern[0] * rem, 1))
+        return segs
+    if cfg.rwkv is not None:
+        return [("R", cfg.n_layers)]
+    if cfg.is_encdec:
+        return [("C", cfg.n_layers)]
+    if cfg.moe is not None and cfg.first_dense_layers:
+        return [("F", cfg.first_dense_layers), ("D", cfg.n_layers - cfg.first_dense_layers)]
+    return [("D", cfg.n_layers)]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice of the port does not run."""
+    kinds = {ch for pat, _ in segments(cfg) for ch in pat}
+    if kinds != {"D"} or cfg.moe is not None or cfg.attn_kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA decoders ('D' units) are ported; "
+            f"units {sorted(kinds)}, moe={cfg.moe is not None}, "
+            f"attn_kind={cfg.attn_kind!r} wait for ROADMAP Queue 1 item 11"
+        )
+    if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
+        raise NotImplementedError(f"{cfg.name}: frontends / enc-dec are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device) -> dict:
+    d = cfg.d_model
+    nrm = layers.rmsnorm_init if cfg.norm_kind == "rmsnorm" else layers.layernorm_init
+    return {
+        "attn_norm": nrm(d, device),
+        "ffn_norm": nrm(d, device),
+        "attn": attention.gqa_init(cfg, gen, device),
+        "ffn": ffn.ffn_init(cfg, gen, device=device),
+    }
+
+
+def unit_init(cfg: ModelConfig, pattern: str, gen: torch.Generator, device) -> dict:
+    return {f"s{i}_{ch}": _sublayer_init(cfg, ch, gen, device) for i, ch in enumerate(pattern)}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
+                unit_fn: Optional[Callable[[dict], dict]] = None) -> dict:
+    """Random f32 parameters with the reference's distributions
+    (``N(0,1)/sqrt(fan_in)`` linears, ``N(0,1)*0.02`` embeddings, unit
+    norms), drawn from ``gen``.  The numbers differ from the reference's
+    (another generator); tests that compare the two packages convert the
+    reference's tree instead (:mod:`repro_torch.convert`).
+
+    ``unit_fn`` maps each unit's tree before the units are stacked — e.g.
+    quantizing it — so a full-width model never holds all its f32 weights
+    at once."""
+    check_supported(cfg)
+    unit_fn = unit_fn or (lambda u: u)
+    seg_list = []
+    for pattern, n_units in segments(cfg):
+        units = [unit_fn(unit_init(cfg, pattern, gen, device)) for _ in range(n_units)]
+        seg_list.append(tree.stack(units))
+        del units
+    params: dict = {
+        "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                             device=device, dtype=torch.float32) * 0.02,
+        "final_norm": (
+            layers.rmsnorm_init(cfg.d_model, device)
+            if cfg.norm_kind == "rmsnorm"
+            else layers.layernorm_init(cfg.d_model, device)
+        ),
+        "segments": seg_list,
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, device=device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+               *, device) -> list:
+    """Stacked zero KV caches mirroring the parameter segmentation."""
+    check_supported(cfg)
+    if cfg.kv_cache_int8:
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    out = []
+    for pattern, n_units in segments(cfg):
+        shape = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        out.append({
+            f"s{i}_{ch}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                           "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for i, ch in enumerate(pattern)
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RunState:
+    """Context for one forward pass."""
+
+    cfg: ModelConfig
+    positions: torch.Tensor                 # [B, S] logical positions
+    pos: object                             # cache write offset: None (no
+                                            # cache), int, or [B] tensor
+    pad_len: Optional[torch.Tensor] = None  # [B] left-pad lengths
+
+
+def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, cache):
+    cfg = rs.cfg
+    nk, eps = cfg.norm_kind, cfg.norm_eps
+    h = norm(p["attn_norm"], x, nk, eps)
+    a, new_cache = attention.gqa_attention(
+        p["attn"], h, cfg=cfg, positions=rs.positions, cache=cache,
+        pos=rs.pos, window=None, pad_len=rs.pad_len,
+    )
+    x = x + a
+    h = norm(p["ffn_norm"], x, nk, eps)
+    x = x + ffn.ffn_apply(p["ffn"], h, cfg)
+    return x, new_cache
+
+
+def unit_apply(rs: RunState, pattern: str, unit_p: dict, x: torch.Tensor, unit_cache):
+    for i, ch in enumerate(pattern):
+        key = f"s{i}_{ch}"
+        c = unit_cache[key] if unit_cache is not None else None
+        x, _ = _apply_sublayer(rs, ch, unit_p[key], x, c)
+    return x
+
+
+def run_segments(rs: RunState, seg_params: list, x: torch.Tensor,
+                 caches: Optional[list]):
+    """Loop over every unit of every segment; returns ``(x, caches)`` — the
+    caches are the ones passed in, updated in place."""
+    for si, (pattern, n_units) in enumerate(segments(rs.cfg)):
+        p_stack = seg_params[si]
+        c_stack = caches[si] if caches is not None else None
+        for u in range(n_units):
+            unit_c = tree.index(c_stack, u) if c_stack is not None else None
+            x = unit_apply(rs, pattern, tree.index(p_stack, u), x, unit_c)
+    return x, caches
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                   # [B, S] int
+    *,
+    caches: Optional[list] = None,
+    pos=None,                               # cache write offset: int or [B] tensor
+    last_token_only: bool = False,          # head over the final position only
+    pad_len: Optional[torch.Tensor] = None, # [B] left-pad lengths; pad positions
+                                            # become attention don't-cares and
+                                            # logical positions shift by -pad_len
+) -> tuple[torch.Tensor, Optional[list]]:
+    """Returns ``(logits [B, S', V] f32, caches)``."""
+    b, s = tokens.shape
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    x = params["embed"][tokens.long()].to(dtype)
+    ar = torch.arange(s, device=x.device)[None].expand(b, s)
+    if pos is None:
+        positions = ar
+    elif isinstance(pos, torch.Tensor) and pos.ndim:
+        positions = pos[:, None] + ar
+    else:
+        positions = ar + pos
+    if pad_len is not None:
+        # Real token i of a left-padded row sits at buffer index pad+i but
+        # logical position i; RoPE and the causal mask use logical
+        # positions, cache writes keep buffer offsets (``pos``).
+        positions = positions - pad_len[:, None]
+    rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len)
+    x, caches = run_segments(rs, params["segments"], x, caches)
+    x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    if last_token_only:
+        x = x[:, -1:, :]
+    return lm_head(params, cfg, x), caches
+
+
+def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    else:
+        logits = linear(params["lm_head"], x)
+    return layers.softcap(logits.to(torch.float32), cfg.final_logit_softcap)

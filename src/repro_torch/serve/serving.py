@@ -1,0 +1,337 @@
+"""Serving: pad-masked prefill + continuous in-flight batching driver (port of
+``repro.serve.serving``).
+
+Two schedulers share the prefill/decode functions:
+
+* ``decode="scan"`` (default) — **continuous in-flight batching**: a
+  slot-based scheduler admits queued requests into KV-cache slots the moment
+  earlier requests finish.  Each slot carries its own write position, pad
+  length and token budget; a wave decodes ``min(remaining budgets)`` steps
+  in a Python loop whose every operation stays on the device (no
+  ``.item()``, no boolean-mask indexing, argmax on the device), then moves
+  its token matrix to the host **once**.  Freshly prefilled slots are merged
+  into the serving state with ``torch.where`` on a broadcast slot mask.
+* ``decode="loop"`` — the per-token loop (one host sync per decoded token):
+  the equivalence oracle.
+
+Not yet ported (ROADMAP Queue 1 items 6, 8, 9): ``decode="chunked"``,
+``obs=``, ``plan=``, hot-swap.
+
+**Prefill pad mask.**  Prompt lengths are bucketed to powers of two and
+left-padded into the bucket; the per-row pad length reaches the attention
+mask, so left-padding is output-invariant and ``decode="scan"`` is
+token-for-token identical to the loop oracle.
+
+**Scheduler contract** (as in the reference): FIFO admission into free
+slots, a wave admits as many queued requests as fit
+``bucket(max prompt) + max budget <= max_seq``; ``admissions`` logs
+``(request_idx, slot)``; each request gets exactly ``max_new_tokens``;
+``host_syncs`` counts the device->host crossings — one per wave in the
+continuous driver, one per token in the loop.
+
+KV caches are preallocated once per call and updated **in place** (the
+reference donates its buffers); the admission merge builds new tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import devices, timing, tree
+from repro_torch.models.model import Model
+
+
+def bucket_to(n: int, floor: int) -> int:
+    """Smallest ``floor * 2^i`` that is >= ``n``; ``floor <= 1`` returns ``n``."""
+    if floor <= 1:
+        return n
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclasses.dataclass
+class WaveRecord:
+    """What one admission wave did — the ``on_wave`` payload.  Every field is
+    host-resident when the record is built (after the wave's single sync).
+    Timestamps are :func:`repro_torch.timing.clock` seconds."""
+
+    wave: int
+    admitted: list                      # [(request_idx, slot)], this wave
+    emitted: list                       # [(request_idx, slot, tokens)]
+    finished: frozenset = frozenset()   # request idxs that completed
+    steps: int = 0                      # decode steps run this wave
+    t_start: float = 0.0
+    t_decode: float = 0.0
+    t_fetch: float = 0.0
+    t_sync: float = 0.0
+    prefill_bucket: Optional[int] = None
+    queue_depth: int = 0
+    active_slots: int = 0
+
+    @property
+    def sync_s(self) -> float:
+        return self.t_sync - self.t_fetch
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray                  # [S] int32
+    max_new_tokens: int = 16
+
+
+def admit_merge(caches, new_caches, vecs, new_vecs, mask: torch.Tensor):
+    """Splice freshly prefilled slots into the serving state behind a boolean
+    slot mask ``[B]``: cache leaves carry batch on axis 1 (``[n_units, B,
+    ...]``), per-slot vectors on axis 0.  ``torch.where`` on a broadcast mask
+    — no boolean indexing, so no host sync."""
+    cm = lambda old, new: torch.where(mask.reshape((1, -1) + (1,) * (old.ndim - 2)), new, old)
+    vm = lambda old, new: torch.where(mask.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
+    return tree.tree_map(cm, caches, new_caches), tuple(
+        vm(o, n) for o, n in zip(vecs, new_vecs)
+    )
+
+
+class ServeEngine:
+    """Continuous-batching serving driver (static batch slots, greedy)."""
+
+    def __init__(
+        self,
+        model: Model,
+        params,
+        *,
+        batch: int,
+        max_seq: int,
+        decode: str = "scan",
+        prompt_bucket: int = 8,
+        device="cuda",
+    ):
+        if decode not in ("scan", "loop"):
+            raise ValueError(f"decode must be 'scan' or 'loop', got {decode!r}")
+        self.device = devices.resolve(device)
+        if devices.tree_device(params).type != self.device.type:
+            raise ValueError(
+                f"params live on {devices.tree_device(params)}, engine on {self.device}"
+            )
+        self.model = model
+        self.params = params
+        self.batch = batch
+        self.max_seq = max_seq
+        self.decode = decode
+        self.prompt_bucket = prompt_bucket
+        self.host_syncs = 0             # device->host transfers, cumulative
+        self.admissions: list[tuple[int, int]] = []   # (request_idx, slot), per call
+        self.bucket_counts: dict[int, int] = {}       # prefill bucket -> uses
+        self.on_wave = None             # callback(WaveRecord)
+
+    def _fetch(self, x: torch.Tensor) -> np.ndarray:
+        """The ONLY device->host crossing point — counted so the O(1)-syncs
+        property of the continuous driver is assertable from outside."""
+        self.host_syncs += 1
+        return x.cpu().numpy()
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return devices.upload(a, self.device)
+
+    def _new_cache(self):
+        return self.model.init_cache(self.batch, self.max_seq, dtype=torch.float32,
+                                     device=self.device)
+
+    def _check_fits(self, plen: int, max_new: int) -> None:
+        if plen + max_new > self.max_seq:
+            raise ValueError(
+                f"prompt ({plen}) + max_new ({max_new}) exceeds max_seq {self.max_seq}"
+            )
+
+    def _validate(self, requests: list[Request]) -> None:
+        for r in requests:
+            if len(r.prompt) == 0:
+                raise ValueError(
+                    "empty prompt: with pad-masked prefill a zero-length "
+                    "prompt has no valid key position to attend"
+                )
+            self._check_fits(len(r.prompt), r.max_new_tokens)
+
+    def generate(self, requests: list[Request]) -> list[list[int]]:
+        """Serve a list of equal-or-ragged prompts; returns per-request
+        greedy tokens in request order."""
+        self._validate(requests)
+        if self.decode == "scan":
+            return self._generate_continuous(requests)
+        out: list[list[int]] = []
+        for start in range(0, len(requests), self.batch):
+            out.extend(self._generate_batch_loop(requests[start : start + self.batch]))
+        return out
+
+    # --- shared helpers ---------------------------------------------------
+
+    def _prefill(self, toks: np.ndarray, npad: np.ndarray):
+        """Prefill a fresh zero cache; returns (greedy first token [B,1],
+        caches).  Prefill must see a zero cache, not a previous occupant's."""
+        lg, fresh = self.model.prefill(
+            self.params, self._upload(toks), self._new_cache(),
+            pad_len=self._upload(npad),
+        )
+        return torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32), fresh
+
+    def _step(self, token, caches, pos, pad):
+        lg, caches = self.model.decode_step(self.params, token, caches, pos, pad_len=pad)
+        return torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32), caches
+
+    def _wave_bucket(self, reqs: list[Request]) -> int:
+        """Prefill extent for co-admitted requests: the prompt bucket, shrunk
+        to the exact max length when the bucket would push the worst-case
+        decode past max_seq."""
+        plen = max(len(r.prompt) for r in reqs)
+        worst = max(r.max_new_tokens for r in reqs)
+        plen_b = bucket_to(plen, self.prompt_bucket)
+        if plen_b + worst > self.max_seq:
+            plen_b = max(plen, self.max_seq - worst)
+        return plen_b
+
+    def _wave_fits(self, reqs: list[Request]) -> bool:
+        plen_b = self._wave_bucket(reqs)
+        return plen_b >= max(len(r.prompt) for r in reqs) and all(
+            plen_b + r.max_new_tokens <= self.max_seq for r in reqs
+        )
+
+    # --- continuous driver: slot scheduler + on-device decode waves -------
+
+    def _decode_wave(self, token, caches, pos, pad, active, steps: int):
+        """``steps`` decode steps for every slot; returns ``(token, caches,
+        pos, out [B, max_seq])``.  ``out[:, 0]`` is the wave-start token,
+        columns ``1..steps`` this wave's tokens, inactive slots -1.  Write
+        positions advance only where ``active``.  Nothing here waits for the
+        device."""
+        b = self.batch
+        out = torch.full((b, self.max_seq), -1, dtype=torch.int32, device=self.device)
+        out[:, 0] = torch.where(active, token[:, 0], -1)
+        act = active.to(torch.int32)
+        for t in range(steps):
+            token, caches = self._step(token, caches, pos, pad)
+            out[:, t + 1] = torch.where(active, token[:, 0], -1)
+            pos = pos + act
+        return token, caches, pos, out
+
+    def _generate_continuous(self, requests: list[Request]) -> list[list[int]]:
+        b = self.batch
+        self.admissions = []
+        outs: list[list[int]] = [[] for _ in requests]
+        queue = [i for i, r in enumerate(requests) if r.max_new_tokens > 0]
+        caches = self._new_cache()
+        token = torch.zeros((b, 1), dtype=torch.int32, device=self.device)
+        pos = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        pad = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        slot_req: list[int | None] = [None] * b   # request idx per slot
+        slot_rem = [0] * b                        # decode steps still owed
+        qi = 0
+        wave = 0
+        while qi < len(queue) or any(s is not None for s in slot_req):
+            t_wave = timing.clock()
+            plen_b: Optional[int] = None
+            admitted: list[int] = []
+            wave_reqs: list[Request] = []
+            for s in range(b):
+                if slot_req[s] is not None or qi >= len(queue):
+                    continue
+                cand = requests[queue[qi]]
+                if not self._wave_fits(wave_reqs + [cand]):
+                    break
+                wave_reqs.append(cand)
+                slot_req[s] = queue[qi]
+                slot_rem[s] = cand.max_new_tokens - 1
+                admitted.append(s)
+                qi += 1
+            if admitted:
+                plen_b = self._wave_bucket(wave_reqs)
+                self.bucket_counts[plen_b] = self.bucket_counts.get(plen_b, 0) + 1
+                toks = np.zeros((b, plen_b), np.int32)
+                npad = np.zeros((b,), np.int32)
+                amask = np.zeros((b,), bool)
+                for s in admitted:
+                    pr = requests[slot_req[s]].prompt
+                    toks[s, plen_b - len(pr) :] = pr
+                    npad[s] = plen_b - len(pr)
+                    amask[s] = True
+                tok0, fresh = self._prefill(toks, npad)
+                caches, (token, pos, pad) = admit_merge(
+                    caches, fresh, (token, pos, pad),
+                    (tok0, torch.full((b,), plen_b, dtype=torch.int32, device=self.device),
+                     self._upload(npad)),
+                    self._upload(amask),
+                )
+                del fresh
+                self.admissions.extend((slot_req[s], s) for s in admitted)
+            active = np.array([s is not None for s in slot_req])
+            steps = min(
+                (slot_rem[s] for s in range(b) if slot_req[s] is not None), default=0
+            )
+            t_decode = timing.clock()
+            token, caches, pos, out_dev = self._decode_wave(
+                token, caches, pos, pad, self._upload(active), steps
+            )
+            t_fetch = timing.clock()
+            mat = self._fetch(out_dev[:, : 1 + steps])     # the wave's one sync
+            t_sync = timing.clock()
+            emitted: list[tuple[int, int, list[int]]] = []
+            for s in range(b):
+                i = slot_req[s]
+                if i is None:
+                    continue
+                lo = 0 if s in admitted else 1   # col 0 = wave-start token
+                emitted.append((i, s, [int(t) for t in mat[s, lo : 1 + steps]]))
+            if self.on_wave is not None:
+                self.on_wave(WaveRecord(
+                    wave=wave,
+                    admitted=[(slot_req[s], s) for s in admitted],
+                    emitted=emitted,
+                    finished=frozenset(i for i, s, _t in emitted if slot_rem[s] == steps),
+                    steps=steps,
+                    t_start=t_wave, t_decode=t_decode, t_fetch=t_fetch, t_sync=t_sync,
+                    prefill_bucket=plen_b,
+                    queue_depth=len(queue) - qi,
+                    active_slots=int(active.sum()),
+                ))
+            for i, s, toks_w in emitted:
+                outs[i].extend(toks_w)
+                slot_rem[s] -= steps
+                if slot_rem[s] == 0:
+                    slot_req[s] = None           # freed: next wave re-admits
+            wave += 1
+        return outs
+
+    # --- oracle: per-token loop ---------------------------------------------
+
+    def _generate_batch_loop(self, chunk: list[Request]) -> list[list[int]]:
+        """Prefill the chunk at its exact max prompt length, then one decode
+        step and one host sync per token."""
+        plen = max(len(r.prompt) for r in chunk)
+        self._check_fits(plen, max(r.max_new_tokens for r in chunk))
+        self.bucket_counts[plen] = self.bucket_counts.get(plen, 0) + 1
+        toks = np.zeros((self.batch, plen), np.int32)
+        pad = np.zeros((self.batch,), np.int32)
+        for i, r in enumerate(chunk):
+            toks[i, plen - len(r.prompt) :] = r.prompt          # left-pad
+            pad[i] = plen - len(r.prompt)
+        token, caches = self._prefill(toks, pad)
+        pad_dev = self._upload(pad)
+        max_new = max(r.max_new_tokens for r in chunk)
+        outs: list[list[int]] = [[] for _ in chunk]
+        if max_new == 0:
+            return outs
+        tok_h = self._fetch(token)                  # one sync per decoded step
+        for i, r in enumerate(chunk):
+            if r.max_new_tokens > 0:
+                outs[i].append(int(tok_h[i, 0]))
+        for t in range(max_new - 1):
+            token, caches = self._step(token, caches, plen + t, pad_dev)
+            tok_h = self._fetch(token)
+            for i, r in enumerate(chunk):
+                if len(outs[i]) < r.max_new_tokens:
+                    outs[i].append(int(tok_h[i, 0]))
+        return outs

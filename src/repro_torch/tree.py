@@ -1,0 +1,43 @@
+"""Parameter-tree helpers: the port's stand-in for ``jax.tree.map``.
+
+A tree is nested dicts, lists and tuples whose leaves are tensors (or
+``None``).  A dataclass node (``QuantizedLinear``, ``PreparedLinear``) is a
+node whose tensor fields are children; its other fields (``spec``, ``k``,
+``p``) are static and taken from the first tree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor leaf (zipped across ``rest``, which must
+    share ``tree``'s structure); ``None`` and non-tensor leaves pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        changes = {
+            f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)
+        }
+        return dataclasses.replace(tree, **changes)
+    return tree
+
+
+def stack(trees: list):
+    """Stack identically-shaped trees along a new leading dim."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def index(tree, i: int):
+    """Unit ``i`` of a stacked tree (views: in-place writes reach the stack)."""
+    return tree_map(lambda t: t[i], tree)

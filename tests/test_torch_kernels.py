@@ -1,0 +1,150 @@
+"""Port parity: the packed-code GEMM entry point of repro_torch against the
+reference's Pallas kernel (interpret mode) and its jnp oracle; the CUDA
+kernel itself against its plain version on the card; and the port's import
+isolation from JAX.
+
+JAX is imported inside the parity tests only, so the card test runs where
+JAX is absent: ``python -m pytest -q --noconftest -m cuda
+tests/test_torch_kernels.py`` (the suite's conftest imports JAX)."""
+
+import subprocess
+import sys
+import textwrap
+import zlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import api as tapi  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def ref_pkg():
+    """The JAX reference's modules: (jnp, repro.core.api, kernels.ops, kernels.ref)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import api as japi
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+
+    return jnp, japi, jops, jref
+
+
+def _case(bw, shape, seed_key):
+    b, k, f = shape
+    rng = np.random.default_rng(zlib.crc32(repr(seed_key).encode()))
+    w = rng.normal(size=(k, f)).astype(np.float32)
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    return w, x
+
+
+@pytest.mark.parametrize("bw", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 32, 16), (4, 64, 48), (10, 129, 200), (3, 256, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lut_dequant_gemm_vs_reference(bw, shape, dtype, ref_pkg):
+    jnp, japi, jops, jref = ref_pkg
+    w, x = _case(bw, shape, (bw, shape))
+    qj = japi.quantize_linear(jnp.asarray(w), japi.LutLinearSpec(bw=bw, ba=4))
+    qt = tapi.quantize_linear(torch.from_numpy(w), tapi.LutLinearSpec(bw=bw, ba=4))
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    y_kernel = np.asarray(jops.lut_dequant_gemm(xj, qj.codes, qj.scale, bw=bw, k=qj.k))
+    y_oracle = np.asarray(jref.lut_dequant_gemm_ref(
+        xj.astype(jnp.float32), qj.codes, qj.scale, bw=bw, k=qj.k, grid=qj.spec.wspec().grid()))
+    y = tops.lut_dequant_gemm(xt, qt.codes, qt.scale, bw=bw, k=qt.k)
+    assert y.dtype == torch.float32 and y.shape == (shape[0], shape[2])
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(y.numpy(), y_kernel, rtol=tol, atol=tol)
+    np.testing.assert_allclose(y.numpy(), y_oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bw,kind", [(1, "int"), (2, "fp"), (4, "fp")])
+def test_lut_dequant_gemm_ragged_k_and_grids(bw, kind, ref_pkg):
+    """K not a multiple of cpb: the padded codes past K contribute nothing
+    (a 1-bit grid has no zero value)."""
+    jnp, japi, jops, _ = ref_pkg
+    w, x = _case(bw, (5, 67, 30), (bw, kind))
+    qj = japi.quantize_linear(jnp.asarray(w), japi.LutLinearSpec(bw=bw, w_kind=kind))
+    qt = tapi.quantize_linear(torch.from_numpy(w), tapi.LutLinearSpec(bw=bw, w_kind=kind))
+    want = np.asarray(jops.lut_dequant_gemm(jnp.asarray(x), qj.codes, qj.scale, bw=bw,
+                                            k=qj.k, grid_kind=kind))
+    got = tops.lut_dequant_gemm(torch.from_numpy(x), qt.codes, qt.scale, bw=bw, k=qt.k,
+                                grid_kind=kind)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    # the plain version equals the dense product on the decoded weight
+    dense = x @ tapi.dequantize_weights(qt).numpy()
+    np.testing.assert_allclose(got.numpy(), dense, rtol=1e-5, atol=1e-5)
+
+
+def test_cpu_tensor_takes_plain_version_only():
+    w, x = _case(4, (3, 40, 8), "cpu")
+    qt = tapi.quantize_linear(torch.from_numpy(w), tapi.LutLinearSpec(bw=4))
+    from repro_torch.kernels import lut_dequant_gemm as dq
+
+    before = dq.launches
+    y = tops.lut_dequant_gemm(torch.from_numpy(x), qt.codes, qt.scale, bw=4, k=qt.k)
+    want = tref.lut_dequant_gemm_ref(torch.from_numpy(x), qt.codes, qt.scale, bw=4,
+                                     k=qt.k, grid=qt.spec.wspec().grid())
+    assert torch.equal(y, want)
+    assert dq.launches == before          # nothing was launched
+    with pytest.raises(ValueError, match="CUDA"):
+        dq.lut_dequant_gemm(torch.from_numpy(x), qt.codes, qt.scale, bw=4, k=qt.k,
+                            grid_values=qt.spec.wspec().grid())
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels import lut_dequant_gemm as dq
+
+    dev = torch.device("cuda")
+    for bw, kind in [(1, "int"), (2, "int"), (4, "int"), (8, "int"), (4, "fp")]:
+        for shape in [(1, 32, 16), (10, 129, 200), (37, 1000, 300)]:
+            w, x = _case(bw, shape, (bw, kind, shape))
+            qt = tapi.quantize_linear(torch.from_numpy(w).to(dev),
+                                      tapi.LutLinearSpec(bw=bw, w_kind=kind))
+            for dt in (torch.float32, torch.bfloat16):
+                xt = torch.from_numpy(x).to(dev, dt)
+                before = dq.launches
+                y = tops.lut_dequant_gemm(xt, qt.codes, qt.scale, bw=bw, k=qt.k, grid_kind=kind)
+                assert dq.launches == before + 1
+                want = tref.lut_dequant_gemm_ref(xt, qt.codes, qt.scale, bw=bw, k=qt.k,
+                                                 grid=qt.spec.wspec().grid())
+                torch.cuda.synchronize()
+                err = ((y - want).abs().max() / want.abs().max()).item()
+                assert err <= 1e-4, (bw, kind, shape, dt, err)
+                rows = [tops.lut_dequant_gemm(xt[i : i + 1].contiguous(), qt.codes, qt.scale,
+                                              bw=bw, k=qt.k, grid_kind=kind)[0]
+                        for i in range(shape[0])]
+                assert torch.equal(torch.stack(rows), y)     # per-row invariance
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        bad = sorted(n for n in sys.modules
+                     if n == "jax" or n.startswith("jax.") or n == "repro"
+                     or n.startswith("repro."))
+        assert not bad, bad
+        from repro_torch.kernels import build
+        assert not build._loaded            # importing built / loaded nothing
+        print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
+        """
+    )
+    import os
+    import pathlib
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -1,0 +1,109 @@
+"""Port parity: the dense GQA decoder of repro_torch against the JAX reference
+on stablelm-12b smoke (f32, W4A4, mode="pallas", prepared), on weights
+converted from the reference (CPU)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.core import LutLinearSpec as JSpec  # noqa: E402
+from repro.models.model import build_model as jbuild  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core import LutLinearSpec, PreparedLinear  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+
+TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = dataclasses.replace(jget_config("stablelm-12b", smoke=True), dtype="float32")
+    tcfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), dtype="float32")
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jp = jm.prepare(jm.quantize(jm.init(jax.random.PRNGKey(0)), JSpec(bw=4, ba=4, mode="pallas")))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, jm, jp, tm, tp
+
+
+def test_converted_tree_shapes(pair):
+    jcfg, _jm, jp, _tm, tp = pair
+    leaf = tp["segments"][0]["s0_D"]["attn"]["wq"]
+    assert isinstance(leaf, PreparedLinear)
+    jleaf = jp["segments"][0]["s0_D"]["attn"]["wq"]
+    assert tuple(leaf.codes.shape) == tuple(jleaf.codes.shape)       # [n_units, F, KB]
+    assert leaf.p == jleaf.p and leaf.k == jleaf.k
+    assert tp["embed"].shape == (jcfg.vocab_size, jcfg.d_model)
+
+
+def test_prefill_and_decode_logits_match_reference(pair):
+    jcfg, jm, jp, tm, tp = pair
+    rng = np.random.default_rng(1)
+    B, S, T = 2, 10, 16
+    toks = rng.integers(0, jcfg.vocab_size, (B, S + 3)).astype(np.int32)
+    jc = jm.init_cache(B, T, dtype=jnp.float32)
+    tc = tm.init_cache(B, T, torch.float32, device="cpu")
+    jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :S]), jc)
+    tl, tc = tm.prefill(tp, torch.from_numpy(toks[:, :S]), tc)
+    assert tl.shape == (B, 1, jcfg.vocab_size) and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(tc[0]["s0_D"]["k"].numpy(), np.asarray(jc[0]["s0_D"]["k"]),
+                               rtol=TOL, atol=TOL)
+    for t in range(S, S + 3):
+        jl, jc = jm.decode_step(jp, jnp.asarray(toks[:, t : t + 1]), jc, jnp.int32(t))
+        tl, tc = tm.decode_step(tp, torch.from_numpy(toks[:, t : t + 1]), tc, t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    # per-slot [B] write offsets (continuous batching) == the scalar offset
+    pos = np.array([S + 3, S + 3], np.int32)
+    nxt = toks[:, -1:]
+    jl2, _ = jm.decode_step(jp, jnp.asarray(nxt), jc, jnp.asarray(pos))
+    tl2, _ = tm.decode_step(tp, torch.from_numpy(nxt), tc, torch.from_numpy(pos))
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), rtol=TOL, atol=TOL)
+
+
+def test_left_padded_prompt_matches_unpadded(pair):
+    """A bucketed, left-padded prompt prefills and decodes to the same logits
+    as the unpadded one (pad keys are don't-cares, positions are logical)."""
+    jcfg, _jm, _jp, tm, tp = pair
+    rng = np.random.default_rng(2)
+    plen, bucket, T = 5, 8, 16
+    prompt = rng.integers(1, jcfg.vocab_size, plen).astype(np.int32)
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, bucket - plen :] = prompt
+    pad = torch.tensor([bucket - plen], dtype=torch.int32)
+    lu, cu = tm.prefill(tp, torch.from_numpy(prompt[None]), tm.init_cache(1, T, torch.float32, device="cpu"))
+    lp, cp = tm.prefill(tp, torch.from_numpy(padded), tm.init_cache(1, T, torch.float32, device="cpu"),
+                        pad_len=pad)
+    np.testing.assert_allclose(lp.numpy(), lu.numpy(), rtol=1e-5, atol=1e-5)
+    tok = torch.argmax(lu[:, -1:], dim=-1)
+    for i in range(3):
+        du, cu = tm.decode_step(tp, tok, cu, plen + i)
+        dp, cp = tm.decode_step(tp, tok, cp, bucket + i, pad_len=pad)
+        np.testing.assert_allclose(dp.numpy(), du.numpy(), rtol=1e-5, atol=1e-5)
+        tok = torch.argmax(du[:, -1:], dim=-1)
+
+
+def test_unported_families_raise():
+    for arch in ("zamba2-7b", "deepseek-v2-lite-16b", "rwkv6-3b", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11|not ported"):
+            transformer.check_supported(get_config(arch, smoke=True))
+
+
+def test_init_quantized_builds_stacked_leaves():
+    cfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), dtype="float32")
+    m = build_model(cfg)
+    qp = m.init_quantized(LutLinearSpec(bw=4, mode="pallas"), seed=0, device="cpu")
+    leaf = qp["segments"][0]["s0_D"]["ffn"]["w_down"]
+    assert tuple(leaf.codes.shape) == (cfg.n_layers, cfg.d_model, cfg.d_ff // 2)
+    pp = m.prepare(qp, n_hint=4)
+    assert isinstance(pp["segments"][0]["s0_D"]["ffn"]["w_down"], PreparedLinear)
+    logits, _ = m.forward(pp, torch.zeros((1, 4), dtype=torch.int32))
+    assert logits.shape == (1, 4, cfg.vocab_size) and torch.isfinite(logits).all()
