@@ -2,14 +2,17 @@
 
 * :mod:`repro_torch.core.quantize`  — low-bit quantization + value grids
 * :mod:`repro_torch.core.packing`   — code packing / bit-packed weight storage
-* :mod:`repro_torch.core.multiset`  — canonicalization math (numpy half)
+* :mod:`repro_torch.core.multiset`  — canonicalization math (numpy + torch)
 * :mod:`repro_torch.core.luts`      — packed / canonical / reordering LUT builders
+* :mod:`repro_torch.core.engine`    — exact LUT GEMM engines (packed,
+  canonical, streamed); on the card their int32 sums come from the
+  ``lut_stream_gemm`` kernel
+* :mod:`repro_torch.core.stream_plan` — tiled, deduplicated slice planner
 * :mod:`repro_torch.core.perfmodel` — paper Eq. 2–6 p* auto-selection
-* :mod:`repro_torch.core.api`       — QuantizedLinear / apply_linear
+* :mod:`repro_torch.core.pim_cost`  — UPMEM cycle cost models
+* :mod:`repro_torch.core.api`       — QuantizedLinear / apply_linear (4 modes)
 * :mod:`repro_torch.core.prepared`  — weight-stationary prepare/apply split
-
-Not yet ported: ``engine``, ``stream_plan``, ``pim_cost``, ``calibrate``
-(ROADMAP Queue 1 items 2-4).
+* :mod:`repro_torch.core.calibrate` — frozen activation scales
 """
 
 from repro_torch.core.api import (  # noqa: F401

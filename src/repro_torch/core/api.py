@@ -2,18 +2,22 @@
 ``repro.core.api``).
 
 A :class:`QuantizedLinear` stores a weight matrix as **bit-packed low-bit
-codes** plus per-output-channel scales.  This slice of the port runs two of
-the reference's four execution paths:
+codes** plus per-output-channel scales; four execution paths share it:
 
 * ``dequant`` — value-LUT decode + a plain matmul in the activation dtype.
+* ``lut``     — paper-faithful path: activation quantization → LUT
+                canonicalization → reordering LUT → canonical-LUT lookups
+                (bit-exact integer semantics, :mod:`repro_torch.core.engine`);
+                on the card the int32 sum is the hand-written
+                ``lut_stream_gemm`` kernel.
+* ``stream``  — the §IV-C tiled, deduplicated slice-streaming engine; same
+                numerics as ``lut``, plus simulated DRAM→buffer traffic stats
+                (:func:`stream_stats_for`).
 * ``pallas``  — the fused packed-code kernel (:mod:`repro_torch.kernels`):
                 the hand-written CUDA kernel on the card, its plain version
                 on the CPU; same numerics as ``dequant`` with f32
                 accumulation.  The name is the reference's mode string, kept
                 so specs, plans and checkpoints carry over.
-
-``lut`` and ``stream`` (the int-exact canonical/reordering LUT engines) raise
-``NotImplementedError`` until ROADMAP Queue 1 item 3 ports the core engines.
 
 Weight layout: codes are stored transposed ``[F, K]`` and bit-packed along
 ``K`` (the contraction dim).
@@ -22,21 +26,13 @@ Weight layout: codes are stored transposed ``[F, K]`` and bit-packed along
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
-from repro_torch.core import packing, perfmodel
+from repro_torch.core import engine, luts, packing, perfmodel
 from repro_torch.core.quantize import QuantSpec, grid_tensor, quantize, zero_code
-
-SERVED_MODES = ("dequant", "pallas")
-
-
-def _unported(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"mode {mode!r} needs the int-exact LUT engines, not ported yet "
-        f"(ROADMAP Queue 1 item 3); this slice runs {SERVED_MODES}"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,8 +121,10 @@ def apply_linear(q, x: torch.Tensor) -> torch.Tensor:
         y = _dequant_matmul(q, x)
     elif mode == "pallas":
         y = pallas_matmul(q, x)
-    elif mode in ("lut", "stream"):
-        raise _unported(mode)
+    elif mode == "lut":
+        y = _lut_matmul(q, x)
+    elif mode == "stream":
+        y, _ = _stream_matmul(q, x)
     else:
         raise ValueError(f"unknown mode {mode}")
     if q.bias is not None:
@@ -166,9 +164,91 @@ def plan_p(f: int, k: int, n: int, spec: LutLinearSpec, device=None) -> int:
     return perfmodel.make_plan(inp).p_star
 
 
+def quantized_lut_gemm(q, x: torch.Tensor, run) -> torch.Tensor:
+    """The activation side every LUT path shares — one body, so the raw and
+    prepared implementations cannot drift numerically: quantize activations,
+    ``o = run(acodes, n)`` (the engine GEMM, [F, B]), rescale, reshape.
+
+    A calibrated layer (``q.ascale`` set) quantizes against its frozen scale,
+    so the result for any one row is independent of which other rows share
+    the batch.  The quantizer runs in f32 whatever the activation dtype, as
+    in the reference."""
+    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)                 # [B, K]
+    acodes, ascale = quantize(xf.T, q.spec.aspec(), scale=q.ascale)    # [K, B]
+    o = run(acodes, xf.shape[0])
+    y = o.to(torch.float32) * q.scale[:, None] * ascale
+    return y.T.reshape(x.shape[:-1] + (q.f,)).to(x.dtype)
+
+
+def _lut_matmul(q: QuantizedLinear, x: torch.Tensor) -> torch.Tensor:
+    """Paper-faithful path: canonical + reordering LUT engine (bit-exact)."""
+    spec = q.spec
+
+    def run(acodes, n):
+        wcodes = packing.unpack_bits(q.codes, spec.bw)[:, : q.k]    # [F, K]
+        p = plan_p(q.f, q.k, n, spec)
+        pack = _lut_pack_cache(spec.bw, spec.ba, p, spec.w_kind, spec.a_kind)
+        return engine.canonical_lut_gemm(wcodes, acodes, pack)      # [F,B] i32
+
+    return quantized_lut_gemm(q, x, run)
+
+
+def _stream_matmul(q: QuantizedLinear, x: torch.Tensor) -> tuple[torch.Tensor, engine.StreamStats]:
+    """§IV-C path: tiled, deduplicated slice streaming (bit-exact vs ``lut``)."""
+    spec = q.spec
+    stats_box = []
+
+    def run(acodes, n):
+        wcodes = packing.unpack_bits(q.codes, spec.bw)[:, : q.k]    # [F, K]
+        p = plan_p(q.f, q.k, n, spec)
+        pack = _lut_pack_cache(spec.bw, spec.ba, p, spec.w_kind, spec.a_kind)
+        o, stats = engine.streamed_lut_gemm(
+            wcodes, acodes, pack, tile_n=spec.tile_n, buffer_bytes=spec.buffer_bytes,
+        )
+        stats_box.append(stats)
+        return o
+
+    return quantized_lut_gemm(q, x, run), stats_box[0]
+
+
+def stream_stats_for(q, x: torch.Tensor, *, plan_only: bool = False) -> engine.StreamStats:
+    """Simulated DRAM→buffer traffic of serving ``x`` through ``q`` with the
+    slice-streaming dataflow (regardless of ``q.spec.mode``).
+
+    ``plan_only=True`` skips the GEMM: quantize the activations, run the
+    stream planner, and derive every stat by counter arithmetic
+    (:func:`repro_torch.core.engine.stream_plan_stats`) — same numbers, no
+    compute.  Accepts a raw :class:`QuantizedLinear` or a prepared layer.
+    """
+    from repro_torch.core import prepared as _prepared
+
+    if plan_only:
+        spec = q.spec
+        xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        acodes, _ = quantize(xf.T, spec.aspec(), scale=q.ascale)
+        if isinstance(q, _prepared.PreparedLinear):
+            p = q.p
+        else:
+            p = plan_p(q.f, q.k, xf.shape[0], spec)
+        pack = _lut_pack_cache(spec.bw, spec.ba, p, spec.w_kind, spec.a_kind)
+        return engine.stream_plan_stats(
+            q.f, acodes, pack, tile_n=spec.tile_n, buffer_bytes=spec.buffer_bytes,
+        )
+    if isinstance(q, _prepared.PreparedLinear):
+        _, stats = _prepared.stream_matmul(q, x)
+        return stats
+    _, stats = _stream_matmul(q, x)
+    return stats
+
+
 def prepare_linear(q: QuantizedLinear, **kw):
     """Freeze ``q``'s weight-side serve products into a
     :class:`repro_torch.core.prepared.PreparedLinear`."""
     from repro_torch.core import prepared as _prepared
 
     return _prepared.prepare_linear(q, **kw)
+
+
+@functools.lru_cache(maxsize=64)
+def _lut_pack_cache(bw: int, ba: int, p: int, w_kind: str, a_kind: str) -> luts.LutPack:
+    return luts.build_lut_pack(bw, ba, p, w_kind=w_kind, a_kind=a_kind)

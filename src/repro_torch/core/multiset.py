@@ -1,8 +1,8 @@
 """Canonicalization math: multiset ranking and permutation (Lehmer) ids.
 
-Port of the numpy half of ``repro.core.multiset`` (the LUT builders and the
-perf model need it); the on-device ranking functions arrive with the
-``lut``/``stream`` engines.
+Port of ``repro.core.multiset``: the numpy half (LUT builders, perf model,
+the host-side streamed engine) and the torch half (the on-device
+canonicalization of the ``lut``/``stream`` engines).
 
 LUT canonicalization (paper §IV-A) stores one LUT column per *multiset* of
 activation codes instead of one per *sequence*: ``C(2^ba + p - 1, p)`` columns
@@ -24,10 +24,12 @@ many, under ties) sorting permutations indexes the reordering LUT.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
 import numpy as np
+import torch
 
 
 def n_multisets(v: int, p: int) -> int:
@@ -128,3 +130,55 @@ def all_permutations(p: int) -> np.ndarray:
         arr = np.array(perm, dtype=np.int32)
         out[perm_id_np(arr)] = arr
     return out
+
+
+# ---------------------------------------------------------------------------
+# torch (on-device inference) side
+# ---------------------------------------------------------------------------
+
+
+def canonicalize(codes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort the last axis ascending (stable); returns (sorted, perm).
+
+    ``sorted = codes[..., perm]`` along the last axis.  Stable order matches
+    :func:`perm_id_np`'s convention under ties.
+    """
+    perm = torch.argsort(codes, dim=-1, stable=True)
+    return torch.take_along_dim(codes, perm, dim=-1), perm
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_consts(v: int, p: int, device: torch.device):
+    """Device constants of :func:`multiset_rank` / :func:`perm_id`, uploaded
+    once per (v, p, device) so a serve step copies nothing from the host."""
+    tbl = torch.as_tensor(binom_table(v + p - 1, p).astype(np.int32), device=device)
+    cols = torch.arange(1, p + 1, dtype=torch.int64, device=device)
+    offs = torch.arange(p, dtype=torch.int32, device=device)
+    facts = torch.tensor([math.factorial(p - 1 - i) for i in range(p)], dtype=torch.int32,
+                         device=device)
+    upper = torch.triu(torch.ones((p, p), dtype=torch.int32, device=device), diagonal=1)
+    return tbl, cols, offs, facts, upper
+
+
+def multiset_rank(sorted_codes: torch.Tensor, v: int, *, table: np.ndarray | None = None):
+    """torch version; returns int32 ranks (caller guarantees they fit int32).
+    ``table`` (``binom_table(v + p - 1, p)``, e.g. ``LutPack.binom``) is read
+    for the int32 guard; the ranking uses the same table, cached on the
+    device."""
+    p = sorted_codes.shape[-1]
+    tbl = table if table is not None else binom_table(v + p - 1, p)
+    if int(tbl[v + p - 1, p]) >= 2**31:
+        raise ValueError("multiset rank does not fit int32; use streaming tiles")
+    tbl_t, cols, offs, _, _ = _rank_consts(v, p, sorted_codes.device)
+    d = sorted_codes.to(torch.int32) + offs
+    return tbl_t[d.long(), cols].sum(dim=-1, dtype=torch.int32)
+
+
+def perm_id(perm: torch.Tensor) -> torch.Tensor:
+    """torch Lehmer code over the last axis -> int32 id in [0, p!)."""
+    p = perm.shape[-1]
+    _, _, _, facts, upper = _rank_consts(1, p, perm.device)
+    # smaller[i] = #{j > i : perm[j] < perm[i]}
+    less = (perm[..., :, None] > perm[..., None, :]).to(torch.int32)      # [.., i, j]
+    smaller = (less * upper).sum(dim=-1, dtype=torch.int32)
+    return (smaller * facts).sum(dim=-1, dtype=torch.int32)

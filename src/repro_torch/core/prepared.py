@@ -12,34 +12,50 @@ cached product       paper step it replaces at serve time
 ===================  =====================================================
 ``wcodes [F, K]``    unpacking the bit-packed weight words back into codes
                      (§V-A layout step) — ``mode="dequant"``
+``wpk [F, G]``       grouping K into packs of p and packing each group's
+                     codes into a LUT row index (§III-A operation packing)
+                     — ``mode="lut"``/``"stream"``; the ``lut_stream_gemm``
+                     kernel reads it on the card
 ``p``                the host-side Eq. 2/4 sweep picking ``p*`` (§IV-D) —
                      planned in every mode so plan queries agree with the
                      reference
+``wcanon [F,G,p!]``  the reordering-LUT lookup itself (§IV-B Fig. 5 step 3):
+                     ``wcanon[m, g, pid] == reorder[wpk[m, g], pid]`` —
+                     ``mode="lut"`` only, and capped
+                     (:data:`WCANON_MAX_ENTRIES`)
+``onehot [F, G*R]``  the exact one-hot contraction matrix of the host
+                     streamed engine's BLAS path (§IV-C Fig. 7 reuse) —
+                     ``mode="stream"``, unstacked leaves only, host numpy
 ===================  =====================================================
 
-``pallas`` keeps just the packed codes the kernel reads.  The ``lut`` and
-``stream`` products (``wpk``, ``wcanon``, ``onehot``) arrive with those
-engines (ROADMAP Queue 1 item 3); their fields stay, as ``None``, so trees
-keep the reference's shape.
+``pallas`` keeps just the packed codes the kernel reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import engine, packing
 from repro_torch.core.api import (
     LutLinearSpec,
     QuantizedLinear,
-    _unported,
+    _lut_pack_cache,
     pallas_matmul,
     plan_p,
+    quantized_lut_gemm,
 )
 from repro_torch.core.quantize import grid_tensor, quantize
+
+# Entry cap for the weight-static canonical table [F, G, p!]: above this the
+# capacity side of the tradeoff stops paying and apply reads the shared
+# reordering LUT through wpk.
+WCANON_MAX_ENTRIES = 32_000_000
+
 
 @dataclasses.dataclass
 class PreparedLinear:
@@ -81,6 +97,8 @@ def prepare_linear(
     q: QuantizedLinear,
     *,
     n_hint: int = 128,
+    wcanon_max_entries: int = WCANON_MAX_ENTRIES,
+    host_products: bool = True,
     calibration: Optional[torch.Tensor] = None,
     ascale: Optional[torch.Tensor] = None,
 ) -> PreparedLinear:
@@ -88,8 +106,10 @@ def prepare_linear(
 
     ``n_hint`` is the activation-column count the Eq. 2/4 sweep plans ``p*``
     for when ``q.spec.p`` is ``None`` (any value is exact; it only steers
-    the LUT engines).  ``calibration`` / ``ascale`` freeze the activation
-    scale as in the reference (consumed only by the lut/stream engines).
+    the LUT engines).  ``host_products=False`` skips the stream mode's host
+    one-hot (stacked leaves, as in the reference, which prepares those under
+    ``vmap``).  ``calibration`` / ``ascale`` freeze the activation scale as
+    in the reference (consumed only by the lut/stream engines).
     """
     spec = q.spec
     if calibration is not None and ascale is not None:
@@ -107,16 +127,50 @@ def prepare_linear(
             f"{q.codes.ndim}-d codes — prepare each unit of the stack "
             f"(see repro_torch.models.model.prepare_params)"
         )
-    if spec.mode in ("lut", "stream"):
-        raise _unported(spec.mode)
     p = plan_p(q.f, q.k, n_hint, spec)
-    wcodes = None
-    if spec.mode == "dequant":
-        wcodes = packing.unpack_bits(q.codes, spec.bw)[:, : q.k].to(torch.uint8)
+    wcodes = wpk = wcanon = onehot = None
+    if spec.mode in ("dequant", "lut", "stream"):
+        wcodes = packing.unpack_bits(q.codes, spec.bw)[:, : q.k]     # [F, K]
+    if spec.mode in ("lut", "stream"):
+        pack = _lut_pack_cache(spec.bw, spec.ba, p, spec.w_kind, spec.a_kind)
+        if spec.mode == "stream" and host_products:
+            # One prepare_stream_weights call yields both the packed group
+            # indices (on the weights' device) and the host one-hot.
+            sw = engine.prepare_stream_weights(wcodes, pack)
+            wpk, onehot = sw.wpk, sw.onehot
+        else:
+            pad, cw, _, _ = engine.pad_info(q.k, p, pack.wgrid, pack.agrid)
+            wc_pad = torch.nn.functional.pad(wcodes, (0, pad), value=cw) if pad else wcodes
+            wpk = packing.pack_index(wc_pad.reshape(q.f, -1, p), spec.bw)   # [F, G]
+        if spec.mode == "lut" and q.f * wpk.shape[1] * math.factorial(p) <= wcanon_max_entries:
+            # Weight-static reordering table in the int32 the gather wants.
+            reorder = torch.as_tensor(pack.reordering.astype(np.int32), device=wpk.device)
+            wcanon = reorder[wpk.long()]                              # [F, G, p!]
     return PreparedLinear(
-        codes=q.codes, scale=q.scale, bias=q.bias, wcodes=wcodes,
-        wpk=None, wcanon=None, onehot=None,
+        codes=q.codes, scale=q.scale, bias=q.bias,
+        wcodes=wcodes.to(torch.uint8) if spec.mode == "dequant" else None,
+        wpk=wpk, wcanon=wcanon, onehot=onehot,
         spec=spec, k=q.k, p=p, ascale=ascale,
+    )
+
+
+def _pack_for(pl: PreparedLinear):
+    return _lut_pack_cache(pl.spec.bw, pl.spec.ba, pl.p, pl.spec.w_kind, pl.spec.a_kind)
+
+
+def stream_weights(pl: PreparedLinear) -> engine.StreamWeights:
+    """The streamed engine's :class:`~repro_torch.core.engine.StreamWeights`
+    from the cached products (no unpack/pack/one-hot recompute).  Prepared
+    layers of other modes carry no ``wpk``: for those (traffic queries via
+    ``stream_stats_for`` on a dequant-mode layer) the products are built
+    from the packed codes on the fly."""
+    pack = _pack_for(pl)
+    if pl.wpk is None:
+        wcodes = packing.unpack_bits(pl.codes, pl.spec.bw)[:, : pl.k]
+        return engine.prepare_stream_weights(wcodes, pack)
+    pad, _, _, corr = engine.pad_info(pl.k, pl.p, pack.wgrid, pack.agrid)
+    return engine.StreamWeights(
+        wpk=pl.wpk, onehot=pl.onehot, m=pl.f, g=pl.g, r=pack.n_rows, pad=pad, corr=corr,
     )
 
 
@@ -128,8 +182,10 @@ def apply_prepared(pl: PreparedLinear, x: torch.Tensor) -> torch.Tensor:
         y = _dequant_matmul(pl, x)
     elif mode == "pallas":
         y = pallas_matmul(pl, x)
-    elif mode in ("lut", "stream"):
-        raise _unported(mode)
+    elif mode == "lut":
+        y = _lut_matmul(pl, x)
+    elif mode == "stream":
+        y, _ = stream_matmul(pl, x)
     else:
         raise ValueError(f"unknown mode {mode}")
     if pl.bias is not None:
@@ -141,3 +197,29 @@ def _dequant_matmul(pl: PreparedLinear, x: torch.Tensor) -> torch.Tensor:
     grid = grid_tensor(pl.spec.wspec(), x.device, x.dtype)
     w_t = grid[pl.wcodes.long()] * pl.scale[:, None].to(x.dtype)
     return torch.einsum("...k,fk->...f", x, w_t)
+
+
+def _lut_matmul(pl: PreparedLinear, x: torch.Tensor) -> torch.Tensor:
+    pack = _pack_for(pl)
+    return quantized_lut_gemm(
+        pl, x,
+        lambda acodes, n: engine.canonical_lut_gemm(
+            None, acodes, pack, wpacked=pl.wpk, wcanon_table=pl.wcanon
+        ),
+    )
+
+
+def stream_matmul(pl: PreparedLinear, x: torch.Tensor) -> tuple[torch.Tensor, engine.StreamStats]:
+    spec = pl.spec
+    pack = _pack_for(pl)
+    stats_box = []
+
+    def run(acodes, n):
+        o, stats = engine.streamed_lut_gemm(
+            None, acodes, pack, tile_n=spec.tile_n, buffer_bytes=spec.buffer_bytes,
+            prep=stream_weights(pl),
+        )
+        stats_box.append(stats)
+        return o
+
+    return quantized_lut_gemm(pl, x, run), stats_box[0]

@@ -3,10 +3,13 @@
 * :mod:`repro_torch.kernels.lut_dequant_gemm` — packed-code GEMM with
   in-kernel value-LUT decode (CUDA C++, ``csrc/lut_dequant_gemm.cu``);
   replaces the TPU kernel of the same name.
+* :mod:`repro_torch.kernels.lut_stream_gemm` — canonical-LUT slice-streaming
+  GEMM, int32 (CUDA C++, ``csrc/lut_stream_gemm.cu``); replaces the TPU
+  kernel of the same name.
 * :mod:`repro_torch.kernels.build` — ``nvcc`` build at first use + ``ctypes``.
 * :mod:`repro_torch.kernels.ops` — entry points: kernel on a CUDA tensor,
   plain version on a CPU tensor.
 * :mod:`repro_torch.kernels.ref` — the plain PyTorch versions.
 
-Still to port (ROADMAP Queue 2): ``lut_stream_gemm``, ``flash_attention``.
+Still to port (ROADMAP Queue 2): ``flash_attention``.
 """

@@ -12,8 +12,11 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core import engine, packing
+from repro_torch.core.luts import LutPack
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import lut_dequant_gemm as _dq
+from repro_torch.kernels import lut_stream_gemm as _ss
 from repro_torch.kernels import ref
 
 
@@ -33,6 +36,41 @@ def lut_dequant_gemm(
     if x.device.type == "cpu":
         return ref.lut_dequant_gemm_ref(x, codes, scale, bw=bw, k=k, grid=grid)
     raise ValueError(f"lut_dequant_gemm runs on cuda or cpu, got {x.device}")
+
+
+def lut_stream_gemm_full(
+    wcodes: torch.Tensor,
+    acodes: torch.Tensor,
+    pack: LutPack,
+    *,
+    nt: int = 8,
+) -> torch.Tensor:
+    """Paper-faithful slice-streaming GEMM from raw codes: ``wcodes [M, K]``,
+    ``acodes [K, N]`` -> the int-exact GEMM ``[M, N]`` as float32.
+
+    Performs the host-side steps (§IV-A step 1: pad, canonicalize, pack the
+    weight index), then runs the ``lut_stream_gemm`` kernel for a CUDA
+    tensor (``nt``: its column tile, rounded up to 4, 8 or 16) or its plain
+    version for a CPU tensor, and subtracts the exact pad correction.
+    """
+    if pack.canonical.dtype.kind not in "iu":
+        raise ValueError(
+            "lut_stream_gemm_full accumulates in int32; float-grid packs run "
+            "through engine.streamed_lut_gemm instead"
+        )
+    p = pack.p
+    wcodes, acodes, corr = engine._pad_groups(wcodes, acodes, p, pack.wgrid, pack.agrid)
+    idx = engine.canonicalize_activations(acodes, pack)
+    m, k = wcodes.shape
+    wpacked = packing.pack_index(wcodes.reshape(m, k // p, p), pack.bw)
+    canon, reorder = engine.device_tables(pack, acodes.device)
+    if acodes.device.type == "cuda":
+        out = _ss.lut_stream_gemm(wpacked, idx.msrank, idx.permid, canon, reorder, nt=nt)
+    elif acodes.device.type == "cpu":
+        out = ref.lut_stream_gemm_ref(wpacked, idx.msrank, idx.permid, canon, reorder)
+    else:
+        raise ValueError(f"lut_stream_gemm runs on cuda or cpu, got {acodes.device}")
+    return (out - corr).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,8 +7,12 @@ prefill + greedy decode.
 Examples:
     # the GPU, full width, through the hand-written lut_dequant_gemm kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --full --mode pallas
-    # the CPU, smoke size, through the kernel's plain version
+    # the GPU, full width, the paper's int-LUT mode with frozen activation
+    # scales, through the hand-written lut_stream_gemm kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --mode lut --bw 1 --ba 3 --calibrate 32
+    # the CPU, smoke size, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode pallas --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --device cpu
 """
 
 from __future__ import annotations
@@ -38,9 +42,12 @@ def build_args(argv=None):
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--bw", type=int, default=4)
     ap.add_argument("--ba", type=int, default=4)
-    ap.add_argument("--mode", default="dequant", choices=["dequant", "pallas"],
+    ap.add_argument("--mode", default="dequant", choices=["dequant", "lut", "stream", "pallas"],
                     help="execution mode of the quantized projections (pallas: "
-                         "the hand-written packed-code kernel on the GPU)")
+                         "the hand-written packed-code kernel on the GPU; lut "
+                         "and stream: the int-LUT engines, whose int32 sums "
+                         "come from the hand-written lut_stream_gemm kernel on "
+                         "the GPU)")
     ap.add_argument("--no-prepare", dest="prepare", action="store_false",
                     help="serve raw QuantizedLinear params")
     ap.add_argument("--decode", default="scan", choices=["scan", "loop"],
@@ -48,9 +55,18 @@ def build_args(argv=None):
                          "admission wave) or the per-token loop oracle")
     ap.add_argument("--prompt-bucket", type=int, default=8,
                     help="power-of-two prompt-length bucketing floor (1 disables)")
+    ap.add_argument("--calibrate", type=int, default=None, metavar="TOKENS",
+                    help="freeze per-layer activation scales from a seeded "
+                         "synthetic calibration batch of this many tokens at "
+                         "prepare time: the int-LUT engines become "
+                         "batch-composition invariant")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.calibrate is not None and not args.prepare:
+        ap.error("--calibrate freezes activation scales during the prepare step: "
+                 "it cannot be combined with --no-prepare")
+    return args
 
 
 def main(argv=None):
@@ -67,8 +83,15 @@ def main(argv=None):
           f"{time.time()-t0:.1f}s")
     if args.prepare:
         t0 = time.time()
-        params = model.prepare(params, n_hint=args.batch)
-        print(f"prepared weight-stationary serve products in {time.time()-t0:.1f}s")
+        if args.calibrate is not None:
+            crng = np.random.default_rng(1)
+            cal = crng.integers(1, cfg.vocab_size, (2, max(1, args.calibrate // 2))).astype(np.int32)
+            params = model.prepare(params, calibrate=cal, n_hint=args.batch)
+            print(f"prepared + froze activation scales on {cal.size} synthetic "
+                  f"calibration tokens in {time.time()-t0:.1f}s")
+        else:
+            params = model.prepare(params, n_hint=args.batch)
+            print(f"prepared weight-stationary serve products in {time.time()-t0:.1f}s")
     eng = ServeEngine(model, params, batch=args.batch, max_seq=args.max_seq,
                       decode=args.decode, prompt_bucket=args.prompt_bucket,
                       device=args.device)

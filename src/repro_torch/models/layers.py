@@ -3,7 +3,9 @@
 
 A "linear" parameter is a dense dict ``{"w": [K,F], ("b": [F])}``, a
 :class:`repro_torch.core.QuantizedLinear` or a
-:class:`repro_torch.core.PreparedLinear`; :func:`linear` dispatches.
+:class:`repro_torch.core.PreparedLinear` (or, during one calibration
+forward, a :class:`repro_torch.core.calibrate.CalibrationProbe`);
+:func:`linear` dispatches.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import PreparedLinear, QuantizedLinear, apply_linear
+from repro_torch.core.calibrate import CalibrationProbe, probe_apply
 
 
 def dense_init(gen: torch.Generator, k: int, f: int, *, bias: bool = False,
@@ -29,6 +32,8 @@ def dense_init(gen: torch.Generator, k: int, f: int, *, bias: bool = False,
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     if isinstance(p, (QuantizedLinear, PreparedLinear)):
         return apply_linear(p, x)
+    if isinstance(p, CalibrationProbe):   # one-shot scale-capture forward
+        return probe_apply(p, x)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)

@@ -6,18 +6,21 @@ named in ``_QUANT_LINEAR_NAMES`` with a bit-packed
 :class:`repro_torch.core.QuantizedLinear`; embeddings and the LM head stay
 dense, as in the reference.  :func:`prepare_params` freezes each quantized
 leaf into its weight-stationary :class:`repro_torch.core.PreparedLinear`.
-Not yet ported: ``Model.calibrate`` and ``plan=`` (ROADMAP Queue 1 items 4
-and 7).
+``Model.prepare(calibrate=tokens)`` freezes each int-LUT leaf's activation
+scale first (:mod:`repro_torch.core.calibrate`).  Not yet ported: ``plan=``
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch import devices, tree
 from repro_torch.core import LutLinearSpec, QuantizedLinear, prepare_linear, quantize_linear
+from repro_torch.core.prepared import WCANON_MAX_ENTRIES
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
@@ -70,10 +73,22 @@ def quantize_model(params, cfg: ModelConfig, spec: LutLinearSpec):
 def _prepare_leaf(x: QuantizedLinear, **kw):
     """Prepare one quantized leaf; a stacked leaf is prepared unit by unit
     and restacked (the reference vmaps).  ``p`` is the same for every unit:
-    it depends only on the shapes and the spec."""
+    it depends only on the shapes and the spec.  As in the reference, a
+    stacked leaf divides the ``wcanon`` entry cap over the stack and builds
+    no host products (the stream mode's one-hot)."""
     if x.codes.ndim == 2:
         return prepare_linear(x, **kw)
-    return tree.stack([_prepare_leaf(tree.index(x, i), **kw)
+    stack = math.prod(x.codes.shape[:-2])
+    kw_s = dict(kw)
+    kw_s.setdefault("wcanon_max_entries", max(WCANON_MAX_ENTRIES // max(stack, 1), 1))
+    kw_s["host_products"] = False
+    return _prepare_stacked(x, kw_s)
+
+
+def _prepare_stacked(x: QuantizedLinear, kw: dict):
+    if x.codes.ndim == 2:
+        return prepare_linear(x, **kw)
+    return tree.stack([_prepare_stacked(tree.index(x, i), kw)
                        for i in range(x.codes.shape[0])])
 
 
@@ -143,8 +158,19 @@ class Model:
     def quantize(self, params, spec: LutLinearSpec):
         return quantize_model(params, self.cfg, spec)
 
-    def prepare(self, params, **kw):
-        """Weight-stationary serve form: cache all per-call weight products."""
+    def prepare(self, params, calibrate=None, **kw):
+        """Weight-stationary serve form: cache all per-call weight products.
+
+        ``calibrate`` — a small token batch ``[B, S]`` — freezes each int-LUT
+        leaf's activation scale from one forward pass over it *before*
+        preparing (:mod:`repro_torch.core.calibrate`): the ``lut``/``stream``
+        engines become batch-composition invariant, and on the calibration
+        batch itself outputs are bit-identical to the dynamic-scale path."""
+        if calibrate is not None:
+            from repro_torch.core import calibrate as _cal
+
+            tokens = torch.as_tensor(calibrate, device=devices.tree_device(params))
+            params = _cal.calibrate_tree(lambda probed: self.forward(probed, tokens)[0], params)
         return prepare_params(params, **kw)
 
 

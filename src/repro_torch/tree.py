@@ -1,9 +1,10 @@
 """Parameter-tree helpers: the port's stand-in for ``jax.tree.map``.
 
 A tree is nested dicts, lists and tuples whose leaves are tensors (or
-``None``).  A dataclass node (``QuantizedLinear``, ``PreparedLinear``) is a
-node whose tensor fields are children; its other fields (``spec``, ``k``,
-``p``) are static and taken from the first tree.
+``None``).  A dataclass node (``QuantizedLinear``, ``PreparedLinear``,
+``CalibrationProbe``) is a node whose tensor and dataclass fields are
+children; its other fields (``k``, ``p``, a probe's ``path`` and ``tape``)
+are static and taken from the first tree.
 """
 
 from __future__ import annotations
@@ -23,14 +24,18 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
         return out if isinstance(tree, list) else tuple(out)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+    if _is_node(tree):
         changes = {
             f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)
-            if isinstance(getattr(tree, f.name), torch.Tensor)
+            if isinstance(getattr(tree, f.name), torch.Tensor) or _is_node(getattr(tree, f.name))
         }
-        return dataclasses.replace(tree, **changes)
+        return dataclasses.replace(tree, **changes) if changes else tree
     return tree
+
+
+def _is_node(x) -> bool:
+    return dataclasses.is_dataclass(x) and not isinstance(x, type)
 
 
 def stack(trees: list):

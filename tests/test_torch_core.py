@@ -125,9 +125,15 @@ def test_lut_builders_copy_matches_reference():
 
 
 def test_unported_modes_raise():
+    """Every mode of the reference is ported now: lut and stream run, raw and
+    prepared, and only a mode the reference does not know raises."""
     w = torch.zeros((8, 4))
-    q = tapi.quantize_linear(w, tapi.LutLinearSpec(bw=2, mode="lut"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tapi.apply_linear(q, torch.zeros((1, 8)))
-    with pytest.raises(NotImplementedError):
-        tprepared.prepare_linear(q)
+    for mode in ("lut", "stream"):
+        q = tapi.quantize_linear(w, tapi.LutLinearSpec(bw=2, mode=mode))
+        y = tapi.apply_linear(q, torch.ones((1, 8)))
+        assert torch.equal(y, tapi.apply_linear(tprepared.prepare_linear(q), torch.ones((1, 8))))
+    q = tapi.quantize_linear(w, tapi.LutLinearSpec(bw=2, mode="bogus"))
+    with pytest.raises(ValueError, match="unknown mode"):
+        tapi.apply_linear(q, torch.ones((1, 8)))
+    with pytest.raises(ValueError, match="unknown mode"):
+        tapi.apply_linear(tprepared.prepare_linear(q), torch.ones((1, 8)))

@@ -1,7 +1,8 @@
-"""Port parity: the packed-code GEMM entry point of repro_torch against the
-reference's Pallas kernel (interpret mode) and its jnp oracle; the CUDA
-kernel itself against its plain version on the card; and the port's import
-isolation from JAX.
+"""Port parity: the kernel entry points of repro_torch (the packed-code GEMM
+and the canonical-LUT slice-streaming GEMM) against the reference's Pallas
+kernels (interpret mode) and jnp oracles; the CUDA kernels themselves
+against their plain versions on the card; and the port's import isolation
+from JAX.
 
 JAX is imported inside the parity tests only, so the card test runs where
 JAX is absent: ``python -m pytest -q --noconftest -m cuda
@@ -121,6 +122,135 @@ def test_cuda_kernel_matches_plain_version():
                                               bw=bw, k=qt.k, grid_kind=kind)[0]
                         for i in range(shape[0])]
                 assert torch.equal(torch.stack(rows), y)     # per-row invariance
+
+
+def _stream_case(bw, ba, p, m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2**bw, (m, k)).astype(np.int32),
+            rng.integers(0, 2**ba, (k, n)).astype(np.int32))
+
+
+@pytest.mark.parametrize("bw,ba,p", [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5)])
+def test_lut_stream_gemm_full_vs_reference(bw, ba, p, ref_pkg):
+    """Ragged K (3p + 1): the pad correction is exact; atol = 0."""
+    jnp, _japi, jops, _jref = ref_pkg
+    from repro.core import engine as jengine
+    from repro.core import luts as jluts
+    from repro_torch.core import luts as tluts
+
+    jp, tp = jluts.build_lut_pack(bw, ba, p), tluts.build_lut_pack(bw, ba, p)
+    wc, ac = _stream_case(bw, ba, p, 16, 3 * p + 1, 6, (bw, ba, p))
+    want = np.asarray(jops.lut_stream_gemm_full(jnp.asarray(wc), jnp.asarray(ac), jp))
+    got = tops.lut_stream_gemm_full(torch.from_numpy(wc), torch.from_numpy(ac), tp)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=0)
+    oracle = np.asarray(jengine.canonical_lut_gemm(jnp.asarray(wc), jnp.asarray(ac), jp))
+    np.testing.assert_allclose(got.numpy(), oracle.astype(np.float32), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nt", [1, 3, 4, 6, 16])
+def test_lut_stream_gemm_tile_widths_vs_reference(nt, ref_pkg):
+    """The reference kernel at N-tile widths of 1, non-divisors of N, N and
+    > N against the port's entry point at the same ``nt``."""
+    jnp, _japi, jops, _jref = ref_pkg
+    from repro.core import luts as jluts
+    from repro_torch.core import luts as tluts
+
+    jp, tp = jluts.build_lut_pack(1, 3, 4), tluts.build_lut_pack(1, 3, 4)
+    wc, ac = _stream_case(1, 3, 4, 8, 13, 6, nt)
+    want = np.asarray(jops.lut_stream_gemm_full(jnp.asarray(wc), jnp.asarray(ac), jp, nt=nt))
+    got = tops.lut_stream_gemm_full(torch.from_numpy(wc), torch.from_numpy(ac), tp, nt=nt)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=0)
+
+
+def test_lut_stream_gemm_ref_oracle_consistency(ref_pkg):
+    """The plain version == the reference's oracle == the engine, on the
+    same prepared indices, bit for bit."""
+    jnp, _japi, _jops, jref = ref_pkg
+    from repro.core import engine as jengine
+    from repro.core import luts as jluts
+    from repro.core import packing as jpacking
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import luts as tluts
+    from repro_torch.core import packing as tpacking
+
+    bw, ba, p = 2, 2, 3
+    jp, tp = jluts.build_lut_pack(bw, ba, p), tluts.build_lut_pack(bw, ba, p)
+    m, k, n = 8, 9, 5
+    wc, ac = _stream_case(bw, ba, p, m, k, n, 3)
+    ij = jengine.canonicalize_activations(jnp.asarray(ac), jp)
+    it = tengine.canonicalize_activations(torch.from_numpy(ac), tp)
+    wpj = jpacking.pack_index(jnp.asarray(wc).reshape(m, k // p, p), bw)
+    wpt = tpacking.pack_index(torch.from_numpy(wc).reshape(m, k // p, p), bw)
+    want = np.asarray(jref.lut_stream_gemm_ref(
+        wpj, ij.msrank, ij.permid, jnp.asarray(jp.canonical.astype(np.int32)),
+        jnp.asarray(jp.reordering.astype(np.int32))))
+    canon, reorder = tengine.device_tables(tp, "cpu")
+    out = tref.lut_stream_gemm_ref(wpt, it.msrank, it.permid, canon, reorder)
+    assert out.dtype == torch.int32 and np.array_equal(out.numpy(), want)
+    assert np.array_equal(out.numpy(), np.asarray(
+        jengine.canonical_lut_gemm(jnp.asarray(wc), jnp.asarray(ac), jp)))
+
+
+def test_lut_stream_cpu_tensor_takes_plain_version_only():
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import luts as tluts
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    pack = tluts.build_lut_pack(1, 3, 4)
+    wc, ac = _stream_case(1, 3, 4, 5, 10, 3, 0)
+    wt, at = torch.from_numpy(wc), torch.from_numpy(ac)
+    before = ss.launches
+    y = tops.lut_stream_gemm_full(wt, at, pack)
+    prep = tengine.prepare_stream_weights(wt, pack)
+    o_canon = tengine.canonical_lut_gemm(wt, at, pack)
+    o_stream, _ = tengine.streamed_lut_gemm(None, at, pack, prep=prep)
+    assert torch.equal(y, o_canon.float()) and torch.equal(o_canon, o_stream)
+    assert ss.launches == before          # nothing was launched
+    canon, reorder = tengine.device_tables(pack, "cpu")
+    idx = tengine.canonicalize_activations(at, pack)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.lut_stream_gemm(prep.wpk, idx.msrank, idx.permid, canon, reorder)
+    with pytest.raises(ValueError, match="int32"):
+        tops.lut_stream_gemm_full(wt, at, tluts.build_lut_pack(2, 3, 3, w_kind="fp",
+                                                               a_kind="fp"))
+    assert [ss.column_tile(n) for n in (1, 4, 5, 8, 9, 512)] == [4, 4, 8, 8, 16, 16]
+    assert ss.column_tile(512, nt=3) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_lut_stream_gemm_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import luts as tluts
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    dev = torch.device("cuda")
+    for bw, ba, p in [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5)]:
+        pack = tluts.build_lut_pack(bw, ba, p)
+        canon, reorder = tengine.device_tables(pack, dev)
+        for m, k, n in [(16, 3 * p + 1, 6), (300, 101, 4), (1000, 250, 37)]:
+            wc, ac = _stream_case(bw, ba, p, m, k, n, (bw, ba, p, m, k, n))
+            wt, at = torch.from_numpy(wc).to(dev), torch.from_numpy(ac).to(dev)
+            want = tops.lut_stream_gemm_full(wt.cpu(), at.cpu(), pack)
+            for nt in (1, 3, 6, 16):
+                before = ss.launches
+                got = tops.lut_stream_gemm_full(wt, at, pack, nt=nt)
+                assert ss.launches == before + 1
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want), (bw, ba, p, m, k, n, nt)
+            # the engine routes through the kernel too, raw and prepared
+            before = ss.launches
+            o = tengine.canonical_lut_gemm(wt, at, pack)
+            prep = tengine.prepare_stream_weights(wt, pack)
+            o_s, _ = tengine.streamed_lut_gemm(None, at, pack, prep=prep)
+            assert ss.launches == before + 2
+            assert torch.equal(o.cpu().float(), want) and torch.equal(o_s, o)
+            idx = tengine.canonicalize_activations(at, pack)
+            plain = tref.lut_stream_gemm_ref(prep.wpk, idx.msrank, idx.permid, canon, reorder)
+            assert torch.equal(ss.lut_stream_gemm(prep.wpk, idx.msrank, idx.permid, canon,
+                                                  reorder), plain)
 
 
 def test_port_imports_no_jax_and_no_reference():

@@ -108,3 +108,99 @@ def test_bucket_and_fit_rules():
         eng.generate([Request(np.zeros(0, np.int32), 2)])
     with pytest.raises(ValueError, match="params live on"):
         ServeEngine(tm, tp, batch=2, max_seq=20, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# A calibrated int-LUT model: the reference's live-ops config (2 layers,
+# W1A3 p=2, mode="lut"), converted, calibrated by the port itself.  It runs
+# in float32: the two frameworks round bf16 at different places, and 3-bit
+# activation codes turn those last-bit differences into different codes
+# (ROADMAP Queue 3), so the algorithm is compared in float32.
+# ---------------------------------------------------------------------------
+
+TOL_LOGIT = 1e-5      # f32: relative to max |logit|; the int32 sums are exact
+
+
+@pytest.fixture(scope="module")
+def lut_models():
+    jcfg = dataclasses.replace(
+        jget_config("stablelm-12b", smoke=True), name="live-ops-test",
+        n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
+        dtype="float32")
+    tcfg = dataclasses.replace(
+        get_config("stablelm-12b", smoke=True), name="live-ops-test",
+        n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
+        dtype="float32")
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jq = jm.quantize(jm.init(jax.random.PRNGKey(0)), JSpec(bw=1, ba=3, p=2, mode="lut"))
+    cal = np.random.default_rng(7).integers(1, jcfg.vocab_size, (2, 8)).astype(np.int32)
+    jp = jm.prepare(jq, calibrate=jax.numpy.asarray(cal))
+    tq = params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
+    tp = tm.prepare(tq, calibrate=cal)
+    return tcfg, jm, jp, tm, tp, cal
+
+
+@pytest.fixture(scope="module")
+def converted_lut_tree(lut_models):
+    """The reference's calibrated, prepared tree carried across as it is."""
+    _cfg, _jm, jp, _tm, _tp, _cal = lut_models
+    return params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def test_calibrated_lut_scales_and_products_match_reference(lut_models, converted_lut_tree):
+    from repro.tune.plan import quantized_leaf_items as jitems
+    from repro_torch.tune.plan import quantized_leaf_items as titems
+
+    _cfg, _jm, jp, _tm, tp, _cal = lut_models
+    jl, tl = dict(jitems(jp)), dict(titems(tp))
+    cl = dict(titems(converted_lut_tree))
+    assert sorted(jl) == sorted(tl) == sorted(cl) and len(tl) == 7
+    for path, lj in jl.items():
+        lt, lc = tl[path], cl[path]
+        # the converted tree arrives with the reference's dtypes and stacked shapes
+        assert lc.wpk.dtype == torch.int32 and lc.wpk.shape == np.asarray(lj.wpk).shape
+        assert lc.ascale.dtype == torch.float32 and lc.ascale.shape == (2,)
+        assert lc.onehot is None and (lc.wcanon is None) == (lj.wcanon is None)
+        if lc.wcanon is not None:
+            assert lc.wcanon.dtype == torch.int32 and torch.equal(lc.wcanon, lt.wcanon)
+        assert torch.equal(lc.wpk, lt.wpk)
+        want = np.asarray(lj.ascale)
+        assert lt.ascale.shape == want.shape == (2,), path          # one per stacked unit
+        # f32 rounding: the amax of activations summed in another order
+        np.testing.assert_allclose(lt.ascale.numpy(), want, rtol=2**-21, atol=0)
+        assert lt.p == lj.p and lt.wpk.dtype == torch.int32
+        assert np.array_equal(lt.wpk.numpy(), np.asarray(lj.wpk))
+        assert (lt.wcanon is None) == (lj.wcanon is None) and lt.onehot is None
+        if lt.wcanon is not None:
+            assert np.array_equal(lt.wcanon.numpy(), np.asarray(lj.wcanon))
+
+
+def test_calibrated_lut_logits_match_reference(lut_models):
+    cfg, jm, jp, tm, tp, cal = lut_models
+    jnp = jax.numpy
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 7)).astype(np.int32)
+    lj, cj = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(2, 16, jnp.float32))
+    lt, ct = tm.prefill(tp, torch.from_numpy(toks), tm.init_cache(2, 16, torch.float32,
+                                                                 device="cpu"))
+    scale = float(np.abs(np.asarray(lj)).max())
+    np.testing.assert_allclose(lt.float().numpy(), np.asarray(lj), rtol=0, atol=TOL_LOGIT * scale)
+    nxt = np.asarray(lj).argmax(-1).astype(np.int32)               # [2, 1]
+    dj, _ = jm.decode_step(jp, jnp.asarray(nxt), cj, jnp.int32(7))
+    dt, _ = tm.decode_step(tp, torch.from_numpy(nxt), ct, 7)
+    np.testing.assert_allclose(dt.float().numpy(), np.asarray(dj), rtol=0, atol=TOL_LOGIT * scale)
+    assert torch.equal(lt.argmax(-1), torch.from_numpy(nxt).long())
+    assert torch.equal(dt.argmax(-1), torch.from_numpy(np.asarray(dj).argmax(-1)))
+
+
+def test_calibrated_lut_serve_matches_reference(lut_models, converted_lut_tree):
+    cfg, jm, jp, tm, tp, _cal = lut_models
+    reqs = _ragged(cfg, seed=5, lens=(6, 6, 6, 6), budgets=(6, 2, 4, 2))
+    jreqs = [JRequest(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs]
+    jeng = JServeEngine(jm, jp, batch=2, max_seq=32, decode="scan")
+    want = jeng.generate(jreqs)
+    scan, loop = _engine(tm, tp, "scan"), _engine(tm, tp, "loop")
+    got = scan.generate(reqs)
+    assert got == want
+    assert scan.admissions == jeng.admissions and scan.host_syncs == jeng.host_syncs
+    assert loop.generate(reqs) == got
+    assert _engine(tm, converted_lut_tree, "scan").generate(reqs) == want
