@@ -32,7 +32,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import engine, luts, packing, perfmodel
-from repro_torch.core.quantize import QuantSpec, grid_tensor, quantize, zero_code
+from repro_torch.core.quantize import (
+    QuantSpec, grid_tensor, quantize, quantize_activation, zero_code,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,9 +174,10 @@ def quantized_lut_gemm(q, x: torch.Tensor, run) -> torch.Tensor:
     A calibrated layer (``q.ascale`` set) quantizes against its frozen scale,
     so the result for any one row is independent of which other rows share
     the batch.  The quantizer runs in f32 whatever the activation dtype, as
-    in the reference."""
+    in the reference, with the scale the reference's jitted programs compute
+    (:func:`repro_torch.core.quantize.quantize_activation`)."""
     xf = x.reshape(-1, x.shape[-1]).to(torch.float32)                 # [B, K]
-    acodes, ascale = quantize(xf.T, q.spec.aspec(), scale=q.ascale)    # [K, B]
+    acodes, ascale = quantize_activation(xf.T, q.spec.aspec(), scale=q.ascale)  # [K, B]
     o = run(acodes, xf.shape[0])
     y = o.to(torch.float32) * q.scale[:, None] * ascale
     return y.T.reshape(x.shape[:-1] + (q.f,)).to(x.dtype)

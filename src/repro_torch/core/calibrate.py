@@ -34,7 +34,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.api import apply_linear
-from repro_torch.core.quantize import quantize
+from repro_torch.core.quantize import quantize_activation
 
 
 @dataclasses.dataclass
@@ -60,7 +60,7 @@ def probe_apply(probe: CalibrationProbe, x: torch.Tensor) -> torch.Tensor:
         xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
         # The quantizer quantized_lut_gemm runs: the frozen scale is
         # bit-equal to the dynamic one on the calibration batch.
-        _, scale = quantize(xf.T, q.spec.aspec())
+        _, scale = quantize_activation(xf.T, q.spec.aspec())
         probe.tape.setdefault(probe.path, []).append(scale.reshape(()))
     return apply_linear(q, x)
 

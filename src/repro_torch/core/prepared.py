@@ -49,7 +49,7 @@ from repro_torch.core.api import (
     plan_p,
     quantized_lut_gemm,
 )
-from repro_torch.core.quantize import grid_tensor, quantize
+from repro_torch.core.quantize import grid_tensor, quantize_activation
 
 # Entry cap for the weight-static canonical table [F, G, p!]: above this the
 # capacity side of the tradeoff stops paying and apply reads the shared
@@ -116,7 +116,7 @@ def prepare_linear(
         raise ValueError("pass calibration or ascale, not both")
     if calibration is not None:
         cf = calibration.reshape(-1, calibration.shape[-1]).to(torch.float32)
-        _, ascale = quantize(cf.T, spec.aspec())
+        _, ascale = quantize_activation(cf.T, spec.aspec())
     if ascale is None:
         ascale = q.ascale
     if ascale is not None:

@@ -7,9 +7,11 @@ is symmetric with a per-channel (or per-tensor) scale:
 ``x ≈ scale * grid[code]``.
 
 Codes and scales are bit-identical to the reference on the same f32 input:
-the scale is ``max(amax, 1e-12) / gmax``, values are divided (not multiplied
-by a reciprocal) by the scale, and rounding is half-to-even (``torch.round``,
-like ``jnp.round``).
+the scale is ``max(amax, 1e-12) / gmax`` (``quantize``, the weight quantizer,
+which the reference runs eagerly) or ``max(amax, 1e-12) * f32(1 / gmax)``
+(``quantize_activation``, the activation quantizer, which the reference runs
+under ``jax.jit``), values are divided (not multiplied by a reciprocal) by
+the scale, and rounding is half-to-even (``torch.round``, like ``jnp.round``).
 """
 
 from __future__ import annotations
@@ -97,16 +99,8 @@ def quantize(
     broadcasting along ``spec.axis``.
     """
     g = spec.grid()
-    gmax = float(np.max(np.abs(g)))
-    if gmax == 0:
-        raise ValueError("degenerate grid")
     if scale is None:
-        if spec.axis is None:
-            amax = x.abs().amax()
-        else:
-            reduce_axes = tuple(i for i in range(x.ndim) if i != spec.axis % x.ndim)
-            amax = x.abs().amax(dim=reduce_axes, keepdim=True)
-        scale = amax.clamp_min(1e-12) / gmax
+        scale = _amax(x, spec) / _gmax(spec)
     scaled = x / scale
     if spec.grid_kind in ("int", "uint") and spec.bits > 1:
         lo, hi = float(g.min()), float(g.max())
@@ -126,3 +120,39 @@ def quantize(
             for i in range(0, flat.numel(), step)
         ]).to(torch.int32).reshape(scaled.shape)
     return codes, scale
+
+
+def quantize_activation(
+    x: torch.Tensor, spec: QuantSpec, *, scale: Optional[torch.Tensor] = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize` for activations: the dynamic scale is
+    ``max(amax, 1e-12) * f32(1 / gmax)``.
+
+    The reference quantizes activations inside jitted programs (the serve
+    forward and the calibration forward), where XLA rewrites the division
+    by the constant ``gmax`` into a multiplication by its f32 reciprocal,
+    which can land one f32 ulp away from the true quotient; in bf16 that
+    ulp moves codes.  Weights are quantized eagerly in the reference, with
+    a true division (:func:`quantize`).  A frozen ``scale`` is used as it is.
+    """
+    if scale is None:
+        recip = float(np.float32(1.0) / np.float32(_gmax(spec)))
+        scale = _amax(x, spec) * recip
+    return quantize(x, spec, scale=scale)
+
+
+def _gmax(spec: QuantSpec) -> float:
+    gmax = float(np.max(np.abs(spec.grid())))
+    if gmax == 0:
+        raise ValueError("degenerate grid")
+    return gmax
+
+
+def _amax(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """``max(|x|, 1e-12)`` per tensor, or per slice along ``spec.axis``."""
+    if spec.axis is None:
+        amax = x.abs().amax()
+    else:
+        reduce_axes = tuple(i for i in range(x.ndim) if i != spec.axis % x.ndim)
+        amax = x.abs().amax(dim=reduce_axes, keepdim=True)
+    return amax.clamp_min(1e-12)

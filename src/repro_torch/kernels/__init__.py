@@ -6,10 +6,13 @@
 * :mod:`repro_torch.kernels.lut_stream_gemm` — canonical-LUT slice-streaming
   GEMM, int32 (CUDA C++, ``csrc/lut_stream_gemm.cu``); replaces the TPU
   kernel of the same name.
+* :mod:`repro_torch.kernels.flash_attention` — online-softmax attention
+  with GQA, causal / sliding-window masks and a logit softcap (CUDA C++,
+  ``csrc/flash_attention.cu``); replaces the TPU kernel of the same name.
 * :mod:`repro_torch.kernels.build` — ``nvcc`` build at first use + ``ctypes``.
 * :mod:`repro_torch.kernels.ops` — entry points: kernel on a CUDA tensor,
   plain version on a CPU tensor.
 * :mod:`repro_torch.kernels.ref` — the plain PyTorch versions.
 
-Still to port (ROADMAP Queue 2): ``flash_attention``.
+Every TPU kernel of the reference has its counterpart here.
 """

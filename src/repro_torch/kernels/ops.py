@@ -8,6 +8,7 @@ is no fallback: on a CUDA tensor the kernel runs or the call raises.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core import engine, packing
 from repro_torch.core.luts import LutPack
 from repro_torch.core.quantize import QuantSpec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lut_dequant_gemm as _dq
 from repro_torch.kernels import lut_stream_gemm as _ss
 from repro_torch.kernels import ref
@@ -71,6 +73,24 @@ def lut_stream_gemm_full(
     else:
         raise ValueError(f"lut_stream_gemm runs on cuda or cpu, got {acodes.device}")
     return (out - corr).to(torch.float32)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Online-softmax attention.  q [B,S,H,hd], k/v [B,T,Hkv,hd] -> [B,S,H,hd]
+    in ``q.dtype``, computed in f32."""
+    if q.device.type == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
 
 
 @functools.lru_cache(maxsize=None)

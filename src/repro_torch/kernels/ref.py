@@ -6,6 +6,8 @@ on the card they are used only to check the kernels against.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -44,3 +46,38 @@ def lut_stream_gemm_ref(
     wcanon = reordering[wpacked[:, :, None].long(), permid[None, :, :].long()]   # [M,G,N]
     vals = canonical[wcanon.long(), msrank[None, :, :].long()]                    # [M,G,N]
     return vals.to(torch.int32).sum(dim=1, dtype=torch.int32)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain masked softmax attention in f32.  ``q``: [B, S, H, hd];
+    ``k``, ``v``: [B, T, Hkv, hd]; head ``h`` reads kv head ``h // (H/Hkv)``.
+    Scores are scaled by ``1/sqrt(hd)``, soft-capped (``cap*tanh(s/cap)``),
+    masked (causal ``kpos <= qpos``, window ``kpos > qpos - window``) with
+    -1e30 and soft-maxed over keys.  Returns [B, S, H, hd] in ``q.dtype``."""
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, s, hkv, rep, hd).to(torch.float32)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k.to(torch.float32))
+    scores = scores / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", w, v.to(torch.float32))
+    return out.reshape(b, s, h, hd).to(q.dtype)

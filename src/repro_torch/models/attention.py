@@ -7,9 +7,10 @@ reference (functional updates on donated buffers), cache writes here update
 the buffers **in place** and the returned cache dict holds the same tensors.
 
 Ported: the plain-cache and no-cache branches, pad masking, query-chunked
-long prefill.  Not yet (ROADMAP Queue 1 item 11 / Queue 2 item 3): the ring
-window cache, the int8 KV cache, MLA, cross attention and
-``attn_impl="flash"`` — each raises ``NotImplementedError``.
+long prefill, and ``attn_impl="flash"`` on the no-cache branch (the
+``flash_attention`` kernel).  Not yet (ROADMAP Queue 1 item 11): the ring
+window cache, the int8 KV cache, MLA and cross attention — each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear
@@ -147,7 +149,7 @@ def _attend_chunked(
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 11 / Queue 2 item 3); "
+        f"{what} is not ported yet (ROADMAP Queue 1 item 11); "
         f"this slice runs GQA with a plain KV cache"
     )
 
@@ -193,8 +195,11 @@ def gqa_attention(
     else:
         new_cache = None
         if cfg.attn_impl == "flash":
-            raise _unported("attn_impl='flash' (the flash_attention kernel)")
-        if s > CHUNK_THRESHOLD and s % CHUNK_SIZE == 0:
+            out = ops.flash_attention(
+                q, k, v, causal=causal, window=window,
+                softcap=cfg.attn_logit_softcap,
+            )
+        elif s > CHUNK_THRESHOLD and s % CHUNK_SIZE == 0:
             out = _attend_chunked(
                 q, k, v, positions, window=window,
                 softcap_val=cfg.attn_logit_softcap, causal=causal,

@@ -10,6 +10,7 @@ forward, a :class:`repro_torch.core.calibrate.CalibrationProbe`);
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -62,12 +63,26 @@ def norm(p, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-6) -> torch.
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SiLU, or GELU in its tanh form (``jax.nn.gelu``'s default), computed
+    op by op in ``x.dtype`` with the constants rounded to it, as
+    ``jax.nn.silu`` and ``jax.nn.gelu`` compute: the fused ``F.silu`` and
+    ``F.gelu`` round once at the end and differ from them in the last bf16
+    bit on about a third of the elements."""
     if kind == "silu":
-        return torch.nn.functional.silu(x)
+        return x * torch.reciprocal(torch.exp(-x) + 1.0)
     if kind == "gelu":
-        # jax.nn.gelu defaults to the tanh approximation
-        return torch.nn.functional.gelu(x, approximate="tanh")
+        c_cube = _const(0.044715, x.dtype)
+        c_tanh = _const(math.sqrt(2.0 / math.pi), x.dtype)
+        cdf = (torch.tanh((x + x * x * x * c_cube) * c_tanh) + 1.0) * 0.5
+        return x * cdf
     raise ValueError(kind)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (exact in the f32 arithmetic that
+    torch runs a low-precision op in)."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

@@ -133,8 +133,12 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_seq, dtype,
                                       device=devices.resolve(device))
 
-    def forward(self, params, tokens, **kw):
-        return transformer.forward(params, self.cfg, tokens, **kw)
+    def forward(self, params, tokens, *, return_hidden: bool = False, **kw):
+        """Full-sequence forward: ``(logits [B, S, V] f32, caches)``, or with
+        ``return_hidden`` the final-normed hidden states ``[B, S, D]`` (no
+        LM head).  Without caches, attention runs ``cfg.attn_impl``:
+        ``"flash"`` is the ``flash_attention`` kernel on the card."""
+        return transformer.forward(params, self.cfg, tokens, return_hidden=return_hidden, **kw)
 
     def prefill(self, params, tokens, caches, *, pad_len=None):
         """Fill caches for positions [0, S) in place; returns (last-pos logits

@@ -1,5 +1,6 @@
 """Transformer assembly over stacked units (port of
-``repro.models.transformer`` for ``"D"`` segments: attention + FFN).
+``repro.models.transformer`` for ``"D"``, ``"L"`` and ``"G"`` segments:
+attention + FFN, with a sliding window on ``"L"``).
 
 Every architecture is a sequence of *segments*; each segment is a stack of
 identical *units* whose parameters are stacked along a leading
@@ -9,8 +10,15 @@ and prepared checkpoints line up.  The reference scans a unit with
 Caches follow the same segmentation (``[n_units, B, Smax, Hkv, hd]``) and
 are updated in place.
 
-Only dense GQA decoders (``"D"`` units, no MoE, no MLA) are ported; other
-unit kinds raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+Only dense GQA decoders (``"D"``, ``"L"`` and ``"G"`` units, no MoE, no
+MLA) are ported; other unit kinds raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 11).
+
+Inside a unit, a norm that follows a residual add reads the unrounded f32
+sum, while the residual stream itself is stored in ``x.dtype``: the
+reference runs a unit as one compiled scan body, where XLA fuses the add
+into the norm and keeps the sum in f32 (its default excess precision).  In
+bf16 this gives the reference's bits; in f32 it changes nothing.
 """
 
 from __future__ import annotations
@@ -46,9 +54,9 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
     kinds = {ch for pat, _ in segments(cfg) for ch in pat}
-    if kinds != {"D"} or cfg.moe is not None or cfg.attn_kind != "gqa":
+    if not kinds <= {"D", "L", "G"} or cfg.moe is not None or cfg.attn_kind != "gqa":
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders ('D' units) are ported; "
+            f"{cfg.name}: only dense GQA decoders ('D', 'L', 'G' units) are ported; "
             f"units {sorted(kinds)}, moe={cfg.moe is not None}, "
             f"attn_kind={cfg.attn_kind!r} wait for ROADMAP Queue 1 item 11"
         )
@@ -147,25 +155,36 @@ class RunState:
     pad_len: Optional[torch.Tensor] = None  # [B] left-pad lengths
 
 
-def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, cache):
+def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
+    """One attention + FFN sublayer.  ``x_sum`` is the f32 sum that ``x`` was
+    rounded from (``None`` at the start of a unit); returns the new ``x``,
+    its f32 sum and the cache."""
     cfg = rs.cfg
     nk, eps = cfg.norm_kind, cfg.norm_eps
-    h = norm(p["attn_norm"], x, nk, eps)
+    h = norm(p["attn_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
     a, new_cache = attention.gqa_attention(
         p["attn"], h, cfg=cfg, positions=rs.positions, cache=cache,
-        pos=rs.pos, window=None, pad_len=rs.pad_len,
+        pos=rs.pos, window=cfg.window if ch == "L" else None, pad_len=rs.pad_len,
     )
-    x = x + a
-    h = norm(p["ffn_norm"], x, nk, eps)
-    x = x + ffn.ffn_apply(p["ffn"], h, cfg)
-    return x, new_cache
+    x, x_sum = _residual(x, a)
+    h = norm(p["ffn_norm"], x_sum, nk, eps).to(x.dtype)
+    x, x_sum = _residual(x, ffn.ffn_apply(p["ffn"], h, cfg))
+    return x, x_sum, new_cache
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x + y`` in ``x.dtype`` (the residual stream) and the f32 sum it is
+    rounded from (what the next norm in the unit reads)."""
+    s = x.float() + y            # y is promoted inside the add: no separate cast
+    return s.to(x.dtype), s
 
 
 def unit_apply(rs: RunState, pattern: str, unit_p: dict, x: torch.Tensor, unit_cache):
+    x_sum = None
     for i, ch in enumerate(pattern):
         key = f"s{i}_{ch}"
         c = unit_cache[key] if unit_cache is not None else None
-        x, _ = _apply_sublayer(rs, ch, unit_p[key], x, c)
+        x, x_sum, _ = _apply_sublayer(rs, ch, unit_p[key], x, x_sum, c)
     return x
 
 
@@ -193,8 +212,11 @@ def forward(
     pad_len: Optional[torch.Tensor] = None, # [B] left-pad lengths; pad positions
                                             # become attention don't-cares and
                                             # logical positions shift by -pad_len
+    return_hidden: bool = False,            # skip the LM head
 ) -> tuple[torch.Tensor, Optional[list]]:
-    """Returns ``(logits [B, S', V] f32, caches)``."""
+    """Returns ``(logits [B, S', V] f32, caches)``, or with ``return_hidden``
+    the final-normed hidden states ``[B, S, D]`` in the model's dtype in
+    place of the logits."""
     b, s = tokens.shape
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = params["embed"][tokens.long()].to(dtype)
@@ -213,6 +235,8 @@ def forward(
     rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len)
     x, caches = run_segments(rs, params["segments"], x, caches)
     x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    if return_hidden:
+        return x, caches
     if last_token_only:
         x = x[:, -1:, :]
     return lm_head(params, cfg, x), caches

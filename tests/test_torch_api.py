@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core import api as japi  # noqa: E402
 from repro.core import prepared as jprepared  # noqa: E402
+from repro.core import quantize as jquant  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import api as tapi  # noqa: E402
@@ -121,9 +122,14 @@ def test_four_modes_raw_equals_prepared_and_lut_equals_stream(case, kind):
         assert torch.equal(y_raw, y_prep), (mode, kind)
         per_mode[mode] = y_raw
         if mode in ("lut", "stream"):
-            want = np.asarray(japi.apply_linear(qj, jnp.asarray(x)))
+            # the reference with the activation scale its jitted programs
+            # pick (amax * f32(1/gmax), as the port's dynamic quantizer);
             # int grids: the int32 sums are equal and the f32 rescale is the
             # same two products; fp grids sum in float (f32 rounding)
+            aspec = qj.spec.aspec()
+            ascale = jax.jit(lambda a: jquant.quantize(a.T, aspec)[1])(jnp.asarray(x))
+            want = np.asarray(japi.apply_linear(
+                jprepared.prepare_linear(qj, n_hint=b, ascale=ascale), jnp.asarray(x)))
             tol = 0 if kind == "int" else 1e-5
             np.testing.assert_allclose(y_raw.numpy(), want, rtol=tol, atol=tol)
             # the prepared products themselves equal the reference's
@@ -155,7 +161,12 @@ def test_frozen_calibration_bit_identical_and_batch_invariant(cfg, mode):
     xt = torch.from_numpy(x)
     frozen = tprepared.prepare_linear(qt, calibration=xt)
     dyn = tprepared.prepare_linear(qt)
-    fj = jprepared.prepare_linear(qj, calibration=jnp.asarray(x))
+    # the reference's frozen scale as its jitted programs compute it (the
+    # port's activation quantizer; eager JAX divides by gmax, XLA under jit
+    # multiplies by its f32 reciprocal)
+    aspec = japi.LutLinearSpec(bw=bw, ba=ba, mode=mode, p=p).aspec()
+    ascale = jax.jit(lambda a: jquant.quantize(a.T, aspec)[1])(jnp.asarray(x))
+    fj = jprepared.prepare_linear(qj, ascale=ascale)
     assert frozen.ascale.item() == float(np.asarray(fj.ascale))
     y_frozen = tapi.apply_linear(frozen, xt)
     assert torch.equal(y_frozen, tapi.apply_linear(dyn, xt))

@@ -6,7 +6,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-jnp =pytest.importorskip("jax.numpy")
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
 torch = pytest.importorskip("torch")
 
 from repro.core import api as japi  # noqa: E402
@@ -32,8 +33,16 @@ def test_quantize_bit_identical(bits, kind, axis):
     spec_j = jquant.QuantSpec(bits, kind, axis=axis)
     spec_t = tquant.QuantSpec(bits, kind, axis=axis)
     np.testing.assert_array_equal(spec_t.grid(), spec_j.grid())
+    # the weight quantizer against the eager reference (quantize_linear runs
+    # eagerly there: a true division by gmax) ...
     cj, sj = jquant.quantize(jnp.asarray(x), spec_j)
     ct, st = tquant.quantize(torch.from_numpy(x), spec_t)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    # ... the activation quantizer against the jitted one (the serve and
+    # calibration forwards run under jit: XLA multiplies by f32(1/gmax))
+    cj, sj = jax.jit(lambda a: jquant.quantize(a, spec_j))(jnp.asarray(x))
+    ct, st = tquant.quantize_activation(torch.from_numpy(x), spec_t)
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     # the frozen-scale override

@@ -1,6 +1,7 @@
 """Port parity: the dense GQA decoder of repro_torch against the JAX reference
-on stablelm-12b smoke (f32, W4A4, mode="pallas", prepared), on weights
-converted from the reference (CPU)."""
+on stablelm-12b smoke (f32, W4A4, mode="pallas", prepared) and on gemma2-2b
+smoke's cache-free forward through attn_impl="flash", on weights converted
+from the reference (CPU)."""
 
 import dataclasses
 
@@ -107,3 +108,99 @@ def test_init_quantized_builds_stacked_leaves():
     assert isinstance(pp["segments"][0]["s0_D"]["ffn"]["w_down"], PreparedLinear)
     logits, _ = m.forward(pp, torch.zeros((1, 4), dtype=torch.int32))
     assert logits.shape == (1, 4, cfg.vocab_size) and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("kind", ["silu", "gelu"])
+def test_bf16_activation_bit_equal_to_reference(kind):
+    """Op by op in bf16, as jax.nn.silu / jax.nn.gelu compute.  Inputs: every
+    finite bf16 value with 1e-30 < |x| < 80 (outside it XLA's CPU flushes
+    subnormal results to zero)."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16).view(np.int16)
+    x = torch.from_numpy(bits).view(torch.bfloat16)
+    a = x.float().abs()
+    x = x[torch.isfinite(a) & (a > 1e-30) & (a < 80)]
+    want = np.asarray(jlayers.activation(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                                         kind).astype(jnp.float32))
+    got = tlayers.activation(x, kind)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    x32 = np.random.default_rng(0).normal(size=4096).astype(np.float32) * 4
+    np.testing.assert_allclose(tlayers.activation(torch.from_numpy(x32), kind).numpy(),
+                               np.asarray(jlayers.activation(jnp.asarray(x32), kind)),
+                               rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# gemma2-2b smoke (4 layers = 2 x "LG", window 8, attention softcap 50, final
+# softcap 30, GeGLU, tied embeddings) through attn_impl="flash": the
+# cache-free forward, f32, on weights converted from the reference.
+# ---------------------------------------------------------------------------
+
+
+def _gemma_cfgs(**kw):
+    jcfg = dataclasses.replace(jget_config("gemma2-2b", smoke=True), dtype="float32", **kw)
+    tcfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), dtype="float32", **kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    return jcfg, tcfg
+
+
+@pytest.fixture(scope="module")
+def gemma():
+    jcfg, tcfg = _gemma_cfgs(attn_impl="flash")
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
+    return jcfg, jm, jp, tm, toks
+
+
+def _logits_close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("tree", ["dense", "pallas_prepared"])
+def test_gemma2_flash_forward_matches_reference(gemma, tree):
+    jcfg, jm, jp, tm, toks = gemma
+    if tree == "pallas_prepared":
+        jp = jm.prepare(jm.quantize(jp, JSpec(bw=4, ba=4, mode="pallas")))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    want = jm.forward(jp, jnp.asarray(toks))[0]
+    got, caches = tm.forward(tp, torch.from_numpy(toks))
+    assert caches is None and got.shape == (2, 20, jcfg.vocab_size)
+    _logits_close(got, want)
+    xla = build_model(dataclasses.replace(tm.cfg, attn_impl="xla"))
+    _logits_close(xla.forward(tp, torch.from_numpy(toks))[0], got.numpy())
+
+
+def test_gemma2_return_hidden_matches_reference(gemma):
+    jcfg, jm, jp, tm, toks = gemma
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    want = jm.forward(jp, jnp.asarray(toks), return_hidden=True)[0]
+    got, _ = tm.forward(tp, torch.from_numpy(toks), return_hidden=True)
+    assert got.shape == (2, 20, jcfg.d_model) and got.dtype == torch.float32
+    _logits_close(got, want)
+    # the head over the hidden states is the forward's logits
+    _logits_close(transformer.lm_head(tp, tm.cfg, got), jm.forward(jp, jnp.asarray(toks))[0])
+
+
+def test_gemma2_lut_calibration_through_flash_matches_reference(gemma):
+    """Model.prepare(calibrate=) runs its forward through flash; the frozen
+    scales equal the reference's up to f32 rounding (flash's f32 sums run in
+    another order on each side)."""
+    from repro.tune.plan import quantized_leaf_items as jitems
+    from repro_torch.tune.plan import quantized_leaf_items as titems
+
+    jcfg, jm, jp, tm, _toks = gemma
+    jq = jm.quantize(jp, JSpec(bw=1, ba=3, p=2, mode="lut"))
+    cal = np.random.default_rng(7).integers(1, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    jl = dict(jitems(jm.prepare(jq, calibrate=jnp.asarray(cal))))
+    tl = dict(titems(tm.prepare(params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu"),
+                                calibrate=cal)))
+    assert sorted(jl) == sorted(tl) and len(tl) == 14      # 7 projections x ("L", "G")
+    for path, lj in jl.items():
+        want = np.asarray(lj.ascale)
+        assert tl[path].ascale.shape == want.shape == (2,), path
+        np.testing.assert_allclose(tl[path].ascale.numpy(), want, rtol=2**-21, atol=0)

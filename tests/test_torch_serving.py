@@ -112,25 +112,18 @@ def test_bucket_and_fit_rules():
 
 # ---------------------------------------------------------------------------
 # A calibrated int-LUT model: the reference's live-ops config (2 layers,
-# W1A3 p=2, mode="lut"), converted, calibrated by the port itself.  It runs
-# in float32: the two frameworks round bf16 at different places, and 3-bit
-# activation codes turn those last-bit differences into different codes
-# (ROADMAP Queue 3), so the algorithm is compared in float32.
+# W1A3 p=2, mode="lut"), converted, calibrated by the port itself, in
+# float32 here and in its own bfloat16 below.
 # ---------------------------------------------------------------------------
 
 TOL_LOGIT = 1e-5      # f32: relative to max |logit|; the int32 sums are exact
 
 
-@pytest.fixture(scope="module")
-def lut_models():
-    jcfg = dataclasses.replace(
-        jget_config("stablelm-12b", smoke=True), name="live-ops-test",
-        n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
-        dtype="float32")
-    tcfg = dataclasses.replace(
-        get_config("stablelm-12b", smoke=True), name="live-ops-test",
-        n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
-        dtype="float32")
+def _lut_models(dtype):
+    kw = dict(name="live-ops-test", n_layers=2, d_model=32, n_heads=2, n_kv_heads=1,
+              d_ff=64, vocab_size=64, dtype=dtype)
+    jcfg = dataclasses.replace(jget_config("stablelm-12b", smoke=True), **kw)
+    tcfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), **kw)
     jm, tm = jbuild(jcfg), build_model(tcfg)
     jq = jm.quantize(jm.init(jax.random.PRNGKey(0)), JSpec(bw=1, ba=3, p=2, mode="lut"))
     cal = np.random.default_rng(7).integers(1, jcfg.vocab_size, (2, 8)).astype(np.int32)
@@ -138,6 +131,11 @@ def lut_models():
     tq = params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
     tp = tm.prepare(tq, calibrate=cal)
     return tcfg, jm, jp, tm, tp, cal
+
+
+@pytest.fixture(scope="module")
+def lut_models():
+    return _lut_models("float32")
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +164,9 @@ def test_calibrated_lut_scales_and_products_match_reference(lut_models, converte
         assert torch.equal(lc.wpk, lt.wpk)
         want = np.asarray(lj.ascale)
         assert lt.ascale.shape == want.shape == (2,), path          # one per stacked unit
-        # f32 rounding: the amax of activations summed in another order
+        # f32 rounding: the layernorm's f32 mean is reduced in another order
+        # by XLA and by torch, so the amax can differ in its last bit (in
+        # bf16 the scales are equal bit for bit, see the bf16 test below)
         np.testing.assert_allclose(lt.ascale.numpy(), want, rtol=2**-21, atol=0)
         assert lt.p == lj.p and lt.wpk.dtype == torch.int32
         assert np.array_equal(lt.wpk.numpy(), np.asarray(lj.wpk))
@@ -204,3 +204,24 @@ def test_calibrated_lut_serve_matches_reference(lut_models, converted_lut_tree):
     assert scan.admissions == jeng.admissions and scan.host_syncs == jeng.host_syncs
     assert loop.generate(reqs) == got
     assert _engine(tm, converted_lut_tree, "scan").generate(reqs) == want
+
+
+def test_bf16_calibrated_lut_scales_and_tokens_match_reference():
+    """The reference's live-ops model as it runs, in bfloat16: the port's 14
+    frozen scales (7 projections x 2 units) and its served tokens equal the
+    reference's bit for bit.  This needs the activation quantizer's scale as
+    XLA computes it under jit (amax * f32(1/gmax)), silu op by op in bf16,
+    and the FFN norm read from the unrounded f32 residual sum (XLA's excess
+    precision inside the fused scan body)."""
+    from repro.tune.plan import quantized_leaf_items as jitems
+    from repro_torch.tune.plan import quantized_leaf_items as titems
+
+    cfg, jm, jp, tm, tp, _cal = _lut_models("bfloat16")
+    jl, tl = dict(jitems(jp)), dict(titems(tp))
+    assert sorted(jl) == sorted(tl) and len(tl) == 7
+    for path, lj in jl.items():
+        np.testing.assert_array_equal(tl[path].ascale.numpy(), np.asarray(lj.ascale), path)
+    reqs = _ragged(cfg, seed=5, lens=(6, 6, 6, 6), budgets=(6, 2, 4, 2))
+    jreqs = [JRequest(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs]
+    want = JServeEngine(jm, jp, batch=2, max_seq=32, decode="scan").generate(jreqs)
+    assert _engine(tm, tp, "scan").generate(reqs) == want
