@@ -18,9 +18,10 @@ entry points at published full widths:
 * gemma2-2b's cache-free forward (``Model.forward``) over one sequence of
   8192 tokens, W4A4 ``pallas`` prepared, ``attn_impl="flash"`` — the
   ``flash_attention`` kernel (alternating 4096-window and global layers,
-  softcap 50, GQA 8/4, head dim 256) beside ``lut_dequant_gemm``, held
-  against ``attn_impl="xla"``; both kernels are also held against their
-  plain versions at this forward's own shapes;
+  softcap 50, GQA 8/4, head dim 256; bf16, so all 26 launches take its
+  tensor-core route, ``flash_attention_sm90.cu``) beside
+  ``lut_dequant_gemm``, held against ``attn_impl="xla"``; both kernels are
+  also held against their plain versions at this forward's own shapes;
 
 the serve paths with continuous batching; every kernel's launch count is
 set to 0 just before a path and read just after.  It checks the card
@@ -53,6 +54,12 @@ TOL_CPU_LUT = 2e-2            # the same for the int-LUT model: 3-bit activation
 TOL_FLASH_F32 = 2e-4          # flash kernel vs plain, f32: the reference's sweep tolerance,
                               # relative to max(1, max |out|); sums in another order
 TOL_FLASH_BF16 = 2.0**-7      # bf16: one rounding of the output, relative to max |out|
+TOL_FLASH_BF16_ROW = 2.0**-7  # bf16, each row (b, s, h) against the plain version in f32
+                              # on the same inputs, relative to the row's max |out|: the
+                              # output's rounding (at most 2^-8 of each element) and P's
+                              # rounding to bf16 before P @ V (the tensor-core route)
+FLASH_Q_SCALE = 16.0          # q scaled so that the scores reach the softcap (std 16 before
+                              # the cap of 30 or 50, where cap * tanh(s / cap) bends)
 TOL_FORWARD_F32 = 1e-3        # gemma2 flash vs xla forward in f32 activations, 26 layers:
                               # max abs difference of the final hidden states and of the
                               # last 512 positions' logits, relative to their max |value|
@@ -64,6 +71,10 @@ TOL_FORWARD_BF16 = 2.0        # in bf16: the two forwards' relative distance (Fr
                               # rounding itself does
 FLASH_SEQ = 8192              # gemma2-2b's published context: the forward's length
 KERNELS = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention")
+# One library per CUDA source: flash_attention has two routes, fixed by dtype
+# and head dim (kernels/flash_attention.py::route): bf16 hd 64/128/256 on the
+# tensor cores (flash_attention_sm90.cu), the rest on the CUDA cores.
+SOURCES = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention", "flash_attention_sm90")
 LUT_SPEC = dict(bw=1, ba=3, p=4)   # the paper's W1A3 (the reference's serve benchmark)
 
 
@@ -175,7 +186,7 @@ def reset_launches():
     from repro_torch.kernels import lut_dequant_gemm as dq
     from repro_torch.kernels import lut_stream_gemm as ss
 
-    dq.launches = ss.launches = fa.launches = 0
+    dq.launches = ss.launches = fa.launches = fa.launches_tc = 0
 
 
 def read_launches():
@@ -184,7 +195,7 @@ def read_launches():
     from repro_torch.kernels import lut_stream_gemm as ss
 
     return {"lut_dequant_gemm": dq.launches, "lut_stream_gemm": ss.launches,
-            "flash_attention": fa.launches}
+            "flash_attention": fa.launches, "flash_attention_tc": fa.launches_tc}
 
 
 def phase_kernel(torch, dev):
@@ -668,6 +679,7 @@ FLASH_CASES = [
     ("sweep", 1, 200, 200, 2, 2, 64, {}),
     ("sweep", 1, 256, 256, 4, 4, 64, dict(causal=False)),
     ("sweep", 1, 130, 130, 2, 2, 64, dict(window=32)),
+    ("sweep", 1, 96, 160, 4, 2, 64, dict(window=48, softcap=50.0)),   # T > S, ragged T
     ("gemma2-2b L", 1, FLASH_SEQ, FLASH_SEQ, 8, 4, 256, dict(window=4096, softcap=50.0)),
     ("gemma2-2b G", 1, FLASH_SEQ, FLASH_SEQ, 8, 4, 256, dict(softcap=50.0)),
     ("stablelm-12b", 1, 2048, 2048, 32, 8, 160, {}),
@@ -689,14 +701,19 @@ def flash_visible_pairs(s, t, causal, window):
     return total
 
 
+def flash_ops(b, s, t, h, hd, kw):
+    """2 x 2 x hd operations per visible (query, key) pair and head."""
+    kw = flash_kw(kw)
+    return 4.0 * hd * h * b * flash_visible_pairs(s, t, kw["causal"], kw["window"])
+
+
 def flash_bound_s(b, s, t, h, hkv, hd, kw, elem_bytes, card):
     """Least time of one flash_attention call: q, k, v read once and the
     output written once over the memory rate; or its 2 x 2 x hd operations
     per visible (query, key) pair and head (the two products) over the peak
     for the inputs' type (bf16: the tensor cores; f32: the CUDA cores).
     Returns (seconds, bound_by)."""
-    kw = flash_kw(kw)
-    ops = 4.0 * hd * h * b * flash_visible_pairs(s, t, kw["causal"], kw["window"])
+    ops = flash_ops(b, s, t, h, hd, kw)
     nbytes = elem_bytes * (2 * b * s * h * hd + 2 * b * t * hkv * hd)
     peak = card.peak_flops_bf16 if elem_bytes == 2 else card.peak_flops_f32
     t_bytes, t_ops = nbytes / card.hbm_bandwidth, ops / peak
@@ -715,32 +732,102 @@ def flash_err(torch, got, want):
     return (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
 
 
+def flash_row_err(got, want32):
+    """Worst over rows (b, s, h) of max |got - want32| / max |want32|, each
+    row against its own largest value."""
+    g, w = got.float(), want32.float()
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1)).max().item()
+
+
+def flash_planted_faults(kw, q_scale):
+    """Faults a kernel could make at a case's options, each as the options
+    it would in effect compute with: the softcap left out (only where q is
+    scaled: unscaled scores hardly reach the cap, so the two functions
+    hardly differ), or the window one key block (64) too wide or too
+    narrow."""
+    faults = []
+    if kw.get("softcap") is not None and q_scale > 1.0:
+        faults.append(("softcap left out", dict(kw, softcap=None)))
+    if kw.get("window") is not None:
+        faults += [("window one block wider", dict(kw, window=kw["window"] + 64)),
+                   ("window one block narrower", dict(kw, window=kw["window"] - 64))]
+    return faults
+
+
 def phase_flash_kernel(torch, dev):
     """flash_attention against its plain version on the card, f32 and bf16,
-    at the CPU tests' sweep and the full-width shapes."""
+    at the CPU tests' sweep and the full-width shapes, and again with q
+    scaled by FLASH_Q_SCALE at every softcapped case.  bf16 is held to two
+    checks: the whole output against the plain version's bf16 output
+    (TOL_FLASH_BF16 x max |out|), and each row against the plain version in
+    f32 (TOL_FLASH_BF16_ROW x the row's max |out|), which a dropped softcap
+    or a window off by one key block fails; at gemma2-2b's shapes both
+    faults are planted (the kernel called with those options, held against
+    the plain version with the right ones) and the row check must reject
+    them."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev).manual_seed(9)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for name, b, s, t, h, hkv, hd, kw in FLASH_CASES:
+    worst_row = 0.0
+    repeats, planted = [], []
+    cases = [(c, 1.0) for c in FLASH_CASES]
+    cases += [(c, FLASH_Q_SCALE) for c in FLASH_CASES if c[7].get("softcap") is not None]
+    for (name, b, s, t, h, hkv, hd, kw), q_scale in cases:
+        label = name if q_scale == 1.0 else f"{name} q x{q_scale:g}"
         for dtype, tol in ((torch.float32, TOL_FLASH_F32), (torch.bfloat16, TOL_FLASH_BF16)):
             q, k, v = flash_inputs(torch, dev, gen, b, s, t, h, hkv, hd, dtype)
+            q = q * q_scale
             got = fa.flash_attention(q, k, v, **flash_kw(kw))
-            want = ref.flash_attention_ref(q, k, v, **flash_kw(kw))
+            if name.startswith("gemma2-2b") and dtype == torch.bfloat16:
+                # Deterministic: one CTA per output tile, no atomics.
+                check(fa.route(dtype, hd) == "tc", f"flash {label} bf16 not on the tensor cores")
+                again = fa.flash_attention(q, k, v, **flash_kw(kw))
+                check(torch.equal(got, again), f"flash {label} bf16: a repeated launch on the "
+                                               f"same inputs gave other bits")
+                repeats.append(label)
+                del again
+            want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), **flash_kw(kw))
+            want = want32.to(dtype)       # the plain version on the dtype's inputs, exactly
             err, scale = flash_err(torch, got, want)
             bound = tol * (max(scale, 1.0) if dtype == torch.float32 else scale)
-            check(got.dtype == dtype and got.shape == q.shape, f"flash {name}: dtype/shape")
-            check(err <= bound, f"flash {name} {tuple(q.shape)} {kw} {dtype}: max err "
+            check(got.dtype == dtype and got.shape == q.shape, f"flash {label}: dtype/shape")
+            check(err <= bound, f"flash {label} {tuple(q.shape)} {kw} {dtype}: max err "
                                 f"{err:.3e} > {bound:.3e}")
             worst[dtype] = max(worst[dtype], err)
-            del q, k, v, got, want
+            if dtype == torch.bfloat16:
+                row = flash_row_err(got, want32)
+                check(row <= TOL_FLASH_BF16_ROW, f"flash {label} {tuple(q.shape)} {kw} bf16: "
+                      f"row error {row:.3e} x the row's max |out| > {TOL_FLASH_BF16_ROW}")
+                worst_row = max(worst_row, row)
+                if name.startswith("gemma2-2b"):
+                    for fault, bad_kw in flash_planted_faults(kw, q_scale):
+                        bad = fa.flash_attention(q, k, v, **flash_kw(bad_kw))
+                        bad_row = flash_row_err(bad, want32)
+                        bad_err = flash_err(torch, bad, want)[0]
+                        check(bad_row > TOL_FLASH_BF16_ROW,
+                              f"flash {label}: planted fault ({fault}) passed the row check: "
+                              f"{bad_row:.3e} x the row's max |out|")
+                        planted.append(f"{label}, {fault}: row err {bad_row:.3e} (rejected); "
+                                       f"max err {bad_err:.3e} against the whole-output "
+                                       f"tolerance {bound:.3e} ("
+                                       f"{'passes' if bad_err <= bound else 'rejected'})")
+                        del bad
+            del q, k, v, got, want, want32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"phase 9: flash_attention == plain version on {2 * len(FLASH_CASES)} cases (the CPU "
-        f"sweep, gemma2-2b L and G at S={FLASH_SEQ}, stablelm-12b at S=2048; f32 and bf16): "
-        f"worst abs err f32 {worst[torch.float32]:.3e} (tol {TOL_FLASH_F32} x max(1, max|out|)), "
-        f"bf16 {worst[torch.bfloat16]:.3e} (tol 2^-7 x max|out|)")
+    log(f"phase 9: flash_attention == plain version on {2 * len(cases)} cases (the CPU "
+        f"sweep, gemma2-2b L and G at S={FLASH_SEQ}, stablelm-12b at S=2048, and the softcapped "
+        f"ones again with q x{FLASH_Q_SCALE:g}; f32 and bf16): worst abs err f32 "
+        f"{worst[torch.float32]:.3e} (tol {TOL_FLASH_F32} x max(1, max|out|)), bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol 2^-7 x max|out|); worst bf16 row err against f32 "
+        f"{worst_row:.3e} x the row's max |out| (tol 2^-7); routes: bf16 hd 64/256 tensor "
+        f"cores, hd 32/160 and f32 CUDA cores; repeated bf16 launches bit-equal at "
+        f"{', '.join(repeats)}")
+    log("phase 9: planted faults, bf16 (the kernel called with the faulty options):")
+    for line in planted:
+        log(f"  {line}")
     return max(worst.values())
 
 
@@ -795,7 +882,12 @@ def phase_flash_times(torch, dev, card, smi):
         if name == "sweep":
             continue
         q, k, v = flash_inputs(torch, dev, gen, b, s, t, h, hkv, hd, torch.bfloat16)
+        route = fa.route(q.dtype, hd)
         kern = time_ms(torch, lambda i: fa.flash_attention(q, k, v, **flash_kw(kw)), 5)
+        # The CUDA-core kernel at the same bf16 inputs, which the
+        # tensor-core route now takes: the redesign's "before".
+        earlier = None if route != "tc" else time_ms(
+            torch, lambda i: fa.cuda_core_yardstick(q, k, v, **flash_kw(kw)), 2)
         plain = time_ms(torch, lambda i: ref.flash_attention_ref(q, k, v, **flash_kw(kw)), 2)
         lib_name, lib_fn = library_fn(torch, q, k, v, kw)
         want = ref.flash_attention_ref(q, k, v, **flash_kw(kw))
@@ -804,12 +896,17 @@ def phase_flash_times(torch, dev, card, smi):
         del want
         lib = time_ms(torch, lambda i: lib_fn(), 10)
         bnd, by = flash_bound_s(b, s, t, h, hkv, hd, kw, 2, card)
+        tflops = flash_ops(b, s, t, h, hd, kw) / (kern * 1e-3) / 1e12
         rows.append(dict(shape=name, B=b, S=s, T=t, H=h, Hkv=hkv, hd=hd, **flash_kw(kw),
-                         ms=kern, plain_ms=plain, bound_ms=bnd * 1e3, bound_by=by,
-                         library_ms=lib, library=lib_name, library_max_abs_err=err))
-        log(f"  {name:13s} B={b} S={s} H={h}/{hkv} hd={hd} {kw}: kernel {kern:.3f} ms, plain "
-            f"{plain:.3f} ms, {lib_name} {lib:.3f} ms (max err vs plain {err:.3e}), bound "
-            f"{bnd * 1e3:.3f} ms ({by}) [{smi}]")
+                         route=route, ms=kern, tflops=tflops, bound_fraction=bnd * 1e3 / kern,
+                         plain_ms=plain, bound_ms=bnd * 1e3, bound_by=by,
+                         library_ms=lib, library=lib_name, library_max_abs_err=err,
+                         cuda_core_ms=earlier))
+        log(f"  {name:13s} B={b} S={s} H={h}/{hkv} hd={hd} {kw}: kernel ({route}) {kern:.3f} ms "
+            f"= {tflops:.1f} TFLOP/s, {bnd * 1e3 / kern:.3f} of its bound {bnd * 1e3:.3f} ms "
+            f"({by}); plain {plain:.3f} ms, {lib_name} {lib:.3f} ms (max err vs plain "
+            f"{err:.3e})" + ("" if earlier is None else
+                             f", the CUDA-core kernel {earlier:.3f} ms") + f" [{smi}]")
         del q, k, v, lib_fn
         torch.cuda.empty_cache()
     log("phase 10: flash_attention times at the full-width shapes (bf16)")
@@ -824,6 +921,7 @@ def flash_forward_times(rows, cfg_layers, fwd):
     inside phase 11's forward (torch.profiler)."""
     units = cfg_layers.n_layers // len(cfg_layers.layer_pattern)
     picked = [r for r in rows if r["shape"] in ("gemma2-2b L", "gemma2-2b G")]
+    check(all(r["route"] == "tc" for r in picked), "gemma2-2b shapes not on the tensor cores")
     return {"at": f"one gemma2-2b forward, B=1 x S={FLASH_SEQ}, bf16: {units} local "
                   f"(window {cfg_layers.window}) + {units} global layers, softcap "
                   f"{cfg_layers.attn_logit_softcap:g}",
@@ -834,7 +932,13 @@ def flash_forward_times(rows, cfg_layers, fwd):
             "library": picked[0]["library"],
             "derived": f"ms, plain_ms, library_ms, bound_ms: {units} x (L + G) of the "
                        f"standalone times (phase 10)",
-            "ms_in_forward": fwd["flash_attention_profiled_ms"]}
+            "ms_in_forward": fwd["flash_attention_profiled_ms"],
+            "routes": {r["shape"]: r["route"] for r in rows},
+            "earlier": {"route": "cuda_core",
+                        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "at": "the same bf16 inputs as phase 10, this run",
+                        "ms": units * sum(r["cuda_core_ms"] for r in picked),
+                        **{r["shape"]: r["cuda_core_ms"] for r in picked}}}
 
 
 def phase_gemma2_forward(torch, dev, smi):
@@ -874,6 +978,9 @@ def phase_gemma2_forward(torch, dev, smi):
     check(caches is None, "the cache-free forward returned caches")
     check(counts["flash_attention"] == cfg.n_layers,
           f"flash_attention launches {counts['flash_attention']} != {cfg.n_layers} layers")
+    check(counts["flash_attention_tc"] == cfg.n_layers,
+          f"flash_attention launches on the tensor cores {counts['flash_attention_tc']} != "
+          f"{cfg.n_layers} layers (bf16, hd {cfg.hd})")
     check(counts["lut_dequant_gemm"] == 7 * cfg.n_layers,
           f"lut_dequant_gemm launches {counts['lut_dequant_gemm']} != 7 x {cfg.n_layers}")
     check(counts["lut_stream_gemm"] == 0, f"the pallas forward launched lut_stream_gemm: {counts}")
@@ -948,7 +1055,8 @@ def phase_gemma2_forward(torch, dev, smi):
         fwd_xla, kernel="lut_dequant_gemm", card=smi)
     del params, h_flash, h_xla, lg_flash, lg_xla
     torch.cuda.empty_cache()
-    return dict(launches=counts["flash_attention"], wall_flash_s=wall_flash,
+    return dict(launches=counts["flash_attention"],
+                launches_tc=counts["flash_attention_tc"], wall_flash_s=wall_flash,
                 wall_xla_s=wall_xla, forward_flash_ms=fwd_flash, forward_xla_ms=fwd_xla,
                 flash_vs_xla_bf16=bf16, flash_vs_xla_f32=f32, bf16_vs_f32=floor,
                 argmax_agreement=agree, peak_gb=peak / 1e9,
@@ -995,10 +1103,10 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         # One nvcc per source, all started together.
-        with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-            for lib in pool.map(build.load, KERNELS):
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+            for lib in pool.map(build.load, SOURCES):
                 check(lib is not None, "kernel library did not load")
-        for name in KERNELS:
+        for name in SOURCES:
             info = build.build_info[name]
             regs = sorted({ln.split("info    : ")[-1] for ln in info["log"].splitlines()
                            if "registers" in ln})
@@ -1077,7 +1185,8 @@ def main() -> int:
     }, {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "cuda_core_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:109",
         "tpu": "src/repro/kernels/flash_attention.py::flash_attention",
         "launches": fwd["launches"],

@@ -7,8 +7,10 @@
   GEMM, int32 (CUDA C++, ``csrc/lut_stream_gemm.cu``); replaces the TPU
   kernel of the same name.
 * :mod:`repro_torch.kernels.flash_attention` — online-softmax attention
-  with GQA, causal / sliding-window masks and a logit softcap (CUDA C++,
-  ``csrc/flash_attention.cu``); replaces the TPU kernel of the same name.
+  with GQA, causal / sliding-window masks and a logit softcap (CUDA C++:
+  ``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at head dims
+  64/128/256, ``csrc/flash_attention.cu`` on the CUDA cores otherwise);
+  replaces the TPU kernel of the same name.
 * :mod:`repro_torch.kernels.build` — ``nvcc`` build at first use + ``ctypes``.
 * :mod:`repro_torch.kernels.ops` — entry points: kernel on a CUDA tensor,
   plain version on a CPU tensor.

@@ -4,9 +4,10 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC``, a plain C interface, loaded with :mod:`ctypes` (seconds
 to build; PyTorch's own extension builder takes minutes for a file that
 includes its headers).  The library lands in ``build/repro_torch/`` at the
-repository root (git-ignored), named by the source's hash, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing here runs
-at import time.
+repository root (git-ignored), named by a hash of the source, of every
+``csrc`` header it includes (transitively, ``#include "..."``) and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when the cached library was reused),
@@ -47,13 +51,37 @@ def nvcc_path() -> str:
     return found
 
 
+def local_headers(src: pathlib.Path) -> list[pathlib.Path]:
+    """The ``csrc`` headers ``src`` includes with quotes, transitively, in the
+    order first met."""
+    seen: list[pathlib.Path] = []
+    todo = [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC / inc
+            if path.is_file() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
+def digest(name: str) -> str:
+    """Build key of ``csrc/<name>.cu``: its bytes, its ``csrc`` headers' names
+    and bytes, and the nvcc flags."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in local_headers(src):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    lib_path = BUILD_DIR / f"lib{name}_{digest(name)[:16]}.so"
     seconds, log = 0.0, ""
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -278,3 +278,29 @@ def test_port_imports_no_jax_and_no_reference():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def _csrc_copy(tmp_path, monkeypatch):
+    """A copy of the kernels' csrc directory that build.py reads instead."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    return build, csrc
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    build, csrc = _csrc_copy(tmp_path, monkeypatch)
+    name = "flash_attention_sm90"
+    assert [h.name for h in build.local_headers(csrc / f"{name}.cu")] == ["hopper.cuh"]
+    before = build.digest(name)
+    assert build.digest(name) == before                      # a pure function of the files
+    other = build.digest("flash_attention")                  # includes no csrc header
+    hdr = csrc / "hopper.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert build.digest(name) != before                      # an edited header rebuilds
+    assert build.digest("flash_attention") == other          # and only what includes it
+
