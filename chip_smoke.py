@@ -11,7 +11,8 @@ PyTorch version on the card, and drives three paths through the port's own
 entry points at published full widths:
 
 * stablelm-12b served in W4A4, ``mode="pallas"``, prepared — the
-  ``lut_dequant_gemm`` kernel;
+  ``lut_dequant_gemm`` kernel (bf16 activations on an int grid, so every
+  launch takes its tensor-core route, ``lut_dequant_gemm_sm90.cu``);
 * stablelm-12b served in W1A3 p=4, ``mode="lut"``, calibrated and prepared —
   the paper's int-LUT mode, whose int32 sums come from the
   ``lut_stream_gemm`` kernel;
@@ -38,6 +39,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -71,10 +73,16 @@ TOL_FORWARD_BF16 = 2.0        # in bf16: the two forwards' relative distance (Fr
                               # rounding itself does
 FLASH_SEQ = 8192              # gemma2-2b's published context: the forward's length
 KERNELS = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention")
-# One library per CUDA source: flash_attention has two routes, fixed by dtype
-# and head dim (kernels/flash_attention.py::route): bf16 hd 64/128/256 on the
-# tensor cores (flash_attention_sm90.cu), the rest on the CUDA cores.
-SOURCES = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention", "flash_attention_sm90")
+# One library per CUDA source.  Two kernels have two routes each, fixed by what
+# the inputs are and never by the batch: flash_attention by dtype and head dim
+# (kernels/flash_attention.py::route: bf16 hd 64/128/256 on the tensor cores,
+# flash_attention_sm90.cu), lut_dequant_gemm by dtype, grid and K
+# (kernels/lut_dequant_gemm.py::route: bf16 x on a grid exact in bf16 with
+# TMA-addressable rows on the tensor cores, lut_dequant_gemm_sm90.cu); the rest
+# on the CUDA cores.
+SOURCES = ("lut_dequant_gemm", "lut_dequant_gemm_sm90", "lut_stream_gemm", "flash_attention",
+           "flash_attention_sm90")
+SLEEP_CYCLES = int(5e7)       # the card sleeps (~30 ms) while the host enqueues the timed calls
 LUT_SPEC = dict(bw=1, ba=3, p=4)   # the paper's W1A3 (the reference's serve benchmark)
 
 
@@ -131,6 +139,38 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters):
+    """Mean device time per call: CUDA events around ``iters`` calls that the
+    host enqueues while the card sleeps (``torch.cuda._sleep``), so the calls
+    run back to back and the time is the card's alone, even where the host
+    takes longer to launch a call than the card to run it (:func:`host_us`).
+    ``fn(i)`` takes the iteration index."""
+    fn(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters=200):
+    """The host's time per call to enqueue ``fn(i)`` (perf_counter, while the
+    card sleeps so that no queue fills), microseconds."""
+    fn(0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def device_time_by_kernel(torch, fn, iters):
     """Device time and launches per call of ``fn``, by kernel name, from
     ``torch.profiler`` over ``iters`` calls after a warmup call:
@@ -174,10 +214,36 @@ def log_breakdown(what, by_name, wall_ms, *, kernel, card):
         f"launches; {kernel} {ours_ms:.2f} ms in {ours_n:.0f} launches "
         f"({ours_ms / busy:.3f} of busy); other kernels {busy - ours_ms:.2f} ms in "
         f"{launches - ours_n:.0f} launches, largest:")
+    for ms, n, name in sorted(((ms, n, name) for name, (ms, n) in by_name.items()
+                               if kernel in name), reverse=True):
+        log(f"    {kernel}: {ms:8.3f} ms {n:5.0f} x  {name[:110]}")
     others = sorted(((ms, n, name) for name, (ms, n) in by_name.items()
                      if kernel not in name), reverse=True)
     for ms, n, name in others[:6]:
         log(f"    {ms:8.3f} ms {n:5.0f} x  {name[:90]}")
+
+
+def wgmma_waits(lib_path):
+    """HGMMA and WARPGROUP.DEPBAR counts of each kernel in a built library
+    (``cuobjdump -sass``): a pipelined kernel has a few waits, not one after
+    each HGMMA."""
+    cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    try:
+        sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True,
+                              text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"SASS not read ({e.__class__.__name__})"
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :")[-1].strip()
+            counts[cur] = [0, 0]
+        elif cur is not None:
+            counts[cur][0] += "HGMMA" in ln
+            counts[cur][1] += "WARPGROUP.DEPBAR" in ln
+    pairs = sorted({tuple(v) for v in counts.values()})
+    return (f"{len(counts)} kernels, (HGMMA, WARPGROUP.DEPBAR) per kernel: "
+            f"{', '.join(f'({h}, {d})' for h, d in pairs)}")
 
 
 def reset_launches():
@@ -186,7 +252,7 @@ def reset_launches():
     from repro_torch.kernels import lut_dequant_gemm as dq
     from repro_torch.kernels import lut_stream_gemm as ss
 
-    dq.launches = ss.launches = fa.launches = fa.launches_tc = 0
+    dq.launches = dq.launches_tc = ss.launches = fa.launches = fa.launches_tc = 0
 
 
 def read_launches():
@@ -194,23 +260,29 @@ def read_launches():
     from repro_torch.kernels import lut_dequant_gemm as dq
     from repro_torch.kernels import lut_stream_gemm as ss
 
-    return {"lut_dequant_gemm": dq.launches, "lut_stream_gemm": ss.launches,
+    return {"lut_dequant_gemm": dq.launches, "lut_dequant_gemm_tc": dq.launches_tc,
+            "lut_stream_gemm": ss.launches,
             "flash_attention": fa.launches, "flash_attention_tc": fa.launches_tc}
 
 
 def phase_kernel(torch, dev):
+    """The sweep through both routes: f32 x and the fp grid on the CUDA cores,
+    bf16 x on the int and uint grids (K permitting) on the tensor cores;
+    every call's route counter checked, kernel vs plain at TOL_REL, and at
+    B = 37 each row alone equal to the same row in the batch."""
     from repro_torch.core.api import LutLinearSpec, quantize_linear
     from repro_torch.kernels import lut_dequant_gemm as dq
     from repro_torch.kernels import ref
     from repro_torch.core.quantize import QuantSpec
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    grids = [(1, "int"), (2, "int"), (4, "int"), (8, "int"), (2, "fp"), (4, "fp"), (8, "fp")]
+    grids = [(1, "int"), (2, "int"), (4, "int"), (8, "int"), (4, "uint"), (2, "fp"), (4, "fp"),
+             (8, "fp")]
     shapes = [(32, 16), (64, 48), (129, 200), (256, 96),                    # unit-test shapes
               (5120, 5120), (5120, 1280), (5120, 13824), (13824, 5120),     # full width
-              (1001, 300)]                                                  # ragged K
+              (1001, 300), (1056, 300), (1056, 301)]                        # ragged K, F
     worst_rel = worst_abs = 0.0
-    n_cases = 0
+    n_cases = {"tc": 0, "cuda_core": 0}
     for bw, kind in grids:
         for k, f in shapes:
             w = torch.randn((k, f), generator=gen, device=dev)
@@ -220,24 +292,79 @@ def phase_kernel(torch, dev):
             for b in (1, 4, 37, 256):
                 x32 = torch.randn((b, k), generator=gen, device=dev)
                 for x in (x32, x32.to(torch.bfloat16)):
+                    which = dq.route(x.dtype, bw, g, k)
+                    before = (dq.launches, dq.launches_tc)
                     y = dq.lut_dequant_gemm(x, q.codes, q.scale, bw=bw, k=k, grid_values=g)
+                    check((dq.launches, dq.launches_tc) == (before[0] + 1,
+                                                            before[1] + (which == "tc")),
+                          f"route counters: bw={bw} {kind} K={k} {x.dtype} went "
+                          f"{dq.launches_tc - before[1]} times to the tensor cores, want "
+                          f"{int(which == 'tc')} ({which})")
                     y_plain = ref.lut_dequant_gemm_ref(x, q.codes, q.scale, bw=bw, k=k, grid=g)
                     diff = (y - y_plain).abs().max().item()
                     rel = diff / max(y_plain.abs().max().item(), 1e-30)
-                    check(rel <= TOL_REL, f"kernel vs plain: bw={bw} {kind} B={b} K={k} "
-                                          f"F={f} {x.dtype}: rel err {rel:.3e} > {TOL_REL}")
+                    check(rel <= TOL_REL, f"kernel vs plain ({which}): bw={bw} {kind} B={b} "
+                                          f"K={k} F={f} {x.dtype}: rel err {rel:.3e} > {TOL_REL}")
                     worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff)
-                    n_cases += 1
+                    n_cases[which] += 1
                     if b == 37:
                         alone = torch.cat([
                             dq.lut_dequant_gemm(x[i : i + 1], q.codes, q.scale, bw=bw, k=k,
                                                 grid_values=g) for i in range(b)])
                         check(torch.equal(alone, y),
-                              f"row alone != row in a batch of 37: bw={bw} {kind} K={k} F={f}")
+                              f"row alone != row in a batch of 37 ({which}): bw={bw} {kind} "
+                              f"K={k} F={f} {x.dtype}")
     torch.cuda.synchronize()
-    log(f"phase 2: {n_cases} kernel-vs-plain cases + per-row invariance at B=37 passed; "
-        f"worst rel err {worst_rel:.3e}, worst abs err {worst_abs:.3e} (tol {TOL_REL})")
+    log(f"phase 2: {sum(n_cases.values())} kernel-vs-plain cases ({n_cases['tc']} on the "
+        f"tensor cores, {n_cases['cuda_core']} on the CUDA cores, each call's route counter "
+        f"checked) + per-row invariance at B=37 passed; worst rel err {worst_rel:.3e}, worst "
+        f"abs err {worst_abs:.3e} (tol {TOL_REL})")
     return worst_rel, worst_abs
+
+
+# Full-width shapes of the bf16 main paths for the across-B check: (what, K, F).
+ROW_SHAPES = [("stablelm-12b wq (S=3)", 5120, 5120), ("stablelm-12b wk (S=4)", 5120, 1280),
+              ("stablelm-12b w_down (S=3)", 13824, 5120), ("gemma2-2b wq (S=4)", 2304, 2048),
+              ("gemma2-2b w_up (S=1)", 2304, 9216)]
+
+
+def phase_row_invariance(torch, dev):
+    """Per-row invariance across B on the tensor-core route at full width: 4
+    fixed rows computed alone (B = 4) and at the end of batches of B = 37,
+    512, 2048 and 8192 (the first alone at B = 1) are bit-equal, on split and
+    unsplit layers (the split's CTAs per tile and the x rows per CTA change
+    with B; its slices and their order do not)."""
+    from repro_torch.core.api import LutLinearSpec, quantize_linear
+    from repro_torch.kernels import lut_dequant_gemm as dq
+    from repro_torch.core.quantize import QuantSpec
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = QuantSpec(4, "int").grid()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for what, k, f in ROW_SHAPES:
+        w = torch.randn((k, f), generator=gen, device=dev)
+        q = quantize_linear(w, LutLinearSpec(bw=4))
+        del w
+        x_all = torch.randn((8192, k), generator=gen, device=dev).to(torch.bfloat16)
+        fixed = x_all[-4:]
+        before = dq.launches_tc
+        want = dq.lut_dequant_gemm(fixed, q.codes, q.scale, bw=4, k=k, grid_values=g)
+        y1 = dq.lut_dequant_gemm(fixed[:1], q.codes, q.scale, bw=4, k=k, grid_values=g)
+        check(torch.equal(y1, want[:1]), f"{what}: row alone at B=1 != the same row at B=4")
+        plans = {}
+        for b in (37, 512, 2048, 8192):
+            y = dq.lut_dequant_gemm(x_all[-b:], q.codes, q.scale, bw=4, k=k, grid_values=g)
+            check(torch.equal(y[-4:], want),
+                  f"{what}: rows at the end of a batch of {b} != the same rows at B=4")
+            plans[b] = dq.tile_plan(b, f, k, 4, n_sm)
+        check(dq.launches_tc == before + 6, f"{what}: not every launch took the tensor cores")
+        plans[4] = dq.tile_plan(4, f, k, 4, n_sm)
+        log(f"  {what}: rows bit-equal at B=1/4/37/512/2048/8192 (plans (N, S, CTAs per "
+            f"tile): {', '.join(f'B={b} {plans[b]}' for b in sorted(plans))})")
+        del x_all, q
+    torch.cuda.empty_cache()
+    log("phase 2: per-row invariance across B on the tensor-core route passed at "
+        f"{len(ROW_SHAPES)} full-width shapes")
 
 
 def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 5),
@@ -245,9 +372,15 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
     """Kernel, plain-version and library times at one layer's 7 projection
     shapes of ``cfg`` for each row count in ``bs`` (the serve path's decode
     B = 4 and largest prefill B = 4 x 128; gemma2-2b's forward, B = 8192),
-    W4, bf16 x, with ``iters`` timed calls of the kernel, the plain version
-    and the library call; the kernel is held against its plain version at
-    each of them too."""
+    W4, bf16 x (the tensor-core route), with ``iters`` timed calls of the
+    kernel, the plain version and each yardstick, device time (:func:`device_ms`);
+    the kernel is held against its plain version at each of them too.  Two
+    yardsticks: ``torch.matmul`` of f32 x and the pre-decoded f32 weight (the
+    same function), and bf16 ``torch.matmul`` of x and the pre-decoded bf16
+    grid values times the scale (its output rounded to bf16 before the
+    scale: nearly the same function).  At B = 4 also the host's time to
+    launch one kernel call and one f32 ``torch.matmul``."""
+    from repro_torch.core import packing
     from repro_torch.core.api import LutLinearSpec, dequantize_weights, quantize_linear
     from repro_torch.kernels import lut_dequant_gemm as dq
     from repro_torch.kernels import ref
@@ -255,12 +388,15 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
 
     gen = torch.Generator(device=dev).manual_seed(2)
     g = QuantSpec(4, "int").grid()
+    g_bf16 = torch.tensor(g, dtype=torch.float32, device=dev).to(torch.bfloat16)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     worst_rel = worst_abs = 0.0
     for name, (k, f) in layer_shapes(cfg).items():
         w = torch.randn((k, f), generator=gen, device=dev)
         q = quantize_linear(w, LutLinearSpec(bw=4))
         w_t = dequantize_weights(q).T.contiguous()          # [F, K] f32, pre-decoded
+        w_g = g_bf16[packing.unpack_bits(q.codes, 4)[:, :k].long()]   # [F, K] bf16 grid values
         del w
         # Rotate over enough copies of the codes that they overflow the 50 MB
         # L2: the serve path reads each layer's codes cold.
@@ -269,26 +405,53 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
         for b in bs:
             x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
             x32 = x.float()
+            before = dq.launches_tc
             y = dq.lut_dequant_gemm(x, q.codes, q.scale, bw=4, k=k, grid_values=g)
+            check(dq.launches_tc == before + 1, f"{name} B={b} did not take the tensor cores")
             y_plain = ref.lut_dequant_gemm_ref(x, q.codes, q.scale, bw=4, k=k, grid=g)
             diff = (y - y_plain).abs().max().item()
             rel = diff / max(y_plain.abs().max().item(), 1e-30)
             check(rel <= TOL_REL, f"kernel vs plain at {name} B={b}: rel err {rel:.3e}")
             worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff)
-            kern = time_ms(torch, lambda i: dq.lut_dequant_gemm(
-                x, codes[i % n_copies], q.scale, bw=4, k=k, grid_values=g), iters[0])
-            plain = time_ms(torch, lambda i: ref.lut_dequant_gemm_ref(
+
+            def kern(i):
+                dq.lut_dequant_gemm(x, codes[i % n_copies], q.scale, bw=4, k=k, grid_values=g)
+
+            ms = device_ms(torch, kern, iters[0])
+            plain = device_ms(torch, lambda i: ref.lut_dequant_gemm_ref(
                 x, codes[i % n_copies], q.scale, bw=4, k=k, grid=g), iters[1])
-            lib = time_ms(torch, lambda i: torch.matmul(x32, w_t.T), iters[2])
+            lib = device_ms(torch, lambda i: torch.matmul(x32, w_t.T), iters[2])
+            lib16 = device_ms(torch, lambda i: torch.matmul(x, w_g.T).float() * q.scale, iters[2])
             bnd, by = bound_s(b, k, f, 4, 2, card)
-            rows.append(dict(proj=name, B=b, K=k, F=f, ms=kern, plain_ms=plain,
-                             library_ms=lib, bound_ms=bnd * 1e3, bound_by=by))
-            log(f"  {name:6s} B={b:4d} K={k:5d} F={f:5d}: kernel {kern:.4f} ms, plain "
-                f"{plain:.4f} ms, torch.matmul(f32 decoded) {lib:.4f} ms, bound "
-                f"{bnd*1e3:.4f} ms ({by})")
+            nbytes = b * k * 2 + f * (-(-k // 2)) + 4 * f + 4 * b * f
+            rate = (f"{2 * b * f * k / ms / 1e9:.1f} TFLOP/s" if by == "operations"
+                    else f"{nbytes / ms / 1e6:.1f} GB/s")
+            row = dict(proj=name, B=b, K=k, F=f, ms=ms, plain_ms=plain, library_ms=lib,
+                       library_bf16_ms=lib16, bound_ms=bnd * 1e3, bound_by=by,
+                       frac_bound=bnd * 1e3 / ms, plan=dq.tile_plan(b, f, k, 4, n_sm))
+            line = (f"  {name:6s} B={b:4d} K={k:5d} F={f:5d} (N, S, CTAs/tile) {row['plan']}: "
+                    f"kernel {ms:.4f} ms ({rate}, {row['frac_bound']:.3f} of the bound "
+                    f"{bnd*1e3:.4f} ms, {by}), plain {plain:.4f} ms, torch.matmul(f32 x, f32 "
+                    f"decoded) {lib:.4f} ms, torch.matmul(bf16 x, bf16 grid) x scale {lib16:.4f} "
+                    f"ms (bf16 output: nearly the same function)")
+            if b <= 8:
+                row["host_us"] = host_us(torch, kern)
+                row["library_host_us"] = host_us(torch, lambda i: torch.matmul(x32, w_t.T))
+                line += (f"; host per launch {row['host_us']:.1f} us (torch.matmul "
+                         f"{row['library_host_us']:.1f} us)")
+            rows.append(row)
+            log(line)
             del x, x32, y, y_plain
-        del codes, w_t, q
+        del codes, w_t, w_g, q
     torch.cuda.empty_cache()
+    for b in bs:
+        picked = [r for r in rows if r["B"] == b]
+        t = {key: sum(r[key] for r in picked)
+             for key in ("ms", "plain_ms", "library_ms", "library_bf16_ms", "bound_ms")}
+        log(f"{label}: {cfg.name} layer (7 projections) at B={b}: kernel "
+            f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of the bound {t['bound_ms']:.4f} "
+            f"ms), plain {t['plain_ms']:.4f} ms, torch.matmul f32 {t['library_ms']:.4f} ms "
+            f"({t['library_ms'] / t['ms']:.2f}x the kernel), bf16 {t['library_bf16_ms']:.4f} ms")
     log(f"{label}: {cfg.name}'s projection shapes at B={'/'.join(map(str, bs))} agree with the "
         f"plain version (tol {TOL_REL}); worst rel err {worst_rel:.3e}, worst abs err "
         f"{worst_abs:.3e}")
@@ -545,8 +708,12 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
     want = 7 * cfg.n_layers * (prefills + steps)
     check(launches == want, f"{kernel} launches {launches} != 7 x {cfg.n_layers} x "
                             f"({prefills} prefills + {steps} decode steps) = {want}")
-    check(all(n == 0 for name, n in counts.items() if name != kernel),
+    check(all(n == 0 for name, n in counts.items() if not name.startswith(kernel)),
           f"the {spec.mode} path launched another kernel: {counts}")
+    if kernel == "lut_dequant_gemm":
+        check(counts["lut_dequant_gemm_tc"] == launches,
+              f"lut_dequant_gemm launches on the tensor cores {counts['lut_dequant_gemm_tc']} "
+              f"!= {launches}: the bf16 serve path must take the tensor-core route")
     check(len(sync_warnings) == eng.host_syncs,
           f"{len(sync_warnings)} synchronizing calls in the serve loop, expected only the "
           f"{eng.host_syncs} token fetches: {sorted(set(sync_warnings))[:3]}")
@@ -581,7 +748,8 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
         step_ms, kernel=kernel, card=smi)
     del eng, params, caches
     torch.cuda.empty_cache()
-    return dict(launches=launches, wall_s=wall, tokens=n_tok, prefill_ms=prefill_ms,
+    return dict(launches=launches, launches_tc=counts.get(f"{kernel}_tc"), wall_s=wall,
+                tokens=n_tok, prefill_ms=prefill_ms,
                 step_ms=step_ms, peak_gb=peak / 1e9, waves=len(records))
 
 
@@ -983,6 +1151,9 @@ def phase_gemma2_forward(torch, dev, smi):
           f"{cfg.n_layers} layers (bf16, hd {cfg.hd})")
     check(counts["lut_dequant_gemm"] == 7 * cfg.n_layers,
           f"lut_dequant_gemm launches {counts['lut_dequant_gemm']} != 7 x {cfg.n_layers}")
+    check(counts["lut_dequant_gemm_tc"] == 7 * cfg.n_layers,
+          f"lut_dequant_gemm launches on the tensor cores {counts['lut_dequant_gemm_tc']} != "
+          f"7 x {cfg.n_layers} (bf16 x, int grid)")
     check(counts["lut_stream_gemm"] == 0, f"the pallas forward launched lut_stream_gemm: {counts}")
 
     reset_launches()
@@ -1050,6 +1221,13 @@ def phase_gemma2_forward(torch, dev, smi):
     def profiled(kernel):
         return None if prof is None else sum(ms for name, (ms, _n) in prof.items()
                                              if kernel in name)
+    if prof is not None:
+        busy = sum(ms for ms, _n in prof.values())
+        log(f"  flash forward: lut_dequant_gemm {profiled('lut_dequant_gemm'):.2f} ms of "
+            f"{busy:.2f} ms busy ({profiled('lut_dequant_gemm') / busy:.3f}), by kernel name:")
+        for name, (ms, n) in sorted(prof.items(), key=lambda kv: -kv[1][0]):
+            if "lut_dequant_gemm" in name:
+                log(f"    {ms:8.3f} ms {n:5.0f} x  {name[:110]}")
     log_breakdown("xla forward", device_time_by_kernel(
         torch, lambda: xla.forward(params, toks, return_hidden=True), 1),
         fwd_xla, kernel="lut_dequant_gemm", card=smi)
@@ -1062,13 +1240,13 @@ def phase_gemma2_forward(torch, dev, smi):
                 argmax_agreement=agree, peak_gb=peak / 1e9,
                 flash_attention_profiled_ms=profiled("flash_attention"),
                 lut_dequant_gemm_profiled_ms=profiled("lut_dequant_gemm"),
-                lut_dequant_gemm_launches=counts["lut_dequant_gemm"])
+                lut_dequant_gemm_launches=counts["lut_dequant_gemm"],
+                lut_dequant_gemm_launches_tc=counts["lut_dequant_gemm_tc"])
 
 
 def main() -> int:
     # torch.compile (the flex_attention yardstick of phase 10) caches what it
     # builds; keep that inside the checkout's git-ignored build directory.
-    import os
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
     try:
@@ -1112,6 +1290,10 @@ def main() -> int:
                            if "registers" in ln})
             log(f"phase 1: built {name}.cu in {info['seconds']:.1f} s "
                 f"(nvcc, sm_90a): {'; '.join(regs)}")
+            if name.endswith("_sm90"):
+                log(f"phase 1: {name}: ptxas warning C7518 (wgmma serialized) "
+                    f"{'PRESENT' if 'C7518' in info['log'] else 'absent'}; "
+                    f"{wgmma_waits(info['path'])}")
         cfg = get_config("stablelm-12b")
         flash_abs = phase_flash_kernel(torch, dev)
         frows = phase_flash_times(torch, dev, hw.H100_SXM, smi)
@@ -1127,6 +1309,7 @@ def main() -> int:
                              kernel="lut_stream_gemm", max_prompt=64, max_new=16,
                              calibrate=True, iters=(2, 5))
         worst_rel, worst_abs = phase_kernel(torch, dev)
+        phase_row_invariance(torch, dev)
         rows, rel2, abs2 = phase_kernel_times(torch, dev, cfg, hw.H100_SXM)
         worst_rel, worst_abs = max(worst_rel, rel2, g_rel), max(worst_abs, abs2, g_abs)
         serve = phase_serve(torch, dev, cfg, smi, phase=3,
@@ -1146,26 +1329,33 @@ def main() -> int:
             "operations" if all(r["bound_by"] == "operations" for r in rs if r["B"] == b) else "mixed"
 
     def times(rs, b, at):
-        return {"at": at, "ms": layer_sum(rs, b, "ms"), "plain_ms": layer_sum(rs, b, "plain_ms"),
-                "bound_ms": layer_sum(rs, b, "bound_ms"), "bound_by": bound_by(rs, b),
-                "library_ms": layer_sum(rs, b, "library_ms")}
+        out = {"at": at, "ms": layer_sum(rs, b, "ms"), "plain_ms": layer_sum(rs, b, "plain_ms"),
+               "bound_ms": layer_sum(rs, b, "bound_ms"), "bound_by": bound_by(rs, b),
+               "library_ms": layer_sum(rs, b, "library_ms")}
+        if all("library_bf16_ms" in r for r in rs):
+            out["library_bf16_ms"] = layer_sum(rs, b, "library_bf16_ms")
+        return out
 
     kernels = {"kernels": [{
         "name": "lut_dequant_gemm",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lut_dequant_gemm.cu",
+        "source": "src/repro_torch/kernels/csrc/lut_dequant_gemm_sm90.cu",
+        "cuda_core_source": "src/repro_torch/kernels/csrc/lut_dequant_gemm.cu",
         "replaces": "src/repro/kernels/lut_dequant_gemm.py:79",
         "tpu": "src/repro/kernels/lut_dequant_gemm.py::lut_dequant_gemm",
         "launches": serve["launches"],
+        "launches_tc": serve["launches_tc"],
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         **times(rows, 4, "one decode step of one stablelm-12b layer: its 7 projections at "
-                         "B=4, W4, bf16 x"),
+                         "B=4, W4, bf16 x (device time; library_bf16_ms: bf16 torch.matmul "
+                         "on the bf16 grid values x scale, bf16 output)"),
         "prefill": times(rows, 512, "one layer's 7 projections at B=4x128, W4, bf16 x"),
         "gemma2_forward": {
             **times(grows, FLASH_SEQ, f"one gemma2-2b layer's 7 projections at B=1x{FLASH_SEQ}, "
                                       f"W4, bf16 x"),
             "launches": fwd["lut_dequant_gemm_launches"],
+            "launches_tc": fwd["lut_dequant_gemm_launches_tc"],
             "ms_in_forward": fwd["lut_dequant_gemm_profiled_ms"]},
         "card_vs_cpu_rel_err": cpu_rel,
         "ok": True,

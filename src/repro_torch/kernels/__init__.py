@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels for LoCaLUT's compute hot-spots.
 
 * :mod:`repro_torch.kernels.lut_dequant_gemm` — packed-code GEMM with
-  in-kernel value-LUT decode (CUDA C++, ``csrc/lut_dequant_gemm.cu``);
-  replaces the TPU kernel of the same name.
+  in-kernel value-LUT decode (CUDA C++: ``csrc/lut_dequant_gemm_sm90.cu`` on
+  the tensor cores for bf16 x on a grid exact in bf16,
+  ``csrc/lut_dequant_gemm.cu`` on the CUDA cores otherwise); replaces the
+  TPU kernel of the same name.
 * :mod:`repro_torch.kernels.lut_stream_gemm` — canonical-LUT slice-streaming
   GEMM, int32 (CUDA C++, ``csrc/lut_stream_gemm.cu``); replaces the TPU
   kernel of the same name.

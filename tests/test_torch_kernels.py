@@ -96,6 +96,65 @@ def test_cpu_tensor_takes_plain_version_only():
                             grid_values=qt.spec.wspec().grid())
 
 
+MAIN_PATH_K = (2048, 2304, 5120, 9216, 13824)   # every projection's K on both bf16 paths
+
+
+def test_lut_dequant_gemm_route_table():
+    """The route is fixed by x's dtype, the code width, the grid and K, and
+    never by B: bf16 x on a grid exact in bf16 (int, uint) with TMA-addressable
+    rows takes the tensor cores; f32 x, the fp grid and other K the CUDA
+    cores."""
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.kernels import lut_dequant_gemm as dq
+
+    for bw in (1, 2, 4, 8):
+        for kind in ("int", "uint"):
+            g = QuantSpec(bw, kind).grid()
+            assert dq.bf16_exact(g), (bw, kind)
+            for k in MAIN_PATH_K:
+                assert dq.route(torch.bfloat16, bw, g, k) == "tc", (bw, kind, k)
+                assert dq.route(torch.float32, bw, g, k) == "cuda_core", (bw, kind, k)
+            # K whose x rows (2K bytes) or code rows (ceil(K/cpb) bytes) are
+            # not whole multiples of 16 bytes: TMA cannot address them.
+            for k in (1001, 1000 if bw <= 4 else 1004, 32 * (8 // bw) + 8):
+                assert dq.route(torch.bfloat16, bw, g, k) == "cuda_core", (bw, kind, k)
+            assert dq.route(torch.bfloat16, bw, g, 1056) == ("tc" if bw >= 4 else "cuda_core")
+        g = QuantSpec(bw, "fp").grid()
+        if bw == 1:
+            assert np.array_equal(g, [0.0, 0.0]) and dq.bf16_exact(g)   # degenerate: {0, 0}
+        else:
+            assert not dq.bf16_exact(g), bw
+            for k in MAIN_PATH_K:
+                assert dq.route(torch.bfloat16, bw, g, k) == "cuda_core", (bw, k)
+    with pytest.raises(ValueError, match="bw"):
+        dq.route(torch.bfloat16, 3, np.arange(8.0), 2048)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dq.route(torch.float16, 4, QuantSpec(4, "int").grid(), 2048)
+
+
+def test_lut_dequant_gemm_split_never_follows_b():
+    """The K slices of a layer depend on F, K and the SM count only; the x
+    rows per CTA and the CTAs per tile may follow B (they change no row's f32
+    operations), and a split layer keeps N <= 128."""
+    from repro_torch.kernels import lut_dequant_gemm as dq
+
+    shapes = [(5120, 5120), (1280, 5120), (13824, 5120), (5120, 13824), (2048, 2304),
+              (1024, 2304), (2304, 2048), (9216, 2304), (2304, 9216), (300, 1056)]
+    for f, k in shapes:
+        s = dq.split_k(f, k, 4, 132)
+        assert 1 <= s <= dq.MAX_SPLIT and s <= -(-k // 64) // 8 or s == 1
+        for b in (1, 4, 8, 9, 37, 64, 65, 128, 129, 512, 2048, 8192):
+            n, s_b, ctas = dq.tile_plan(b, f, k, 4, 132)
+            assert s_b == s and ctas in (1, s) and n >= min(b, n)
+            assert n in (8, 64, 128, 256) and (s == 1 or n <= 128)
+    # stablelm-12b: wk/wv (10 tiles of 128 rows) split in 4, w_up/w_gate not;
+    # decode runs one CTA per slice, gemma2-2b's B = 8192 one CTA per tile.
+    assert dq.tile_plan(4, 1280, 5120, 4, 132) == (8, 4, 4)
+    assert dq.tile_plan(4, 13824, 5120, 4, 132) == (8, 1, 1)
+    assert dq.tile_plan(8192, 2048, 2304, 4, 132) == (128, 4, 1)
+    assert dq.tile_plan(512, 13824, 5120, 4, 132) == (256, 1, 1)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
@@ -103,25 +162,66 @@ def test_cuda_kernel_matches_plain_version():
     from repro_torch.kernels import lut_dequant_gemm as dq
 
     dev = torch.device("cuda")
-    for bw, kind in [(1, "int"), (2, "int"), (4, "int"), (8, "int"), (4, "fp")]:
-        for shape in [(1, 32, 16), (10, 129, 200), (37, 1000, 300)]:
+    for bw, kind in [(1, "int"), (2, "int"), (4, "int"), (8, "int"), (4, "uint"), (4, "fp")]:
+        # (37, 1056, 300): a K the tensor cores take at bw 4 and 8, with a
+        # tail of 32 inside its last K chunk of 64; (5, 1056, 301): split in
+        # 2 K slices, one CTA each, summed element by element (F % 4 != 0).
+        for shape in [(1, 32, 16), (10, 129, 200), (37, 1000, 300), (37, 1056, 300),
+                      (5, 1056, 301)]:
             w, x = _case(bw, shape, (bw, kind, shape))
             qt = tapi.quantize_linear(torch.from_numpy(w).to(dev),
                                       tapi.LutLinearSpec(bw=bw, w_kind=kind))
+            grid = qt.spec.wspec().grid()
             for dt in (torch.float32, torch.bfloat16):
                 xt = torch.from_numpy(x).to(dev, dt)
-                before = dq.launches
+                which = dq.route(dt, bw, grid, qt.k)
+                before, before_tc = dq.launches, dq.launches_tc
                 y = tops.lut_dequant_gemm(xt, qt.codes, qt.scale, bw=bw, k=qt.k, grid_kind=kind)
                 assert dq.launches == before + 1
+                assert dq.launches_tc == before_tc + (which == "tc"), (bw, kind, shape, dt)
                 want = tref.lut_dequant_gemm_ref(xt, qt.codes, qt.scale, bw=bw, k=qt.k,
-                                                 grid=qt.spec.wspec().grid())
+                                                 grid=grid)
                 torch.cuda.synchronize()
                 err = ((y - want).abs().max() / want.abs().max()).item()
-                assert err <= 1e-4, (bw, kind, shape, dt, err)
+                assert err <= 1e-4, (bw, kind, shape, dt, which, err)
+                again = tops.lut_dequant_gemm(xt, qt.codes, qt.scale, bw=bw, k=qt.k,
+                                              grid_kind=kind)
+                assert torch.equal(again, y), (bw, kind, shape, dt, which)   # repeats bit-equal
                 rows = [tops.lut_dequant_gemm(xt[i : i + 1].contiguous(), qt.codes, qt.scale,
                                               bw=bw, k=qt.k, grid_kind=kind)[0]
                         for i in range(shape[0])]
                 assert torch.equal(torch.stack(rows), y)     # per-row invariance
+    assert dq.route(torch.bfloat16, 4, tops._grid(4, "int"), 1056) == "tc"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [5120, 1280])
+def test_cuda_tensor_core_rows_invariant_across_b(f):
+    """A fixed set of rows, computed inside batches of B = 1, 4, 37, 512 and
+    2048 at a full-width K (5120, bf16 x, W4), is bit-equal across all of
+    them on the tensor-core route; F = 1280 is a split layer (4 K slices:
+    one CTA each at small B, one CTA for all at B = 2048)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels import lut_dequant_gemm as dq
+
+    dev = torch.device("cuda")
+    k = 5120
+    w, x = _case(4, (2048, k, f), ("rows", f))
+    qt = tapi.quantize_linear(torch.from_numpy(w).to(dev), tapi.LutLinearSpec(bw=4))
+    xt = torch.from_numpy(x).to(dev, torch.bfloat16)
+    fixed = xt[-4:]
+    before = dq.launches_tc
+    want = tops.lut_dequant_gemm(fixed, qt.codes, qt.scale, bw=4, k=k)
+    assert torch.equal(tops.lut_dequant_gemm(fixed[:1], qt.codes, qt.scale, bw=4, k=k),
+                       want[:1])
+    for b in (37, 512, 2048):
+        y = tops.lut_dequant_gemm(xt[-b:], qt.codes, qt.scale, bw=4, k=k)
+        assert torch.equal(y[-4:], want), b
+    assert dq.launches_tc == before + 5
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert {dq.tile_plan(b, f, k, 4, n_sm)[1] for b in (1, 4, 37, 512, 2048)} == {
+        dq.split_k(f, k, 4, n_sm)}
 
 
 def _stream_case(bw, ba, p, m, k, n, seed):
