@@ -14,8 +14,11 @@ entry points at published full widths:
   ``lut_dequant_gemm`` kernel (bf16 activations on an int grid, so every
   launch takes its tensor-core route, ``lut_dequant_gemm_sm90.cu``);
 * stablelm-12b served in W1A3 p=4, ``mode="lut"``, calibrated and prepared —
-  the paper's int-LUT mode, whose int32 sums come from the
-  ``lut_stream_gemm`` kernel;
+  the paper's int-LUT mode: each projection's activation codes are
+  canonicalized (and the LUT slices composed) by one launch of
+  ``lut_canon.cu`` and its int32 sums come from the ``lut_stream_gemm``
+  kernel (the pack's route: the int8 tensor cores,
+  ``lut_stream_gemm_sm90.cu``);
 * gemma2-2b's cache-free forward (``Model.forward``) over one sequence of
   8192 tokens, W4A4 ``pallas`` prepared, ``attn_impl="flash"`` — the
   ``flash_attention`` kernel (alternating 4096-window and global layers,
@@ -45,6 +48,7 @@ import subprocess
 import sys
 import time
 import warnings
+import zlib
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_LAYERS = 40                 # serve depth of phases 3 and 8 (stablelm-12b has 40)
@@ -73,15 +77,14 @@ TOL_FORWARD_BF16 = 2.0        # in bf16: the two forwards' relative distance (Fr
                               # rounding itself does
 FLASH_SEQ = 8192              # gemma2-2b's published context: the forward's length
 KERNELS = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention")
-# One library per CUDA source.  Two kernels have two routes each, fixed by what
-# the inputs are and never by the batch: flash_attention by dtype and head dim
-# (kernels/flash_attention.py::route: bf16 hd 64/128/256 on the tensor cores,
-# flash_attention_sm90.cu), lut_dequant_gemm by dtype, grid and K
-# (kernels/lut_dequant_gemm.py::route: bf16 x on a grid exact in bf16 with
-# TMA-addressable rows on the tensor cores, lut_dequant_gemm_sm90.cu); the rest
-# on the CUDA cores.
-SOURCES = ("lut_dequant_gemm", "lut_dequant_gemm_sm90", "lut_stream_gemm", "flash_attention",
-           "flash_attention_sm90")
+# The CUDA sources are kernels/build.py's SOURCES, one library each.  The three
+# kernels have two routes each, fixed by what the inputs are and never by the
+# batch: flash_attention by dtype and head dim (kernels/flash_attention.py::
+# route), lut_dequant_gemm by dtype, grid and K (kernels/lut_dequant_gemm.py::
+# route), lut_stream_gemm by the LUT pack (kernels/lut_stream_gemm.py::route);
+# lut_canon.cu canonicalizes in front of lut_stream_gemm.
+# Phase 6's LUT packs: the CPU tests' five, then R = 4 and R = 2 on the tensor cores.
+STREAM_PACKS = [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5), (1, 4, 2), (1, 3, 1)]
 SLEEP_CYCLES = int(5e7)       # the card sleeps (~30 ms) while the host enqueues the timed calls
 LUT_SPEC = dict(bw=1, ba=3, p=4)   # the paper's W1A3 (the reference's serve benchmark)
 
@@ -198,10 +201,11 @@ def device_time_by_kernel(torch, fn, iters):
 
 def log_breakdown(what, by_name, wall_ms, *, kernel, card):
     """Print the device time of one call by kernel, beside its wall time:
-    busy share, ``kernel``'s share, the largest other kernels."""
+    busy share, ``kernel``'s share, the largest other kernels; returns those
+    numbers (``None`` when the profiler saw no device time)."""
     if by_name is None:
         log(f"  {what}: device time by kernel not measured (the profiler saw no device time)")
-        return
+        return None
 
     def total(keep):
         picked = [v for name, v in by_name.items() if keep(kernel in name)]
@@ -221,12 +225,14 @@ def log_breakdown(what, by_name, wall_ms, *, kernel, card):
                      if kernel not in name), reverse=True)
     for ms, n, name in others[:6]:
         log(f"    {ms:8.3f} ms {n:5.0f} x  {name[:90]}")
+    return dict(busy_ms=busy, wall_ms=wall_ms, idle_share=1 - busy / wall_ms, launches=launches,
+                kernel_ms=ours_ms, kernel_launches=ours_n)
 
 
 def wgmma_waits(lib_path):
-    """HGMMA and WARPGROUP.DEPBAR counts of each kernel in a built library
-    (``cuobjdump -sass``): a pipelined kernel has a few waits, not one after
-    each HGMMA."""
+    """wgmma (HGMMA: bf16; IGMMA: int8) and WARPGROUP.DEPBAR counts of each
+    kernel in a built library (``cuobjdump -sass``): a pipelined kernel has a
+    few waits, not one after each wgmma."""
     cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     try:
         sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True,
@@ -239,10 +245,10 @@ def wgmma_waits(lib_path):
             cur = ln.split("Function :")[-1].strip()
             counts[cur] = [0, 0]
         elif cur is not None:
-            counts[cur][0] += "HGMMA" in ln
+            counts[cur][0] += "HGMMA" in ln or "IGMMA" in ln
             counts[cur][1] += "WARPGROUP.DEPBAR" in ln
     pairs = sorted({tuple(v) for v in counts.values()})
-    return (f"{len(counts)} kernels, (HGMMA, WARPGROUP.DEPBAR) per kernel: "
+    return (f"{len(counts)} kernels, (HGMMA or IGMMA, WARPGROUP.DEPBAR) per kernel: "
             f"{', '.join(f'({h}, {d})' for h, d in pairs)}")
 
 
@@ -252,7 +258,8 @@ def reset_launches():
     from repro_torch.kernels import lut_dequant_gemm as dq
     from repro_torch.kernels import lut_stream_gemm as ss
 
-    dq.launches = dq.launches_tc = ss.launches = fa.launches = fa.launches_tc = 0
+    dq.launches = dq.launches_tc = fa.launches = fa.launches_tc = 0
+    ss.launches = ss.launches_tc = ss.launches_canon = 0
 
 
 def read_launches():
@@ -261,7 +268,8 @@ def read_launches():
     from repro_torch.kernels import lut_stream_gemm as ss
 
     return {"lut_dequant_gemm": dq.launches, "lut_dequant_gemm_tc": dq.launches_tc,
-            "lut_stream_gemm": ss.launches,
+            "lut_stream_gemm": ss.launches, "lut_stream_gemm_tc": ss.launches_tc,
+            "lut_stream_gemm_canon": ss.launches_canon,
             "flash_attention": fa.launches, "flash_attention_tc": fa.launches_tc}
 
 
@@ -464,14 +472,33 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
 
 
 def stream_bound_s(m, g, n, r, c, pf, card):
-    """Least time of one lut_stream_gemm call: each int32 input read once
-    (wpacked, msrank, permid, both LUTs) and the output written once, over the
-    memory rate; or its M*G*N int32 lookup-adds over the CUDA cores' peak
-    operation rate (the float32 non-tensor rate of the table; a data-dependent
-    gather-add has no faster unit).  Returns (seconds, bound_by)."""
+    """Least time of one lut_stream_gemm call counted in lookups: each int32
+    input read once (wpacked, msrank, permid, both LUTs) and the output
+    written once, over the memory rate; or its M*G*N int32 lookup-adds over
+    the CUDA cores' peak operation rate (the float32 non-tensor rate of the
+    table; a data-dependent gather-add has no faster unit).  Returns
+    (seconds, bound_by)."""
     nbytes = 4 * (m * g + 2 * g * n + r * c + r * pf + m * n)
     t_bytes, t_ops = nbytes / card.hbm_bandwidth, m * g * n / card.peak_flops_f32
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stream_tc_bound_s(m, g, n, r, card):
+    """Least time of the tensor-core route's product: wpacked (int32), the
+    composed operand (N x G*R bytes) read once and the int32 output written
+    once, over the memory rate; or its 2*M*G*R*N one-hot operations over the
+    int8 tensor-core peak.  Returns (seconds, bound_by)."""
+    nbytes = 4 * m * g + n * g * r + 4 * m * n
+    t_bytes, t_ops = nbytes / card.hbm_bandwidth, 2.0 * m * g * r * n / card.peak_ops_int8
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def canon_bound_s(k, n, g, r, card):
+    """Least time of the canonicalize kernel: each int32 code read once,
+    msrank and permid (int32) and the composed operand (R bytes a group)
+    written once, over the memory rate (a handful of integer operations a
+    group is far below the CUDA cores' rate).  Returns (seconds, "bytes")."""
+    return (4 * k * n + 8 * g * n + n * g * r) / card.hbm_bandwidth, "bytes"
 
 
 def plain_stream_chunked(torch, ref, wpk, ms, pid, canon, reorder, cols=16):
@@ -482,18 +509,64 @@ def plain_stream_chunked(torch, ref, wpk, ms, pid, canon, reorder, cols=16):
         for c0 in range(0, ms.shape[1], cols)], dim=1)
 
 
+def check_canonicalize(torch, dev, pack, codes, what):
+    """The canonicalize kernel on ``codes`` (a CPU [K, N] tensor, moved to the
+    card with its strides) against the plain chain on the CPU and on the card
+    and the sorting network's plain form; on the tensor-core route also its
+    composed operand against the plain compose step."""
+    from repro_torch.core import engine
+    from repro_torch.core.quantize import zero_code
+    from repro_torch.kernels import lut_stream_gemm as ss
+    from repro_torch.kernels import ref
+
+    cd = codes.to(dev)
+    before = ss.launches_canon
+    got = engine.canonicalize_activations(cd, pack)
+    check(ss.launches_canon == before + 1, f"canonicalize {what}: not one kernel launch")
+    want = engine.canonicalize_activations(codes, pack)
+    on_card = engine.canonicalize_activations_plain(cd, pack)
+    net = ref.lut_canon_ref(cd, engine.device_binom(pack, dev), p=pack.p,
+                            pad_code=zero_code(pack.agrid))
+    for name, (ms, pid) in (("CPU plain", (want.msrank, want.permid)),
+                            ("card plain", (on_card.msrank.cpu(), on_card.permid.cpu())),
+                            ("sorting network", (net[0].cpu(), net[1].cpu()))):
+        check(torch.equal(got.msrank.cpu(), ms) and torch.equal(got.permid.cpu(), pid),
+              f"canonicalize kernel != {name} ({what})")
+    tc = ss.route(pack) == "tc"
+    check((got.composed is not None) == tc, f"canonicalize {what}: composed operand "
+                                            f"{'missing' if tc else 'built'} on the {ss.route(pack)} route")
+    if tc:
+        canon, reorder = engine.device_tables(pack, dev)
+        g = got.msrank.shape[0]
+        check(torch.equal(got.composed[:, : g * pack.n_rows],
+                          ref.lut_compose_ref(got.msrank, got.permid, canon, reorder)),
+              f"composed operand != plain compose step ({what})")
+
+
 def phase_stream_kernel(torch, dev):
-    """The CPU tests' sweep on the card: packs (bw, ba, p) with ragged K, column
-    tiles nt in 1, 3, 4, 6, 16, kernel == plain version on the card == plain
-    version on the CPU, bit for bit."""
+    """The CPU tests' sweep on the card through both routes of lut_stream_gemm
+    (the tensor cores where the pack's route is "tc"; the CUDA cores for
+    every pack, by calling without the pack), each call's route counter
+    checked, kernel == plain version on the card == plain version on the CPU,
+    bit for bit; and the canonicalize kernel against the plain chain on all
+    8^4 groups of A3 p=4 (both code layouts) and on every case."""
+    import itertools
+
     import numpy as np
     from repro_torch.core import engine, luts
     from repro_torch.kernels import lut_stream_gemm as ss
     from repro_torch.kernels import ops, ref
 
-    n_cases = 0
-    for bw, ba, p in [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5)]:
+    n_cases = {"tc": 0, "cuda_core": 0, "canonicalize": 0}
+    a3p4 = luts.build_lut_pack(1, 3, 4)
+    allg = np.array(list(itertools.product(range(8), repeat=4)), dtype=np.int32)   # [4096, 4]
+    for codes, layout in ((torch.from_numpy(allg.T.copy()), "[K, N]"),
+                          (torch.from_numpy(allg).T, "[N, K] in memory")):
+        check_canonicalize(torch, dev, a3p4, codes, f"all 4096 groups of A3 p=4, {layout}")
+        n_cases["canonicalize"] += 1
+    for bw, ba, p in STREAM_PACKS:
         pack = luts.build_lut_pack(bw, ba, p)
+        which = ss.route(pack)
         canon, reorder = engine.device_tables(pack, dev)
         for m, k, n in [(16, 3 * p + 1, 6), (8, 13, 6), (300, 101, 4), (1000, 250, 37),
                         (4096, 1030, 129)]:
@@ -503,28 +576,57 @@ def phase_stream_kernel(torch, dev):
             want = ops.lut_stream_gemm_full(wc, ac, pack)                 # CPU, plain
             wd, ad = wc.to(dev), ac.to(dev)
             for nt in (1, 3, 4, 6, 16):
+                before = (ss.launches, ss.launches_tc, ss.launches_canon)
                 got = ops.lut_stream_gemm_full(wd, ad, pack, nt=nt)
+                check((ss.launches, ss.launches_tc, ss.launches_canon) ==
+                      (before[0] + 1, before[1] + (which == "tc"), before[2] + 1),
+                      f"route counters: ({bw},{ba},{p}) ({which}) M={m} K={k} N={n} nt={nt}")
                 check(torch.equal(got.cpu(), want),
-                      f"lut_stream_gemm_full (bw,ba,p)=({bw},{ba},{p}) M={m} K={k} N={n} "
-                      f"nt={nt}: card != CPU plain version")
-                n_cases += 1
+                      f"lut_stream_gemm_full (bw,ba,p)=({bw},{ba},{p}) ({which}) M={m} K={k} "
+                      f"N={n} nt={nt}: card != CPU plain version")
+                n_cases[which] += 1
+            for layout, codes in (("[K, N]", ac), ("[N, K] in memory",
+                                                   torch.from_numpy(ac.numpy().T.copy()).T)):
+                check_canonicalize(torch, dev, pack, codes, f"({bw},{ba},{p}) K={k} N={n}, {layout}")
+                n_cases["canonicalize"] += 1
             wpk = engine.prepare_stream_weights(wd, pack).wpk
             idx = engine.canonicalize_activations(ad, pack)
-            check(torch.equal(ss.lut_stream_gemm(wpk, idx.msrank, idx.permid, canon, reorder),
-                              ref.lut_stream_gemm_ref(wpk, idx.msrank, idx.permid, canon, reorder)),
-                  f"lut_stream_gemm != plain version on the card: ({bw},{ba},{p}) M={m} N={n}")
-            n_cases += 1
+            plain = ref.lut_stream_gemm_ref(wpk, idx.msrank, idx.permid, canon, reorder)
+            calls = [("cuda_core", {}, 0)]
+            if which == "tc":
+                calls += [("tc", {"pack": pack}, 1), ("tc", {"pack": pack, "composed": idx.composed}, 0)]
+            for route, kw, composes in calls:
+                before = (ss.launches, ss.launches_tc, ss.launches_canon)
+                out = ss.lut_stream_gemm(wpk, idx.msrank, idx.permid, canon, reorder, **kw)
+                check((ss.launches, ss.launches_tc, ss.launches_canon) ==
+                      (before[0] + 1, before[1] + (route == "tc"), before[2] + composes),
+                      f"route counters: lut_stream_gemm ({bw},{ba},{p}) {route} M={m} N={n}")
+                check(torch.equal(out, plain), f"lut_stream_gemm ({route}) != plain version on "
+                                               f"the card: ({bw},{ba},{p}) M={m} K={k} N={n}")
+                n_cases[route] += 1
+            if which == "tc":
+                check(torch.equal(ref.lut_onehot_gemm_ref(wpk, idx.composed, r=pack.n_rows),
+                                  plain), f"plain one-hot product != plain version: "
+                                          f"({bw},{ba},{p}) M={m} N={n}")
     torch.cuda.synchronize()
-    log(f"phase 6: {n_cases} lut_stream_gemm-vs-plain cases (5 packs, ragged K, nt 1/3/4/6/16, "
-        f"card vs card plain and vs CPU plain) equal bit for bit")
+    log(f"phase 6: {n_cases['tc'] + n_cases['cuda_core']} lut_stream_gemm-vs-plain cases "
+        f"({n_cases['tc']} on the int8 tensor cores, {n_cases['cuda_core']} on the CUDA cores; "
+        f"{len(STREAM_PACKS)} packs, R = 2 .. 256, ragged K, nt 1/3/4/6/16; card vs card plain and vs CPU plain; each call's "
+        f"route counter checked) and {n_cases['canonicalize']} canonicalize-kernel cases (the "
+        f"4096 groups of A3 p=4 in both layouts, every sweep case; msrank / permid and the "
+        f"composed operand) equal bit for bit")
 
 
 def phase_stream_times(torch, dev, cfg, card, smi):
-    """Kernel, plain and library times of lut_stream_gemm at the lut serve
-    path's shapes: one stablelm-12b layer's seven projections at W1A3 p=4,
-    decode (N = 4) and prefill (N = 4 x 128), with the kernel held against
-    its plain version (over column chunks at N = 512) and the library
-    yardstick (the reference's one-hot BLAS form) bit for bit."""
+    """Times at the lut serve path's shapes: one stablelm-12b layer's seven
+    projections at W1A3 p=4, decode (N = 4) and prefill (N = 4 x 128).  The
+    canonicalize kernel on the quantizer's codes (a transposed view, as on the
+    path) beside the plain chain; lut_stream_gemm on its route (the int8
+    tensor cores, the composed operand as given) and on the CUDA cores, both
+    held against the plain version (over column chunks at N = 512) and the
+    library yardstick (the reference's one-hot BLAS form, f32 torch.matmul)
+    bit for bit.  Kernels and the yardstick in device time (:func:`device_ms`),
+    the plain versions on CUDA events around their calls."""
     from repro_torch.core import engine
     from repro_torch.core.api import LutLinearSpec, _lut_pack_cache, quantize_linear
     from repro_torch.core.prepared import prepare_linear
@@ -535,8 +637,10 @@ def phase_stream_times(torch, dev, cfg, card, smi):
     gen = torch.Generator(device=dev).manual_seed(5)
     spec = LutLinearSpec(mode="lut", **LUT_SPEC)
     pack = _lut_pack_cache(spec.bw, spec.ba, spec.p, spec.w_kind, spec.a_kind)
+    check(ss.route(pack) == "tc", "the serve pack W1A3 p=4 must take the tensor cores")
     canon, reorder = engine.device_tables(pack, dev)
     r, c, pf = canon.shape[0], canon.shape[1], reorder.shape[1]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     worst = 0
     for name, (k, f) in layer_shapes(cfg).items():
@@ -553,40 +657,84 @@ def phase_stream_times(torch, dev, cfg, card, smi):
         onehot = onehot.reshape(m, g * r)                                    # [M, G*R]
         for b in (4, 4 * 128):
             x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
-            acodes, _ = quantize(x.float().T, spec.aspec())
+            acodes, _ = quantize(x.float().T, spec.aspec())                 # [K, N] view
             idx = engine.canonicalize_activations(acodes, pack)
-            ms, pid = idx.msrank, idx.permid
-            y = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder)
+            ms, pid, bop = idx.msrank, idx.permid, idx.composed
+            plain_idx = engine.canonicalize_activations_plain(acodes, pack)
+            check(torch.equal(ms, plain_idx.msrank) and torch.equal(pid, plain_idx.permid),
+                  f"canonicalize kernel != plain chain at {name} N={b}")
+            check(torch.equal(bop[:, : g * r], ref.lut_compose_ref(ms, pid, canon, reorder)),
+                  f"composed operand != plain compose at {name} N={b}")
+            before = ss.launches_tc
+            y = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder, pack=pack, composed=bop)
+            check(ss.launches_tc == before + 1, f"{name} N={b} did not take the tensor cores")
+            y_cc = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder)
             y_plain = (ref.lut_stream_gemm_ref(wpk, ms, pid, canon, reorder) if b == 4 else
                        plain_stream_chunked(torch, ref, wpk, ms, pid, canon, reorder))
             worst = max(worst, (y - y_plain).abs().max().item())
-            check(torch.equal(y, y_plain), f"lut_stream_gemm != plain at {name} N={b}")
-            # composed[g, r, n] = canonical[reordering[r, pid[g, n]], ms[g, n]]
-            composed = canon[reorder[:, pid.long()].long(), ms[None].long()]  # [R, G, N]
-            composed = composed.permute(1, 0, 2).reshape(g * r, b).float()
+            check(torch.equal(y, y_plain), f"lut_stream_gemm (tc) != plain at {name} N={b}")
+            check(torch.equal(y_cc, y_plain), f"lut_stream_gemm (cuda_core) != plain at {name} "
+                                              f"N={b}")
+            composed = bop[:, : g * r].T.float()                             # [G*R, N]
             y_lib = torch.matmul(onehot, composed)
             check(torch.equal(y_lib.to(torch.int32), y),
                   f"one-hot BLAS yardstick != kernel at {name} N={b}")
-            kern = time_ms(torch, lambda i: ss.lut_stream_gemm(
-                wpks[i % n_copies], ms, pid, canon, reorder), 20)
+            kern = device_ms(torch, lambda i: ss.lut_stream_gemm(
+                wpks[i % n_copies], ms, pid, canon, reorder, pack=pack, composed=bop), 20)
+            cuda_core = device_ms(torch, lambda i: ss.lut_stream_gemm(
+                wpks[i % n_copies], ms, pid, canon, reorder), 10)
             if b == 4:
                 plain = time_ms(torch, lambda i: ref.lut_stream_gemm_ref(
                     wpks[i % n_copies], ms, pid, canon, reorder), 3)
             else:
                 plain = time_ms(torch, lambda i: plain_stream_chunked(
                     torch, ref, wpks[i % n_copies], ms, pid, canon, reorder), 1)
-            lib = time_ms(torch, lambda i: torch.matmul(onehot, composed), 5)
-            bnd, by = stream_bound_s(m, g, b, r, c, pf, card)
-            rows.append(dict(proj=name, B=b, K=k, F=f, ms=kern, plain_ms=plain,
-                             library_ms=lib, bound_ms=bnd * 1e3, bound_by=by))
-            log(f"  {name:6s} N={b:4d} M={m:5d} G={g:4d}: kernel {kern:.4f} ms, plain "
-                f"{plain:.4f} ms, one-hot torch.matmul {lib:.4f} ms, bound {bnd*1e3:.4f} ms "
-                f"({by}) [{smi}]")
-            del composed, y_lib
+            lib = device_ms(torch, lambda i: torch.matmul(onehot, composed), 5)
+            canon_ms = device_ms(torch, lambda i: engine.canonicalize_activations(acodes, pack), 20)
+            canon_plain = time_ms(
+                torch, lambda i: engine.canonicalize_activations_plain(acodes, pack), 5)
+            bnd, by = stream_tc_bound_s(m, g, b, r, card)
+            lbnd, lby = stream_bound_s(m, g, b, r, c, pf, card)
+            cbnd, _ = canon_bound_s(k, b, g, r, card)
+            row = dict(proj=name, B=b, K=k, F=f, ms=kern, cuda_core_ms=cuda_core, plain_ms=plain,
+                       library_ms=lib, bound_ms=bnd * 1e3, bound_by=by,
+                       lookup_bound_ms=lbnd * 1e3, lookup_bound_by=lby,
+                       plan=ss.tc_split(m, g, r, b, n_sm), canon_ms=canon_ms,
+                       canon_plain_ms=canon_plain, canon_bound_ms=cbnd * 1e3)
+            line = (f"  {name:6s} N={b:4d} M={m:5d} G={g:4d} (n_tile, S) {row['plan']}: kernel "
+                    f"(tc) {kern:.4f} ms ({bnd * 1e3 / kern:.3f} of its bound {bnd*1e3:.4f} ms, "
+                    f"{by}; {2.0 * m * g * r * b / kern / 1e9:.1f} TOP/s), CUDA-core kernel "
+                    f"{cuda_core:.4f} ms, plain {plain:.4f} ms, one-hot torch.matmul {lib:.4f} "
+                    f"ms, lookup bound {lbnd*1e3:.4f} ms ({lby}); canonicalize kernel "
+                    f"{canon_ms:.4f} ms ({cbnd * 1e3 / canon_ms:.3f} of its bytes bound "
+                    f"{cbnd*1e3:.4f} ms), plain chain {canon_plain:.4f} ms")
+            if b <= 8:
+                def pair(i):
+                    ix = engine.canonicalize_activations(acodes, pack)
+                    ss.lut_stream_gemm(wpks[i % n_copies], ix.msrank, ix.permid, canon, reorder,
+                                       pack=pack, composed=ix.composed)
+                row["host_us"] = host_us(torch, pair)
+                line += f"; host per canonicalize + GEMM {row['host_us']:.1f} us"
+            rows.append(row)
+            log(line + f" [{smi}]")
+            del composed, y_lib, idx, plain_idx
         del wpks, onehot
     torch.cuda.empty_cache()
+    for b in (4, 512):
+        picked = [row for row in rows if row["B"] == b]
+        t = {key: sum(row[key] for row in picked)
+             for key in ("ms", "cuda_core_ms", "plain_ms", "library_ms", "bound_ms",
+                         "lookup_bound_ms", "canon_ms", "canon_plain_ms", "canon_bound_ms")}
+        log(f"phase 6: {cfg.name} layer (7 projections) at N={b}: lut_stream_gemm (tc) "
+            f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of its bound {t['bound_ms']:.4f} "
+            f"ms; lookup bound {t['lookup_bound_ms']:.4f} ms), CUDA-core kernel "
+            f"{t['cuda_core_ms']:.4f} ms ({t['cuda_core_ms'] / t['ms']:.2f}x), plain "
+            f"{t['plain_ms']:.4f} ms, one-hot torch.matmul {t['library_ms']:.4f} ms "
+            f"({t['library_ms'] / t['ms']:.2f}x); canonicalize {t['canon_ms']:.4f} ms "
+            f"(bound {t['canon_bound_ms']:.4f} ms), plain chain {t['canon_plain_ms']:.4f} ms "
+            f"[{smi}]")
     log("phase 6: the lut serve path's shapes (N=4 and 512) equal the plain version and the "
-        "one-hot yardstick bit for bit")
+        "one-hot yardstick bit for bit on both routes")
     return rows, worst
 
 
@@ -608,10 +756,13 @@ def phase_lut_layer(torch, dev, cfg):
         q_lut = quantize_linear(w, LutLinearSpec(mode="lut", **LUT_SPEC))
         q_str = dc.replace(q_lut, spec=LutLinearSpec(mode="stream", **LUT_SPEC))
         del w
-        before = ss.launches
+        before = (ss.launches, ss.launches_tc, ss.launches_canon)
         ys = [apply_linear(q, x) for q in (q_lut, prepare_linear(q_lut, n_hint=4),
                                            q_str, prepare_linear(q_str, n_hint=4))]
-        check(ss.launches == before + 4, f"{name}: {ss.launches - before} kernel launches, want 4")
+        got = (ss.launches - before[0], ss.launches_tc - before[1],
+               ss.launches_canon - before[2])
+        check(got == (4, 4, 4), f"{name}: (GEMM, on the tensor cores, canonicalize) launches "
+                                f"{got}, want (4, 4, 4)")
         check(all(torch.equal(y, ys[0]) for y in ys[1:]),
               f"{name}: lut raw / lut prepared / stream raw / stream prepared differ")
         check(ys[0].dtype == torch.bfloat16 and bool(torch.isfinite(ys[0]).all()),
@@ -623,12 +774,30 @@ def phase_lut_layer(torch, dev, cfg):
     torch.cuda.synchronize()
     log("phase 7: one full-width layer, W1A3 p=4, bf16 x [4, K]: lut raw == lut prepared == "
         "stream raw == stream prepared bit for bit on the card for all 7 projections "
-        "(4 kernel launches each); wk on the card == the CPU's plain version")
+        "(4 canonicalize and 4 tensor-core GEMM launches each); wk on the card == the CPU's "
+        "plain version")
 
 
 # ---------------------------------------------------------------------------
 # Phases 3 and 8: full-width serve (pallas W4A4; the paper's int-LUT mode)
 # ---------------------------------------------------------------------------
+
+
+def earlier_lut_path(fn):
+    """``fn()`` with the int-LUT path as it was before the tensor-core
+    redesign: every pack routed to the CUDA-core lut_stream_gemm and the
+    canonicalization as the plain torch chain (a check of this script; the
+    port has no such switch)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    route, canonicalize = ss.route, engine.canonicalize_activations
+    ss.route = lambda pack: "cuda_core"
+    engine.canonicalize_activations = engine.canonicalize_activations_plain
+    try:
+        return fn()
+    finally:
+        ss.route, engine.canonicalize_activations = route, canonicalize
 
 
 def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_new,
@@ -714,16 +883,35 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
         check(counts["lut_dequant_gemm_tc"] == launches,
               f"lut_dequant_gemm launches on the tensor cores {counts['lut_dequant_gemm_tc']} "
               f"!= {launches}: the bf16 serve path must take the tensor-core route")
+    if kernel == "lut_stream_gemm":
+        check(counts["lut_stream_gemm_tc"] == launches,
+              f"lut_stream_gemm launches on the tensor cores {counts['lut_stream_gemm_tc']} != "
+              f"{launches}: the W1A3 p=4 pack must take the tensor-core route")
+        check(counts["lut_stream_gemm_canon"] == want,
+              f"canonicalize launches {counts['lut_stream_gemm_canon']} != 7 x {cfg.n_layers} x "
+              f"({prefills} prefills + {steps} decode steps) = {want}: one per projection, the "
+              f"composed operand not built twice")
     check(len(sync_warnings) == eng.host_syncs,
           f"{len(sync_warnings)} synchronizing calls in the serve loop, expected only the "
           f"{eng.host_syncs} token fetches: {sorted(set(sync_warnings))[:3]}")
+    digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
     n_tok = sum(len(o) for o in outs)
     log(f"phase {phase} [{smi}]: served {len(reqs)} requests (prompt lengths {lens.tolist()}), "
         f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s end to end, prefill "
         f"included); {len(records)} waves, {prefills} prefills, {steps} decode steps, "
         f"{eng.host_syncs} host syncs, {launches} {kernel} launches "
-        f"(= 7 x {cfg.n_layers} x {prefills + steps}); sync-debug warnings "
+        f"(= 7 x {cfg.n_layers} x {prefills + steps}; counts {counts}); sync-debug warnings "
         f"{len(sync_warnings)} (all token fetches); admissions {eng.admissions}")
+    n_waves = len(records)
+    if kernel == "lut_stream_gemm":
+        # The same requests on the path as it was before the redesign (the torch
+        # chain's canonicalization, the CUDA-core kernel): the same tokens.
+        t0 = time.perf_counter()
+        earlier = earlier_lut_path(lambda: eng.generate(reqs))
+        check(earlier == outs, "lut tokens differ from the earlier path's (torch-chain "
+                               "canonicalization + CUDA-core lut_stream_gemm)")
+        log(f"phase {phase}: tokens (crc32 {digest:08x}) equal the earlier path's (torch-chain "
+            f"canonicalization, CUDA-core lut_stream_gemm; {time.perf_counter() - t0:.1f} s)")
 
     # Steady-state times, outside the counted run.
     caches = eng._new_cache()
@@ -740,17 +928,23 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
         f"B=4 {step_ms:.2f} ms ({4e3 / step_ms:.1f} tok/s); peak memory {peak/1e9:.2f} GB")
     log(f"phase {phase}: where the device time goes (torch.profiler; wall time from the "
         "unprofiled runs above):")
-    log_breakdown("prefill B=4 x 128", device_time_by_kernel(
+    pre = log_breakdown("prefill B=4 x 128", device_time_by_kernel(
         torch, lambda: model.prefill(params, toks, caches, pad_len=pad), max(1, iters[0] - 1)),
         prefill_ms, kernel=kernel, card=smi)
-    log_breakdown("decode step B=4", device_time_by_kernel(
+    dec = log_breakdown("decode step B=4", device_time_by_kernel(
         torch, lambda: model.decode_step(params, tok, caches, pos, pad_len=pad), iters[1] // 2),
         step_ms, kernel=kernel, card=smi)
+    if dec is not None:
+        log(f"phase {phase} [{smi}]: decode step: {dec['launches']:.0f} kernel launches "
+            f"({dec['launches'] / (7 * cfg.n_layers):.1f} per projection), idle share "
+            f"{dec['idle_share']:.3f}")
     del eng, params, caches
     torch.cuda.empty_cache()
-    return dict(launches=launches, launches_tc=counts.get(f"{kernel}_tc"), wall_s=wall,
+    return dict(launches=launches, launches_tc=counts.get(f"{kernel}_tc"),
+                launches_canon=counts.get(f"{kernel}_canon"), wall_s=wall, tokens_crc32=digest,
                 tokens=n_tok, prefill_ms=prefill_ms,
-                step_ms=step_ms, peak_gb=peak / 1e9, waves=len(records))
+                step_ms=step_ms, peak_gb=peak / 1e9, waves=n_waves,
+                prefill_profile=pre, decode_profile=dec)
 
 
 # ---------------------------------------------------------------------------
@@ -1281,10 +1475,10 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         # One nvcc per source, all started together.
-        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-            for lib in pool.map(build.load, SOURCES):
+        with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
+            for lib in pool.map(build.load, build.SOURCES):
                 check(lib is not None, "kernel library did not load")
-        for name in SOURCES:
+        for name in build.SOURCES:
             info = build.build_info[name]
             regs = sorted({ln.split("info    : ")[-1] for ln in info["log"].splitlines()
                            if "registers" in ln})
@@ -1336,6 +1530,16 @@ def main() -> int:
             out["library_bf16_ms"] = layer_sum(rs, b, "library_bf16_ms")
         return out
 
+    def stream_times(rs, b, at):
+        return {**times(rs, b, at), "lookup_bound_ms": layer_sum(rs, b, "lookup_bound_ms"),
+                "cuda_core_ms": layer_sum(rs, b, "cuda_core_ms")}
+
+    def canon_times(rs, b, at):
+        return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
+                "plain_ms": layer_sum(rs, b, "canon_plain_ms"),
+                "bound_ms": layer_sum(rs, b, "canon_bound_ms"), "bound_by": "bytes",
+                "library_ms": None}
+
     kernels = {"kernels": [{
         "name": "lut_dequant_gemm",
         "route": "cuda",
@@ -1362,15 +1566,37 @@ def main() -> int:
     }, {
         "name": "lut_stream_gemm",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lut_stream_gemm.cu",
+        "source": "src/repro_torch/kernels/csrc/lut_stream_gemm_sm90.cu",
+        "cuda_core_source": "src/repro_torch/kernels/csrc/lut_stream_gemm.cu",
         "replaces": "src/repro/kernels/lut_stream_gemm.py:96",
         "tpu": "src/repro/kernels/lut_stream_gemm.py::lut_stream_gemm",
         "launches": lserve["launches"],
+        "launches_tc": lserve["launches_tc"],
         "max_abs_err": stream_abs,
-        **times(srows, 4, "one decode step of one stablelm-12b layer: its 7 projections at "
-                          "N=4, W1A3 p=4 (library: the one-hot [M, G*R] f32 torch.matmul)"),
-        "prefill": times(srows, 512, "one layer's 7 projections at N=4x128, W1A3 p=4"),
+        **stream_times(srows, 4, "one decode step of one stablelm-12b layer: its 7 projections "
+                                 "at N=4, W1A3 p=4, the int8 tensor-core route (device time; "
+                                 "bound: 2*M*G*R*N at the int8 peak or the bytes; "
+                                 "lookup_bound_ms: M*G*N lookups at the f32 rate; library: the "
+                                 "one-hot [M, G*R] f32 torch.matmul; cuda_core_ms: the CUDA-core "
+                                 "kernel on the same inputs)"),
+        "prefill": stream_times(srows, 512, "one layer's 7 projections at N=4x128, W1A3 p=4"),
+        "serve": {"decode_step": lserve["decode_profile"], "prefill": lserve["prefill_profile"],
+                  "prefill_ms": lserve["prefill_ms"], "step_ms": lserve["step_ms"]},
         "card_vs_cpu_rel_err": lut_cpu_rel,
+        "ok": True,
+    }, {
+        "name": "lut_stream_gemm_canon",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lut_canon.cu",
+        "replaces": "src/repro/core/multiset.py:139",
+        "tpu": "XLA in the reference (multiset.canonicalize, multiset_rank, perm_id; no "
+               "pallas_call), plus the compose step of src/repro/kernels/lut_stream_gemm.py:45",
+        "launches": lserve["launches_canon"],
+        "max_abs_err": 0,
+        **canon_times(srows, 4, "one decode step of one stablelm-12b layer: its 7 projections' "
+                                "canonicalize + compose at N=4, W1A3 p=4 (device time; plain: "
+                                "the torch chain of argsort, gather, rank, Lehmer id)"),
+        "prefill": canon_times(srows, 512, "one layer's 7 projections at N=4x128"),
         "ok": True,
     }, {
         "name": "flash_attention",

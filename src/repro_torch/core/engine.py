@@ -22,12 +22,15 @@ Where the int32 sum is computed:
   :func:`streamed_lut_gemm` take the sum from the hand-written
   ``lut_stream_gemm`` kernel (:mod:`repro_torch.kernels.lut_stream_gemm`) —
   the same function, the same bits, without the ``[M, G, N]`` gather the
-  plain form materialises (36 GB at one stablelm-12b ``w_up`` prefill).
-  The stream engine's :class:`StreamStats` then come from the same planner
-  through :func:`stream_plan_stats`.
+  plain form materialises (36 GB at one stablelm-12b ``w_up`` prefill) —
+  and :func:`canonicalize_activations` from the canonicalize kernel beside
+  it, which also composes the tensor-core route's operand: two launches
+  per projection.  The stream engine's :class:`StreamStats` then come from
+  the same planner through :func:`stream_plan_stats`.
 * On a **CPU** tensor the engines run the reference's plain forms: torch
-  gathers for :func:`canonical_lut_gemm` / :func:`packed_lut_gemm`, and the
-  host numpy dataflow for the streamed engines.
+  gathers for :func:`canonical_lut_gemm` / :func:`packed_lut_gemm`, the
+  stable argsort of :func:`canonicalize_activations_plain`, and the host
+  numpy dataflow for the streamed engines.
 * Float-grid packs (which the kernel, accumulating in int32, does not take)
   keep the plain forms on either device.
 
@@ -144,12 +147,38 @@ class CanonIndices:
     msrank: object   # [G, N] canonical-LUT column ids
     permid: object   # [G, N] reordering-LUT column ids
     corr: int
+    # [N, pitch] int8: the composed LUT slices the tensor-core lut_stream_gemm
+    # reads (kernels/lut_stream_gemm.py::canonicalize); None elsewhere.
+    composed: Optional[torch.Tensor] = None
 
 
 def canonicalize_activations(acodes: torch.Tensor, pack: LutPack) -> CanonIndices:
     """[K, N] activation codes -> int32 ``[G, N]`` canonical-LUT column ids
     (multiset ranks) and reordering-LUT column ids (Lehmer codes), on the
-    codes' device."""
+    codes' device; a partial last group is padded with the zero code.
+
+    On a CUDA tensor one launch of the canonicalize kernel computes both, and
+    for a pack on the tensor-core route of ``lut_stream_gemm`` also the
+    composed operand it reads (``composed``); elsewhere the plain torch
+    chain (:func:`canonicalize_activations_plain`) runs."""
+    if acodes.device.type == "cuda":
+        from repro_torch.kernels import lut_stream_gemm as _ss
+
+        p, v = pack.p, 1 << pack.ba
+        if int(pack.binom[v + p - 1, p]) >= 2**31:
+            raise ValueError("multiset rank does not fit int32; use streaming tiles")
+        tables = device_tables(pack, acodes.device) if _ss.route(pack) == "tc" else None
+        ms, pid, b = _ss.canonicalize(
+            acodes.to(torch.int32), device_binom(pack, acodes.device), p=p,
+            pad_code=zero_code(pack.agrid), tables=tables,
+        )
+        return CanonIndices(msrank=ms, permid=pid, corr=0, composed=b)
+    return canonicalize_activations_plain(acodes, pack)
+
+
+def canonicalize_activations_plain(acodes: torch.Tensor, pack: LutPack) -> CanonIndices:
+    """The plain torch form of :func:`canonicalize_activations` on any device:
+    pad, stable argsort, gather, multiset rank, Lehmer id."""
     p, v = pack.p, 1 << pack.ba
     k, n = acodes.shape
     pad = (-k) % p
@@ -182,15 +211,12 @@ def canonicalize_activations_np(acodes: np.ndarray, pack: LutPack) -> CanonIndic
     return CanonIndices(msrank=msr, permid=pid, corr=0)
 
 
-# (id(pack), device) -> (pack, canonical, reordering).  The entry holds the
-# pack itself, so its id cannot be reused while the entry exists.
+# (id(pack), device) -> (pack, canonical, reordering, binom).  The entry holds
+# the pack itself, so its id cannot be reused while the entry exists.
 _TABLES: dict = {}
 
 
-def device_tables(pack: LutPack, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pack's canonical ``[R, C]`` and reordering ``[R, P!]`` LUTs as
-    int32 on ``device``, uploaded once per pack and device (a serve step
-    copies nothing from the host)."""
+def _device_entry(pack: LutPack, device) -> tuple:
     key = (id(pack), torch.device(device))
     hit = _TABLES.get(key)
     if hit is None:
@@ -198,18 +224,37 @@ def device_tables(pack: LutPack, device) -> tuple[torch.Tensor, torch.Tensor]:
             pack,
             torch.as_tensor(np.ascontiguousarray(pack.canonical, np.int32), device=key[1]),
             torch.as_tensor(np.ascontiguousarray(pack.reordering, np.int32), device=key[1]),
+            torch.as_tensor(np.ascontiguousarray(pack.binom, np.int32), device=key[1]),
         )
+    return hit
+
+
+def device_tables(pack: LutPack, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pack's canonical ``[R, C]`` and reordering ``[R, P!]`` LUTs as
+    int32 on ``device``, uploaded once per pack and device (a serve step
+    copies nothing from the host)."""
+    hit = _device_entry(pack, device)
     return hit[1], hit[2]
 
 
-def _kernel_sum(wpacked: torch.Tensor, idx: CanonIndices, pack: LutPack) -> torch.Tensor:
-    """The int32 ``[M, N]`` canonical-LUT sum from the Hopper kernel."""
+def device_binom(pack: LutPack, device) -> torch.Tensor:
+    """The pack's binomial table ``[v + p, p + 1]`` as int32 on ``device``,
+    uploaded once per pack and device (values of every rank that fits int32
+    fit too)."""
+    return _device_entry(pack, device)[3]
+
+
+def _kernel_sum(wpacked: torch.Tensor, idx: CanonIndices, pack: LutPack, *,
+                nt=None) -> torch.Tensor:
+    """The int32 ``[M, N]`` canonical-LUT sum from the Hopper kernel, on the
+    pack's route; the tensor-core route reads ``idx.composed`` where the
+    canonicalize kernel built it."""
     from repro_torch.kernels import lut_stream_gemm as _ss
 
     canon, reorder = device_tables(pack, wpacked.device)
     return _ss.lut_stream_gemm(
         wpacked.to(torch.int32).contiguous(), idx.msrank.contiguous(),
-        idx.permid.contiguous(), canon, reorder,
+        idx.permid.contiguous(), canon, reorder, nt=nt, pack=pack, composed=idx.composed,
     )
 
 
@@ -235,19 +280,24 @@ def canonical_lut_gemm(
     ``wpacked`` too); a CPU tensor, or a float pack, takes the plain gathers.
     """
     p = pack.p
+    kernel = acodes.is_cuda and _int_pack(pack)
     if wpacked is None and wcanon_table is None:
         wcodes, acodes, corr = _pad_groups(wcodes, acodes, p, pack.wgrid, pack.agrid)
         m, k = wcodes.shape
         wpacked = packing.pack_index(wcodes.reshape(m, k // p, p), pack.bw)   # [M,G]
+    elif kernel:
+        # The canonicalize kernel pads the partial last group itself.
+        corr = pad_info(acodes.shape[0], p, pack.wgrid, pack.agrid)[3]
     else:
         acodes, corr = _pad_acodes(acodes, p, pack.wgrid, pack.agrid)
     if idx is None:
         idx = canonicalize_activations(acodes, pack)
-    if acodes.is_cuda and _int_pack(pack):
+    if kernel:
         if wpacked is None:
             raise ValueError("on a CUDA tensor the lut_stream_gemm kernel reads wpacked; "
                              "pass wpacked= beside wcanon_table=")
-        return _kernel_sum(wpacked, idx, pack) - corr
+        out = _kernel_sum(wpacked, idx, pack)
+        return out - corr if corr else out
     if acodes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"canonical_lut_gemm runs on cuda or cpu, got {acodes.device}")
     canon = torch.as_tensor(pack.canonical, device=acodes.device)
@@ -417,8 +467,9 @@ def streamed_lut_gemm(
         )
     device = acodes.device if isinstance(acodes, torch.Tensor) else torch.device("cpu")
     if device.type == "cuda" and _int_pack(pack):
-        ac, corr = _pad_acodes(acodes, p, pack.wgrid, pack.agrid)
-        out = _kernel_sum(prep.wpk, canonicalize_activations(ac, pack), pack) - corr
+        out = _kernel_sum(prep.wpk, canonicalize_activations(acodes, pack), pack)
+        if prep.corr:
+            out = out - prep.corr
         stats = stream_plan_stats(prep.m, acodes, pack, k_slices=k_slices, tile_n=tile_n,
                                   buffer_bytes=buffer_bytes)
         return out, stats

@@ -21,6 +21,7 @@ class GpuCard:
     hbm_bandwidth: float       # bytes/s
     peak_flops_bf16: float     # FLOP/s, tensor cores, dense
     peak_flops_f32: float      # FLOP/s, CUDA cores (no tensor cores)
+    peak_ops_int8: float       # OP/s, tensor cores, dense (one MAC = 2 operations)
 
 
 H100_SXM = GpuCard(
@@ -28,6 +29,7 @@ H100_SXM = GpuCard(
     hbm_bandwidth=3.35e12,
     peak_flops_bf16=989e12,
     peak_flops_f32=67e12,
+    peak_ops_int8=1979e12,
 )
 
 

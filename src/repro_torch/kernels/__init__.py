@@ -6,8 +6,11 @@
   ``csrc/lut_dequant_gemm.cu`` on the CUDA cores otherwise); replaces the
   TPU kernel of the same name.
 * :mod:`repro_torch.kernels.lut_stream_gemm` — canonical-LUT slice-streaming
-  GEMM, int32 (CUDA C++, ``csrc/lut_stream_gemm.cu``); replaces the TPU
-  kernel of the same name.
+  GEMM, int32 (CUDA C++: ``csrc/lut_stream_gemm_sm90.cu`` on the int8 tensor
+  cores for packs with s8 entries and R <= 32, ``csrc/lut_stream_gemm.cu``
+  on the CUDA cores otherwise); replaces the TPU kernel of the same name.
+  In front of it ``csrc/lut_canon.cu`` canonicalizes the activation codes
+  (and composes the tensor-core route's operand) in one launch.
 * :mod:`repro_torch.kernels.flash_attention` — online-softmax attention
   with GQA, causal / sliding-window masks and a logit softcap (CUDA C++:
   ``csrc/flash_attention_sm90.cu`` on the tensor cores for bf16 at head dims

@@ -30,6 +30,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# Every CUDA source of csrc/, one library each (chip_smoke.py builds them all,
+# one nvcc each, started together).
+SOURCES = ("lut_dequant_gemm", "lut_dequant_gemm_sm90", "lut_stream_gemm",
+           "lut_stream_gemm_sm90", "lut_canon", "flash_attention", "flash_attention_sm90")
+
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}

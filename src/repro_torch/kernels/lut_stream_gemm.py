@@ -1,25 +1,44 @@
-"""Hopper kernel: canonical-LUT slice-streaming GEMM (the paper's §IV-C).
+"""Hopper kernels: canonical-LUT slice-streaming GEMM (the paper's §IV-C) and
+the canonicalization in front of it.
 
 Replaces the TPU kernel ``src/repro/kernels/lut_stream_gemm.py::
 lut_stream_gemm`` (Pallas body ``_stream_kernel_body``): for each K-group
 ``g`` and activation column ``n`` the canonical-LUT column ``msrank[g, n]``
-and the reordering-LUT column ``permid[g, n]`` are composed once into a
-shared-memory table, ``composed[r] = canonical[reordering[r, pid], ms]``,
-which every weight row then reads at ``wpacked[m, g]``; the sums are int32,
-so the result is the integer GEMM bit for bit.
+and the reordering-LUT column ``permid[g, n]`` are composed once,
+``composed[r] = canonical[reordering[r, pid], ms]``, and every weight row
+reads ``composed[wpacked[m, g]]``; the sums are int32, so the result is the
+integer GEMM bit for bit.
 
 What bounds it on an H100: at decode (N = the serve batch) the ``M*G*4``
-bytes of ``wpacked``; at prefill the ``M*G*N`` lookup-adds.  The CUDA source
-(``csrc/lut_stream_gemm.cu``) is a simple, right first version: one block per
-256 weight rows x NT columns, the weight tile staged in shared memory with
-coalesced loads, the composed table in shared memory, int32 register
-accumulators, and K-groups split across blocks with int32 atomics when the
-(M, N) tiles alone cannot fill the card.  Its times beside the bounds are in
-PERF.md.
+bytes of ``wpacked``; at prefill the ``M*G*N`` lookups.  Three CUDA sources,
+and a route fixed by the pack alone (:func:`route`), never by N:
 
-The wrapper checks device, dtypes, shapes and contiguity, allocates ``out``,
-launches on the current stream and raises on a launch error.  It counts its
-launches in :data:`launches` (a plain integer, reset by the caller).
+* ``"tc"`` -- integer packs whose canonical entries fit s8 (``b_o == 1``)
+  and whose weight index has ``R = 2^(bw p) <= 32`` values (the serve pack
+  W1A3 p=4, R = 16): the one-hot product ``onehot(wpacked)[M, G*R] .
+  B[G*R, N]`` on the int8 tensor cores, ``csrc/lut_stream_gemm_sm90.cu``
+  (``wgmma`` u8 x s8 -> s32; the one-hot A decoded in registers from
+  ``wpacked``; B, the composed slices, K-major by TMA).  B comes from
+  ``csrc/lut_canon.cu`` (:func:`canonicalize` composes it beside the
+  canonicalization; :func:`compose` builds it from given indices), so the
+  operations are 2*M*G*R*N at the 1979 TOP/s int8 peak, R x the lookups.
+* ``"cuda_core"`` -- every other pack (R = 256 packs, ``b_o > 1``, the
+  kernel's ``int32`` accumulation of ``int16`` entries):
+  ``csrc/lut_stream_gemm.cu``, the first port's kernel on the CUDA cores
+  (one block per 256 weight rows x NT columns, the composed table in shared
+  memory, K-groups split with int32 atomics at decode), unchanged.
+
+``csrc/lut_canon.cu`` replaces the torch chain of the canonicalization
+(stable argsort, gather, rank, Lehmer id: XLA in the reference,
+``src/repro/core/multiset.py:139-170``) with one launch: a sorting network
+per group in registers.
+
+The wrappers check device, dtypes, shapes and contiguity, allocate the
+outputs, launch on the current stream and raise on a launch error; they never
+switch route.  Launches are counted in plain integers, reset by the caller:
+:data:`launches` (one per ``lut_stream_gemm`` product, either route),
+:data:`launches_tc` (those on the tensor cores) and :data:`launches_canon`
+(the canonicalize / compose kernel).  Times beside the bounds are in PERF.md.
 """
 
 from __future__ import annotations
@@ -28,28 +47,220 @@ import ctypes
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels import build
 
-launches = 0          # incremented once per kernel launch, nowhere else
+launches = 0          # incremented once per GEMM launch (either route), nowhere else
+launches_tc = 0       # incremented once per launch of the tensor-core route, nowhere else
+launches_canon = 0    # incremented once per canonicalize / compose launch, nowhere else
 
-_fn = None
+MAX_R_TC = 32         # one-hot columns per group on the tensor cores, at most
+MAX_SPLIT = 8         # K slices of the tensor-core route, at most
+MAX_P = 12            # the canonicalize kernel's largest group size
+_KC = 128             # one-hot columns per stage of the tensor-core kernel (256 at n_tile 8)
+_FM = 128             # weight rows per CTA of the tensor-core kernel
+
+_fns: dict = {}
+_counters: dict = {}  # (device index, stream) -> int32 counters, zero between launches
+_n_sm: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("lut_stream_gemm").lut_stream_gemm
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def route(pack) -> str:
+    """The kernel a pack's GEMM runs on: ``"tc"`` (``lut_stream_gemm_sm90.cu``)
+    for integer canonical entries that fit s8 and ``R <= 32`` weight-index
+    values, else ``"cuda_core"`` (``lut_stream_gemm.cu``)."""
+    if pack.canonical.dtype.kind == "i" and pack.bo == 1 and pack.n_rows <= MAX_R_TC:
+        return "tc"
+    return "cuda_core"
 
 
 def column_tile(n: int, nt=None) -> int:
-    """The kernel's column tile (4, 8 or 16) for ``n`` columns, or the
+    """The CUDA-core kernel's column tile (4, 8 or 16) for ``n`` columns, or the
     smallest one holding a requested ``nt``."""
     want = n if nt is None else nt
     return 4 if want <= 4 else 8 if want <= 8 else 16
+
+
+def composed_pitch(g: int, r: int) -> int:
+    """Bytes per row of the composed operand B ``[N, G*R]``: G*R rounded up to
+    16 (TMA's row-pitch unit)."""
+    return -(-(g * r) // 16) * 16
+
+
+def tc_split(m: int, g: int, r: int, n: int, n_sm: int) -> tuple[int, int]:
+    """How the tensor-core kernel covers an [M, N] output: ``(n_tile, s)``, the
+    B columns per CTA (8, 64, 128 or 256: the least that covers N, 256 at
+    most) and the K slices ``s``, one CTA each (at most :data:`MAX_SPLIT`, at
+    least 4 stages a slice).  At decode (n_tile 8: the bytes bound) the
+    slices fill the SMs the output tiles leave idle; above it (the
+    operations bound) ``s`` minimises the waves of CTAs times each one's
+    share of a tile's int8 work, plus the partial sums' traffic, at the
+    card's peaks.  Integer sums are exact in any order, so both may follow N."""
+    n_tile = 8 if n <= 8 else 64 if n <= 64 else 128 if n <= 128 else 256
+    tiles = -(-m // _FM) * -(-n // n_tile)
+    chunks = -(-(g * r) // (2 * _KC if n_tile == 8 else _KC))
+    most = max(1, min(MAX_SPLIT, chunks // 4))
+    if n_tile == 8:
+        return n_tile, 1 if tiles >= n_sm else max(1, min(n_sm // tiles, most))
+    card = hw.H100_SXM
+    work = 2.0 * _FM * n_tile * g * r / (card.peak_ops_int8 / n_sm)
+
+    def cost(s):
+        waves = -(-tiles * s // n_sm)
+        return waves / s * work + (8.0 * s * m * n / card.hbm_bandwidth if s > 1 else 0.0)
+
+    return n_tile, min(range(1, most + 1), key=lambda s: (cost(s), s))
+
+
+def _kernel(which: str):
+    if which not in _fns:
+        if which == "tc":
+            fn = build.load("lut_stream_gemm_sm90").lut_stream_gemm_sm90
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        elif which == "canon":
+            fn = build.load("lut_canon").lut_canon
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + \
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        else:
+            fn = build.load("lut_stream_gemm").lut_stream_gemm
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[which] = fn
+    return _fns[which]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sm_count(device: torch.device) -> int:
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    if dev not in _n_sm:
+        _n_sm[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _n_sm[dev]
+
+
+def _tile_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def _check_cuda(what: str, args) -> None:
+    dev = args[0].device
+    if not all(a.is_cuda and a.device == dev for a in args):
+        raise ValueError(f"{what} kernel needs its operands on one CUDA device; got "
+                         f"{[str(a.device) for a in args]}")
+
+
+def _raise(err: int, what: str, shape: str) -> None:
+    if err != 0:
+        why = (f"cuTensorMapEncodeTiled refused a tensor map (CUresult {err - 10000})"
+               if err >= 10000 else "cuTensorMapEncodeTiled not found in libcuda.so.1"
+               if err == -1 else f"cudaError {err}")
+        raise RuntimeError(f"{what} kernel launch failed: {why} ({shape})")
+
+
+def _check_tables(canonical: torch.Tensor, reordering: torch.Tensor) -> tuple[int, int, int]:
+    if canonical.dtype != torch.int32 or reordering.dtype != torch.int32:
+        raise TypeError(f"canonical and reordering must be int32, got {canonical.dtype}, "
+                        f"{reordering.dtype}")
+    if canonical.ndim != 2 or reordering.ndim != 2 or reordering.shape[0] != canonical.shape[0]:
+        raise ValueError(f"canonical [R, C] and reordering [R, P!] must share R, got "
+                         f"{tuple(canonical.shape)}, {tuple(reordering.shape)}")
+    if not (canonical.is_contiguous() and reordering.is_contiguous()):
+        raise ValueError("the LUT kernels need contiguous canonical and reordering tables")
+    return canonical.shape[0], canonical.shape[1], reordering.shape[1]
+
+
+def canonicalize(
+    acodes: torch.Tensor,
+    binom: torch.Tensor,
+    *,
+    p: int,
+    pad_code: int,
+    tables: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The canonicalize kernel on a CUDA device: activation codes ``[K, N]``
+    int32 (any strides) -> int32 ``msrank``, ``permid`` ``[G, N]``
+    (G = ceil(K/p), a partial last group padded with ``pad_code``) and, when
+    ``tables`` (the pack's int32 canonical ``[R, C]`` and reordering ``[R,
+    P!]``, entries within s8) is given, the composed operand ``B`` ``[N,
+    composed_pitch(G, R)]`` int8 of the tensor-core route (columns past G*R
+    unwritten).  ``binom``: the pack's binomial table ``[v + p, p + 1]``
+    int32."""
+    global launches_canon
+    _check_cuda("lut_stream_gemm canonicalize", (acodes, binom) + tuple(tables or ()))
+    if acodes.dtype != torch.int32 or binom.dtype != torch.int32:
+        raise TypeError(f"codes and binom must be int32, got {acodes.dtype}, {binom.dtype}")
+    if acodes.ndim != 2 or not 1 <= p <= MAX_P or binom.shape[1] != p + 1 or \
+            not binom.is_contiguous():
+        raise ValueError(f"codes must be [K, N], 1 <= p <= {MAX_P} and binom contiguous "
+                         f"[v + p, p + 1]; got {tuple(acodes.shape)}, p={p}, "
+                         f"{tuple(binom.shape)}")
+    k, n = acodes.shape
+    g = -(-k // p)
+    dev = acodes.device
+    ms = torch.empty((g, n), dtype=torch.int32, device=dev)
+    pid = torch.empty((g, n), dtype=torch.int32, device=dev)
+    b = None
+    r = c = pf = ldb = 0
+    canon = reorder = None
+    if tables is not None:
+        canon, reorder = tables
+        r, c, pf = _check_tables(canon, reorder)
+        ldb = composed_pitch(g, r)
+        b = torch.empty((n, ldb), dtype=torch.int8, device=dev)
+    if k == 0 or n == 0:
+        return ms, pid, b
+    fn = _kernel("canon")
+    with torch.cuda.device(dev):
+        err = fn(acodes.data_ptr(), acodes.stride(0), acodes.stride(1), binom.data_ptr(),
+                 ms.data_ptr(), pid.data_ptr(),
+                 None if canon is None else canon.data_ptr(),
+                 None if reorder is None else reorder.data_ptr(),
+                 None if b is None else b.data_ptr(), ldb, k, n, g, p, r, c, pf, pad_code,
+                 0 if tables is None else 1, _stream(acodes))
+    _raise(err, "lut_stream_gemm canonicalize", f"K={k} N={n} p={p} R={r}")
+    launches_canon += 1
+    return ms, pid, b
+
+
+def compose(
+    msrank: torch.Tensor,
+    permid: torch.Tensor,
+    canonical: torch.Tensor,
+    reordering: torch.Tensor,
+    *,
+    p: int,
+) -> torch.Tensor:
+    """The same kernel from given indices: ``B[n, g*R + r] = canonical[
+    reordering[r, permid[g, n]], msrank[g, n]]`` as int8 ``[N,
+    composed_pitch(G, R)]`` (columns past G*R unwritten)."""
+    global launches_canon
+    _check_cuda("lut_stream_gemm compose", (msrank, permid, canonical, reordering))
+    r, c, pf = _check_tables(canonical, reordering)
+    if msrank.dtype != torch.int32 or permid.dtype != torch.int32 or msrank.ndim != 2 or \
+            permid.shape != msrank.shape or not (msrank.is_contiguous() and permid.is_contiguous()):
+        raise ValueError(f"msrank and permid must be contiguous int32 [G, N] alike, got "
+                         f"{msrank.dtype} {tuple(msrank.shape)}, {permid.dtype} "
+                         f"{tuple(permid.shape)}")
+    g, n = msrank.shape
+    ldb = composed_pitch(g, r)
+    b = torch.empty((n, ldb), dtype=torch.int8, device=msrank.device)
+    if g == 0 or n == 0:
+        return b
+    fn = _kernel("canon")
+    with torch.cuda.device(msrank.device):
+        err = fn(None, 0, 0, None, msrank.data_ptr(), permid.data_ptr(), canonical.data_ptr(),
+                 reordering.data_ptr(), b.data_ptr(), ldb, 0, n, g, p, r, c, pf, 0, 2,
+                 _stream(msrank))
+    _raise(err, "lut_stream_gemm compose", f"G={g} N={n} R={r}")
+    launches_canon += 1
+    return b
 
 
 def lut_stream_gemm(
@@ -60,21 +271,25 @@ def lut_stream_gemm(
     reordering: torch.Tensor,
     *,
     nt=None,
+    pack=None,
+    composed: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``out[m, n] = sum_g canonical[reordering[wpacked[m, g], permid[g, n]],
     msrank[g, n]]`` on a CUDA device, int32 ``[M, N]``.
 
     ``wpacked``: [M, G]; ``msrank``, ``permid``: [G, N]; ``canonical``:
     [R, C]; ``reordering``: [R, P!]; all int32 and contiguous on one device.
-    ``nt`` sets the column tile (rounded up to 4, 8 or 16; default from N).
+    ``pack`` (the :class:`~repro_torch.core.luts.LutPack` the tables come
+    from) picks the route (:func:`route`); without it the bound of the
+    canonical entries is unknown and the call takes the CUDA cores.  On the
+    tensor-core route ``composed`` (B from :func:`canonicalize`) is used as
+    it is, else :func:`compose` builds it first; ``nt`` is ignored there.
+    On the CUDA cores ``nt`` sets the column tile (rounded up to 4, 8 or 16;
+    default from N).  Every route and every ``nt`` give the same bits.
     """
-    global launches
+    global launches, launches_tc
     args = (wpacked, msrank, permid, canonical, reordering)
-    if not all(a.is_cuda and a.device == wpacked.device for a in args):
-        raise ValueError(
-            "lut_stream_gemm kernel needs wpacked, msrank, permid, canonical and "
-            f"reordering on one CUDA device; got {[str(a.device) for a in args]}"
-        )
+    _check_cuda("lut_stream_gemm", args)
     if any(a.dtype != torch.int32 for a in args):
         raise TypeError(f"lut_stream_gemm takes int32 operands, got {[a.dtype for a in args]}")
     if any(a.ndim != 2 for a in args):
@@ -91,23 +306,46 @@ def lut_stream_gemm(
         raise ValueError("lut_stream_gemm kernel needs contiguous operands")
     if max(m * g, g * n, m * n, r * c) >= 2**31:
         raise ValueError(f"lut_stream_gemm operand too large: M={m} G={g} N={n} R={r} C={c}")
+    which = "cuda_core" if pack is None else route(pack)
+    if pack is not None and (pack.n_rows, pack.n_canonical_cols) != (r, c):
+        raise ValueError(f"the tables [{r}, {c}] are not the pack's "
+                         f"[{pack.n_rows}, {pack.n_canonical_cols}]")
     out = torch.empty((m, n), dtype=torch.int32, device=wpacked.device)
     if m == 0 or n == 0:
         return out
     if g == 0:
         return out.zero_()
-    fn = _kernel()
-    with torch.cuda.device(wpacked.device):
-        stream = torch.cuda.current_stream(wpacked.device).cuda_stream
-        err = fn(
-            wpacked.data_ptr(), msrank.data_ptr(), permid.data_ptr(), canonical.data_ptr(),
-            reordering.data_ptr(), out.data_ptr(), m, g, n, r, c, reordering.shape[1],
-            column_tile(n, nt), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"lut_stream_gemm kernel launch failed: cudaError {err} "
-            f"(M={m} G={g} N={n} R={r} C={c}; R above ~2900 does not fit shared memory)"
-        )
+    if which == "tc":
+        if composed is None:
+            composed = compose(msrank, permid, canonical, reordering, p=pack.p)
+        ldb = composed_pitch(g, r)
+        if composed.dtype != torch.int8 or tuple(composed.shape) != (n, ldb) or \
+                not composed.is_contiguous() or composed.device != wpacked.device:
+            raise ValueError(f"composed must be contiguous int8 [{n}, {ldb}] on "
+                             f"{wpacked.device}, got {composed.dtype} "
+                             f"{tuple(composed.shape)} on {composed.device}")
+        n_tile, s = tc_split(m, g, r, n, _sm_count(wpacked.device))
+        fn = _kernel("tc")
+        with torch.cuda.device(wpacked.device):
+            stream = _stream(wpacked)
+            ws = cnt = None
+            if s > 1:
+                ws = torch.empty((s, m, n), dtype=torch.int32, device=wpacked.device)
+                cnt = _tile_counters(wpacked.device, stream, -(-m // _FM) * -(-n // n_tile))
+            err = fn(wpacked.data_ptr(), composed.data_ptr(), out.data_ptr(),
+                     None if ws is None else ws.data_ptr(),
+                     None if cnt is None else cnt.data_ptr(), m, g, n, r, ldb, n_tile, s, stream)
+        _raise(err, "lut_stream_gemm (tc)", f"M={m} G={g} N={n} R={r}")
+    else:
+        fn = _kernel("cuda_core")
+        with torch.cuda.device(wpacked.device):
+            err = fn(
+                wpacked.data_ptr(), msrank.data_ptr(), permid.data_ptr(), canonical.data_ptr(),
+                reordering.data_ptr(), out.data_ptr(), m, g, n, r, c, reordering.shape[1],
+                column_tile(n, nt), _stream(wpacked),
+            )
+        _raise(err, "lut_stream_gemm (cuda_core)",
+               f"M={m} G={g} N={n} R={r} C={c}; R above ~2900 does not fit shared memory")
     launches += 1
+    launches_tc += which == "tc"
     return out

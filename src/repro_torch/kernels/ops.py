@@ -18,7 +18,6 @@ from repro_torch.core.luts import LutPack
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lut_dequant_gemm as _dq
-from repro_torch.kernels import lut_stream_gemm as _ss
 from repro_torch.kernels import ref
 
 
@@ -51,8 +50,9 @@ def lut_stream_gemm_full(
     ``acodes [K, N]`` -> the int-exact GEMM ``[M, N]`` as float32.
 
     Performs the host-side steps (§IV-A step 1: pad, canonicalize, pack the
-    weight index), then runs the ``lut_stream_gemm`` kernel for a CUDA
-    tensor (``nt``: its column tile, rounded up to 4, 8 or 16) or its plain
+    weight index), then runs the ``lut_stream_gemm`` kernel on the pack's
+    route for a CUDA tensor (``nt``: the CUDA-core route's column tile,
+    rounded up to 4, 8 or 16; the tensor-core route ignores it) or its plain
     version for a CPU tensor, and subtracts the exact pad correction.
     """
     if pack.canonical.dtype.kind not in "iu":
@@ -65,10 +65,10 @@ def lut_stream_gemm_full(
     idx = engine.canonicalize_activations(acodes, pack)
     m, k = wcodes.shape
     wpacked = packing.pack_index(wcodes.reshape(m, k // p, p), pack.bw)
-    canon, reorder = engine.device_tables(pack, acodes.device)
     if acodes.device.type == "cuda":
-        out = _ss.lut_stream_gemm(wpacked, idx.msrank, idx.permid, canon, reorder, nt=nt)
+        out = engine._kernel_sum(wpacked, idx, pack, nt=nt)
     elif acodes.device.type == "cpu":
+        canon, reorder = engine.device_tables(pack, acodes.device)
         out = ref.lut_stream_gemm_ref(wpacked, idx.msrank, idx.permid, canon, reorder)
     else:
         raise ValueError(f"lut_stream_gemm runs on cuda or cpu, got {acodes.device}")

@@ -6,6 +6,7 @@ on the card they are used only to check the kernels against.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -46,6 +47,66 @@ def lut_stream_gemm_ref(
     wcanon = reordering[wpacked[:, :, None].long(), permid[None, :, :].long()]   # [M,G,N]
     vals = canonical[wcanon.long(), msrank[None, :, :].long()]                    # [M,G,N]
     return vals.to(torch.int32).sum(dim=1, dtype=torch.int32)
+
+
+def lut_canon_ref(
+    acodes: torch.Tensor,
+    binom: torch.Tensor,
+    *,
+    p: int,
+    pad_code: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain form of the canonicalize kernel's arithmetic: activation codes
+    ``[K, N]`` (a partial last group padded with ``pad_code``) -> int32
+    ``msrank``, ``permid`` ``[G, N]``.  Each group's p codes are sorted by an
+    odd-even transposition network on the distinct keys ``code * p + i``
+    (whose one sorted order is the stable argsort's), then ranked through
+    ``binom`` (the pack's ``[v + p, p + 1]`` binomial table) and given the
+    Lehmer id of the permutation ``key % p``."""
+    k, n = acodes.shape
+    g = -(-k // p)
+    a = acodes.to(torch.int64)
+    if g * p > k:
+        a = torch.nn.functional.pad(a, (0, 0, 0, g * p - k), value=pad_code)
+    groups = a.reshape(g, p, n)                                          # [G, p, N]
+    keys = [groups[:, i] * p + i for i in range(p)]                      # p x [G, N]
+    for rnd in range(p):
+        for i in range(rnd & 1, p - 1, 2):
+            keys[i], keys[i + 1] = (torch.minimum(keys[i], keys[i + 1]),
+                                    torch.maximum(keys[i], keys[i + 1]))
+    tbl = binom.to(torch.int64)
+    perm = [key % p for key in keys]
+    rank = torch.zeros((g, n), dtype=torch.int64, device=acodes.device)
+    pid = torch.zeros_like(rank)
+    for i in range(p):
+        rank += tbl[keys[i] // p + i, i + 1]
+        for j in range(i + 1, p):
+            pid += (perm[j] < perm[i]).to(torch.int64) * math.factorial(p - 1 - i)
+    return rank.to(torch.int32), pid.to(torch.int32)
+
+
+def lut_compose_ref(
+    msrank: torch.Tensor,
+    permid: torch.Tensor,
+    canonical: torch.Tensor,
+    reordering: torch.Tensor,
+) -> torch.Tensor:
+    """Plain compose step: ``B[n, g*R + r] = canonical[reordering[r,
+    permid[g, n]], msrank[g, n]]`` as int8 ``[N, G*R]`` (the entries of a
+    pack with ``b_o == 1`` fit s8)."""
+    g, n = msrank.shape
+    r = canonical.shape[0]
+    rows = reordering[:, permid.long()].long()                           # [R, G, N]
+    vals = canonical[rows, msrank.long()[None]]                          # [R, G, N]
+    return vals.permute(2, 1, 0).reshape(n, g * r).to(torch.int8)
+
+
+def lut_onehot_gemm_ref(wpacked: torch.Tensor, b: torch.Tensor, *, r: int) -> torch.Tensor:
+    """Plain one-hot product ``onehot(wpacked)[M, G*R] . B[:, :G*R]^T`` as a
+    gather: ``out[m, n] = sum_g B[n, g*R + wpacked[m, g]]``, int32 ``[M, N]``."""
+    m, g = wpacked.shape
+    cols = wpacked.long() + torch.arange(g, device=wpacked.device)[None] * r   # [M, G]
+    return b[:, cols].sum(dim=2, dtype=torch.int32).T.contiguous()
 
 
 def flash_attention_ref(

@@ -62,6 +62,12 @@ def check_supported(cfg: ModelConfig) -> None:
         )
     if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
         raise NotImplementedError(f"{cfg.name}: frontends / enc-dec are not ported yet")
+    if cfg.attend_bf16:
+        raise NotImplementedError(
+            f"{cfg.name}: attend_bf16=True (bf16 attention operands, f32 sums) is not "
+            f"ported yet: the attention here computes in f32; it waits for ROADMAP "
+            f"Queue 1 item 7"
+        )
 
 
 # ---------------------------------------------------------------------------

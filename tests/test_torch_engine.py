@@ -80,6 +80,44 @@ def test_canonicalize_activations_matches_reference(bw, ba, p, k):
     assert nt.msrank.dtype == nj.msrank.dtype and nt.permid.dtype == nj.permid.dtype
 
 
+def _network(ac, pack):
+    """The canonicalize kernel's arithmetic in its plain form (a sorting
+    network on the keys code * p + i)."""
+    from repro_torch.core.quantize import zero_code
+    from repro_torch.kernels import ref as tref
+
+    return tref.lut_canon_ref(torch.from_numpy(ac), torch.from_numpy(pack.binom.astype(np.int32)),
+                              p=pack.p, pad_code=zero_code(pack.agrid))
+
+
+def test_sorting_network_canonicalization_on_every_a3_p4_group():
+    """All 8^4 = 4096 groups of A3 p=4, ties included: the sorting-network
+    form gives the reference's msrank and permid."""
+    import itertools
+
+    jp, tp = _packs(1, 3, 4)
+    allg = np.array(list(itertools.product(range(8), repeat=4)), dtype=np.int32).T   # [4, 4096]
+    ij = jengine.canonicalize_activations(jnp.asarray(allg), jp)
+    ms, pid = _network(allg, tp)
+    assert ms.dtype == torch.int32 and _eq(ms, ij.msrank) and _eq(pid, ij.permid)
+    assert len(np.unique(np.asarray(ij.msrank))) == tp.n_canonical_cols       # every multiset
+    assert len(np.unique(np.asarray(ij.permid))) == math.factorial(4)         # every permutation
+
+
+@pytest.mark.parametrize("bw,ba,p", PACKS[:5])
+@pytest.mark.parametrize("k,n", [(1, 3), (13, 7), (41, 9)])
+def test_sorting_network_canonicalization_matches_reference(bw, ba, p, k, n):
+    """The phase-6 packs on ragged K (a partial last group padded with the
+    zero code), ties frequent at ba = 1, 2."""
+    jp, tp = _packs(bw, ba, p)
+    _, ac = _codes(bw, ba, 1, k, n, (bw, ba, p, k, n, 7))
+    ij = jengine.canonicalize_activations(jnp.asarray(ac), jp)
+    ms, pid = _network(ac, tp)
+    assert _eq(ms, ij.msrank) and _eq(pid, ij.permid)
+    it = tengine.canonicalize_activations(torch.from_numpy(ac), tp)
+    assert torch.equal(ms, it.msrank) and torch.equal(pid, it.permid) and it.composed is None
+
+
 @pytest.mark.parametrize("bw,ba,p", PACKS)
 @pytest.mark.parametrize("m,k,n", [(9, 13, 5), (2, 3, 1)])
 def test_every_engine_matches_reference(bw, ba, p, m, k, n):

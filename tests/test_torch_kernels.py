@@ -4,7 +4,7 @@ kernels (interpret mode) and jnp oracles; the CUDA kernels themselves
 against their plain versions on the card; and the port's import isolation
 from JAX.
 
-JAX is imported inside the parity tests only, so the card test runs where
+JAX is imported inside the parity tests only, so the card tests run where
 JAX is absent: ``python -m pytest -q --noconftest -m cuda
 tests/test_torch_kernels.py`` (the suite's conftest imports JAX)."""
 
@@ -318,6 +318,125 @@ def test_lut_stream_cpu_tensor_takes_plain_version_only():
     assert ss.column_tile(512, nt=3) == 4
 
 
+# The route of every pack the tests and chip_smoke.py run: the int8 tensor cores
+# take integer packs whose canonical entries fit s8 (b_o == 1) and R <= 32.
+ROUTES = [((1, 3, 3), "int", "tc"), ((1, 3, 4), "int", "tc"), ((1, 1, 5), "int", "tc"),
+          ((1, 4, 2), "int", "tc"), ((1, 3, 1), "int", "tc"),
+          ((2, 2, 4), "int", "cuda_core"), ((4, 4, 2), "int", "cuda_core"),
+          ((1, 8, 2), "int", "cuda_core"), ((2, 3, 2), "fp", "cuda_core"),
+          ((4, 4, 1), "int", "tc")]
+
+
+@pytest.mark.parametrize("cfg,kind,want", ROUTES)
+def test_lut_stream_gemm_route_table(cfg, kind, want):
+    """W1A3 p=4 (the serve pack, R = 16) and the phase-6 packs (1,3,3) and
+    (1,1,5) take the tensor cores, and so does W4A4 p=1 (R = 16, |entry| <=
+    49); R = 256, b_o = 2 ((1,8,2): |entry| up to 2 * 1 * 127) and float
+    packs stay on the CUDA cores."""
+    from repro_torch.core import luts as tluts
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    pack = tluts.build_lut_pack(*cfg, w_kind=kind, a_kind=kind)
+    assert ss.route(pack) == want
+    assert (pack.bo == 1 and pack.n_rows <= 32 and kind == "int") == (want == "tc")
+
+
+def test_lut_stream_tc_split_never_below_one_chunk_a_slice():
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    # stablelm-12b at W1A3 p=4 (R = 16): decode splits the layers whose tiles
+    # leave SMs idle; prefill splits where fewer, shorter waves pay for the
+    # partial sums (80 tiles in 3 slices: 2 waves of a third of the work).
+    assert ss.tc_split(1280, 1280, 16, 4, 132) == (8, 8)        # wk / wv: 10 tiles
+    assert ss.tc_split(5120, 1280, 16, 4, 132) == (8, 3)        # wq / wo: 40 tiles
+    assert ss.tc_split(13824, 1280, 16, 4, 132) == (8, 1)       # w_up: 108 tiles
+    assert ss.tc_split(5120, 3456, 16, 512, 132) == (256, 3)    # w_down prefill: 80 tiles
+    assert ss.tc_split(5120, 1280, 16, 512, 132) == (256, 3)    # wq / wo prefill
+    assert ss.tc_split(13824, 1280, 16, 512, 132) == (256, 1)   # w_up prefill: 216 tiles
+    assert ss.tc_split(1280, 1280, 16, 512, 132) == (256, 6)
+    assert ss.tc_split(16, 4, 16, 6, 132) == (8, 1)             # one chunk: no split
+    for m, g, r, n in [(300, 26, 16, 4), (1000, 84, 8, 37), (4096, 206, 32, 129)]:
+        n_tile, s = ss.tc_split(m, g, r, n, 132)
+        assert 1 <= s <= max(1, -(-(g * r) // 128) // 4) and n_tile >= min(n, 256)
+    assert ss.composed_pitch(4, 16) == 64 and ss.composed_pitch(5, 8) == 48
+
+
+@pytest.mark.parametrize("bw,ba,p", [(1, 3, 3), (1, 3, 4), (1, 1, 5), (1, 4, 2), (1, 3, 1)])
+@pytest.mark.parametrize("k", [1, 13, 4 * 9 + 3])
+def test_composed_onehot_chain_vs_reference(bw, ba, p, k, ref_pkg):
+    """The tensor-core route's two steps in their plain forms, compose (B from
+    msrank / permid) then the one-hot product, equal the plain version and
+    the reference's Pallas kernel (interpret mode) bit for bit, ragged K
+    included."""
+    jnp, _japi, _jops, _jref = ref_pkg
+    from repro.kernels.lut_stream_gemm import lut_stream_gemm as jkernel
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import luts as tluts
+    from repro_torch.core import packing as tpacking
+
+    pack = tluts.build_lut_pack(bw, ba, p)
+    m, n = 11, 7
+    wc, ac = _stream_case(bw, ba, p, m, k, n, (bw, ba, p, k))
+    wt, at, _ = tengine._pad_groups(torch.from_numpy(wc), torch.from_numpy(ac), p, pack.wgrid,
+                                    pack.agrid)
+    wpk = tpacking.pack_index(wt.reshape(m, -1, p), bw)
+    idx = tengine.canonicalize_activations(at, pack)
+    canon, reorder = tengine.device_tables(pack, "cpu")
+    b = tref.lut_compose_ref(idx.msrank, idx.permid, canon, reorder)
+    g = wpk.shape[1]
+    assert b.dtype == torch.int8 and b.shape == (n, g * pack.n_rows)
+    got = tref.lut_onehot_gemm_ref(wpk, b, r=pack.n_rows)
+    plain = tref.lut_stream_gemm_ref(wpk, idx.msrank, idx.permid, canon, reorder)
+    want = np.asarray(jkernel(jnp.asarray(wpk.numpy()), jnp.asarray(idx.msrank.numpy()),
+                              jnp.asarray(idx.permid.numpy()), jnp.asarray(canon.numpy()),
+                              jnp.asarray(reorder.numpy()), r=pack.n_rows, nt=4,
+                              interpret=True))
+    assert got.dtype == torch.int32 and torch.equal(got, plain)
+    assert np.array_equal(got.numpy(), want)
+    # B as the one-hot contraction's operand: onehot(wpk) @ B^T in int64
+    onehot = torch.zeros((m, g, pack.n_rows), dtype=torch.int64)
+    onehot.scatter_(2, wpk[:, :, None].long(), 1)
+    assert torch.equal(onehot.reshape(m, -1) @ b.T.long(), got.long())
+
+
+@pytest.mark.parametrize("bw,ba,p", [(bw, ba, p) for bw in (1, 2) for ba in (1, 2, 3, 4)
+                                     for p in (1, 2, 3, 4, 5) if bw * p <= 8])
+def test_int8_range_of_every_bo1_pack(bw, ba, p):
+    """Every pack with b_o == 1 stores its canonical entries in int8, which
+    the tensor-core route's s8 operand holds exactly; its reordering values
+    (< R) fit the byte the compose kernel stages them in."""
+    from repro_torch.core import luts as tluts
+
+    pack = tluts.build_lut_pack(bw, ba, p)
+    ext = int(np.max(np.abs(pack.canonical.astype(np.int64))))
+    assert ext <= p * int(np.max(np.abs(pack.wgrid))) * int(np.max(np.abs(pack.agrid)))
+    if pack.bo == 1:
+        assert pack.canonical.dtype == np.int8 and -128 <= pack.canonical.min()
+        assert pack.canonical.max() <= 127
+        assert int(pack.reordering.max()) < pack.n_rows <= 256
+    else:
+        assert ext >= 128
+
+
+def test_lut_stream_canonicalize_wrappers_take_cuda_only():
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import luts as tluts
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    pack = tluts.build_lut_pack(1, 3, 4)
+    _, ac = _stream_case(1, 3, 4, 1, 12, 3, 1)
+    at = torch.from_numpy(ac)
+    before = ss.launches_canon
+    idx = tengine.canonicalize_activations(at, pack)
+    assert idx.composed is None and ss.launches_canon == before     # the plain chain ran
+    canon, reorder = tengine.device_tables(pack, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.canonicalize(at, tengine.device_binom(pack, "cpu"), p=4, pad_code=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.compose(idx.msrank, idx.permid, canon, reorder, p=4)
+    assert tengine.device_binom(pack, "cpu").shape == (8 + 4, 4 + 1)
+
+
 @pytest.mark.cuda
 def test_cuda_lut_stream_gemm_matches_plain_version():
     if not torch.cuda.is_available():
@@ -327,30 +446,75 @@ def test_cuda_lut_stream_gemm_matches_plain_version():
     from repro_torch.kernels import lut_stream_gemm as ss
 
     dev = torch.device("cuda")
-    for bw, ba, p in [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5)]:
+    # R = 8, 16, 256, 256, 32, then 4 and 2 (their one-hot decodes differ)
+    for bw, ba, p in [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5), (1, 4, 2), (1, 3, 1)]:
         pack = tluts.build_lut_pack(bw, ba, p)
+        tc = ss.route(pack) == "tc"
         canon, reorder = tengine.device_tables(pack, dev)
         for m, k, n in [(16, 3 * p + 1, 6), (300, 101, 4), (1000, 250, 37)]:
             wc, ac = _stream_case(bw, ba, p, m, k, n, (bw, ba, p, m, k, n))
             wt, at = torch.from_numpy(wc).to(dev), torch.from_numpy(ac).to(dev)
             want = tops.lut_stream_gemm_full(wt.cpu(), at.cpu(), pack)
             for nt in (1, 3, 6, 16):
-                before = ss.launches
+                before = (ss.launches, ss.launches_tc, ss.launches_canon)
                 got = tops.lut_stream_gemm_full(wt, at, pack, nt=nt)
-                assert ss.launches == before + 1
+                assert (ss.launches, ss.launches_tc, ss.launches_canon) == \
+                    (before[0] + 1, before[1] + tc, before[2] + 1)
                 torch.cuda.synchronize()
                 assert torch.equal(got.cpu(), want), (bw, ba, p, m, k, n, nt)
-            # the engine routes through the kernel too, raw and prepared
-            before = ss.launches
+            # the engine routes through the kernels too, raw and prepared:
+            # one canonicalize and one GEMM launch each
+            before = (ss.launches, ss.launches_canon)
             o = tengine.canonical_lut_gemm(wt, at, pack)
             prep = tengine.prepare_stream_weights(wt, pack)
             o_s, _ = tengine.streamed_lut_gemm(None, at, pack, prep=prep)
-            assert ss.launches == before + 2
+            assert (ss.launches, ss.launches_canon) == (before[0] + 2, before[1] + 2)
             assert torch.equal(o.cpu().float(), want) and torch.equal(o_s, o)
             idx = tengine.canonicalize_activations(at, pack)
+            plain_idx = tengine.canonicalize_activations_plain(at, pack)
+            assert torch.equal(idx.msrank, plain_idx.msrank)
+            assert torch.equal(idx.permid, plain_idx.permid)
             plain = tref.lut_stream_gemm_ref(prep.wpk, idx.msrank, idx.permid, canon, reorder)
-            assert torch.equal(ss.lut_stream_gemm(prep.wpk, idx.msrank, idx.permid, canon,
-                                                  reorder), plain)
+            for kw in ({}, {"pack": pack}):           # the CUDA cores, then the pack's route
+                assert torch.equal(ss.lut_stream_gemm(prep.wpk, idx.msrank, idx.permid, canon,
+                                                      reorder, **kw), plain), (bw, ba, p, kw)
+            if tc:
+                g = idx.msrank.shape[0]
+                want_b = tref.lut_compose_ref(idx.msrank, idx.permid, canon, reorder)
+                assert torch.equal(idx.composed[:, : g * pack.n_rows], want_b)
+                b = ss.compose(idx.msrank, idx.permid, canon, reorder, p=p)
+                assert torch.equal(b[:, : g * pack.n_rows], want_b)
+
+
+@pytest.mark.cuda
+def test_cuda_canonicalize_kernel_matches_plain_version():
+    """All 8^4 groups of A3 p=4 (ties included), and the five phase-6 packs on
+    ragged K in both code layouts (the quantizer's transposed view and a
+    contiguous [K, N]): msrank / permid bit-equal to the plain chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import itertools
+
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import luts as tluts
+
+    dev = torch.device("cuda")
+    pack = tluts.build_lut_pack(1, 3, 4)
+    allg = np.array(list(itertools.product(range(8), repeat=4)), dtype=np.int32)   # [4096, 4]
+    for codes in (torch.from_numpy(allg.T.copy()), torch.from_numpy(allg).T):
+        idx = tengine.canonicalize_activations(codes.to(dev), pack)
+        want = tengine.canonicalize_activations(codes, pack)
+        assert torch.equal(idx.msrank.cpu(), want.msrank)
+        assert torch.equal(idx.permid.cpu(), want.permid)
+    for bw, ba, p in [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5)]:
+        pack = tluts.build_lut_pack(bw, ba, p)
+        for k, n in [(3 * p + 1, 6), (101, 4), (250, 37), (1030, 129)]:
+            _, ac = _stream_case(bw, ba, p, 1, k, n, (bw, ba, p, k, n))
+            for at in (torch.from_numpy(ac), torch.from_numpy(ac.T.copy()).T):
+                want = tengine.canonicalize_activations(at, pack)
+                got = tengine.canonicalize_activations(at.to(dev), pack)
+                assert torch.equal(got.msrank.cpu(), want.msrank), (bw, ba, p, k, n)
+                assert torch.equal(got.permid.cpu(), want.permid), (bw, ba, p, k, n)
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -390,6 +554,15 @@ def _csrc_copy(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     return build, csrc
+
+
+def test_build_sources_name_every_csrc_file():
+    """build.SOURCES, which chip_smoke.py builds, lists every CUDA source of
+    csrc/, so the smoke run builds (and checks) each of them."""
+    from repro_torch.kernels import build
+
+    assert len(set(build.SOURCES)) == len(build.SOURCES)
+    assert set(build.SOURCES) == {f.stem for f in build.CSRC.glob("*.cu")}
 
 
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):

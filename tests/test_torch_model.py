@@ -98,6 +98,19 @@ def test_unported_families_raise():
             transformer.check_supported(get_config(arch, smoke=True))
 
 
+def test_attend_bf16_is_refused():
+    """The port's attention computes in f32; a config asking for the
+    reference's bf16 operands is refused rather than run as another function."""
+    cfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), attend_bf16=True)
+    with pytest.raises(NotImplementedError, match="attend_bf16"):
+        transformer.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="attend_bf16"):
+        build_model(cfg).init_quantized(LutLinearSpec(bw=4, mode="pallas"), seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="attend_bf16"):
+        build_model(cfg).init_cache(1, 8, torch.float32, device="cpu")
+    transformer.check_supported(dataclasses.replace(cfg, attend_bf16=False))
+
+
 def test_init_quantized_builds_stacked_leaves():
     cfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), dtype="float32")
     m = build_model(cfg)
