@@ -27,8 +27,13 @@ entry points at published full widths:
   ``lut_dequant_gemm``, held against ``attn_impl="xla"``; both kernels are
   also held against their plain versions at this forward's own shapes;
 
-the serve paths with continuous batching; every kernel's launch count is
-set to 0 just before a path and read just after.  It checks the card
+the serve paths with continuous batching; and the int-LUT model again under
+the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
+with per-layer packing degrees from analytic plans at 16 and 4 GiB and a plan
+measured on the card, so ``lut_stream_gemm`` runs on both of its routes
+(tensor cores at p <= 5, CUDA cores at p = 6-8), and the fixed-chunk driver
+(``decode="chunked"``); every planned serve gives phase 8's tokens.  Every
+kernel's launch count is set to 0 just before a path and read just after.  It checks the card
 against the CPU and the continuous driver against the per-token loop.  Any
 failed phase exits non-zero.  It imports no JAX and nothing of the JAX
 package.  The second-to-last line is a JSON object describing each kernel
@@ -87,6 +92,12 @@ KERNELS = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention")
 STREAM_PACKS = [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5), (1, 4, 2), (1, 3, 1)]
 SLEEP_CYCLES = int(5e7)       # the card sleeps (~30 ms) while the host enqueues the timed calls
 LUT_SPEC = dict(bw=1, ba=3, p=4)   # the paper's W1A3 (the reference's serve benchmark)
+# Phase 13's numbers in the kernels line, per served plan.
+PLANNED_KEYS = ("p", "planning_s", "candidates_measured", "analytic_vs_measured_p", "measured_us",
+                "est_us", "total_bytes", "table_bytes", "prepare_s", "launches", "launches_tc",
+                "launches_cuda_core", "launches_canon", "host_syncs", "wall_s", "tok_s",
+                "prefill_wall_s", "decode_wall_s", "prefill_ms", "step_ms", "prefill_profile",
+                "decode_profile", "peak_gb", "held_before_gb", "tokens_crc32")
 
 
 class SmokeFailure(Exception):
@@ -800,6 +811,43 @@ def earlier_lut_path(fn):
         ss.route, engine.canonicalize_activations = route, canonicalize
 
 
+def counted_generate(torch, eng, reqs):
+    """``eng.generate(reqs)`` with every launch count set to 0 just before and
+    read just after, each wave recorded (``on_wave``) and every synchronizing
+    call caught (``set_sync_debug_mode``); returns ``(outs, wall seconds,
+    wave records, launch counts, sync warnings)``."""
+    records = []
+    eng.on_wave = records.append
+    eng.host_syncs = 0
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            outs = eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counts = read_launches()
+    sync_warnings = [str(w.message) for w in caught
+                     if "called a synchronizing CUDA operation" in str(w.message)]
+    return outs, wall, records, counts, sync_warnings
+
+
+def serve_requests(cfg, max_prompt, max_new):
+    """The 8 requests a serve phase sends: prompt lengths in [16, max_prompt]
+    and tokens from ``default_rng(0)``, ``max_new`` new tokens each."""
+    from repro_torch.serve.serving import Request
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, max_prompt + 1, 8)
+    return lens, [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                          max_new_tokens=max_new) for n in lens]
+
+
 def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_new,
                 calibrate=False, iters=(3, 10)):
     """Serve 8 requests through ``ServeEngine(batch=4, decode="scan")`` with
@@ -841,31 +889,12 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
         f"{what}, prepared in {time.perf_counter()-t0:.1f}s; "
         f"{torch.cuda.memory_allocated(dev)/1e9:.2f} GB on the card")
     eng = ServeEngine(model, params, batch=4, max_seq=256, decode="scan", device=dev)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, max_prompt + 1, 8)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                    max_new_tokens=max_new) for n in lens]
+    lens, reqs = serve_requests(cfg, max_prompt, max_new)
     eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
     torch.cuda.synchronize()
 
-    records = []
-    eng.on_wave = records.append
-    eng.host_syncs = 0
-    reset_launches()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            t0 = time.perf_counter()
-            outs = eng.generate(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    counts = read_launches()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
     launches = counts[kernel]
-    sync_warnings = [str(w.message) for w in caught
-                     if "called a synchronizing CUDA operation" in str(w.message)]
 
     check(all(len(o) == max_new for o in outs),
           f"token counts {[len(o) for o in outs]} != {max_new} each")
@@ -942,9 +971,259 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
     torch.cuda.empty_cache()
     return dict(launches=launches, launches_tc=counts.get(f"{kernel}_tc"),
                 launches_canon=counts.get(f"{kernel}_canon"), wall_s=wall, tokens_crc32=digest,
+                outs=outs,
                 tokens=n_tok, prefill_ms=prefill_ms,
                 step_ms=step_ms, peak_gb=peak / 1e9, waves=n_waves,
                 prefill_profile=pre, decode_profile=dec)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: planned serving (the capacity-budgeted autotuner, repro_torch.tune)
+# ---------------------------------------------------------------------------
+
+# The analytic plans of stablelm-12b's seven stacked W1A3 lut projections at
+# n_hint 4 (the reference planner's, tests/test_torch_tune.py): budget GiB ->
+# ({projection: (p, prepared)}, total_bytes, table_bytes).  At p <= 5 a pack
+# takes lut_stream_gemm's tensor-core route (R <= 32), at p = 6-8 its CUDA-core
+# route; w_down at 4 GiB is served raw at p = 1 (R = 2, the tensor cores).
+PLANS_WANT = {
+    16: ({"wq": (5, True), "wk": (5, True), "wv": (5, True), "wo": (5, True),
+          "w_down": (5, True), "w_up": (7, True), "w_gate": (7, True)}, 7_601_487_360, 1_113_600),
+    4: ({"wq": (8, True), "wk": (5, True), "wv": (6, True), "wo": (8, True),
+         "w_up": (8, True), "w_gate": (8, True), "w_down": (1, False)}, 4_276_499_986, 12_154_386),
+}
+
+
+def plan_routes(plan):
+    """``{path: route}``: the lut_stream_gemm route of each leaf's LUT pack
+    at the plan's p (``kernels/lut_stream_gemm.py::route``)."""
+    from repro_torch.core.api import _lut_pack_cache
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    return {path: ss.route(_lut_pack_cache(LUT_SPEC["bw"], LUT_SPEC["ba"], lp.p, "int", "int"))
+            for path, lp in plan.layers.items()}
+
+
+def log_plan(what, plan, routes):
+    log(f"phase 13: {what}: {plan.total_bytes:,} B of a {plan.budget_bytes:,} B budget "
+        f"({plan.table_bytes:,} B shared tables), meta {plan.meta}")
+    for path, lp in sorted(plan.layers.items()):
+        t = f"measured {lp.measured_us:.1f} us, " if lp.measured_us is not None else ""
+        log(f"    {path.rsplit('/', 1)[-1]:<7} p={lp.p} prepared={int(lp.prepared)} "
+            f"route={routes[path]:<9} x{lp.stack} {lp.capacity_bytes:>13,} B  {t}"
+            f"est {lp.est_us:.1f} us (UPMEM)")
+
+
+def chunk_calls(reqs, batch, max_seq):
+    """(prefills, decode steps) of the chunked driver on ``reqs``."""
+    from repro_torch.serve.serving import bucket_to
+
+    prefills = steps = 0
+    for start in range(0, len(reqs), batch):
+        chunk = reqs[start : start + batch]
+        plen = max(len(r.prompt) for r in chunk)
+        max_new = max(r.max_new_tokens for r in chunk)
+        length = bucket_to(max_new, 2)
+        if plen + length > max_seq:
+            length = max_new
+        prefills, steps = prefills + 1, steps + length - 1
+    return prefills, steps
+
+
+def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="scan"):
+    """Serve ``reqs`` through ``ServeEngine(tree, plan=plan, decode=decode)``
+    (batch 4, max_seq 256), every launch count set to 0 just before the
+    counted run and read just after: the tokens must equal ``want``, the
+    prepared tree the plan's bytes (``verify_capacity``), one host sync per
+    wave (or chunk), and every lut_stream_gemm launch the route of its
+    leaf's pack, counted per route from the plan.  Under ``decode="scan"``
+    also a 4 x 128 prefill's and a decode step's times (CUDA events) and the
+    profiler's device time by kernel, lut_stream_gemm's routes apart."""
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune import verify_capacity
+
+    n_units = model.cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, tree, batch=4, max_seq=256, decode=decode, plan=plan, device=dev)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    actual = verify_capacity(eng.params, plan)
+    eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+    digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+    check(outs == want, f"{what}: tokens (crc32 {digest:08x}) differ from phase 8's")
+    if decode == "scan":
+        check(eng.host_syncs == len(records), f"{what}: host_syncs {eng.host_syncs} != "
+                                              f"waves {len(records)}")
+        prefills = sum(1 for r in records if r.admitted)
+        steps = sum(r.steps for r in records)
+    else:
+        prefills, steps = chunk_calls(reqs, eng.batch, eng.max_seq)
+        check(eng.host_syncs == prefills, f"{what}: host_syncs {eng.host_syncs} != "
+                                          f"chunks {prefills}")
+    check(len(sync_warnings) == eng.host_syncs,
+          f"{what}: {len(sync_warnings)} synchronizing calls in the serve loop, expected only "
+          f"the {eng.host_syncs} token fetches: {sorted(set(sync_warnings))[:3]}")
+    routes = plan_routes(plan)
+    calls = n_units * (prefills + steps)
+    n_tc = sum(r == "tc" for r in routes.values())
+    want_counts = {"lut_stream_gemm": len(routes) * calls, "lut_stream_gemm_tc": n_tc * calls,
+                   "lut_stream_gemm_canon": len(routes) * calls}
+    got_counts = {k: counts[k] for k in want_counts}
+    check(got_counts == want_counts,
+          f"{what}: launches {got_counts} != {want_counts} ({len(routes)} projections, {n_tc} "
+          f"on the tensor cores, x {n_units} units x ({prefills} prefills + {steps} decode "
+          f"steps))")
+    check(all(n == 0 for name, n in counts.items() if not name.startswith("lut_stream_gemm")),
+          f"{what}: the lut path launched another kernel: {counts}")
+    n_tok = sum(len(o) for o in outs)
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = dict(prepare_s=prepare_s, wall_s=wall, tok_s=n_tok / wall, tokens_crc32=digest,
+               prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs,
+               launches=counts["lut_stream_gemm"], launches_tc=counts["lut_stream_gemm_tc"],
+               launches_cuda_core=counts["lut_stream_gemm"] - counts["lut_stream_gemm_tc"],
+               launches_canon=counts["lut_stream_gemm_canon"], peak_gb=peak / 1e9,
+               held_before_gb=held / 1e9,
+               prepared_bytes=sum(actual.values()),
+               p={path.rsplit("/", 1)[-1]: lp.p for path, lp in plan.layers.items()})
+    if decode == "scan":
+        out["prefill_wall_s"] = sum(r.t_decode - r.t_start for r in records)
+        out["decode_wall_s"] = sum(r.t_sync - r.t_decode for r in records)
+        # Steady-state times and the device's share, outside the counted run.
+        params = eng.params
+        caches = eng._new_cache()
+        toks = torch.randint(0, model.cfg.vocab_size, (4, 128), device=dev, dtype=torch.int32)
+        pad = torch.zeros((4,), dtype=torch.int32, device=dev)
+        tok, pos = toks[:, -1:], torch.full((4,), 128, dtype=torch.int32, device=dev)
+        prefill = lambda: model.prefill(params, toks, caches, pad_len=pad)
+        step = lambda: model.decode_step(params, tok, caches, pos, pad_len=pad)
+        out["prefill_ms"] = time_ms(torch, lambda i: prefill(), 2)
+        out["step_ms"] = time_ms(torch, lambda i: step(), 5)
+        out["prefill_profile"] = log_breakdown(
+            f"{what}: prefill B=4 x 128", device_time_by_kernel(torch, prefill, 1),
+            out["prefill_ms"], kernel="lut_stream_gemm", card=smi)
+        out["decode_profile"] = log_breakdown(
+            f"{what}: decode step B=4", device_time_by_kernel(torch, step, 2),
+            out["step_ms"], kernel="lut_stream_gemm", card=smi)
+        del caches
+    log(f"phase 13: {what}: tokens (crc32 {digest:08x}) equal phase 8's; {n_tok} tokens in "
+        f"{wall:.3f} s ({out['tok_s']:.1f} tok/s end to end, prefill included"
+        + (f"; prefill {out['prefill_wall_s']:.3f} s + decode {out['decode_wall_s']:.3f} s "
+           f"wall over {len(records)} waves" if decode == "scan" else "")
+        + f"); {eng.host_syncs} host syncs; lut_stream_gemm {out['launches']} launches "
+        f"({out['launches_tc']} tensor cores, {out['launches_cuda_core']} CUDA cores), "
+        f"lut_canon {out['launches_canon']}; prepared in {prepare_s:.1f} s, "
+        f"{out['prepared_bytes']:,} B checked by verify_capacity; peak memory "
+        f"{out['peak_gb']:.2f} GB ({held / 1e9:.2f} GB held before the engine was built)")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_planned_serve(torch, dev, cfg, smi, lserve):
+    """Phase 13: stablelm-12b at full width (40 layers, seed 0, bf16, W1A3
+    lut), calibrated on phase 8's 2 x 16 batch, served through
+    ``ServeEngine(plan=)`` on phase 8's 8 requests: the analytic plans at 16
+    and 4 GiB, a plan measured on the card at 16 GiB, and the 16 GiB plan
+    under ``decode="chunked"``; every serve's tokens equal phase 8's."""
+    import numpy as np
+
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.core.calibrate import calibrate_tree
+    from repro_torch.models.model import build_model
+    from repro_torch.tune import Measurer, plan_model, space
+    from repro_torch.tune.measure import measure_key
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    if cfg.n_layers != N_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=N_LAYERS)
+    model = build_model(cfg)
+    spec = LutLinearSpec(mode="lut", **LUT_SPEC)
+    t0 = time.perf_counter()
+    raw = model.init_quantized(spec, seed=0, device=dev)
+    cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    tokens = torch.as_tensor(cal, device=dev)
+    calibrated = calibrate_tree(lambda probed: model.forward(probed, tokens)[0], raw)
+    torch.cuda.synchronize()
+    log(f"phase 13 [{smi}]: {cfg.name} {cfg.n_layers} layers, W1A3 lut raw tree built and "
+        f"calibrated on {cal.size} tokens in {time.perf_counter() - t0:.1f} s")
+    _lens, reqs = serve_requests(cfg, 64, 16)
+    want = lserve["outs"]
+    results = {}
+    plans = {}
+    for gib, (layers_want, total_want, tables_want) in PLANS_WANT.items():
+        t0 = time.perf_counter()
+        plan = plan_model(raw, lut_budget_bytes=gib << 30, n_hint=4, measure=False)
+        plan_s = time.perf_counter() - t0
+        got = {path.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for path, lp in plan.layers.items()}
+        check(got == layers_want and (plan.total_bytes, plan.table_bytes) == (total_want, tables_want),
+              f"{gib} GiB analytic plan {got}, {plan.total_bytes} / {plan.table_bytes} B, want "
+              f"{layers_want}, {total_want} / {tables_want} B")
+        routes = plan_routes(plan)
+        log_plan(f"analytic plan at {gib} GiB (planned in {plan_s:.2f} s)", plan, routes)
+        if gib == 16:
+            check({"tc", "cuda_core"} <= set(routes.values()),
+                  f"the 16 GiB plan must put lut_stream_gemm on both routes: {routes}")
+        results[f"analytic_{gib}GiB"] = dict(planning_s=plan_s, total_bytes=plan.total_bytes,
+                                             table_bytes=plan.table_bytes,
+                                             **serve_plan(torch, dev, model, calibrated, plan, reqs,
+                                                          want, smi, what=f"{gib} GiB analytic plan"))
+        plans[gib] = plan
+
+    # A plan measured on the card: each candidate's eager apply_linear on
+    # the stack's first unit, x [128, K] f32 (measure.py: CUDA events).
+    meas = Measurer(cache={})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mplan = plan_model(raw, lut_budget_bytes=16 << 30, n_hint=4, measure=True, measurer=meas)
+    torch.cuda.synchronize()
+    mplan_s = time.perf_counter() - t0
+    mroutes = plan_routes(mplan)
+    log_plan(f"measured plan at 16 GiB (planned in {mplan_s:.1f} s, {meas.misses} candidates "
+             f"measured)", mplan, mroutes)
+    agree = {path.rsplit("/", 1)[-1]: (plans[16].layers[path].p, lp.p)
+             for path, lp in mplan.layers.items()}
+    log(f"phase 13: (analytic p, measured p) per projection at 16 GiB: {agree}")
+    table_leaf = next(path for path, _ in quantized_leaf_items(raw) if path.endswith("w_up"))
+    q = dict(quantized_leaf_items(raw))[table_leaf]
+    f, k = int(q.codes.shape[-2]), q.k
+    log(f"phase 13: candidates of {table_leaf} (F={f}, K={k}, x{N_LAYERS}), measured at N=128 "
+        f"[{smi}]:")
+    table = []
+    for c in space.layer_candidates(f, k, n_hint=4, base_spec=q.spec, stack=N_LAYERS,
+                                    servable_only=True):
+        us = meas.cache[measure_key(f, k, 128, q.spec, c)]
+        table.append(dict(p=c.p, prepared=c.prepared, wcanon=c.wcanon,
+                          capacity_bytes=c.capacity_bytes, table_bytes=c.table_bytes,
+                          est_us=c.est_us, measured_us=us))
+        log(f"    p={c.p} prepared={int(c.prepared)} wcanon={int(c.wcanon)} "
+            f"{c.capacity_bytes:>13,} B + {c.table_bytes:>10,} B tables: measured {us:9.1f} us, "
+            f"est {c.est_us:10.1f} us (UPMEM)")
+    results["measured_16GiB"] = dict(planning_s=mplan_s, candidates_measured=meas.misses,
+                                     total_bytes=mplan.total_bytes,
+                                     table_bytes=mplan.table_bytes,
+                                     analytic_vs_measured_p=agree,
+                                     measured_us={path.rsplit("/", 1)[-1]: lp.measured_us
+                                                  for path, lp in mplan.layers.items()},
+                                     est_us={path.rsplit("/", 1)[-1]: lp.est_us
+                                             for path, lp in mplan.layers.items()},
+                                     candidates=dict(leaf=table_leaf, rows=table),
+                                     **serve_plan(torch, dev, model, calibrated, mplan, reqs, want,
+                                                  smi, what="16 GiB measured plan"))
+    results["chunked_16GiB"] = serve_plan(torch, dev, model, calibrated, plans[16], reqs, want,
+                                          smi, what="16 GiB analytic plan, decode=chunked",
+                                          decode="chunked")
+    log(f"phase 13 [{smi}]: 16 GiB plan end to end: chunked "
+        f"{results['chunked_16GiB']['tok_s']:.1f} tok/s, scan "
+        f"{results['analytic_16GiB']['tok_s']:.1f} tok/s (tokens equal)")
+    del raw, calibrated
+    torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1502,6 +1781,7 @@ def main() -> int:
                              spec=LutLinearSpec(mode="lut", **LUT_SPEC),
                              kernel="lut_stream_gemm", max_prompt=64, max_new=16,
                              calibrate=True, iters=(2, 5))
+        planned = phase_planned_serve(torch, dev, cfg, smi, lserve)
         worst_rel, worst_abs = phase_kernel(torch, dev)
         phase_row_invariance(torch, dev)
         rows, rel2, abs2 = phase_kernel_times(torch, dev, cfg, hw.H100_SXM)
@@ -1583,6 +1863,12 @@ def main() -> int:
         "serve": {"decode_step": lserve["decode_profile"], "prefill": lserve["prefill_profile"],
                   "prefill_ms": lserve["prefill_ms"], "step_ms": lserve["step_ms"]},
         "card_vs_cpu_rel_err": lut_cpu_rel,
+        "planned_serve": {
+            "at": "phase 13: stablelm-12b W1A3 lut served through ServeEngine(plan=) on phase "
+                  "8's requests; launches by route from the counters, times on the host clock",
+            **{name: {key: r[key] for key in PLANNED_KEYS if key in r}
+               for name, r in planned.items()},
+            "candidates": planned["measured_16GiB"]["candidates"]},
         "ok": True,
     }, {
         "name": "lut_stream_gemm_canon",
@@ -1597,6 +1883,7 @@ def main() -> int:
                                 "canonicalize + compose at N=4, W1A3 p=4 (device time; plain: "
                                 "the torch chain of argsort, gather, rank, Lehmer id)"),
         "prefill": canon_times(srows, 512, "one layer's 7 projections at N=4x128"),
+        "planned_serve": {name: {"launches": r["launches_canon"]} for name, r in planned.items()},
         "ok": True,
     }, {
         "name": "flash_attention",

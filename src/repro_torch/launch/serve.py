@@ -1,8 +1,9 @@
 """Serving driver of the port: LoCaLUT-quantized batched inference on the GPU.
 
 Builds the model (random weights from a seed, drawn and quantized one unit at
-a time), prepares it, and serves batched requests through pad-masked
-prefill + greedy decode.
+a time), prepares it — at one spec, or leaf by leaf under an autotuned
+:class:`repro_torch.tune.ModelPlan` (``--plan``, ``--autotune``) — and serves
+batched requests through pad-masked prefill + greedy decode.
 
 Examples:
     # the GPU, full width, through the hand-written lut_dequant_gemm kernel
@@ -10,9 +11,12 @@ Examples:
     # the GPU, full width, the paper's int-LUT mode with frozen activation
     # scales, through the hand-written lut_stream_gemm kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --full --mode lut --bw 1 --ba 3 --calibrate 32
+    # the GPU, full width, int-LUT under a plan autotuned inline to a 16 GiB budget
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --mode lut --bw 1 --ba 3 --autotune 16384 --batch 4
     # the CPU, smoke size, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --bw 1 --ba 3 --plan plan.json --decode chunked --device cpu
 """
 
 from __future__ import annotations
@@ -42,17 +46,28 @@ def build_args(argv=None):
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--bw", type=int, default=4)
     ap.add_argument("--ba", type=int, default=4)
-    ap.add_argument("--mode", default="dequant", choices=["dequant", "lut", "stream", "pallas"],
-                    help="execution mode of the quantized projections (pallas: "
-                         "the hand-written packed-code kernel on the GPU; lut "
-                         "and stream: the int-LUT engines, whose int32 sums "
-                         "come from the hand-written lut_stream_gemm kernel on "
-                         "the GPU)")
+    ap.add_argument("--mode", default="dequant",
+                    # no "stream": the slice-streaming dataflow is a simulation
+                    # of the PIM device's traffic, not a serve path (plans
+                    # exclude it for the same reason)
+                    choices=["dequant", "lut", "pallas"],
+                    help="base execution mode of the quantized projections "
+                         "(pallas: the hand-written packed-code kernel on the "
+                         "GPU; lut: the int-LUT engine, whose int32 sums come "
+                         "from the hand-written lut_stream_gemm kernel on the "
+                         "GPU)")
     ap.add_argument("--no-prepare", dest="prepare", action="store_false",
                     help="serve raw QuantizedLinear params")
-    ap.add_argument("--decode", default="scan", choices=["scan", "loop"],
+    ap.add_argument("--decode", default="scan", choices=["scan", "chunked", "loop"],
                     help="continuous in-flight batching (1 host sync per "
-                         "admission wave) or the per-token loop oracle")
+                         "admission wave), the fixed-chunk baseline (1 host "
+                         "sync per chunk) or the per-token loop oracle")
+    ap.add_argument("--plan", default=None, metavar="PLAN_JSON",
+                    help="serve through a repro_torch.tune ModelPlan artifact "
+                         "(per-layer autotuned configs; fingerprint-checked)")
+    ap.add_argument("--autotune", type=float, default=None, metavar="BUDGET_MB",
+                    help="run the repro_torch.tune planner inline under this "
+                         "LUT-capacity budget (MB) and serve the result")
     ap.add_argument("--prompt-bucket", type=int, default=8,
                     help="power-of-two prompt-length bucketing floor (1 disables)")
     ap.add_argument("--calibrate", type=int, default=None, metavar="TOKENS",
@@ -63,9 +78,14 @@ def build_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
-    if args.calibrate is not None and not args.prepare:
-        ap.error("--calibrate freezes activation scales during the prepare step: "
-                 "it cannot be combined with --no-prepare")
+    if args.plan and args.autotune is not None:
+        ap.error("--plan and --autotune are mutually exclusive")
+    if args.calibrate is not None and (
+        not args.prepare or args.plan or args.autotune is not None
+    ):
+        ap.error("--calibrate freezes activation scales during the plain "
+                 "prepare step: it requires --prepare (no "
+                 "--no-prepare/--plan/--autotune)")
     return args
 
 
@@ -81,7 +101,22 @@ def main(argv=None):
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"W{args.bw}A{args.ba} ({args.mode}) initialized + quantized in "
           f"{time.time()-t0:.1f}s")
-    if args.prepare:
+    plan = None
+    if args.plan:
+        from repro_torch.tune import ModelPlan
+
+        plan = ModelPlan.load(args.plan)
+        print(f"loaded plan {args.plan}: {len(plan.layers)} layers, "
+              f"{plan.total_bytes:,} B under a {plan.budget_bytes:,} B budget")
+    elif args.autotune is not None:
+        from repro_torch.tune import plan_model
+
+        t0 = time.time()
+        plan = plan_model(params, lut_budget_bytes=int(args.autotune * 1024 * 1024),
+                          n_hint=args.batch)
+        print(f"autotuned {len(plan.layers)} layers in {time.time()-t0:.1f}s: "
+              f"{plan.total_bytes:,} B spent of {plan.budget_bytes:,} B budget")
+    elif args.prepare:
         t0 = time.time()
         if args.calibrate is not None:
             crng = np.random.default_rng(1)
@@ -92,9 +127,11 @@ def main(argv=None):
         else:
             params = model.prepare(params, n_hint=args.batch)
             print(f"prepared weight-stationary serve products in {time.time()-t0:.1f}s")
+    # ``plan`` routes through ServeEngine's autotuned path (spec rewrite +
+    # prepare happen inside, fingerprint-checked).
     eng = ServeEngine(model, params, batch=args.batch, max_seq=args.max_seq,
                       decode=args.decode, prompt_bucket=args.prompt_bucket,
-                      device=args.device)
+                      plan=plan, device=args.device)
     rng = np.random.default_rng(0)
     reqs = [
         Request(prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),

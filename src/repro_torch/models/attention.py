@@ -8,8 +8,9 @@ the buffers **in place** and the returned cache dict holds the same tensors.
 
 Ported: the plain-cache and no-cache branches, pad masking, query-chunked
 long prefill, and ``attn_impl="flash"`` on the no-cache branch (the
-``flash_attention`` kernel).  Not yet (ROADMAP Queue 1 item 11): the ring
-window cache, the int8 KV cache, MLA and cross attention — each raises
+``flash_attention`` kernel).  Not yet: the ring-window KV cache (the next
+module slice of the port), and the int8 KV cache, MLA and cross attention
+(the slice of the other model families) — each raises
 ``NotImplementedError``.
 """
 
@@ -149,8 +150,8 @@ def _attend_chunked(
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 11); "
-        f"this slice runs GQA with a plain KV cache"
+        f"{what} is not ported yet (ROADMAP: the ring-window KV cache and the "
+        f"other model families); this slice runs GQA with a plain KV cache"
     )
 
 

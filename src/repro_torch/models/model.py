@@ -7,8 +7,9 @@ named in ``_QUANT_LINEAR_NAMES`` with a bit-packed
 dense, as in the reference.  :func:`prepare_params` freezes each quantized
 leaf into its weight-stationary :class:`repro_torch.core.PreparedLinear`.
 ``Model.prepare(calibrate=tokens)`` freezes each int-LUT leaf's activation
-scale first (:mod:`repro_torch.core.calibrate`).  Not yet ported: ``plan=``
-(ROADMAP Queue 1 item 7).
+scale first (:mod:`repro_torch.core.calibrate`); ``Model.prepare(plan=)``
+prepares each leaf at its autotuned config instead
+(:mod:`repro_torch.tune`).
 """
 
 from __future__ import annotations
@@ -92,10 +93,20 @@ def _prepare_stacked(x: QuantizedLinear, kw: dict):
                        for i in range(x.codes.shape[0])])
 
 
-def prepare_params(params, **kw):
+def prepare_params(params, plan=None, **kw):
     """Freeze every :class:`QuantizedLinear` leaf into its weight-stationary
     :class:`repro_torch.core.PreparedLinear` form; ``kw`` forwards to
-    :func:`repro_torch.core.prepare_linear` (``n_hint`` etc.)."""
+    :func:`repro_torch.core.prepare_linear` (``n_hint`` etc.).
+
+    ``plan`` — a :class:`repro_torch.tune.ModelPlan` — switches to the
+    autotuned path: each leaf's spec is rewritten to its per-layer config
+    (mode/p/tile/wcanon, or left raw where the plan degraded it) before
+    preparing; the plan's fingerprint is checked first
+    (:func:`repro_torch.tune.planner.apply_plan`)."""
+    if plan is not None:
+        from repro_torch.tune.planner import apply_plan
+
+        return apply_plan(params, plan, **kw)
 
     def walk(node):
         if isinstance(node, QuantizedLinear):
@@ -162,20 +173,23 @@ class Model:
     def quantize(self, params, spec: LutLinearSpec):
         return quantize_model(params, self.cfg, spec)
 
-    def prepare(self, params, calibrate=None, **kw):
+    def prepare(self, params, plan=None, calibrate=None, **kw):
         """Weight-stationary serve form: cache all per-call weight products.
+        ``plan`` applies a :class:`repro_torch.tune.ModelPlan` (autotuned
+        per-layer configs) instead of preparing every leaf at its own spec.
 
         ``calibrate`` — a small token batch ``[B, S]`` — freezes each int-LUT
         leaf's activation scale from one forward pass over it *before*
         preparing (:mod:`repro_torch.core.calibrate`): the ``lut``/``stream``
         engines become batch-composition invariant, and on the calibration
-        batch itself outputs are bit-identical to the dynamic-scale path."""
+        batch itself outputs are bit-identical to the dynamic-scale path.
+        With both, calibration runs first and then the plan is applied."""
         if calibrate is not None:
             from repro_torch.core import calibrate as _cal
 
             tokens = torch.as_tensor(calibrate, device=devices.tree_device(params))
             params = _cal.calibrate_tree(lambda probed: self.forward(probed, tokens)[0], params)
-        return prepare_params(params, **kw)
+        return prepare_params(params, plan=plan, **kw)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -11,8 +11,8 @@ Caches follow the same segmentation (``[n_units, B, Smax, Hkv, hd]``) and
 are updated in place.
 
 Only dense GQA decoders (``"D"``, ``"L"`` and ``"G"`` units, no MoE, no
-MLA) are ported; other unit kinds raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 11).
+MLA) are ported; other unit kinds raise ``NotImplementedError`` until the
+slice of the other model families (ROADMAP).
 
 Inside a unit, a norm that follows a residual add reads the unrounded f32
 sum, while the residual stream itself is stored in ``x.dtype``: the
@@ -56,17 +56,17 @@ def check_supported(cfg: ModelConfig) -> None:
     kinds = {ch for pat, _ in segments(cfg) for ch in pat}
     if not kinds <= {"D", "L", "G"} or cfg.moe is not None or cfg.attn_kind != "gqa":
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders ('D', 'L', 'G' units) are ported; "
-            f"units {sorted(kinds)}, moe={cfg.moe is not None}, "
-            f"attn_kind={cfg.attn_kind!r} wait for ROADMAP Queue 1 item 11"
+            f"{cfg.name}: units {sorted(kinds)}, moe={cfg.moe is not None}, "
+            f"attn_kind={cfg.attn_kind!r} are not ported yet (only dense GQA decoders, "
+            f"'D', 'L', 'G' units); they wait for the other model families (ROADMAP)"
         )
     if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
         raise NotImplementedError(f"{cfg.name}: frontends / enc-dec are not ported yet")
     if cfg.attend_bf16:
         raise NotImplementedError(
             f"{cfg.name}: attend_bf16=True (bf16 attention operands, f32 sums) is not "
-            f"ported yet: the attention here computes in f32; it waits for ROADMAP "
-            f"Queue 1 item 7"
+            f"ported yet: the attention here computes in f32; it waits for the other "
+            f"model families (ROADMAP)"
         )
 
 
@@ -100,7 +100,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
 
     ``unit_fn`` maps each unit's tree before the units are stacked — e.g.
     quantizing it — so a full-width model never holds all its f32 weights
-    at once."""
+    at once.  Dict keys come in sorted order, as in the reference's trees
+    (:func:`repro_torch.tree.sort_keys`)."""
     check_supported(cfg)
     unit_fn = unit_fn or (lambda u: u)
     seg_list = []
@@ -120,7 +121,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, device=device)
-    return params
+    return tree.sort_keys(params)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Serving: pad-masked prefill + continuous in-flight batching driver (port of
 ``repro.serve.serving``).
 
-Two schedulers share the prefill/decode functions:
+Three schedulers share the prefill/decode functions:
 
 * ``decode="scan"`` (default) — **continuous in-flight batching**: a
   slot-based scheduler admits queued requests into KV-cache slots the moment
@@ -11,11 +11,18 @@ Two schedulers share the prefill/decode functions:
   ``.item()``, no boolean-mask indexing, argmax on the device), then moves
   its token matrix to the host **once**.  Freshly prefilled slots are merged
   into the serving state with ``torch.where`` on a broadcast slot mask.
+* ``decode="chunked"`` — the fixed-chunk driver: requests are cut into
+  ``batch``-sized chunks; each chunk prefills together and decodes on the
+  device to the chunk's worst-case budget, then moves its token matrix to
+  the host **once** (the continuous scheduler's throughput baseline).
 * ``decode="loop"`` — the per-token loop (one host sync per decoded token):
   the equivalence oracle.
 
-Not yet ported (ROADMAP Queue 1 items 6, 8, 9): ``decode="chunked"``,
-``obs=``, ``plan=``, hot-swap.
+``ServeEngine(plan=)`` serves through a :class:`repro_torch.tune.ModelPlan`:
+the raw quantized tree is prepared leaf by leaf at the plan's configs
+(``Model.prepare(plan=)``, fingerprint-checked).
+
+Not yet ported: ``obs=`` (observability) and hot-swap (live ops).
 
 **Prefill pad mask.**  Prompt lengths are bucketed to powers of two and
 left-padded into the bucket; the per-row pad length reaches the attention
@@ -109,16 +116,24 @@ class ServeEngine:
         max_seq: int,
         decode: str = "scan",
         prompt_bucket: int = 8,
+        plan=None,
         device="cuda",
     ):
-        if decode not in ("scan", "loop"):
-            raise ValueError(f"decode must be 'scan' or 'loop', got {decode!r}")
+        if decode not in ("scan", "chunked", "loop"):
+            raise ValueError(
+                f"decode must be 'scan', 'chunked' or 'loop', got {decode!r}"
+            )
         self.device = devices.resolve(device)
         if devices.tree_device(params).type != self.device.type:
             raise ValueError(
                 f"params live on {devices.tree_device(params)}, engine on {self.device}"
             )
         self.model = model
+        if plan is not None:
+            # Autotuned serving: ``params`` is the raw quantized tree (a
+            # prepared tree is frozen to one config and apply_plan refuses it).
+            params = model.prepare(params, plan=plan, n_hint=batch)
+        self.plan = plan
         self.params = params
         self.batch = batch
         self.max_seq = max_seq
@@ -163,9 +178,11 @@ class ServeEngine:
         self._validate(requests)
         if self.decode == "scan":
             return self._generate_continuous(requests)
+        run = self._generate_batch_chunked if self.decode == "chunked" else \
+            self._generate_batch_loop
         out: list[list[int]] = []
         for start in range(0, len(requests), self.batch):
-            out.extend(self._generate_batch_loop(requests[start : start + self.batch]))
+            out.extend(run(requests[start : start + self.batch]))
         return out
 
     # --- shared helpers ---------------------------------------------------
@@ -305,6 +322,49 @@ class ServeEngine:
             wave += 1
         return outs
 
+    # --- chunked driver: bucketed prefill + one on-device decode per chunk -
+
+    def _pad_prompts(self, chunk: list[Request], plen: int):
+        """Left-pad ragged prompts into a [batch, plen] matrix; returns the
+        tokens and the per-row pad lengths (the prefill pad mask)."""
+        toks = np.zeros((self.batch, plen), np.int32)
+        pad = np.zeros((self.batch,), np.int32)
+        for i, r in enumerate(chunk):
+            toks[i, plen - len(r.prompt) :] = r.prompt          # left-pad
+            pad[i] = plen - len(r.prompt)
+        return toks, pad
+
+    def _generate_batch_chunked(self, chunk: list[Request]) -> list[list[int]]:
+        """Prefill the chunk at its prompt bucket, decode every row to the
+        chunk's worst-case budget on the device, fetch the token matrix
+        once.  Rows past their own budget keep stepping; the host keeps each
+        row's first ``max_new_tokens``."""
+        plen = max(len(r.prompt) for r in chunk)
+        max_new = max(r.max_new_tokens for r in chunk)
+        # The whole chunk decodes to the worst-case budget, so the chunk's
+        # (max plen, max budget) pair must fit, not just each request.
+        self._check_fits(plen, max_new)
+        if max_new == 0:
+            return [[] for _ in chunk]
+        # Decode length bucketed to a power of two, as the reference buckets
+        # its traces; the exact budget where the bucket would overflow.
+        length = bucket_to(max_new, 2)
+        if plen + length > self.max_seq:
+            length = max_new
+        plen_b = min(bucket_to(plen, self.prompt_bucket), self.max_seq - length)
+        self.bucket_counts[plen_b] = self.bucket_counts.get(plen_b, 0) + 1
+        toks, pad = self._pad_prompts(chunk, plen_b)
+        token, caches = self._prefill(toks, pad)
+        pad_dev = self._upload(pad)
+        ys = torch.empty((self.batch, length), dtype=torch.int32, device=self.device)
+        ys[:, 0] = token[:, 0]
+        for t in range(length - 1):
+            token, caches = self._step(token, caches, plen_b + t, pad_dev)
+            ys[:, t + 1] = token[:, 0]
+        mat = self._fetch(ys)            # the chunk's single device->host sync
+        return [[int(t) for t in mat[i, : chunk[i].max_new_tokens]]
+                for i in range(len(chunk))]
+
     # --- oracle: per-token loop ---------------------------------------------
 
     def _generate_batch_loop(self, chunk: list[Request]) -> list[list[int]]:
@@ -313,11 +373,7 @@ class ServeEngine:
         plen = max(len(r.prompt) for r in chunk)
         self._check_fits(plen, max(r.max_new_tokens for r in chunk))
         self.bucket_counts[plen] = self.bucket_counts.get(plen, 0) + 1
-        toks = np.zeros((self.batch, plen), np.int32)
-        pad = np.zeros((self.batch,), np.int32)
-        for i, r in enumerate(chunk):
-            toks[i, plen - len(r.prompt) :] = r.prompt          # left-pad
-            pad[i] = plen - len(r.prompt)
+        toks, pad = self._pad_prompts(chunk, plen)
         token, caches = self._prefill(toks, pad)
         pad_dev = self._upload(pad)
         max_new = max(r.max_new_tokens for r in chunk)

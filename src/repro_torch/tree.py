@@ -46,3 +46,16 @@ def stack(trees: list):
 def index(tree, i: int):
     """Unit ``i`` of a stacked tree (views: in-place writes reach the stack)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def sort_keys(tree):
+    """The tree with every dict's keys in sorted order, recursively: the order
+    jax's tree operations give every reference tree, so both packages walk a
+    model's leaves in one order (plan fingerprints and the planner's
+    tie-breaks follow it)."""
+    if isinstance(tree, dict):
+        return {k: sort_keys(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [sort_keys(v) for v in tree]
+        return out if isinstance(tree, list) else tuple(out)
+    return tree

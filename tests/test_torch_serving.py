@@ -225,3 +225,122 @@ def test_bf16_calibrated_lut_scales_and_tokens_match_reference():
     jreqs = [JRequest(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs]
     want = JServeEngine(jm, jp, batch=2, max_seq=32, decode="scan").generate(jreqs)
     assert _engine(tm, tp, "scan").generate(reqs) == want
+
+
+# ---------------------------------------------------------------------------
+# decode="chunked": the fixed-chunk driver, one host sync per chunk
+# ---------------------------------------------------------------------------
+
+
+def test_chunked_matches_scan_and_loop(models):
+    cfg, _jm, _jp, tm, tp = models
+    reqs = _ragged(cfg, seed=2)
+    chunked = _engine(tm, tp, "chunked")
+    got = chunked.generate(reqs)
+    assert got == _engine(tm, tp, "scan").generate(reqs) == _engine(tm, tp, "loop").generate(reqs)
+    assert [len(o) for o in got] == [r.max_new_tokens for r in reqs]
+    assert chunked.host_syncs == -(-len(reqs) // chunked.batch)      # one per chunk
+
+
+def test_chunked_tokens_syncs_and_buckets_match_reference(models):
+    cfg, jm, jp, tm, tp = models
+    reqs = _ragged(cfg, seed=6, lens=(3, 9, 5, 12, 6, 17), budgets=(4, 6, 3, 5, 2, 7))
+    jreqs = [JRequest(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs]
+    jeng = JServeEngine(jm, jp, batch=2, max_seq=32, decode="chunked")
+    teng = _engine(tm, tp, "chunked")
+    assert teng.generate(reqs) == jeng.generate(jreqs)
+    assert teng.host_syncs == jeng.host_syncs == 3
+    assert teng.bucket_counts == jeng.bucket_counts
+    # a decode-length bucket that would overflow max_seq falls back to the
+    # exact budget, in both packages
+    tight = [Request(prompt=np.arange(1, 20, dtype=np.int32), max_new_tokens=9)]
+    jtight = [JRequest(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in tight]
+    assert teng.generate(tight) == jeng.generate(jtight)
+    assert teng.bucket_counts == jeng.bucket_counts
+
+
+def test_chunked_rejects_infeasible_chunk_pair_continuous_serves_it(models):
+    """A long-prompt + long-budget pair that cannot share one chunk: the
+    chunked driver raises; the continuous scheduler admits them into
+    separate waves and serves both."""
+    _cfg, _jm, _jp, tm, tp = models
+    reqs = [
+        Request(prompt=np.ones(24, np.int32), max_new_tokens=2),
+        Request(prompt=np.ones(2, np.int32), max_new_tokens=24),
+    ]
+    with pytest.raises(ValueError, match="exceeds max_seq"):
+        _engine(tm, tp, "chunked").generate(reqs)
+    assert [len(o) for o in _engine(tm, tp, "scan").generate(reqs)] == [2, 24]
+    assert _engine(tm, tp, "chunked").generate(
+        [Request(prompt=np.zeros(4, np.int32), max_new_tokens=0)]) == [[]]
+
+
+# ---------------------------------------------------------------------------
+# ServeEngine(plan=): the autotuned int-LUT model (the reference's
+# tests/test_tune.py model: 2 layers, W1A3 p=2 lut, a plan that re-tunes p)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def planned_models():
+    from repro.tune import planner as jplanner
+    from repro_torch.tune import planner as tplanner
+
+    kw = dict(name="tune-test", n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64,
+              vocab_size=64)
+    jcfg = dataclasses.replace(jget_config("stablelm-12b", smoke=True), **kw)
+    tcfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), **kw)
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jq = jm.quantize(jm.init(jax.random.PRNGKey(0)), JSpec(bw=1, ba=3, p=2, mode="lut"))
+    tq = params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
+    pkw = dict(lut_budget_bytes=1 << 22, n_hint=2, measure=False, p_cap=4)
+    jplan, tplan = jplanner.plan_model(jq, **pkw), tplanner.plan_model(tq, **pkw)
+    return tcfg, jm, jq, jplan, tm, tq, tplan
+
+
+def test_planned_engine_serves_fixed_spec_and_reference_tokens(planned_models):
+    """Plans change engines, never tokens: ServeEngine(plan=) equals the
+    fixed-spec prepared model, and the reference's planned engine on the
+    same tree, in scan and chunked alike (the scales are dynamic here, so
+    each driver's batches set them: chunked is held to chunked)."""
+    cfg, jm, jq, jplan, tm, tq, tplan = planned_models
+    assert tplan.to_json() == jplan.to_json()
+    assert any(lp.p != 2 for lp in tplan.layers.values())      # the plan re-tunes
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, 64, n).astype(np.int32), max_new_tokens=4)
+            for n in (3, 5, 4)]
+    jreqs = [JRequest(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs]
+    fixed = ServeEngine(tm, tm.prepare(tq), batch=2, max_seq=32, device="cpu")
+    planned = ServeEngine(tm, tq, batch=2, max_seq=32, plan=tplan, device="cpu")
+    assert planned.plan is tplan
+    want = JServeEngine(jm, jq, batch=2, max_seq=32, plan=jplan).generate(jreqs)
+    assert planned.generate(reqs) == fixed.generate(reqs) == want
+    jchunked = JServeEngine(jm, jq, batch=2, max_seq=32, plan=jplan, decode="chunked")
+    chunked = ServeEngine(tm, tq, batch=2, max_seq=32, plan=tplan, decode="chunked",
+                          device="cpu")
+    fixed_chunked = ServeEngine(tm, tm.prepare(tq), batch=2, max_seq=32, decode="chunked",
+                                device="cpu")
+    assert chunked.generate(reqs) == jchunked.generate(jreqs) == fixed_chunked.generate(reqs)
+
+
+def test_model_prepare_with_plan_and_calibration(planned_models):
+    """Model.prepare(plan=, calibrate=): calibration runs first on the raw
+    tree, then the plan applies; the plan's fingerprint ignores the frozen
+    scales, so one plan serves the calibrated tree and the raw one alike."""
+    from repro_torch.tune.plan import calibration_digests, quantized_leaf_items
+    from repro_torch.tune.planner import verify_capacity
+
+    cfg, _jm, _jq, _jplan, tm, tq, tplan = planned_models
+    cal = np.random.default_rng(7).integers(1, cfg.vocab_size, (2, 8)).astype(np.int32)
+    both = tm.prepare(tq, plan=tplan, calibrate=cal)
+    verify_capacity(both, tplan)
+    calibrated = tm.prepare(tq, calibrate=cal)
+    assert calibration_digests(both) == calibration_digests(calibrated)
+    assert all(d is not None for d in calibration_digests(both).values())
+    for path, leaf in quantized_leaf_items(both):
+        assert leaf.spec.p == tplan.layers[path].p
+    reqs = _ragged(cfg, seed=4, lens=(6, 6, 6), budgets=(3, 5, 2))
+    assert ServeEngine(tm, both, batch=2, max_seq=32, device="cpu").generate(reqs) == \
+        ServeEngine(tm, calibrated, batch=2, max_seq=32, device="cpu").generate(reqs)
+    with pytest.raises(ValueError, match="raw quantized tree"):
+        ServeEngine(tm, calibrated, batch=2, max_seq=32, plan=tplan, device="cpu")
