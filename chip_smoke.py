@@ -30,9 +30,11 @@ entry points at published full widths:
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
 with per-layer packing degrees from analytic plans at 16 and 4 GiB and a plan
-measured on the card, so ``lut_stream_gemm`` runs on both of its routes
-(tensor cores at p <= 5, CUDA cores at p = 6-8), and the fixed-chunk driver
-(``decode="chunked"``); every planned serve gives phase 8's tokens.  Every
+measured on the card, so ``lut_stream_gemm`` runs on two of its routes
+(the int8 tensor cores at p <= 5; at p = 6-8, R = 64-256, the lookup route,
+``lut_stream_lookup_sm90.cu``, the composed LUT slices streamed through
+shared memory), and the fixed-chunk driver (``decode="chunked"``); every
+planned serve gives phase 8's tokens.  Every
 kernel's launch count is set to 0 just before a path and read just after.  It checks the card
 against the CPU and the continuous driver against the per-token loop.  Any
 failed phase exits non-zero.  It imports no JAX and nothing of the JAX
@@ -86,16 +88,21 @@ KERNELS = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention")
 # kernels have two routes each, fixed by what the inputs are and never by the
 # batch: flash_attention by dtype and head dim (kernels/flash_attention.py::
 # route), lut_dequant_gemm by dtype, grid and K (kernels/lut_dequant_gemm.py::
-# route), lut_stream_gemm by the LUT pack (kernels/lut_stream_gemm.py::route);
-# lut_canon.cu canonicalizes in front of lut_stream_gemm.
-# Phase 6's LUT packs: the CPU tests' five, then R = 4 and R = 2 on the tensor cores.
-STREAM_PACKS = [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5), (1, 4, 2), (1, 3, 1)]
+# route), lut_stream_gemm by the LUT pack (kernels/lut_stream_gemm.py::route:
+# three routes); lut_canon.cu canonicalizes in front of lut_stream_gemm.
+# Phase 6's LUT packs: the CPU tests' five, R = 4 and R = 2 on the tensor cores,
+# then the lookup route's W1A3 p = 6 / 7 / 8 (a plan's) and (2,3,3) (R = 64).
+STREAM_PACKS = [(1, 3, 3), (1, 3, 4), (2, 2, 4), (4, 4, 2), (1, 1, 5), (1, 4, 2), (1, 3, 1),
+                (1, 3, 6), (1, 3, 7), (1, 3, 8), (2, 3, 3)]
+LOOKUP_PS = (6, 7, 8)         # the packing degrees a capacity plan gives the lookup route
+LOOKUP_REPEATS = 4            # phase 6: lookup calls after the first, each held to it
 SLEEP_CYCLES = int(5e7)       # the card sleeps (~30 ms) while the host enqueues the timed calls
 LUT_SPEC = dict(bw=1, ba=3, p=4)   # the paper's W1A3 (the reference's serve benchmark)
 # Phase 13's numbers in the kernels line, per served plan.
 PLANNED_KEYS = ("p", "planning_s", "candidates_measured", "analytic_vs_measured_p", "measured_us",
                 "est_us", "total_bytes", "table_bytes", "prepare_s", "launches", "launches_tc",
-                "launches_cuda_core", "launches_canon", "host_syncs", "wall_s", "tok_s",
+                "launches_lookup", "launches_cuda_core", "launches_canon", "host_syncs",
+                "wall_s", "tok_s",
                 "prefill_wall_s", "decode_wall_s", "prefill_ms", "step_ms", "prefill_profile",
                 "decode_profile", "peak_gb", "held_before_gb", "tokens_crc32")
 
@@ -151,6 +158,17 @@ def time_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def once_ms(torch, fn):
+    """``(fn(), its time)``: CUDA events around one call, ms."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(torch, fn, iters):
@@ -270,7 +288,7 @@ def reset_launches():
     from repro_torch.kernels import lut_stream_gemm as ss
 
     dq.launches = dq.launches_tc = fa.launches = fa.launches_tc = 0
-    ss.launches = ss.launches_tc = ss.launches_canon = 0
+    ss.launches = ss.launches_tc = ss.launches_lookup = ss.launches_canon = 0
 
 
 def read_launches():
@@ -280,6 +298,7 @@ def read_launches():
 
     return {"lut_dequant_gemm": dq.launches, "lut_dequant_gemm_tc": dq.launches_tc,
             "lut_stream_gemm": ss.launches, "lut_stream_gemm_tc": ss.launches_tc,
+            "lut_stream_gemm_lookup": ss.launches_lookup,
             "lut_stream_gemm_canon": ss.launches_canon,
             "flash_attention": fa.launches, "flash_attention_tc": fa.launches_tc}
 
@@ -523,8 +542,8 @@ def plain_stream_chunked(torch, ref, wpk, ms, pid, canon, reorder, cols=16):
 def check_canonicalize(torch, dev, pack, codes, what):
     """The canonicalize kernel on ``codes`` (a CPU [K, N] tensor, moved to the
     card with its strides) against the plain chain on the CPU and on the card
-    and the sorting network's plain form; on the tensor-core route also its
-    composed operand against the plain compose step."""
+    and the sorting network's plain form; on the tensor-core and lookup routes
+    also its composed operand against the plain compose step of that route."""
     from repro_torch.core import engine
     from repro_torch.core.quantize import zero_code
     from repro_torch.kernels import lut_stream_gemm as ss
@@ -543,24 +562,35 @@ def check_canonicalize(torch, dev, pack, codes, what):
                             ("sorting network", (net[0].cpu(), net[1].cpu()))):
         check(torch.equal(got.msrank.cpu(), ms) and torch.equal(got.permid.cpu(), pid),
               f"canonicalize kernel != {name} ({what})")
-    tc = ss.route(pack) == "tc"
-    check((got.composed is not None) == tc, f"canonicalize {what}: composed operand "
-                                            f"{'missing' if tc else 'built'} on the {ss.route(pack)} route")
-    if tc:
+    which = ss.route(pack)
+    wants = which in ("tc", "lookup")
+    check((got.composed is not None) == wants,
+          f"canonicalize {what}: composed operand {'missing' if wants else 'built'} on the "
+          f"{which} route")
+    if which == "tc":
         canon, reorder = engine.device_tables(pack, dev)
         g = got.msrank.shape[0]
         check(torch.equal(got.composed[:, : g * pack.n_rows],
                           ref.lut_compose_ref(got.msrank, got.permid, canon, reorder)),
               f"composed operand != plain compose step ({what})")
+    elif which == "lookup":
+        ct, rt = engine.device_byte_tables(pack, dev)
+        n = got.msrank.shape[1]
+        want_s = ref.lut_compose_lookup_ref(got.msrank, got.permid, ct, rt, nt=ss.lookup_tile(n))
+        check(torch.equal(got.composed, want_s),
+              f"lookup slices (lut_canon mode 3) != plain tiled compose ({what})")
+        check(torch.equal(ss.compose_lookup(got.msrank, got.permid, ct, rt, p=pack.p), want_s),
+              f"lookup slices (lut_canon mode 4) != plain tiled compose ({what})")
 
 
 def phase_stream_kernel(torch, dev):
-    """The CPU tests' sweep on the card through both routes of lut_stream_gemm
-    (the tensor cores where the pack's route is "tc"; the CUDA cores for
-    every pack, by calling without the pack), each call's route counter
-    checked, kernel == plain version on the card == plain version on the CPU,
-    bit for bit; and the canonicalize kernel against the plain chain on all
-    8^4 groups of A3 p=4 (both code layouts) and on every case."""
+    """The CPU tests' sweep on the card through the three routes of
+    lut_stream_gemm (the pack's route: the tensor cores or the lookup kernel;
+    the CUDA cores for every pack, by calling without the pack), each call's
+    route counters checked, kernel == plain version on the card == plain
+    version on the CPU, bit for bit; and the canonicalize kernel against the
+    plain chain on all 8^4 groups of A3 p=4 (both code layouts) and on every
+    case, with both compose modes of each route against the plain compose."""
     import itertools
 
     import numpy as np
@@ -568,7 +598,11 @@ def phase_stream_kernel(torch, dev):
     from repro_torch.kernels import lut_stream_gemm as ss
     from repro_torch.kernels import ops, ref
 
-    n_cases = {"tc": 0, "cuda_core": 0, "canonicalize": 0}
+    n_cases = {"tc": 0, "lookup": 0, "cuda_core": 0, "canonicalize": 0}
+
+    def counters():
+        return (ss.launches, ss.launches_tc, ss.launches_lookup, ss.launches_canon)
+
     a3p4 = luts.build_lut_pack(1, 3, 4)
     allg = np.array(list(itertools.product(range(8), repeat=4)), dtype=np.int32)   # [4096, 4]
     for codes, layout in ((torch.from_numpy(allg.T.copy()), "[K, N]"),
@@ -587,10 +621,10 @@ def phase_stream_kernel(torch, dev):
             want = ops.lut_stream_gemm_full(wc, ac, pack)                 # CPU, plain
             wd, ad = wc.to(dev), ac.to(dev)
             for nt in (1, 3, 4, 6, 16):
-                before = (ss.launches, ss.launches_tc, ss.launches_canon)
+                before = counters()
                 got = ops.lut_stream_gemm_full(wd, ad, pack, nt=nt)
-                check((ss.launches, ss.launches_tc, ss.launches_canon) ==
-                      (before[0] + 1, before[1] + (which == "tc"), before[2] + 1),
+                check(counters() == (before[0] + 1, before[1] + (which == "tc"),
+                                     before[2] + (which == "lookup"), before[3] + 1),
                       f"route counters: ({bw},{ba},{p}) ({which}) M={m} K={k} N={n} nt={nt}")
                 check(torch.equal(got.cpu(), want),
                       f"lut_stream_gemm_full (bw,ba,p)=({bw},{ba},{p}) ({which}) M={m} K={k} "
@@ -604,13 +638,14 @@ def phase_stream_kernel(torch, dev):
             idx = engine.canonicalize_activations(ad, pack)
             plain = ref.lut_stream_gemm_ref(wpk, idx.msrank, idx.permid, canon, reorder)
             calls = [("cuda_core", {}, 0)]
-            if which == "tc":
-                calls += [("tc", {"pack": pack}, 1), ("tc", {"pack": pack, "composed": idx.composed}, 0)]
+            if which != "cuda_core":
+                calls += [(which, {"pack": pack}, 1),
+                          (which, {"pack": pack, "composed": idx.composed}, 0)]
             for route, kw, composes in calls:
-                before = (ss.launches, ss.launches_tc, ss.launches_canon)
+                before = counters()
                 out = ss.lut_stream_gemm(wpk, idx.msrank, idx.permid, canon, reorder, **kw)
-                check((ss.launches, ss.launches_tc, ss.launches_canon) ==
-                      (before[0] + 1, before[1] + (route == "tc"), before[2] + composes),
+                check(counters() == (before[0] + 1, before[1] + (route == "tc"),
+                                     before[2] + (route == "lookup"), before[3] + composes),
                       f"route counters: lut_stream_gemm ({bw},{ba},{p}) {route} M={m} N={n}")
                 check(torch.equal(out, plain), f"lut_stream_gemm ({route}) != plain version on "
                                                f"the card: ({bw},{ba},{p}) M={m} K={k} N={n}")
@@ -619,13 +654,18 @@ def phase_stream_kernel(torch, dev):
                 check(torch.equal(ref.lut_onehot_gemm_ref(wpk, idx.composed, r=pack.n_rows),
                                   plain), f"plain one-hot product != plain version: "
                                           f"({bw},{ba},{p}) M={m} N={n}")
+            if which == "lookup":
+                check(torch.equal(ref.lut_lookup_gemm_ref(wpk, idx.composed, n=n), plain),
+                      f"plain lookup sum != plain version: ({bw},{ba},{p}) M={m} N={n}")
     torch.cuda.synchronize()
-    log(f"phase 6: {n_cases['tc'] + n_cases['cuda_core']} lut_stream_gemm-vs-plain cases "
-        f"({n_cases['tc']} on the int8 tensor cores, {n_cases['cuda_core']} on the CUDA cores; "
-        f"{len(STREAM_PACKS)} packs, R = 2 .. 256, ragged K, nt 1/3/4/6/16; card vs card plain and vs CPU plain; each call's "
-        f"route counter checked) and {n_cases['canonicalize']} canonicalize-kernel cases (the "
-        f"4096 groups of A3 p=4 in both layouts, every sweep case; msrank / permid and the "
-        f"composed operand) equal bit for bit")
+    log(f"phase 6: {n_cases['tc'] + n_cases['lookup'] + n_cases['cuda_core']} "
+        f"lut_stream_gemm-vs-plain cases ({n_cases['tc']} on the int8 tensor cores, "
+        f"{n_cases['lookup']} on the lookup kernel, {n_cases['cuda_core']} on the CUDA cores; "
+        f"{len(STREAM_PACKS)} packs, R = 2 .. 256, ragged K, nt 1/3/4/6/16; card vs card plain "
+        f"and vs CPU plain; each call's route counters checked) and {n_cases['canonicalize']} "
+        f"canonicalize-kernel cases (the 4096 groups of A3 p=4 in both layouts, every sweep "
+        f"case; msrank / permid and the composed operand of the tc and lookup routes, both "
+        f"compose modes) equal bit for bit")
 
 
 def phase_stream_times(torch, dev, cfg, card, smi):
@@ -746,6 +786,148 @@ def phase_stream_times(torch, dev, cfg, card, smi):
             f"[{smi}]")
     log("phase 6: the lut serve path's shapes (N=4 and 512) equal the plain version and the "
         "one-hot yardstick bit for bit on both routes")
+    return rows, worst
+
+
+def stream_lookup_bound_s(m, g, n, r, card):
+    """Least time of the lookup route's product: wpacked (int32) and the
+    composed slices (G*R*N bytes) read once and the int32 output written
+    once, over the memory rate; or its M*G*N lookup-adds over the CUDA cores'
+    peak operation rate (the f32 non-tensor rate of the table).  Returns
+    (seconds, bound_by)."""
+    nbytes = 4 * m * g + g * r * n + 4 * m * n
+    t_bytes, t_ops = nbytes / card.hbm_bandwidth, m * g * n / card.peak_flops_f32
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_lookup_times(torch, dev, cfg, card, smi):
+    """The lookup route at a capacity plan's packing degrees: one stablelm-12b
+    layer's seven projections at W1A3 p = 6 / 7 / 8 (R = 64 / 128 / 256),
+    decode (N = 4) and prefill (N = 4 x 128).  The lookup kernel on the
+    slices the canonicalize kernel composed (mode 3, held to the plain tiled
+    compose) beside the CUDA-core kernel (lut_stream_gemm.cu) on the same inputs, both held
+    to the plain version bit for bit (the lookup kernel also called
+    LOOKUP_REPEATS times more back to back, each result held to the first:
+    a race between its producer and consumers shows as a change), and the
+    library yardstick (the one-hot [M, G*R] f32 torch.matmul) where its
+    operand fits in memory.  Kernels and the yardstick in device time, the
+    plain version on CUDA events."""
+    from repro_torch.core import engine
+    from repro_torch.core.api import LutLinearSpec, _lut_pack_cache, quantize_linear
+    from repro_torch.core.prepared import prepare_linear
+    from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import lut_stream_gemm as ss
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    onehot_cap = 16e9                       # bytes of the yardstick's one-hot operand, at most
+    rows = []
+    worst = 0
+    for p in LOOKUP_PS:
+        spec = LutLinearSpec(mode="lut", bw=1, ba=3, p=p)
+        pack = _lut_pack_cache(spec.bw, spec.ba, spec.p, spec.w_kind, spec.a_kind)
+        check(ss.route(pack) == "lookup", f"W1A3 p={p} must take the lookup route")
+        canon, reorder = engine.device_tables(pack, dev)
+        ct, rt = engine.device_byte_tables(pack, dev)
+        r = pack.n_rows
+        for name, (k, f) in layer_shapes(cfg).items():
+            w = torch.randn((k, f), generator=gen, device=dev)
+            wpk = prepare_linear(quantize_linear(w, spec), n_hint=4).wpk      # [F, G]
+            del w
+            m, g = wpk.shape
+            n_copies = max(1, math.ceil(200e6 / (4 * wpk.numel())))      # cold in L2
+            wpks = [wpk.clone() for _ in range(n_copies)]
+            fits = 4.0 * m * g * r <= onehot_cap
+            onehot = None
+            if fits:
+                onehot = torch.zeros((m, g, r), dtype=torch.float32, device=dev)
+                onehot.scatter_(2, wpk[:, :, None].long(), 1.0)
+                onehot = onehot.reshape(m, g * r)                            # [M, G*R]
+            for b in (4, 4 * 128):
+                x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+                acodes, _ = quantize(x.float().T, spec.aspec())             # [K, N] view
+                idx = engine.canonicalize_activations(acodes, pack)
+                ms, pid, sl = idx.msrank, idx.permid, idx.composed
+                nt = ss.lookup_tile(b)
+                check(torch.equal(sl, ref.lut_compose_lookup_ref(ms, pid, ct, rt, nt=nt)),
+                      f"lookup slices != plain tiled compose at p={p} {name} N={b}")
+                before = ss.launches_lookup
+                y = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder, pack=pack, composed=sl)
+                check(ss.launches_lookup == before + 1, f"p={p} {name} N={b} did not take the "
+                                                        f"lookup route")
+                for rep in range(LOOKUP_REPEATS):     # back to back: a race shows as a change
+                    again = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder, pack=pack,
+                                               composed=sl)
+                    check(torch.equal(again, y), f"lut_stream_gemm (lookup) at p={p} {name} "
+                                                 f"N={b}: call {rep + 2} differs from the first")
+                y_cc = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder)
+                if b == 4:
+                    y_plain = ref.lut_stream_gemm_ref(wpk, ms, pid, canon, reorder)
+                    plain = time_ms(torch, lambda i: ref.lut_stream_gemm_ref(
+                        wpks[i % n_copies], ms, pid, canon, reorder), 2)
+                else:   # one call, on CUDA events: it takes about a second
+                    y_plain, plain = once_ms(torch, lambda: plain_stream_chunked(
+                        torch, ref, wpk, ms, pid, canon, reorder))
+                worst = max(worst, (y - y_plain).abs().max().item())
+                if not torch.equal(y, y_plain):
+                    again = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder, pack=pack,
+                                               composed=sl)
+                    raise SmokeFailure(
+                        f"lut_stream_gemm (lookup) != plain at p={p} {name} N={b}: "
+                        f"{int((y != y_plain).sum())} of {y.numel()} entries differ; the kernel "
+                        f"again {'==' if torch.equal(again, y_plain) else '!='} plain, "
+                        f"{'==' if torch.equal(again, y) else '!='} its first result")
+                check(torch.equal(y_cc, y_plain), f"lut_stream_gemm (cuda_core) != plain at "
+                                                  f"p={p} {name} N={b}")
+                kern = device_ms(torch, lambda i: ss.lut_stream_gemm(
+                    wpks[i % n_copies], ms, pid, canon, reorder, pack=pack, composed=sl), 20)
+                cuda_core = device_ms(torch, lambda i: ss.lut_stream_gemm(
+                    wpks[i % n_copies], ms, pid, canon, reorder), 5 if b == 4 else 2)
+                lib = None
+                if fits:
+                    # B [G*R, N]: the slices without their bias, in the one-hot's order.
+                    bmat = (sl.to(torch.int16) - 128).permute(1, 2, 0, 3).reshape(g * r, -1)
+                    bmat = bmat[:, :b].float().contiguous()
+                    y_lib = torch.matmul(onehot, bmat)
+                    check(torch.equal(y_lib.to(torch.int32), y),
+                          f"one-hot BLAS yardstick != kernel at p={p} {name} N={b}")
+                    lib = device_ms(torch, lambda i: torch.matmul(onehot, bmat), 3)
+                    del bmat, y_lib
+                canon_ms = device_ms(torch, lambda i: engine.canonicalize_activations(acodes, pack),
+                                     10)
+                bnd, by = stream_lookup_bound_s(m, g, b, r, card)
+                cbnd, _ = canon_bound_s(k, b, g, r, card)
+                row = dict(p=p, proj=name, B=b, K=k, F=f, G=g, ms=kern, cuda_core_ms=cuda_core,
+                           plain_ms=plain, library_ms=lib, bound_ms=bnd * 1e3, bound_by=by,
+                           split=ss.lookup_split(m, g, b, torch.cuda.get_device_properties(
+                               dev).multi_processor_count), canon_ms=canon_ms,
+                           canon_bound_ms=cbnd * 1e3)
+                rows.append(row)
+                log(f"  p={p} {name:6s} N={b:4d} M={m:5d} G={g:4d} S={row['split']}: lookup "
+                    f"kernel {kern:.4f} ms ({bnd * 1e3 / kern:.3f} of its bound "
+                    f"{bnd * 1e3:.4f} ms, {by}; {m * g * b / kern / 1e9:.2f} T lookup-adds/s), "
+                    f"CUDA-core kernel {cuda_core:.4f} ms ({cuda_core / kern:.1f}x), plain "
+                    f"{plain:.4f} ms, one-hot torch.matmul "
+                    + (f"{lib:.4f} ms" if lib is not None else
+                       f"not run ({4.0 * m * g * r / 1e9:.1f} GB operand > "
+                       f"{onehot_cap / 1e9:.0f} GB)")
+                    + f"; canonicalize + compose {canon_ms:.4f} ms (bytes bound "
+                    f"{cbnd * 1e3:.4f} ms) [{smi}]")
+                del idx, y, y_cc, y_plain
+            del wpks, onehot
+            torch.cuda.empty_cache()
+    for p in LOOKUP_PS:
+        for b in (4, 512):
+            picked = [row for row in rows if row["B"] == b and row["p"] == p]
+            t = {key: sum(row[key] for row in picked)
+                 for key in ("ms", "cuda_core_ms", "plain_ms", "bound_ms", "canon_ms")}
+            libs = [row["library_ms"] for row in picked if row["library_ms"] is not None]
+            log(f"phase 6: {cfg.name} layer (7 projections) at W1A3 p={p} N={b}: lookup kernel "
+                f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of its bound "
+                f"{t['bound_ms']:.4f} ms), CUDA-core kernel {t['cuda_core_ms']:.4f} ms "
+                f"({t['cuda_core_ms'] / t['ms']:.1f}x), plain {t['plain_ms']:.4f} ms, one-hot "
+                f"torch.matmul {sum(libs):.4f} ms over {len(libs)} of 7 projections; "
+                f"canonicalize + compose {t['canon_ms']:.4f} ms [{smi}]")
     return rows, worst
 
 
@@ -984,14 +1166,26 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
 # The analytic plans of stablelm-12b's seven stacked W1A3 lut projections at
 # n_hint 4 (the reference planner's, tests/test_torch_tune.py): budget GiB ->
 # ({projection: (p, prepared)}, total_bytes, table_bytes).  At p <= 5 a pack
-# takes lut_stream_gemm's tensor-core route (R <= 32), at p = 6-8 its CUDA-core
-# route; w_down at 4 GiB is served raw at p = 1 (R = 2, the tensor cores).
+# takes lut_stream_gemm's tensor-core route (R <= 32), at p = 6-8 its lookup
+# route (R = 64-256); w_down at 4 GiB is served raw at p = 1 (R = 2, the
+# tensor cores).  Per serve of phase 8's requests (40 layers x 32 calls),
+# tensor-core / lookup / CUDA-core launches are 6400 / 2560 / 0 at 16 GiB and
+# 2560 / 6400 / 0 at 4 GiB (ROUTES_WANT).
 PLANS_WANT = {
     16: ({"wq": (5, True), "wk": (5, True), "wv": (5, True), "wo": (5, True),
           "w_down": (5, True), "w_up": (7, True), "w_gate": (7, True)}, 7_601_487_360, 1_113_600),
     4: ({"wq": (8, True), "wk": (5, True), "wv": (6, True), "wo": (8, True),
          "w_up": (8, True), "w_gate": (8, True), "w_down": (1, False)}, 4_276_499_986, 12_154_386),
 }
+
+
+ROUTES_WANT = {16: (6400, 2560, 0), 4: (2560, 6400, 0)}
+
+
+def check_route_counts(what, out, want):
+    got = (out["launches_tc"], out["launches_lookup"], out["launches_cuda_core"])
+    check(got == want, f"{what}: lut_stream_gemm launches (tensor cores, lookup, CUDA cores) "
+                       f"{got} != {want}")
 
 
 def plan_routes(plan):
@@ -1036,7 +1230,8 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
     counted run and read just after: the tokens must equal ``want``, the
     prepared tree the plan's bytes (``verify_capacity``), one host sync per
     wave (or chunk), and every lut_stream_gemm launch the route of its
-    leaf's pack, counted per route from the plan.  Under ``decode="scan"``
+    leaf's pack, counted per route (tensor cores, lookup, CUDA cores) from
+    the plan.  Under ``decode="scan"``
     also a 4 x 128 prefill's and a decode step's times (CUDA events) and the
     profiler's device time by kernel, lut_stream_gemm's routes apart."""
     from repro_torch.serve.serving import Request, ServeEngine
@@ -1072,13 +1267,15 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
     routes = plan_routes(plan)
     calls = n_units * (prefills + steps)
     n_tc = sum(r == "tc" for r in routes.values())
+    n_lookup = sum(r == "lookup" for r in routes.values())
     want_counts = {"lut_stream_gemm": len(routes) * calls, "lut_stream_gemm_tc": n_tc * calls,
+                   "lut_stream_gemm_lookup": n_lookup * calls,
                    "lut_stream_gemm_canon": len(routes) * calls}
     got_counts = {k: counts[k] for k in want_counts}
     check(got_counts == want_counts,
           f"{what}: launches {got_counts} != {want_counts} ({len(routes)} projections, {n_tc} "
-          f"on the tensor cores, x {n_units} units x ({prefills} prefills + {steps} decode "
-          f"steps))")
+          f"on the tensor cores and {n_lookup} on the lookup route, x {n_units} units x "
+          f"({prefills} prefills + {steps} decode steps))")
     check(all(n == 0 for name, n in counts.items() if not name.startswith("lut_stream_gemm")),
           f"{what}: the lut path launched another kernel: {counts}")
     n_tok = sum(len(o) for o in outs)
@@ -1086,7 +1283,9 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
     out = dict(prepare_s=prepare_s, wall_s=wall, tok_s=n_tok / wall, tokens_crc32=digest,
                prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs,
                launches=counts["lut_stream_gemm"], launches_tc=counts["lut_stream_gemm_tc"],
-               launches_cuda_core=counts["lut_stream_gemm"] - counts["lut_stream_gemm_tc"],
+               launches_lookup=counts["lut_stream_gemm_lookup"],
+               launches_cuda_core=counts["lut_stream_gemm"] - counts["lut_stream_gemm_tc"]
+               - counts["lut_stream_gemm_lookup"],
                launches_canon=counts["lut_stream_gemm_canon"], peak_gb=peak / 1e9,
                held_before_gb=held / 1e9,
                prepared_bytes=sum(actual.values()),
@@ -1116,7 +1315,8 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
         + (f"; prefill {out['prefill_wall_s']:.3f} s + decode {out['decode_wall_s']:.3f} s "
            f"wall over {len(records)} waves" if decode == "scan" else "")
         + f"); {eng.host_syncs} host syncs; lut_stream_gemm {out['launches']} launches "
-        f"({out['launches_tc']} tensor cores, {out['launches_cuda_core']} CUDA cores), "
+        f"({out['launches_tc']} tensor cores, {out['launches_lookup']} lookup, "
+        f"{out['launches_cuda_core']} CUDA cores), "
         f"lut_canon {out['launches_canon']}; prepared in {prepare_s:.1f} s, "
         f"{out['prepared_bytes']:,} B checked by verify_capacity; peak memory "
         f"{out['peak_gb']:.2f} GB ({held / 1e9:.2f} GB held before the engine was built)")
@@ -1166,13 +1366,15 @@ def phase_planned_serve(torch, dev, cfg, smi, lserve):
               f"{layers_want}, {total_want} / {tables_want} B")
         routes = plan_routes(plan)
         log_plan(f"analytic plan at {gib} GiB (planned in {plan_s:.2f} s)", plan, routes)
-        if gib == 16:
-            check({"tc", "cuda_core"} <= set(routes.values()),
-                  f"the 16 GiB plan must put lut_stream_gemm on both routes: {routes}")
+        check(set(routes.values()) == {"tc", "lookup"},
+              f"the {gib} GiB plan must put lut_stream_gemm on the tensor-core and lookup "
+              f"routes and on no other: {routes}")
         results[f"analytic_{gib}GiB"] = dict(planning_s=plan_s, total_bytes=plan.total_bytes,
                                              table_bytes=plan.table_bytes,
                                              **serve_plan(torch, dev, model, calibrated, plan, reqs,
                                                           want, smi, what=f"{gib} GiB analytic plan"))
+        check_route_counts(f"{gib} GiB analytic plan", results[f"analytic_{gib}GiB"],
+                           ROUTES_WANT[gib])
         plans[gib] = plan
 
     # A plan measured on the card: each candidate's eager apply_linear on
@@ -1218,6 +1420,8 @@ def phase_planned_serve(torch, dev, cfg, smi, lserve):
     results["chunked_16GiB"] = serve_plan(torch, dev, model, calibrated, plans[16], reqs, want,
                                           smi, what="16 GiB analytic plan, decode=chunked",
                                           decode="chunked")
+    check_route_counts("16 GiB analytic plan, decode=chunked", results["chunked_16GiB"],
+                       ROUTES_WANT[16])
     log(f"phase 13 [{smi}]: 16 GiB plan end to end: chunked "
         f"{results['chunked_16GiB']['tok_s']:.1f} tok/s, scan "
         f"{results['analytic_16GiB']['tok_s']:.1f} tok/s (tokens equal)")
@@ -1776,6 +1980,7 @@ def main() -> int:
             label="phase 12")
         phase_stream_kernel(torch, dev)
         srows, stream_abs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi)
+        lrows, lookup_abs = phase_lookup_times(torch, dev, cfg, hw.H100_SXM, smi)
         phase_lut_layer(torch, dev, cfg)
         lserve = phase_serve(torch, dev, cfg, smi, phase=8,
                              spec=LutLinearSpec(mode="lut", **LUT_SPEC),
@@ -1813,6 +2018,17 @@ def main() -> int:
     def stream_times(rs, b, at):
         return {**times(rs, b, at), "lookup_bound_ms": layer_sum(rs, b, "lookup_bound_ms"),
                 "cuda_core_ms": layer_sum(rs, b, "cuda_core_ms")}
+
+    def lookup_times(p, b, at):
+        rs = [r for r in lrows if r["p"] == p and r["B"] == b]
+        libs = [r["library_ms"] for r in rs]
+        return {"at": at, "ms": layer_sum(rs, b, "ms"), "plain_ms": layer_sum(rs, b, "plain_ms"),
+                "bound_ms": layer_sum(rs, b, "bound_ms"), "bound_by": bound_by(rs, b),
+                "library_ms": None if None in libs else sum(libs),
+                "library_ms_by_projection": {r["proj"]: r["library_ms"] for r in rs},
+                "cuda_core_ms": layer_sum(rs, b, "cuda_core_ms"),
+                "canon_ms": layer_sum(rs, b, "canon_ms"),
+                "canon_bound_ms": layer_sum(rs, b, "canon_bound_ms")}
 
     def canon_times(rs, b, at):
         return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
@@ -1869,6 +2085,27 @@ def main() -> int:
             **{name: {key: r[key] for key in PLANNED_KEYS if key in r}
                for name, r in planned.items()},
             "candidates": planned["measured_16GiB"]["candidates"]},
+        "ok": True,
+    }, {
+        "name": "lut_stream_gemm_lookup",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lut_stream_lookup_sm90.cu",
+        "replaces": "src/repro/kernels/lut_stream_gemm.py:96",
+        "tpu": "src/repro/kernels/lut_stream_gemm.py::lut_stream_gemm (packs with b_o == 1 and "
+               "32 < R <= 256)",
+        "launches": planned["analytic_16GiB"]["launches_lookup"],
+        "max_abs_err": lookup_abs,
+        **lookup_times(7, 4, "one decode step of one stablelm-12b layer: its 7 projections at "
+                             "N=4, W1A3 p=7 (the 16 GiB plan's w_up / w_gate), the lookup route "
+                             "(device time; bound: the bytes of wpacked, the slices and the "
+                             "output, or M*G*N lookup-adds at the f32 rate; library: the one-hot "
+                             "[M, G*R] f32 torch.matmul; cuda_core_ms: the CUDA-core "
+                             "kernel on the same inputs)"),
+        "prefill": lookup_times(7, 512, "one layer's 7 projections at N=4x128, W1A3 p=7"),
+        "by_p": {p: {"decode": lookup_times(p, 4, f"N=4, W1A3 p={p}"),
+                     "prefill": lookup_times(p, 512, f"N=4x128, W1A3 p={p}")}
+                 for p in LOOKUP_PS},
+        "planned_serve": {name: {"launches": r["launches_lookup"]} for name, r in planned.items()},
         "ok": True,
     }, {
         "name": "lut_stream_gemm_canon",

@@ -24,9 +24,9 @@ Where the int32 sum is computed:
   the same function, the same bits, without the ``[M, G, N]`` gather the
   plain form materialises (36 GB at one stablelm-12b ``w_up`` prefill) —
   and :func:`canonicalize_activations` from the canonicalize kernel beside
-  it, which also composes the tensor-core route's operand: two launches
-  per projection.  The stream engine's :class:`StreamStats` then come from
-  the same planner through :func:`stream_plan_stats`.
+  it, which also composes the operand of the tensor-core or lookup route:
+  two launches per projection.  The stream engine's :class:`StreamStats`
+  then come from the same planner through :func:`stream_plan_stats`.
 * On a **CPU** tensor the engines run the reference's plain forms: torch
   gathers for :func:`canonical_lut_gemm` / :func:`packed_lut_gemm`, the
   stable argsort of :func:`canonicalize_activations_plain`, and the host
@@ -147,8 +147,10 @@ class CanonIndices:
     msrank: object   # [G, N] canonical-LUT column ids
     permid: object   # [G, N] reordering-LUT column ids
     corr: int
-    # [N, pitch] int8: the composed LUT slices the tensor-core lut_stream_gemm
-    # reads (kernels/lut_stream_gemm.py::canonicalize); None elsewhere.
+    # The composed LUT slices the pack's lut_stream_gemm route reads
+    # (kernels/lut_stream_gemm.py::canonicalize): [N, pitch] int8 on the
+    # tensor-core route, [ceil(N/NT), G, R, NT] uint8 on the lookup route;
+    # None elsewhere.
     composed: Optional[torch.Tensor] = None
 
 
@@ -158,19 +160,21 @@ def canonicalize_activations(acodes: torch.Tensor, pack: LutPack) -> CanonIndice
     codes' device; a partial last group is padded with the zero code.
 
     On a CUDA tensor one launch of the canonicalize kernel computes both, and
-    for a pack on the tensor-core route of ``lut_stream_gemm`` also the
-    composed operand it reads (``composed``); elsewhere the plain torch
-    chain (:func:`canonicalize_activations_plain`) runs."""
+    for a pack on the tensor-core or lookup route of ``lut_stream_gemm`` also
+    the composed operand that route reads (``composed``); elsewhere the plain
+    torch chain (:func:`canonicalize_activations_plain`) runs."""
     if acodes.device.type == "cuda":
         from repro_torch.kernels import lut_stream_gemm as _ss
 
         p, v = pack.p, 1 << pack.ba
         if int(pack.binom[v + p - 1, p]) >= 2**31:
             raise ValueError("multiset rank does not fit int32; use streaming tiles")
-        tables = device_tables(pack, acodes.device) if _ss.route(pack) == "tc" else None
+        which = _ss.route(pack)
         ms, pid, b = _ss.canonicalize(
             acodes.to(torch.int32), device_binom(pack, acodes.device), p=p,
-            pad_code=zero_code(pack.agrid), tables=tables,
+            pad_code=zero_code(pack.agrid),
+            tables=device_tables(pack, acodes.device) if which == "tc" else None,
+            byte_tables=device_byte_tables(pack, acodes.device) if which == "lookup" else None,
         )
         return CanonIndices(msrank=ms, permid=pid, corr=0, composed=b)
     return canonicalize_activations_plain(acodes, pack)
@@ -211,9 +215,18 @@ def canonicalize_activations_np(acodes: np.ndarray, pack: LutPack) -> CanonIndic
     return CanonIndices(msrank=msr, permid=pid, corr=0)
 
 
-# (id(pack), device) -> (pack, canonical, reordering, binom).  The entry holds
-# the pack itself, so its id cannot be reused while the entry exists.
+# (id(pack), device) -> (pack, canonical, reordering, binom, byte tables).  The
+# entry holds the pack itself, so its id cannot be reused while the entry exists.
 _TABLES: dict = {}
+
+
+def _byte_tables(pack: LutPack, device) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+    """The transposed byte copies the lookup route composes from, for a pack
+    whose entries fit s8 and whose weight index fits a byte; else None."""
+    if not (_int_pack(pack) and pack.bo == 1 and pack.n_rows <= 256):
+        return None
+    return (torch.as_tensor(np.ascontiguousarray(pack.canonical.T, np.int8), device=device),
+            torch.as_tensor(np.ascontiguousarray(pack.reordering.T, np.uint8), device=device))
 
 
 def _device_entry(pack: LutPack, device) -> tuple:
@@ -225,6 +238,7 @@ def _device_entry(pack: LutPack, device) -> tuple:
             torch.as_tensor(np.ascontiguousarray(pack.canonical, np.int32), device=key[1]),
             torch.as_tensor(np.ascontiguousarray(pack.reordering, np.int32), device=key[1]),
             torch.as_tensor(np.ascontiguousarray(pack.binom, np.int32), device=key[1]),
+            _byte_tables(pack, key[1]),
         )
     return hit
 
@@ -237,6 +251,19 @@ def device_tables(pack: LutPack, device) -> tuple[torch.Tensor, torch.Tensor]:
     return hit[1], hit[2]
 
 
+def device_byte_tables(pack: LutPack, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pack's tables transposed to bytes on ``device``, canonical ``[C,
+    R]`` int8 and reordering ``[P!, R]`` uint8, made once per pack and device
+    beside :func:`device_tables`: the lookup route of ``lut_stream_gemm``
+    composes a (g, n) slice from two contiguous R-byte rows of them.  Raises
+    for a pack whose entries or weight index do not fit a byte."""
+    hit = _device_entry(pack, device)[4]
+    if hit is None:
+        raise ValueError(f"the ({pack.bw},{pack.ba},{pack.p}) pack has no byte tables: its "
+                         f"entries need {pack.bo} bytes and R = {pack.n_rows}")
+    return hit
+
+
 def device_binom(pack: LutPack, device) -> torch.Tensor:
     """The pack's binomial table ``[v + p, p + 1]`` as int32 on ``device``,
     uploaded once per pack and device (values of every rank that fits int32
@@ -247,8 +274,8 @@ def device_binom(pack: LutPack, device) -> torch.Tensor:
 def _kernel_sum(wpacked: torch.Tensor, idx: CanonIndices, pack: LutPack, *,
                 nt=None) -> torch.Tensor:
     """The int32 ``[M, N]`` canonical-LUT sum from the Hopper kernel, on the
-    pack's route; the tensor-core route reads ``idx.composed`` where the
-    canonicalize kernel built it."""
+    pack's route; the tensor-core and lookup routes read ``idx.composed``
+    where the canonicalize kernel built it."""
     from repro_torch.kernels import lut_stream_gemm as _ss
 
     canon, reorder = device_tables(pack, wpacked.device)

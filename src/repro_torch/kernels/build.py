@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 # Every CUDA source of csrc/, one library each (chip_smoke.py builds them all,
 # one nvcc each, started together).
 SOURCES = ("lut_dequant_gemm", "lut_dequant_gemm_sm90", "lut_stream_gemm",
-           "lut_stream_gemm_sm90", "lut_canon", "flash_attention", "flash_attention_sm90")
+           "lut_stream_gemm_sm90", "lut_stream_lookup_sm90", "lut_canon", "flash_attention",
+           "flash_attention_sm90")
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor loads,
-// cp.async counted on mbarriers, wgmma shared-memory descriptors and the wgmma
-// products the kernels issue (bf16 and u8 x s8).
-// Header-only; included by the kernels that run on the tensor cores.
+// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor loads
+// and 1-D bulk copies, cp.async counted on mbarriers, wgmma shared-memory
+// descriptors and the wgmma products the kernels issue (bf16 and u8 x s8).
+// Header-only; included by the kernels that run on sm_90a's asynchronous
+// copies (the tensor-core kernels and the LUT-slice-streaming lookup kernel).
 
 #pragma once
 
@@ -107,6 +108,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, uint
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Copies `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global `src` to shared `dst` with one 1-D bulk copy; completion
+// is counted on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -477,6 +490,24 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
+}
+
+// The same for 8 bytes (both addresses 8-byte aligned).
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Closes the group of this thread's cp.async issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One arrival on `bar` once every cp.async this thread issued so far has

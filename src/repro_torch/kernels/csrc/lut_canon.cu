@@ -37,11 +37,21 @@
 // route of lut_stream_gemm); 2 composes B from given msrank / permid (the
 // public lut_stream_gemm entry on that route).  B is [N, ldb] s8, columns
 // g*R + r, K-major as int8 wgmma takes it (lut_stream_gemm_sm90.cu); columns
-// G*R .. ldb-1 are not written.
+// G*R .. ldb-1 are not written.  Modes 3 and 4 do the same as 1 and 2 for the
+// lookup route (lut_stream_lookup_sm90.cu, 32 < R <= 256): the slices tiled
+// for it, S [ceil(N/NT), G, R, NT] u8, each entry stored as entry + 128
+// (columns past N hold 128, entry 0), composed from byte copies of the tables
+// transposed, canonical [C, R] s8 and reordering [P!, R] u8, so that a (g, n)
+// reads two contiguous R-byte rows, S[.., g, r, ..] = canonT[ms][reordT[pid][r]].
+// A warp composes one (g, column tile): lane l rows 4l .. 4l+3 (+128), one
+// 4-byte load of reordT and four byte loads of canonT per column, and writes
+// its 4 x NT bytes in one piece (consecutive lanes, consecutive bytes).
 //
 // What bounds it on an H100: bytes.  Each code read once (4 bytes), msrank and
 // permid written once (8 bytes per group) and B (R bytes per group): 26 MB for
-// one stablelm-12b q projection at N = 512, 7.8 us at 3.35 TB/s.
+// one stablelm-12b q projection at N = 512, 7.8 us at 3.35 TB/s; the lookup
+// route's slices for w_up at N = 512, G*R*N bytes, 28 / 48 / 84 MB at p = 6 /
+// 7 / 8 (8-25 us).
 //
 // Plain C interface for ctypes; the caller passes the stream and allocates the
 // outputs.  The kernel trusts the codes (< v) and the indices (msrank < C,
@@ -60,15 +70,17 @@ constexpr int TABLE_SMEM = 32 * 1024;       // canonical + reordering bytes stag
 constexpr int CTAS_PER_SM = 4;
 
 struct Params {
-  const int32_t* codes;                     // [K, N] activation codes (modes 0, 1)
+  const int32_t* codes;                     // [K, N] activation codes (modes 0, 1, 3)
   long long s_k, s_n;                       // their strides, in elements
-  const int32_t* binom;                     // [v + p, p + 1] binomial table (modes 0, 1)
-  int32_t* msrank;                          // [G, N] (written in modes 0, 1; read in mode 2)
+  const int32_t* binom;                     // [v + p, p + 1] binomial table (modes 0, 1, 3)
+  int32_t* msrank;                          // [G, N] (written in modes 0, 1, 3; read in 2, 4)
   int32_t* permid;
   const int32_t* canonical;                 // [R, C] (modes 1, 2)
   const int32_t* reordering;                // [R, PF]
-  int8_t* b;                                // [N, ldb] (modes 1, 2)
-  int ldb, K, N, G, R, C, PF, pad_code, mode, tn, tables_in_smem, vec4;
+  const uint8_t* canon_t;                   // [C, R] s8 bytes (modes 3, 4)
+  const uint8_t* reord_t;                   // [PF, R] u8
+  int8_t* b;                                // [N, ldb] (modes 1, 2); S [T, G, R, NT] (modes 3, 4)
+  int ldb, K, N, G, R, C, PF, pad_code, mode, tn, nt, tables_in_smem, vec4;
 };
 
 __host__ __device__ constexpr int factorial(int n) { return n <= 1 ? 1 : n * factorial(n - 1); }
@@ -152,6 +164,47 @@ __device__ __forceinline__ void compose_one(const Params& Q, const int8_t* sc, c
   }
 }
 
+// Writes the lookup route's slice of group g for the NT columns n0 .. n0 + NT
+// (ms_t / pid_t: their msrank and permid, nvalid of them inside N) at dst, [R,
+// NT] bytes: one warp, lane l rows 4l .. 4l + 3 and every 128 rows on.
+template <int NT>
+__device__ __forceinline__ void compose_lookup(const Params& Q, const int32_t* ms_t,
+                                               const int32_t* pid_t, int nvalid, uint8_t* dst,
+                                               int lane) {
+  for (int r0 = 4 * lane; r0 < Q.R; r0 += 128) {
+    uint32_t words[4][NT / 4];             // rows r0 + j, columns 4q .. 4q + 3
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int q = 0; q < NT / 4; ++q) words[j][q] = 0u;
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      uint32_t v[4] = {0x80u, 0x80u, 0x80u, 0x80u};
+      if (t < nvalid) {
+        const uint8_t* crow = Q.canon_t + (size_t)ms_t[t] * Q.R;
+        const uint32_t rows =
+            __ldg(reinterpret_cast<const uint32_t*>(Q.reord_t + (size_t)pid_t[t] * Q.R + r0));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __ldg(crow + ((rows >> (8 * j)) & 0xffu)) ^ 0x80u;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) words[j][t / 4] |= v[j] << (8 * (t % 4));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint8_t* row = dst + (size_t)(r0 + j) * NT;
+      if constexpr (NT == 16)
+        *reinterpret_cast<uint4*>(row) =
+            make_uint4(words[j][0], words[j][1], words[j][2], words[j][3]);
+      else if constexpr (NT == 8)
+        *reinterpret_cast<uint2*>(row) = make_uint2(words[j][0], words[j][1]);
+      else
+        *reinterpret_cast<uint32_t*>(row) = words[j][0];
+    }
+  }
+}
+
 // dst[i] = (byte) src[i] for i < n: 16-byte loads where src and dst allow, the
 // loads of a thread batched (a table is read once per CTA, from L2).
 __device__ __forceinline__ void stage_bytes(uint8_t* dst, const int32_t* src, int n, int tid) {
@@ -180,7 +233,8 @@ lut_canon_kernel(const Params Q) {
   int8_t* sc = reinterpret_cast<int8_t*>(pid_t + TG * 33); // [R][C]
   uint8_t* sr = reinterpret_cast<uint8_t*>(sc + Q.R * Q.C);   // [R][PF]
   const int tid = threadIdx.x;
-  const bool compose = Q.mode != 0;
+  const bool compose = Q.mode == 1 || Q.mode == 2;    // the tensor-core layout
+  const bool given = Q.mode == 2 || Q.mode == 4;      // msrank / permid read, not computed
   if (compose && Q.tables_in_smem) {
     stage_bytes(reinterpret_cast<uint8_t*>(sc), Q.canonical, Q.R * Q.C, tid);
     stage_bytes(sr, Q.reordering, Q.R * Q.PF, tid);
@@ -190,7 +244,7 @@ lut_canon_kernel(const Params Q) {
   const int per_tile = TG * Q.tn;
   for (int tile = blockIdx.x; tile < tiles_g * tiles_n; tile += gridDim.x) {
     const int g0 = (tile % tiles_g) * TG, n0 = (tile / tiles_g) * Q.tn;
-    if (Q.mode == 2) {
+    if (given) {
       // Given indices, read along n (they are [G, N] row-major).
       for (int e = tid; e < per_tile; e += THREADS) {
         const int nl = e % Q.tn, gl = e / Q.tn, g = g0 + gl, n = n0 + nl;
@@ -206,7 +260,7 @@ lut_canon_kernel(const Params Q) {
       const int gl = e % TG, nl = e / TG, g = g0 + gl, n = n0 + nl;
       if (g < Q.G && n < Q.N) {
         int ms, pid;
-        if (Q.mode == 2) {
+        if (given) {
           ms = ms_t[gl * 33 + nl];
           pid = pid_t[gl * 33 + nl];
         } else {
@@ -218,7 +272,23 @@ lut_canon_kernel(const Params Q) {
       }
     }
     __syncthreads();
-    if (Q.mode != 2) {
+    if (Q.mode >= 3) {
+      // The lookup route's slices: one warp per (group, column tile of NT).
+      const int warp = tid / 32, lane = tid % 32, subs = Q.tn / Q.nt;
+      for (int task = warp; task < TG * subs; task += THREADS / 32) {
+        const int gl = task % TG, c0 = n0 + (task / TG) * Q.nt, g = g0 + gl;
+        if (g >= Q.G || c0 >= Q.N) continue;
+        const int nl = c0 - n0, nvalid = min(Q.nt, Q.N - c0);
+        uint8_t* dst = reinterpret_cast<uint8_t*>(Q.b) +
+                       ((size_t)(c0 / Q.nt) * Q.G + g) * Q.R * Q.nt;
+        const int32_t* ms = ms_t + gl * 33 + nl;
+        const int32_t* pid = pid_t + gl * 33 + nl;
+        if (Q.nt == 16) compose_lookup<16>(Q, ms, pid, nvalid, dst, lane);
+        else if (Q.nt == 8) compose_lookup<8>(Q, ms, pid, nvalid, dst, lane);
+        else compose_lookup<4>(Q, ms, pid, nvalid, dst, lane);
+      }
+    }
+    if (!given) {
       // msrank / permid out along n.
       for (int e = tid; e < per_tile; e += THREADS) {
         const int nl = e % Q.tn, gl = e / Q.tn, g = g0 + gl, n = n0 + nl;
@@ -247,24 +317,33 @@ int launch(const Params& Q, cudaStream_t stream) {
 
 }  // namespace
 
-// codes [K, N] int32 (strides s_k, s_n elements; modes 0, 1), binom [v + p, p + 1]
-// int32, msrank / permid [G, N] int32, canonical [R, C] / reordering [R, PF]
-// int32 (modes 1, 2; entries that fit s8 / u8), b [N, ldb] s8 (modes 1, 2).
-// Returns a cudaError_t: cudaErrorInvalidValue for arguments the kernel does
-// not take, else the launch's own status.
+// codes [K, N] int32 (strides s_k, s_n elements; modes 0, 1, 3), binom [v + p,
+// p + 1] int32, msrank / permid [G, N] int32; modes 1, 2: canonical [R, C] /
+// reordering [R, PF] int32 (entries that fit s8 / u8), b [N, ldb] s8; modes 3,
+// 4: canonical [C, R] s8 / reordering [PF, R] u8 (the transposed byte copies),
+// b the slices [ceil(N/nt), G, R, nt] u8, nt = 4 at N <= 4, 8 at N <= 8, else
+// 16 (ldb unused).  Returns a cudaError_t: cudaErrorInvalidValue for arguments
+// the kernel does not take, else the launch's own status.
 extern "C" int lut_canon(const void* codes, long long s_k, long long s_n, const void* binom,
                          void* msrank, void* permid, const void* canonical,
                          const void* reordering, void* b, int ldb, int K, int N, int G, int p,
-                         int R, int C, int PF, int pad_code, int mode, void* stream) {
+                         int R, int C, int PF, int pad_code, int mode, int nt, void* stream) {
   const bool compose = mode == 1 || mode == 2;
-  if (!(mode >= 0 && mode <= 2) || p < 1 || p > MAX_P || N <= 0 || G <= 0 ||
-      (mode != 2 && (codes == nullptr || binom == nullptr || K <= 0 || (long long)G * p < K ||
-                     (long long)(G - 1) * p >= K)) ||
+  const bool lookup = mode == 3 || mode == 4;
+  const bool given = mode == 2 || mode == 4;
+  if (!(mode >= 0 && mode <= 4) || p < 1 || p > MAX_P || N <= 0 || G <= 0 ||
+      (!given && (codes == nullptr || binom == nullptr || K <= 0 || (long long)G * p < K ||
+                  (long long)(G - 1) * p >= K)) ||
       msrank == nullptr || permid == nullptr ||
       (compose && (canonical == nullptr || reordering == nullptr || b == nullptr ||
                    !(R == 2 || R == 4 || R == 8 || R == 16 || R == 32) || C <= 0 || PF <= 0 ||
                    (long long)ldb < (long long)G * R || ldb % 16 != 0 ||
-                   reinterpret_cast<uintptr_t>(b) % 16 != 0)))
+                   reinterpret_cast<uintptr_t>(b) % 16 != 0)) ||
+      (lookup && (canonical == nullptr || reordering == nullptr || b == nullptr ||
+                  !(R == 64 || R == 128 || R == 256) || C <= 0 || PF <= 0 ||
+                  nt != (N <= 4 ? 4 : N <= 8 ? 8 : 16) ||
+                  reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
+                  reinterpret_cast<uintptr_t>(reordering) % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   Params Q;
   Q.codes = static_cast<const int32_t*>(codes);
@@ -275,7 +354,10 @@ extern "C" int lut_canon(const void* codes, long long s_k, long long s_n, const 
   Q.permid = static_cast<int32_t*>(permid);
   Q.canonical = static_cast<const int32_t*>(canonical);
   Q.reordering = static_cast<const int32_t*>(reordering);
+  Q.canon_t = static_cast<const uint8_t*>(canonical);
+  Q.reord_t = static_cast<const uint8_t*>(reordering);
   Q.b = static_cast<int8_t*>(b);
+  Q.nt = nt;
   Q.ldb = ldb; Q.K = K; Q.N = N; Q.G = G; Q.R = R; Q.C = C; Q.PF = PF;
   Q.pad_code = pad_code;
   Q.mode = mode;

@@ -10,7 +10,7 @@ reads ``composed[wpacked[m, g]]``; the sums are int32, so the result is the
 integer GEMM bit for bit.
 
 What bounds it on an H100: at decode (N = the serve batch) the ``M*G*4``
-bytes of ``wpacked``; at prefill the ``M*G*N`` lookups.  Three CUDA sources,
+bytes of ``wpacked``; at prefill the ``M*G*N`` lookups.  Four CUDA sources,
 and a route fixed by the pack alone (:func:`route`), never by N:
 
 * ``"tc"`` -- integer packs whose canonical entries fit s8 (``b_o == 1``)
@@ -22,11 +22,23 @@ and a route fixed by the pack alone (:func:`route`), never by N:
   ``csrc/lut_canon.cu`` (:func:`canonicalize` composes it beside the
   canonicalization; :func:`compose` builds it from given indices), so the
   operations are 2*M*G*R*N at the 1979 TOP/s int8 peak, R x the lookups.
-* ``"cuda_core"`` -- every other pack (R = 256 packs, ``b_o > 1``, the
-  kernel's ``int32`` accumulation of ``int16`` entries):
-  ``csrc/lut_stream_gemm.cu``, the first port's kernel on the CUDA cores
-  (one block per 256 weight rows x NT columns, the composed table in shared
-  memory, K-groups split with int32 atomics at decode), unchanged.
+* ``"lookup"`` -- integer packs with ``b_o == 1`` and ``32 < R <= 256``
+  (the p = 6-8 layers of a capacity plan at W1A3), where the one-hot
+  operand, ``G*R`` columns wide, would cost more than the lookups it
+  replaces: ``csrc/lut_stream_lookup_sm90.cu`` streams the composed slices
+  through shared memory (a ring of stages fed by 1-D bulk copies and TMA;
+  1024 weight rows per CTA, each lookup one shared load of NT bytes added as
+  16-bit lanes).  Its operand, the slices tiled ``[ceil(N/NT), G, R, NT]``
+  u8 with entries + 128 (:func:`lookup_tile`), comes from ``lut_canon.cu``
+  too, composed from the pack's transposed byte tables
+  (``engine.device_byte_tables``): :func:`canonicalize` with
+  ``byte_tables``, or :func:`compose_lookup`.
+* ``"cuda_core"`` -- every other pack (R > 256, ``b_o > 1``, the kernel's
+  ``int32`` accumulation of ``int16`` entries, float grids) and a call
+  without ``pack``: ``csrc/lut_stream_gemm.cu``, the first port's kernel on
+  the CUDA cores (one block per 256 weight rows x NT columns, the composed
+  table in shared memory, K-groups split with int32 atomics at decode),
+  unchanged.
 
 ``csrc/lut_canon.cu`` replaces the torch chain of the canonicalization
 (stable argsort, gather, rank, Lehmer id: XLA in the reference,
@@ -36,9 +48,10 @@ per group in registers.
 The wrappers check device, dtypes, shapes and contiguity, allocate the
 outputs, launch on the current stream and raise on a launch error; they never
 switch route.  Launches are counted in plain integers, reset by the caller:
-:data:`launches` (one per ``lut_stream_gemm`` product, either route),
-:data:`launches_tc` (those on the tensor cores) and :data:`launches_canon`
-(the canonicalize / compose kernel).  Times beside the bounds are in PERF.md.
+:data:`launches` (one per ``lut_stream_gemm`` product, any route),
+:data:`launches_tc` (those on the tensor cores), :data:`launches_lookup`
+(those on the lookup route) and :data:`launches_canon` (the canonicalize /
+compose kernel).  Times beside the bounds are in PERF.md.
 """
 
 from __future__ import annotations
@@ -50,15 +63,21 @@ import torch
 from repro_torch import hw
 from repro_torch.kernels import build
 
-launches = 0          # incremented once per GEMM launch (either route), nowhere else
+launches = 0          # incremented once per GEMM launch (any route), nowhere else
 launches_tc = 0       # incremented once per launch of the tensor-core route, nowhere else
+launches_lookup = 0   # incremented once per launch of the lookup route, nowhere else
 launches_canon = 0    # incremented once per canonicalize / compose launch, nowhere else
 
 MAX_R_TC = 32         # one-hot columns per group on the tensor cores, at most
+MAX_R_LOOKUP = 256    # weight-index values of the lookup route, at most (u8 reordering)
 MAX_SPLIT = 8         # K slices of the tensor-core route, at most
 MAX_P = 12            # the canonicalize kernel's largest group size
 _KC = 128             # one-hot columns per stage of the tensor-core kernel (256 at n_tile 8)
 _FM = 128             # weight rows per CTA of the tensor-core kernel
+_TM_LOOKUP = 1024     # weight rows per CTA of the lookup kernel
+_GC_LOOKUP = 8        # K-groups per stage of the lookup kernel
+LOOKUP_FLUSH = 256    # groups between the lookup kernel's flushes of its 16-bit lanes
+                      # (a lane holds 65535 = 255 x 257 biased entries at most)
 
 _fns: dict = {}
 _counters: dict = {}  # (device index, stream) -> int32 counters, zero between launches
@@ -66,11 +85,15 @@ _n_sm: dict = {}
 
 
 def route(pack) -> str:
-    """The kernel a pack's GEMM runs on: ``"tc"`` (``lut_stream_gemm_sm90.cu``)
-    for integer canonical entries that fit s8 and ``R <= 32`` weight-index
-    values, else ``"cuda_core"`` (``lut_stream_gemm.cu``)."""
-    if pack.canonical.dtype.kind == "i" and pack.bo == 1 and pack.n_rows <= MAX_R_TC:
-        return "tc"
+    """The kernel a pack's GEMM runs on: for integer canonical entries that
+    fit s8, ``"tc"`` (``lut_stream_gemm_sm90.cu``) at ``R <= 32``
+    weight-index values and ``"lookup"`` (``lut_stream_lookup_sm90.cu``) at
+    ``32 < R <= 256``; else ``"cuda_core"`` (``lut_stream_gemm.cu``)."""
+    if pack.canonical.dtype.kind == "i" and pack.bo == 1:
+        if pack.n_rows <= MAX_R_TC:
+            return "tc"
+        if pack.n_rows <= MAX_R_LOOKUP:
+            return "lookup"
     return "cuda_core"
 
 
@@ -79,6 +102,33 @@ def column_tile(n: int, nt=None) -> int:
     smallest one holding a requested ``nt``."""
     want = n if nt is None else nt
     return 4 if want <= 4 else 8 if want <= 8 else 16
+
+
+def lookup_tile(n: int) -> int:
+    """The lookup route's column tile NT for ``n`` columns: 4 at N <= 4, 8 at
+    N <= 8, else 16 (the slices are composed ``[ceil(N/NT), G, R, NT]``)."""
+    return 4 if n <= 4 else 8 if n <= 8 else 16
+
+
+def lookup_split(m: int, g: int, n: int, n_sm: int) -> int:
+    """The K slices ``s`` of the lookup kernel, one CTA each (summed in int32
+    atomics): while the ``ceil(M/1024) x ceil(N/NT)`` output tiles leave SMs
+    idle, as many as fill them (keeping 2 stages of 8 groups a slice); above
+    that up to 4, where fewer waves of CTAs per unit of work save a quarter
+    or more.  Integer sums are exact in any order, so ``s`` may follow N."""
+    tiles = -(-m // _TM_LOOKUP) * -(-n // lookup_tile(n))
+    chunks = -(-g // _GC_LOOKUP)
+    if tiles < n_sm:
+        s = max(1, min(n_sm // tiles, chunks // 2))
+    else:
+        def cost(s):
+            return -(-tiles * s // n_sm) / s
+
+        s = min(range(1, max(1, min(4, chunks // 2)) + 1), key=lambda s: (cost(s), s))
+        if cost(s) > 0.75 * cost(1):
+            s = 1
+    per = -(-chunks // s)
+    return -(-chunks // per)
 
 
 def composed_pitch(g: int, r: int) -> int:
@@ -117,10 +167,13 @@ def _kernel(which: str):
         if which == "tc":
             fn = build.load("lut_stream_gemm_sm90").lut_stream_gemm_sm90
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        elif which == "lookup":
+            fn = build.load("lut_stream_lookup_sm90").lut_stream_lookup_sm90
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         elif which == "canon":
             fn = build.load("lut_canon").lut_canon
             fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + \
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         else:
             fn = build.load("lut_stream_gemm").lut_stream_gemm
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -176,6 +229,23 @@ def _check_tables(canonical: torch.Tensor, reordering: torch.Tensor) -> tuple[in
     return canonical.shape[0], canonical.shape[1], reordering.shape[1]
 
 
+def _check_byte_tables(canon_t: torch.Tensor, reord_t: torch.Tensor) -> tuple[int, int, int]:
+    if canon_t.dtype != torch.int8 or reord_t.dtype != torch.uint8:
+        raise TypeError(f"the lookup route's tables are int8 canonical [C, R] and uint8 "
+                        f"reordering [P!, R], got {canon_t.dtype}, {reord_t.dtype}")
+    if canon_t.ndim != 2 or reord_t.ndim != 2 or reord_t.shape[1] != canon_t.shape[1]:
+        raise ValueError(f"canonical [C, R] and reordering [P!, R] must share R, got "
+                         f"{tuple(canon_t.shape)}, {tuple(reord_t.shape)}")
+    if not (canon_t.is_contiguous() and reord_t.is_contiguous()):
+        raise ValueError("the lookup route needs contiguous transposed tables")
+    return canon_t.shape[1], canon_t.shape[0], reord_t.shape[0]
+
+
+def _lookup_slices(g: int, r: int, n: int, device) -> torch.Tensor:
+    nt = lookup_tile(n)
+    return torch.empty((-(-n // nt), g, r, nt), dtype=torch.uint8, device=device)
+
+
 def canonicalize(
     acodes: torch.Tensor,
     binom: torch.Tensor,
@@ -183,17 +253,23 @@ def canonicalize(
     p: int,
     pad_code: int,
     tables: tuple[torch.Tensor, torch.Tensor] | None = None,
+    byte_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """The canonicalize kernel on a CUDA device: activation codes ``[K, N]``
     int32 (any strides) -> int32 ``msrank``, ``permid`` ``[G, N]``
-    (G = ceil(K/p), a partial last group padded with ``pad_code``) and, when
+    (G = ceil(K/p), a partial last group padded with ``pad_code``) and the
+    operand of the pack's GEMM route, if its tables are given: with
     ``tables`` (the pack's int32 canonical ``[R, C]`` and reordering ``[R,
-    P!]``, entries within s8) is given, the composed operand ``B`` ``[N,
-    composed_pitch(G, R)]`` int8 of the tensor-core route (columns past G*R
-    unwritten).  ``binom``: the pack's binomial table ``[v + p, p + 1]``
-    int32."""
+    P!]``, entries within s8) the tensor-core route's ``B`` ``[N,
+    composed_pitch(G, R)]`` int8 (columns past G*R unwritten); with
+    ``byte_tables`` (their transposed byte copies, int8 ``[C, R]`` and uint8
+    ``[P!, R]``, ``engine.device_byte_tables``) the lookup route's slices
+    ``[ceil(N/NT), G, R, NT]`` uint8, entries + 128 (NT =
+    :func:`lookup_tile`).  ``binom``: the pack's binomial table ``[v + p,
+    p + 1]`` int32."""
     global launches_canon
-    _check_cuda("lut_stream_gemm canonicalize", (acodes, binom) + tuple(tables or ()))
+    _check_cuda("lut_stream_gemm canonicalize",
+                (acodes, binom) + tuple(tables or ()) + tuple(byte_tables or ()))
     if acodes.dtype != torch.int32 or binom.dtype != torch.int32:
         raise TypeError(f"codes and binom must be int32, got {acodes.dtype}, {binom.dtype}")
     if acodes.ndim != 2 or not 1 <= p <= MAX_P or binom.shape[1] != p + 1 or \
@@ -201,19 +277,28 @@ def canonicalize(
         raise ValueError(f"codes must be [K, N], 1 <= p <= {MAX_P} and binom contiguous "
                          f"[v + p, p + 1]; got {tuple(acodes.shape)}, p={p}, "
                          f"{tuple(binom.shape)}")
+    if tables is not None and byte_tables is not None:
+        raise ValueError("give tables (the tensor-core route) or byte_tables (the lookup "
+                         "route), not both")
     k, n = acodes.shape
     g = -(-k // p)
     dev = acodes.device
     ms = torch.empty((g, n), dtype=torch.int32, device=dev)
     pid = torch.empty((g, n), dtype=torch.int32, device=dev)
-    b = None
+    b = canon = reorder = None
     r = c = pf = ldb = 0
-    canon = reorder = None
+    mode = 0
     if tables is not None:
         canon, reorder = tables
         r, c, pf = _check_tables(canon, reorder)
         ldb = composed_pitch(g, r)
         b = torch.empty((n, ldb), dtype=torch.int8, device=dev)
+        mode = 1
+    elif byte_tables is not None:
+        canon, reorder = byte_tables
+        r, c, pf = _check_byte_tables(canon, reorder)
+        b = _lookup_slices(g, r, n, dev)
+        mode = 3
     if k == 0 or n == 0:
         return ms, pid, b
     fn = _kernel("canon")
@@ -223,10 +308,19 @@ def canonicalize(
                  None if canon is None else canon.data_ptr(),
                  None if reorder is None else reorder.data_ptr(),
                  None if b is None else b.data_ptr(), ldb, k, n, g, p, r, c, pf, pad_code,
-                 0 if tables is None else 1, _stream(acodes))
+                 mode, lookup_tile(n), _stream(acodes))
     _raise(err, "lut_stream_gemm canonicalize", f"K={k} N={n} p={p} R={r}")
     launches_canon += 1
     return ms, pid, b
+
+
+def _check_indices(msrank: torch.Tensor, permid: torch.Tensor) -> tuple[int, int]:
+    if msrank.dtype != torch.int32 or permid.dtype != torch.int32 or msrank.ndim != 2 or \
+            permid.shape != msrank.shape or not (msrank.is_contiguous() and permid.is_contiguous()):
+        raise ValueError(f"msrank and permid must be contiguous int32 [G, N] alike, got "
+                         f"{msrank.dtype} {tuple(msrank.shape)}, {permid.dtype} "
+                         f"{tuple(permid.shape)}")
+    return msrank.shape
 
 
 def compose(
@@ -243,12 +337,7 @@ def compose(
     global launches_canon
     _check_cuda("lut_stream_gemm compose", (msrank, permid, canonical, reordering))
     r, c, pf = _check_tables(canonical, reordering)
-    if msrank.dtype != torch.int32 or permid.dtype != torch.int32 or msrank.ndim != 2 or \
-            permid.shape != msrank.shape or not (msrank.is_contiguous() and permid.is_contiguous()):
-        raise ValueError(f"msrank and permid must be contiguous int32 [G, N] alike, got "
-                         f"{msrank.dtype} {tuple(msrank.shape)}, {permid.dtype} "
-                         f"{tuple(permid.shape)}")
-    g, n = msrank.shape
+    g, n = _check_indices(msrank, permid)
     ldb = composed_pitch(g, r)
     b = torch.empty((n, ldb), dtype=torch.int8, device=msrank.device)
     if g == 0 or n == 0:
@@ -257,8 +346,38 @@ def compose(
     with torch.cuda.device(msrank.device):
         err = fn(None, 0, 0, None, msrank.data_ptr(), permid.data_ptr(), canonical.data_ptr(),
                  reordering.data_ptr(), b.data_ptr(), ldb, 0, n, g, p, r, c, pf, 0, 2,
-                 _stream(msrank))
+                 lookup_tile(n), _stream(msrank))
     _raise(err, "lut_stream_gemm compose", f"G={g} N={n} R={r}")
+    launches_canon += 1
+    return b
+
+
+def compose_lookup(
+    msrank: torch.Tensor,
+    permid: torch.Tensor,
+    canon_t: torch.Tensor,
+    reord_t: torch.Tensor,
+    *,
+    p: int,
+) -> torch.Tensor:
+    """The same kernel's lookup layout from given indices: ``S[n // NT, g,
+    r, n % NT] = canon_t[msrank[g, n], reord_t[permid[g, n], r]] + 128`` as
+    uint8 ``[ceil(N/NT), G, R, NT]`` (NT = :func:`lookup_tile`; columns past
+    N hold 128); ``canon_t`` int8 ``[C, R]`` and ``reord_t`` uint8 ``[P!,
+    R]``, the pack's tables transposed."""
+    global launches_canon
+    _check_cuda("lut_stream_gemm compose", (msrank, permid, canon_t, reord_t))
+    r, c, pf = _check_byte_tables(canon_t, reord_t)
+    g, n = _check_indices(msrank, permid)
+    b = _lookup_slices(g, r, n, msrank.device)
+    if g == 0 or n == 0:
+        return b
+    fn = _kernel("canon")
+    with torch.cuda.device(msrank.device):
+        err = fn(None, 0, 0, None, msrank.data_ptr(), permid.data_ptr(), canon_t.data_ptr(),
+                 reord_t.data_ptr(), b.data_ptr(), 0, 0, n, g, p, r, c, pf, 0, 4,
+                 lookup_tile(n), _stream(msrank))
+    _raise(err, "lut_stream_gemm compose (lookup)", f"G={g} N={n} R={r}")
     launches_canon += 1
     return b
 
@@ -282,12 +401,13 @@ def lut_stream_gemm(
     ``pack`` (the :class:`~repro_torch.core.luts.LutPack` the tables come
     from) picks the route (:func:`route`); without it the bound of the
     canonical entries is unknown and the call takes the CUDA cores.  On the
-    tensor-core route ``composed`` (B from :func:`canonicalize`) is used as
-    it is, else :func:`compose` builds it first; ``nt`` is ignored there.
-    On the CUDA cores ``nt`` sets the column tile (rounded up to 4, 8 or 16;
-    default from N).  Every route and every ``nt`` give the same bits.
+    tensor-core and lookup routes ``composed`` (their operand from
+    :func:`canonicalize`) is used as it is, else :func:`compose` /
+    :func:`compose_lookup` builds it first; ``nt`` is ignored there.  On the
+    CUDA cores ``nt`` sets the column tile (rounded up to 4, 8 or 16; default
+    from N).  Every route and every ``nt`` give the same bits.
     """
-    global launches, launches_tc
+    global launches, launches_tc, launches_lookup
     args = (wpacked, msrank, permid, canonical, reordering)
     _check_cuda("lut_stream_gemm", args)
     if any(a.dtype != torch.int32 for a in args):
@@ -310,7 +430,8 @@ def lut_stream_gemm(
     if pack is not None and (pack.n_rows, pack.n_canonical_cols) != (r, c):
         raise ValueError(f"the tables [{r}, {c}] are not the pack's "
                          f"[{pack.n_rows}, {pack.n_canonical_cols}]")
-    out = torch.empty((m, n), dtype=torch.int32, device=wpacked.device)
+    dev = wpacked.device
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
     if m == 0 or n == 0:
         return out
     if g == 0:
@@ -320,25 +441,43 @@ def lut_stream_gemm(
             composed = compose(msrank, permid, canonical, reordering, p=pack.p)
         ldb = composed_pitch(g, r)
         if composed.dtype != torch.int8 or tuple(composed.shape) != (n, ldb) or \
-                not composed.is_contiguous() or composed.device != wpacked.device:
+                not composed.is_contiguous() or composed.device != dev:
             raise ValueError(f"composed must be contiguous int8 [{n}, {ldb}] on "
-                             f"{wpacked.device}, got {composed.dtype} "
+                             f"{dev}, got {composed.dtype} "
                              f"{tuple(composed.shape)} on {composed.device}")
-        n_tile, s = tc_split(m, g, r, n, _sm_count(wpacked.device))
+        n_tile, s = tc_split(m, g, r, n, _sm_count(dev))
         fn = _kernel("tc")
-        with torch.cuda.device(wpacked.device):
+        with torch.cuda.device(dev):
             stream = _stream(wpacked)
             ws = cnt = None
             if s > 1:
-                ws = torch.empty((s, m, n), dtype=torch.int32, device=wpacked.device)
-                cnt = _tile_counters(wpacked.device, stream, -(-m // _FM) * -(-n // n_tile))
+                ws = torch.empty((s, m, n), dtype=torch.int32, device=dev)
+                cnt = _tile_counters(dev, stream, -(-m // _FM) * -(-n // n_tile))
             err = fn(wpacked.data_ptr(), composed.data_ptr(), out.data_ptr(),
                      None if ws is None else ws.data_ptr(),
                      None if cnt is None else cnt.data_ptr(), m, g, n, r, ldb, n_tile, s, stream)
         _raise(err, "lut_stream_gemm (tc)", f"M={m} G={g} N={n} R={r}")
+    elif which == "lookup":
+        if composed is None:
+            from repro_torch.core import engine
+
+            composed = compose_lookup(msrank, permid, *engine.device_byte_tables(pack, dev),
+                                      p=pack.p)
+        nt_l = lookup_tile(n)
+        want = (-(-n // nt_l), g, r, nt_l)
+        if composed.dtype != torch.uint8 or tuple(composed.shape) != want or \
+                not composed.is_contiguous() or composed.device != dev:
+            raise ValueError(f"composed must be contiguous uint8 {list(want)} on {dev}, got "
+                             f"{composed.dtype} {tuple(composed.shape)} on {composed.device}")
+        s = lookup_split(m, g, n, _sm_count(dev))
+        fn = _kernel("lookup")
+        with torch.cuda.device(dev):
+            err = fn(wpacked.data_ptr(), composed.data_ptr(), out.data_ptr(), m, g, n, r, nt_l,
+                     s, _stream(wpacked))
+        _raise(err, "lut_stream_gemm (lookup)", f"M={m} G={g} N={n} R={r} S={s}")
     else:
         fn = _kernel("cuda_core")
-        with torch.cuda.device(wpacked.device):
+        with torch.cuda.device(dev):
             err = fn(
                 wpacked.data_ptr(), msrank.data_ptr(), permid.data_ptr(), canonical.data_ptr(),
                 reordering.data_ptr(), out.data_ptr(), m, g, n, r, c, reordering.shape[1],
@@ -348,4 +487,5 @@ def lut_stream_gemm(
                f"M={m} G={g} N={n} R={r} C={c}; R above ~2900 does not fit shared memory")
     launches += 1
     launches_tc += which == "tc"
+    launches_lookup += which == "lookup"
     return out

@@ -52,8 +52,9 @@ def lut_stream_gemm_full(
     Performs the host-side steps (§IV-A step 1: pad, canonicalize, pack the
     weight index), then runs the ``lut_stream_gemm`` kernel on the pack's
     route for a CUDA tensor (``nt``: the CUDA-core route's column tile,
-    rounded up to 4, 8 or 16; the tensor-core route ignores it) or its plain
-    version for a CPU tensor, and subtracts the exact pad correction.
+    rounded up to 4, 8 or 16; the tensor-core and lookup routes ignore it)
+    or its plain version for a CPU tensor, and subtracts the exact pad
+    correction.
     """
     if pack.canonical.dtype.kind not in "iu":
         raise ValueError(

@@ -109,6 +109,41 @@ def lut_onehot_gemm_ref(wpacked: torch.Tensor, b: torch.Tensor, *, r: int) -> to
     return b[:, cols].sum(dim=2, dtype=torch.int32).T.contiguous()
 
 
+def lut_compose_lookup_ref(
+    msrank: torch.Tensor,
+    permid: torch.Tensor,
+    canon_t: torch.Tensor,
+    reord_t: torch.Tensor,
+    *,
+    nt: int,
+) -> torch.Tensor:
+    """Plain compose step of the lookup route, tiled for it: ``S[n // nt, g, r,
+    n % nt] = canon_t[msrank[g, n], reord_t[permid[g, n], r]] + 128`` as
+    uint8 ``[ceil(N/nt), G, R, nt]`` (columns past N hold 128, entry 0);
+    ``canon_t`` int8 ``[C, R]`` and ``reord_t`` uint8 ``[P!, R]``, the
+    pack's tables transposed."""
+    g, n = msrank.shape
+    r = canon_t.shape[1]
+    t = -(-n // nt)
+    rows = reord_t[permid.long()].long()                                 # [G, N, R]
+    vals = canon_t[msrank.long()[:, :, None], rows]                      # [G, N, R]
+    full = torch.full((g, t * nt, r), 128, dtype=torch.uint8, device=msrank.device)
+    full[:, :n] = (vals.to(torch.int16) + 128).to(torch.uint8)
+    return full.reshape(g, t, nt, r).permute(1, 0, 3, 2).contiguous()
+
+
+def lut_lookup_gemm_ref(wpacked: torch.Tensor, slices: torch.Tensor, *, n: int) -> torch.Tensor:
+    """Plain lookup sum on the lookup route's slices ``[T, G, R, NT]``:
+    ``out[m, c] = sum_g slices[c // NT, g, wpacked[m, g], c % NT] - 128 G``,
+    int32 ``[M, n]``."""
+    t, g, _r, nt = slices.shape
+    m = wpacked.shape[0]
+    gi = torch.arange(g, device=wpacked.device)[None, :]                 # [1, G]
+    vals = slices[:, gi, wpacked.long(), :]                              # [T, M, G, NT]
+    sums = vals.sum(dim=2, dtype=torch.int32) - 128 * g                  # [T, M, NT]
+    return sums.permute(1, 0, 2).reshape(m, t * nt)[:, :n].contiguous()
+
+
 def flash_attention_ref(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -8,6 +8,7 @@ JAX is imported inside the parity tests only, so the card tests run where
 JAX is absent: ``python -m pytest -q --noconftest -m cuda
 tests/test_torch_kernels.py`` (the suite's conftest imports JAX)."""
 
+import functools
 import subprocess
 import sys
 import textwrap
@@ -319,26 +320,34 @@ def test_lut_stream_cpu_tensor_takes_plain_version_only():
 
 
 # The route of every pack the tests and chip_smoke.py run: the int8 tensor cores
-# take integer packs whose canonical entries fit s8 (b_o == 1) and R <= 32.
+# take integer packs whose canonical entries fit s8 (b_o == 1) and R <= 32, the
+# lookup kernel those with 32 < R <= 256.
 ROUTES = [((1, 3, 3), "int", "tc"), ((1, 3, 4), "int", "tc"), ((1, 1, 5), "int", "tc"),
           ((1, 4, 2), "int", "tc"), ((1, 3, 1), "int", "tc"),
-          ((2, 2, 4), "int", "cuda_core"), ((4, 4, 2), "int", "cuda_core"),
+          ((2, 2, 4), "int", "lookup"), ((4, 4, 2), "int", "lookup"),
           ((1, 8, 2), "int", "cuda_core"), ((2, 3, 2), "fp", "cuda_core"),
-          ((4, 4, 1), "int", "tc")]
+          ((4, 4, 1), "int", "tc"), ((1, 3, 5), "int", "tc"), ((1, 3, 6), "int", "lookup"),
+          ((1, 3, 7), "int", "lookup"), ((1, 3, 8), "int", "lookup"),
+          ((2, 3, 3), "int", "lookup"), ((1, 2, 6), "int", "lookup"),
+          ((2, 2, 5), "int", "cuda_core")]
 
 
 @pytest.mark.parametrize("cfg,kind,want", ROUTES)
 def test_lut_stream_gemm_route_table(cfg, kind, want):
-    """W1A3 p=4 (the serve pack, R = 16) and the phase-6 packs (1,3,3) and
-    (1,1,5) take the tensor cores, and so does W4A4 p=1 (R = 16, |entry| <=
-    49); R = 256, b_o = 2 ((1,8,2): |entry| up to 2 * 1 * 127) and float
-    packs stay on the CUDA cores."""
+    """W1A3 p=4 (the serve pack, R = 16) and p=5, the phase-6 packs (1,3,3)
+    and (1,1,5) take the tensor cores, and so does W4A4 p=1 (R = 16, |entry|
+    <= 49); the packs with 32 < R <= 256 and s8 entries, among them a plan's
+    W1A3 p = 6-8 and (2,2,4), (4,4,2) (R = 256, |entry| <= 98), take the
+    lookup route; R = 1024 ((2,2,5)), b_o = 2 ((1,8,2): |entry| up to
+    2 * 1 * 127) and float packs stay on the CUDA cores."""
     from repro_torch.core import luts as tluts
     from repro_torch.kernels import lut_stream_gemm as ss
 
     pack = tluts.build_lut_pack(*cfg, w_kind=kind, a_kind=kind)
     assert ss.route(pack) == want
-    assert (pack.bo == 1 and pack.n_rows <= 32 and kind == "int") == (want == "tc")
+    s8 = pack.bo == 1 and kind == "int"
+    assert (s8 and pack.n_rows <= 32) == (want == "tc")
+    assert (s8 and 32 < pack.n_rows <= 256) == (want == "lookup")
 
 
 def test_lut_stream_tc_split_never_below_one_chunk_a_slice():
@@ -399,6 +408,138 @@ def test_composed_onehot_chain_vs_reference(bw, ba, p, k, ref_pkg):
     assert torch.equal(onehot.reshape(m, -1) @ b.T.long(), got.long())
 
 
+LOOKUP_PACKS = [(1, 3, 6), (1, 3, 7), (1, 3, 8), (2, 3, 3), (4, 4, 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pack(bw, ba, p):
+    from repro_torch.core import luts as tluts
+
+    return tluts.build_lut_pack(bw, ba, p)
+
+
+@pytest.mark.parametrize("bw,ba,p", LOOKUP_PACKS)
+@pytest.mark.parametrize("n", [1, 4, 6, 17])
+def test_lookup_chain_vs_reference(bw, ba, p, n, ref_pkg):
+    """The lookup route's two steps in their plain forms, the tiled compose
+    (slices [ceil(N/NT), G, R, NT], entries + 128, from the transposed byte
+    tables) then the lookup sum, equal the plain version, the reference's
+    oracle and its Pallas kernel (interpret mode) bit for bit: M <= 64, K not
+    a multiple of p (the exact pad correction), N across every column tile
+    (4, 8, 16) and ragged tiles."""
+    jnp, _japi, _jops, jref = ref_pkg
+    from repro.kernels.lut_stream_gemm import lut_stream_gemm as jkernel
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import packing as tpacking
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    pack = _pack(bw, ba, p)
+    assert ss.route(pack) == "lookup"
+    m, k = 13 * p - 1, 3 * p + 2
+    m = min(m, 64)
+    wc, ac = _stream_case(bw, ba, p, m, k, n, (bw, ba, p, n, 18))
+    wt, at, corr = tengine._pad_groups(torch.from_numpy(wc), torch.from_numpy(ac), p,
+                                       pack.wgrid, pack.agrid)
+    wpk = tpacking.pack_index(wt.reshape(m, -1, p), bw)
+    idx = tengine.canonicalize_activations(at, pack)
+    canon, reorder = tengine.device_tables(pack, "cpu")
+    ct, rt = tengine.device_byte_tables(pack, "cpu")
+    nt = ss.lookup_tile(n)
+    slices = tref.lut_compose_lookup_ref(idx.msrank, idx.permid, ct, rt, nt=nt)
+    g, r = wpk.shape[1], pack.n_rows
+    assert slices.dtype == torch.uint8 and slices.shape == (-(-n // nt), g, r, nt)
+    assert bool((slices[-1, :, :, n - (slices.shape[0] - 1) * nt:] == 128).all())   # past N
+    got = tref.lut_lookup_gemm_ref(wpk, slices, n=n)
+    plain = tref.lut_stream_gemm_ref(wpk, idx.msrank, idx.permid, canon, reorder)
+    assert got.dtype == torch.int32 and torch.equal(got, plain)
+    args = [jnp.asarray(a.numpy()) for a in (wpk, idx.msrank, idx.permid, canon, reorder)]
+    assert np.array_equal(got.numpy(), np.asarray(jkernel(*args, r=r, nt=4, interpret=True)))
+    assert np.array_equal(got.numpy(), np.asarray(jref.lut_stream_gemm_ref(*args)))
+    full = tops.lut_stream_gemm_full(torch.from_numpy(wc), torch.from_numpy(ac), pack)
+    assert torch.equal(full, (got - corr).float())
+
+
+@pytest.mark.parametrize("bw,ba,p", LOOKUP_PACKS + [(2, 2, 4), (1, 2, 6)])
+def test_lookup_byte_tables_are_the_pack_transposed(bw, ba, p):
+    """The lookup route's tables, made once per pack and device beside the
+    int32 ones: canonical [C, R] int8 and reordering [P!, R] uint8, the
+    pack's own tables transposed, entry for entry."""
+    from repro_torch.core import engine as tengine
+
+    pack = _pack(bw, ba, p)
+    ct, rt = tengine.device_byte_tables(pack, "cpu")
+    assert ct.dtype == torch.int8 and rt.dtype == torch.uint8
+    assert ct.shape == (pack.n_canonical_cols, pack.n_rows)
+    assert rt.shape == (pack.reordering.shape[1], pack.n_rows)
+    assert np.array_equal(ct.numpy(), pack.canonical.T)
+    assert np.array_equal(rt.numpy().astype(np.int64), pack.reordering.T.astype(np.int64))
+    assert tengine.device_byte_tables(pack, "cpu")[0] is ct        # made once
+    for other in ((4, 4, 3), (2, 2, 5)):                  # b_o = 2; R = 1024
+        with pytest.raises(ValueError, match="byte tables"):
+            tengine.device_byte_tables(_pack(*other), "cpu")
+
+
+def _lane_sum(u, flush):
+    """The lookup kernel's accumulation of biased entries u [G, 4] (u8, the
+    4 columns of one 32-bit word) in numpy: bytes 0 and 2 and bytes 1 and 3
+    as 16-bit lanes of two uint32 words, two groups a step (one three-input
+    add), flushed into int32 every ``flush`` groups; 128 per group comes off
+    at the end."""
+    words = [int(a) | int(b) << 8 | int(c) << 16 | int(d) << 24 for a, b, c, d in u]
+    even = [(w & 0xFF) | ((w >> 16) & 0xFF) << 16 for w in words]
+    odd = [((w >> 8) & 0xFF) | (w >> 24) << 16 for w in words]
+    acc = np.zeros(4, dtype=np.int64)
+    pe = po = 0
+    for g0 in range(0, len(words), 2):
+        pe = (pe + sum(even[g0:g0 + 2])) & 0xFFFFFFFF          # 32-bit registers wrap
+        po = (po + sum(odd[g0:g0 + 2])) & 0xFFFFFFFF
+        if (g0 + 2) % flush == 0 or g0 + 2 >= len(words):
+            acc += [pe & 0xFFFF, po & 0xFFFF, pe >> 16, po >> 16]
+            pe = po = 0
+    return (acc - 128 * len(words)).astype(np.int32)
+
+
+@pytest.mark.parametrize("fill", [0, 255, "random"])
+def test_lookup_lane_accumulation_is_exact(fill):
+    """At the extreme biased entries (all 0: every entry -128; all 255: every
+    entry 127) and at random ones, over G = 3 x the flush period + 1 groups,
+    the kernel's 16-bit-lane accumulation equals the int32 sum; one group more
+    a period (257 x 255 > 65535) would overflow a lane at 255."""
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    flush = ss.LOOKUP_FLUSH
+    assert flush % 8 == 0 and 255 * (flush + 1) <= 0xFFFF
+    g = 3 * flush + 1
+    rng = np.random.default_rng(18)
+    u = rng.integers(0, 256, (g, 4)) if fill == "random" else np.full((g, 4), fill)
+    u = u.astype(np.uint8)
+    want = (u.astype(np.int64) - 128).sum(axis=0).astype(np.int32)
+    assert np.array_equal(_lane_sum(u, flush), want)
+    if fill == 255:
+        assert not np.array_equal(_lane_sum(u, flush + 2), want)
+
+
+def test_lookup_split_and_tile():
+    """The lookup kernel's column tile follows N (4, 8, 16), and its K slices
+    fill the SMs at decode, leave a full prefill alone, split where waves
+    would idle, and never leave a slice empty."""
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    assert [ss.lookup_tile(n) for n in (1, 4, 5, 8, 9, 512)] == [4, 4, 8, 8, 16, 16]
+    # stablelm-12b at W1A3 p = 7 (G = 732): w_up / wk at decode, then prefill
+    assert ss.lookup_split(13824, 732, 4, 132) == 9            # 14 row tiles x 9 = 126 CTAs
+    assert ss.lookup_split(1280, 732, 4, 132) == 46            # 92 stages, 2 a slice
+    assert ss.lookup_split(13824, 732, 512, 132) == 1          # 448 tiles: 3.4 waves
+    assert ss.lookup_split(5120, 732, 512, 132) == 4           # 160 tiles: 2 waves -> 5 of 4x
+    assert ss.lookup_split(1280, 732, 512, 132) == 2
+    assert ss.lookup_split(16, 3, 6, 132) == 1                 # one stage
+    for m, g, n in [(300, 26, 4), (1000, 84, 37), (4096, 206, 129), (5120, 1975, 4)]:
+        s = ss.lookup_split(m, g, n, 132)
+        chunks = -(-g // 8)
+        per = -(-chunks // s)
+        assert 1 <= s and (s - 1) * per * 8 < g                  # no empty slice
+
+
 @pytest.mark.parametrize("bw,ba,p", [(bw, ba, p) for bw in (1, 2) for ba in (1, 2, 3, 4)
                                      for p in (1, 2, 3, 4, 5) if bw * p <= 8])
 def test_int8_range_of_every_bo1_pack(bw, ba, p):
@@ -435,6 +576,13 @@ def test_lut_stream_canonicalize_wrappers_take_cuda_only():
     with pytest.raises(ValueError, match="CUDA"):
         ss.compose(idx.msrank, idx.permid, canon, reorder, p=4)
     assert tengine.device_binom(pack, "cpu").shape == (8 + 4, 4 + 1)
+    lpack = _pack(1, 3, 6)
+    lidx = tengine.canonicalize_activations(at, lpack)
+    assert lidx.composed is None                                     # the plain chain ran
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.compose_lookup(lidx.msrank, lidx.permid, *tengine.device_byte_tables(lpack, "cpu"),
+                          p=6)
+    assert ss.launches_canon == before
 
 
 @pytest.mark.cuda
@@ -484,6 +632,53 @@ def test_cuda_lut_stream_gemm_matches_plain_version():
                 assert torch.equal(idx.composed[:, : g * pack.n_rows], want_b)
                 b = ss.compose(idx.msrank, idx.permid, canon, reorder, p=p)
                 assert torch.equal(b[:, : g * pack.n_rows], want_b)
+
+
+@pytest.mark.cuda
+def test_cuda_lut_stream_lookup_matches_plain_version():
+    """The lookup route (lut_stream_lookup_sm90.cu) on every pack it takes
+    here, at ragged shapes across its column tiles (N = 1 .. 129), K slices
+    (decode splits summed in atomics) and both wpacked paths (TMA where G % 4
+    == 0, cp.async of 8 or 4 bytes else): each call's counters checked, the
+    GEMM bit-equal to the plain version and to the plain lookup sum, and
+    lut_canon's two lookup modes (canonicalize + compose, compose from given
+    indices) bit-equal to the plain tiled compose."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.core import engine as tengine
+    from repro_torch.kernels import lut_stream_gemm as ss
+
+    dev = torch.device("cuda")
+    for bw, ba, p in LOOKUP_PACKS + [(2, 2, 4), (1, 2, 6)]:
+        pack = _pack(bw, ba, p)
+        assert ss.route(pack) == "lookup"
+        canon, reorder = tengine.device_tables(pack, dev)
+        ct, rt = tengine.device_byte_tables(pack, dev)
+        for m, k, n in [(16, 3 * p + 1, 6), (8, 13, 1), (300, 101, 4), (1000, 250, 37),
+                        (2100, 8 * p * 4, 9), (1100, 8 * p * 4 + 2 * p, 129), (5000, 64 * p, 4)]:
+            wc, ac = _stream_case(bw, ba, p, m, k, n, (bw, ba, p, m, k, n))
+            wt, at = torch.from_numpy(wc).to(dev), torch.from_numpy(ac).to(dev)
+            want = tops.lut_stream_gemm_full(wt.cpu(), at.cpu(), pack)
+            before = (ss.launches, ss.launches_tc, ss.launches_lookup, ss.launches_canon)
+            got = tops.lut_stream_gemm_full(wt, at, pack)
+            assert (ss.launches, ss.launches_tc, ss.launches_lookup, ss.launches_canon) == \
+                (before[0] + 1, before[1], before[2] + 1, before[3] + 1)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (bw, ba, p, m, k, n)
+            idx = tengine.canonicalize_activations(at, pack)
+            wpk = tengine.prepare_stream_weights(wt, pack).wpk
+            plain = tref.lut_stream_gemm_ref(wpk, idx.msrank, idx.permid, canon, reorder)
+            slices = tref.lut_compose_lookup_ref(idx.msrank, idx.permid, ct, rt,
+                                                 nt=ss.lookup_tile(n))
+            assert torch.equal(idx.composed, slices), (bw, ba, p, m, k, n)
+            assert torch.equal(ss.compose_lookup(idx.msrank, idx.permid, ct, rt, p=p), slices)
+            assert torch.equal(tref.lut_lookup_gemm_ref(wpk, slices, n=n), plain)
+            for kw in ({"pack": pack}, {"pack": pack, "composed": idx.composed}):
+                out = ss.lut_stream_gemm(wpk, idx.msrank, idx.permid, canon, reorder, **kw)
+                assert torch.equal(out, plain), (bw, ba, p, m, k, n, sorted(kw))
+            with pytest.raises(ValueError, match="composed"):
+                ss.lut_stream_gemm(wpk, idx.msrank, idx.permid, canon, reorder, pack=pack,
+                                   composed=idx.composed[:, :-1])
 
 
 @pytest.mark.cuda
