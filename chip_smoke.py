@@ -5,7 +5,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds every kernel of the port from the sources in the checkout (one
+(``--phase tc_cp_async`` or ``--phase gemma2_serve`` runs one phase alone
+after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
+trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
 entry points at published full widths:
@@ -27,6 +29,16 @@ entry points at published full widths:
   ``lut_dequant_gemm``, held against ``attn_impl="xla"``; both kernels are
   also held against their plain versions at this forward's own shapes;
 
+* gemma2-2b served at full width and its published 8192-token context,
+  W4A4 ``pallas`` prepared, bf16 — under ``--profile serve`` (ring-window
+  caches of 4096 slots on the local layers, int8 K/V with per-row scales on
+  the global ones, bf16-operand attention) and under the baseline (plain
+  8192-slot caches), every projection on ``lut_dequant_gemm``'s tensor-core
+  route; first one f32 "LG" unit at full width holds the ring against the
+  full cache, the decode against the cache-free forward and the profile
+  against the baseline, and last the 26-layer bf16 profile's teacher-forced
+  decode is held against the cache-free f32 forward (phase 14);
+
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
 with per-layer packing degrees from analytic plans at 16 and 4 GiB and a plan
@@ -45,6 +57,7 @@ package.  The second-to-last line is a JSON object describing each kernel
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import json
@@ -98,6 +111,26 @@ LOOKUP_PS = (6, 7, 8)         # the packing degrees a capacity plan gives the lo
 LOOKUP_REPEATS = 4            # phase 6: lookup calls after the first, each held to it
 SLEEP_CYCLES = int(5e7)       # the card sleeps (~30 ms) while the host enqueues the timed calls
 LUT_SPEC = dict(bw=1, ba=3, p=4)   # the paper's W1A3 (the reference's serve benchmark)
+GEMMA_SERVE_SEQ = 8192        # phase 14: gemma2-2b's published context, the serve caches' length
+GEMMA_PREFIX = 4000           # 14a: prefill tokens; the local ring (4096 slots) wraps at
+GEMMA_DECODE = 160            #      decode step 96 of these teacher-forced steps
+GEMMA_REQUESTS = 8            # 14b: requests of 3072-4096 prompt tokens (one bucket: 4096)
+GEMMA_NEW = 64                # 14b: new tokens a request
+GEMMA_BUCKET = 4096           # 14b: the requests' prefill bucket (4 x 4096 rows a prefill)
+GEMMA_TF_PREFIX = 4032        # 14b: teacher-forced prefill of the 26-layer bf16 profile; the
+GEMMA_TF_DECODE = 96          #      ring wraps at decode step 64 of these steps
+TOL_RING = 3e-3               # 14a: ring vs full-cache decode logits, rtol = atol: the
+                              # reference's own (tests/test_perf_features.py:35)
+TOL_DECODE_FWD = 1e-3         # 14a: full-cache decode vs the cache-free forward, relative
+                              # to max |logit| (f32 sums in another order)
+TOL_PROFILE = 0.06            # 14a: serve profile vs baseline, relative Frobenius: the
+                              # reference's own (tests/test_perf_features.py:107)
+TOL_INT8 = 0.05               # 14b: ring + int8 decode (f32) vs the f32 forward, relative
+                              # Frobenius: the reference's int8 bound (test_perf_features.py:69)
+# Phase 14b's numbers in the kernels line, per profile.
+GEMMA_SERVE_KEYS = ("launches", "launches_tc", "prefills", "decode_steps", "host_syncs", "waves",
+                    "wall_s", "tok_s", "prefill_wall_s", "decode_wall_s", "prefill_ms", "step_ms",
+                    "prefill_profile", "decode_profile", "peak_gb", "cache_bytes", "tokens_crc32")
 # Phase 13's numbers in the kernels line, per served plan.
 PLANNED_KEYS = ("p", "planning_s", "candidates_measured", "analytic_vs_measured_p", "measured_us",
                 "est_us", "total_bytes", "table_bytes", "prepare_s", "launches", "launches_tc",
@@ -363,13 +396,15 @@ def phase_kernel(torch, dev):
 # Full-width shapes of the bf16 main paths for the across-B check: (what, K, F).
 ROW_SHAPES = [("stablelm-12b wq (S=3)", 5120, 5120), ("stablelm-12b wk (S=4)", 5120, 1280),
               ("stablelm-12b w_down (S=3)", 13824, 5120), ("gemma2-2b wq (S=4)", 2304, 2048),
-              ("gemma2-2b w_up (S=1)", 2304, 9216)]
+              ("gemma2-2b w_up (S=1)", 2304, 9216), ("gemma2-2b wo", 2048, 2304),
+              ("gemma2-2b w_down", 9216, 2304)]
+ROW_BS = (37, 512, 2048, 8192, 4 * 4096)   # up to gemma2-2b's served prefill, 4 x 4096 rows
 
 
 def phase_row_invariance(torch, dev):
     """Per-row invariance across B on the tensor-core route at full width: 4
     fixed rows computed alone (B = 4) and at the end of batches of B = 37,
-    512, 2048 and 8192 (the first alone at B = 1) are bit-equal, on split and
+    512, 2048, 8192 and 16384 (the first alone at B = 1) are bit-equal, on split and
     unsplit layers (the split's CTAs per tile and the x rows per CTA change
     with B; its slices and their order do not)."""
     from repro_torch.core.api import LutLinearSpec, quantize_linear
@@ -383,21 +418,22 @@ def phase_row_invariance(torch, dev):
         w = torch.randn((k, f), generator=gen, device=dev)
         q = quantize_linear(w, LutLinearSpec(bw=4))
         del w
-        x_all = torch.randn((8192, k), generator=gen, device=dev).to(torch.bfloat16)
+        x_all = torch.randn((max(ROW_BS), k), generator=gen, device=dev).to(torch.bfloat16)
         fixed = x_all[-4:]
         before = dq.launches_tc
         want = dq.lut_dequant_gemm(fixed, q.codes, q.scale, bw=4, k=k, grid_values=g)
         y1 = dq.lut_dequant_gemm(fixed[:1], q.codes, q.scale, bw=4, k=k, grid_values=g)
         check(torch.equal(y1, want[:1]), f"{what}: row alone at B=1 != the same row at B=4")
         plans = {}
-        for b in (37, 512, 2048, 8192):
+        for b in ROW_BS:
             y = dq.lut_dequant_gemm(x_all[-b:], q.codes, q.scale, bw=4, k=k, grid_values=g)
             check(torch.equal(y[-4:], want),
                   f"{what}: rows at the end of a batch of {b} != the same rows at B=4")
             plans[b] = dq.tile_plan(b, f, k, 4, n_sm)
-        check(dq.launches_tc == before + 6, f"{what}: not every launch took the tensor cores")
+        check(dq.launches_tc == before + 2 + len(ROW_BS),
+              f"{what}: not every launch took the tensor cores")
         plans[4] = dq.tile_plan(4, f, k, 4, n_sm)
-        log(f"  {what}: rows bit-equal at B=1/4/37/512/2048/8192 (plans (N, S, CTAs per "
+        log(f"  {what}: rows bit-equal at B=1/4/{'/'.join(map(str, ROW_BS))} (plans (N, S, CTAs per "
             f"tile): {', '.join(f'B={b} {plans[b]}' for b in sorted(plans))})")
         del x_all, q
     torch.cuda.empty_cache()
@@ -409,7 +445,8 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
                        label="phase 2"):
     """Kernel, plain-version and library times at one layer's 7 projection
     shapes of ``cfg`` for each row count in ``bs`` (the serve path's decode
-    B = 4 and largest prefill B = 4 x 128; gemma2-2b's forward, B = 8192),
+    B = 4 and largest prefill B = 4 x 128; gemma2-2b's served decode B = 4,
+    its 4 x 4096 prefill and its forward, B = 8192),
     W4, bf16 x (the tensor-core route), with ``iters`` timed calls of the
     kernel, the plain version and each yardstick, device time (:func:`device_ms`);
     the kernel is held against its plain version at each of them too.  Two
@@ -789,6 +826,70 @@ def phase_stream_times(torch, dev, cfg, card, smi):
     return rows, worst
 
 
+def phase_tc_cp_async(torch, dev, cfg, card, smi):
+    """The tensor-core route where TMA cannot address ``wpacked`` (row pitch
+    4G not a multiple of 16 bytes), so its stages come by ``cp.async``:
+    stablelm-12b's w_down at W1A3 p = 5 (K = 13824, G = 2765; the 16 GiB
+    plan's), N = 4 and 4 x 128.  The kernel against the plain version, then
+    called ``LOOKUP_REPEATS`` times more back to back, each result held to
+    the first bit for bit (a race in the stages' release shows as a
+    change); device times beside the bound and the CUDA-core kernel."""
+    from repro_torch.core import engine
+    from repro_torch.core.api import LutLinearSpec, _lut_pack_cache, quantize_linear
+    from repro_torch.core.prepared import prepare_linear
+    from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import lut_stream_gemm as ss
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    spec = LutLinearSpec(mode="lut", bw=1, ba=3, p=5)
+    pack = _lut_pack_cache(spec.bw, spec.ba, spec.p, spec.w_kind, spec.a_kind)
+    check(ss.route(pack) == "tc", "W1A3 p=5 must take the tensor cores")
+    canon, reorder = engine.device_tables(pack, dev)
+    k, f = layer_shapes(cfg)["w_down"]
+    w = torch.randn((k, f), generator=gen, device=dev)
+    wpk = prepare_linear(quantize_linear(w, spec), n_hint=4).wpk                # [F, G]
+    del w
+    m, g = wpk.shape
+    check((4 * g) % 16 != 0, f"w_down at p=5: G={g} must be a cp.async shape (4G % 16 != 0)")
+    n_copies = max(1, math.ceil(200e6 / (4 * wpk.numel())))                  # cold in L2
+    wpks = [wpk.clone() for _ in range(n_copies)]
+    rows = []
+    for b in (4, 4 * 128):
+        x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+        acodes, _ = quantize(x.float().T, spec.aspec())                         # [K, N] view
+        idx = engine.canonicalize_activations(acodes, pack)
+        ms, pid, bop = idx.msrank, idx.permid, idx.composed
+        before = ss.launches_tc
+        y = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder, pack=pack, composed=bop)
+        check(ss.launches_tc == before + 1, f"w_down p=5 N={b} did not take the tensor cores")
+        for rep in range(LOOKUP_REPEATS):        # back to back: a race shows as a change
+            again = ss.lut_stream_gemm(wpk, ms, pid, canon, reorder, pack=pack, composed=bop)
+            check(torch.equal(again, y), f"lut_stream_gemm (tc, cp.async) at w_down p=5 N={b}: "
+                                         f"call {rep + 2} differs from the first")
+        y_plain = (ref.lut_stream_gemm_ref(wpk, ms, pid, canon, reorder) if b == 4 else
+                   plain_stream_chunked(torch, ref, wpk, ms, pid, canon, reorder))
+        check(torch.equal(y, y_plain), f"lut_stream_gemm (tc, cp.async) != plain at w_down p=5 "
+                                       f"N={b}")
+        kern = device_ms(torch, lambda i: ss.lut_stream_gemm(
+            wpks[i % n_copies], ms, pid, canon, reorder, pack=pack, composed=bop), 20)
+        cuda_core = device_ms(torch, lambda i: ss.lut_stream_gemm(
+            wpks[i % n_copies], ms, pid, canon, reorder), 5 if b == 4 else 2)
+        bnd, by = stream_tc_bound_s(m, g, b, pack.n_rows, card)
+        rows.append(dict(proj="w_down", p=5, B=b, K=k, F=f, G=g, ms=kern, cuda_core_ms=cuda_core,
+                         bound_ms=bnd * 1e3, bound_by=by))
+        log(f"  w_down p=5 N={b:4d} M={m} G={g} (cp.async stages): kernel (tc) {kern:.4f} ms "
+            f"({bnd * 1e3 / kern:.3f} of its bound {bnd * 1e3:.4f} ms, {by}), CUDA-core kernel "
+            f"{cuda_core:.4f} ms [{smi}]")
+        del idx, y, y_plain
+    del wpks
+    torch.cuda.empty_cache()
+    log(f"phase 6: the tensor-core route's cp.async stages (w_down at p=5, G={g}): "
+        f"{LOOKUP_REPEATS} repeated calls equal to the first and to the plain version at N=4 "
+        f"and 512")
+    return rows
+
+
 def stream_lookup_bound_s(m, g, n, r, card):
     """Least time of the lookup route's product: wpacked (int32) and the
     composed slices (G*R*N bytes) read once and the int32 output written
@@ -1018,34 +1119,77 @@ def counted_generate(torch, eng, reqs):
     return outs, wall, records, counts, sync_warnings
 
 
-def serve_requests(cfg, max_prompt, max_new):
-    """The 8 requests a serve phase sends: prompt lengths in [16, max_prompt]
-    and tokens from ``default_rng(0)``, ``max_new`` new tokens each."""
+def check_served(cfg, eng, outs, max_new, records, counts, sync_warnings, *, kernel, what):
+    """The checks every continuous-batching serve phase makes: ``max_new``
+    tokens a request, within the vocabulary; one host sync per wave and no
+    other synchronizing call; ``kernel`` launched 7 x layers x (prefills +
+    decode steps) times (every projection), on the tensor cores where it is
+    lut_dequant_gemm, and no other kernel.  Returns (prefills, decode steps,
+    launches)."""
+    check(all(len(o) == max_new for o in outs),
+          f"{what}: token counts {[len(o) for o in outs]} != {max_new} each")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          f"{what}: token outside [0, vocab)")
+    check(eng.host_syncs == len(records),
+          f"{what}: host_syncs {eng.host_syncs} != waves {len(records)}")
+    check(len(sync_warnings) == eng.host_syncs,
+          f"{what}: {len(sync_warnings)} synchronizing calls in the serve loop, expected only "
+          f"the {eng.host_syncs} token fetches: {sorted(set(sync_warnings))[:3]}")
+    prefills = sum(1 for r in records if r.admitted)
+    steps = sum(r.steps for r in records)
+    launches = counts[kernel]
+    want = 7 * cfg.n_layers * (prefills + steps)
+    check(launches == want, f"{what}: {kernel} launches {launches} != 7 x {cfg.n_layers} x "
+                            f"({prefills} prefills + {steps} decode steps) = {want}")
+    check(all(n == 0 for name, n in counts.items() if not name.startswith(kernel)),
+          f"{what}: the path launched another kernel: {counts}")
+    if kernel == "lut_dequant_gemm":
+        check(counts["lut_dequant_gemm_tc"] == launches,
+              f"{what}: lut_dequant_gemm launches on the tensor cores "
+              f"{counts['lut_dequant_gemm_tc']} != {launches}: the bf16 serve path must take "
+              f"the tensor-core route")
+    return prefills, steps, launches
+
+
+def serve_requests(cfg, max_prompt, max_new, min_prompt=16):
+    """The 8 requests a serve phase sends: prompt lengths in [min_prompt,
+    max_prompt] and tokens from ``default_rng(0)``, ``max_new`` new tokens
+    each."""
     from repro_torch.serve.serving import Request
     import numpy as np
 
     rng = np.random.default_rng(0)
-    lens = rng.integers(16, max_prompt + 1, 8)
+    lens = rng.integers(min_prompt, max_prompt + 1, 8)
     return lens, [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                           max_new_tokens=max_new) for n in lens]
 
 
-def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_new,
+def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_new, min_prompt=16,
+                n_layers=N_LAYERS, max_seq=256, timing=(128, 128), chunked=False,
                 calibrate=False, iters=(3, 10)):
-    """Serve 8 requests through ``ServeEngine(batch=4, decode="scan")`` with
-    every launch count set to 0 just before and read just after; then the
-    steady-state prefill / decode-step times and the profiler's breakdown.
-    ``calibrate`` freezes the activation scales on a 2 x 16 token batch from
-    ``default_rng(0)`` before preparing (the int-LUT path)."""
+    """Serve 8 requests (:func:`serve_requests`) through
+    ``ServeEngine(batch=4, max_seq=max_seq, decode="scan")`` with every
+    launch count set to 0 just before and read just after
+    (:func:`check_served`); the KV cache's bytes against the count from the
+    shapes; with ``chunked`` the same tokens under ``decode="chunked"``; then
+    the steady-state times of a prefill of 4 x ``timing[0]`` tokens (at least
+    every prefill the serve made) and of a decode step at position
+    ``timing[1]``, and the profiler's breakdown.  ``n_layers`` cuts the depth
+    (None: the model's own).  ``calibrate`` freezes the activation scales on
+    a 2 x 16 token batch from ``default_rng(0)`` before preparing (the
+    int-LUT path)."""
+    from repro_torch import tree
     from repro_torch.models.model import build_model
     from repro_torch.serve.serving import Request, ServeEngine
     from repro_torch.tune.plan import quantized_leaf_items
     import numpy as np
 
-    if cfg.n_layers != N_LAYERS:
-        log(f"phase {phase}: depth cut from {cfg.n_layers} to {N_LAYERS} layers")
-        cfg = dataclasses.replace(cfg, n_layers=N_LAYERS)
+    if n_layers is not None and cfg.n_layers != n_layers:
+        log(f"phase {phase}: depth cut from {cfg.n_layers} to {n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model.init_quantized(spec, seed=0, device=dev)
@@ -1054,9 +1198,10 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
         cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
         params = model.prepare(params, calibrate=cal, n_hint=4)
         leaves = quantized_leaf_items(params)
-        check(len(leaves) == 7 and all(lf.ascale is not None and lf.ascale.shape == (N_LAYERS,)
+        check(len(leaves) == 7 and all(lf.ascale is not None
+                                       and lf.ascale.shape == (cfg.n_layers,)
                                        and lf.wpk is not None for _p, lf in leaves),
-              f"lut tree: every projection needs a frozen [{N_LAYERS}] ascale and wpk")
+              f"lut tree: every projection needs a frozen [{cfg.n_layers}] ascale and wpk")
         scales = torch.stack([lf.ascale for _p, lf in leaves])
         check(bool(torch.isfinite(scales).all() and (scales > 0).all()), "calibrated scales")
         what += (f", calibrated on {cal.size} tokens (frozen scales "
@@ -1069,51 +1214,64 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
     log(f"phase {phase}: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
         f"hd={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.n_layers}, "
         f"{what}, prepared in {time.perf_counter()-t0:.1f}s; "
-        f"{torch.cuda.memory_allocated(dev)/1e9:.2f} GB on the card")
-    eng = ServeEngine(model, params, batch=4, max_seq=256, decode="scan", device=dev)
-    lens, reqs = serve_requests(cfg, max_prompt, max_new)
+        f"{torch.cuda.memory_allocated(dev)/1e9:.2f} GB on the card; ring_window_cache "
+        f"{cfg.ring_window_cache}, kv_cache_int8 {cfg.kv_cache_int8}, attend_bf16 "
+        f"{cfg.attend_bf16}")
+    eng = ServeEngine(model, params, batch=4, max_seq=max_seq, decode="scan", device=dev)
+    held = torch.cuda.memory_allocated(dev)
+    caches = eng._new_cache()
+    cache_alloc = torch.cuda.memory_allocated(dev) - held
+    sizes = []
+    tree.tree_map(lambda t: sizes.append(t.numel() * t.element_size()), caches)
+    cache_bytes = kv_cache_bytes(cfg, 4, max_seq)
+    check(sum(sizes) == cache_bytes == cache_alloc,
+          f"phase {phase}: KV cache {sum(sizes)} B in its tensors, {cache_alloc} B allocated, "
+          f"{cache_bytes} B from the shapes")
+    del caches
+    lens, reqs = serve_requests(cfg, max_prompt, max_new, min_prompt)
     eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
     torch.cuda.synchronize()
 
     outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
-    launches = counts[kernel]
-
-    check(all(len(o) == max_new for o in outs),
-          f"token counts {[len(o) for o in outs]} != {max_new} each")
-    check(all(0 <= t < cfg.vocab_size for o in outs for t in o), "token outside [0, vocab)")
-    check(eng.host_syncs == len(records),
-          f"host_syncs {eng.host_syncs} != waves {len(records)}")
-    prefills = sum(1 for r in records if r.admitted)
-    steps = sum(r.steps for r in records)
-    want = 7 * cfg.n_layers * (prefills + steps)
-    check(launches == want, f"{kernel} launches {launches} != 7 x {cfg.n_layers} x "
-                            f"({prefills} prefills + {steps} decode steps) = {want}")
-    check(all(n == 0 for name, n in counts.items() if not name.startswith(kernel)),
-          f"the {spec.mode} path launched another kernel: {counts}")
-    if kernel == "lut_dequant_gemm":
-        check(counts["lut_dequant_gemm_tc"] == launches,
-              f"lut_dequant_gemm launches on the tensor cores {counts['lut_dequant_gemm_tc']} "
-              f"!= {launches}: the bf16 serve path must take the tensor-core route")
+    prefills, steps, launches = check_served(cfg, eng, outs, max_new, records, counts,
+                                             sync_warnings, kernel=kernel, what=f"phase {phase}")
+    buckets = sorted({r.prefill_bucket for r in records if r.prefill_bucket is not None})
+    check(max(buckets) <= timing[0],
+          f"phase {phase}: prefill buckets {buckets}, the timed prefill {timing[0]}")
     if kernel == "lut_stream_gemm":
         check(counts["lut_stream_gemm_tc"] == launches,
               f"lut_stream_gemm launches on the tensor cores {counts['lut_stream_gemm_tc']} != "
               f"{launches}: the W1A3 p=4 pack must take the tensor-core route")
-        check(counts["lut_stream_gemm_canon"] == want,
+        check(counts["lut_stream_gemm_canon"] == launches,
               f"canonicalize launches {counts['lut_stream_gemm_canon']} != 7 x {cfg.n_layers} x "
-              f"({prefills} prefills + {steps} decode steps) = {want}: one per projection, the "
-              f"composed operand not built twice")
-    check(len(sync_warnings) == eng.host_syncs,
-          f"{len(sync_warnings)} synchronizing calls in the serve loop, expected only the "
-          f"{eng.host_syncs} token fetches: {sorted(set(sync_warnings))[:3]}")
+              f"({prefills} prefills + {steps} decode steps) = {launches}: one per projection, "
+              f"the composed operand not built twice")
     digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
     n_tok = sum(len(o) for o in outs)
-    log(f"phase {phase} [{smi}]: served {len(reqs)} requests (prompt lengths {lens.tolist()}), "
-        f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s end to end, prefill "
-        f"included); {len(records)} waves, {prefills} prefills, {steps} decode steps, "
+    out = dict(launches=launches, launches_tc=counts.get(f"{kernel}_tc"),
+               launches_canon=counts.get(f"{kernel}_canon"), prefills=prefills,
+               decode_steps=steps, host_syncs=eng.host_syncs, waves=len(records), wall_s=wall,
+               tokens=n_tok, tok_s=n_tok / wall, tokens_crc32=digest, cache_bytes=cache_bytes,
+               prefill_wall_s=sum(r.t_decode - r.t_start for r in records),
+               decode_wall_s=sum(r.t_sync - r.t_decode for r in records), outs=outs)
+    log(f"phase {phase} [{smi}]: served {len(reqs)} requests (prompt lengths {lens.tolist()}, "
+        f"prefill buckets {buckets}), {n_tok} tokens in {wall:.3f} s ({out['tok_s']:.1f} tok/s "
+        f"end to end; prefill {out['prefill_wall_s']:.3f} s + decode {out['decode_wall_s']:.3f} "
+        f"s wall); {len(records)} waves, {prefills} prefills, {steps} decode steps, "
         f"{eng.host_syncs} host syncs, {launches} {kernel} launches "
         f"(= 7 x {cfg.n_layers} x {prefills + steps}; counts {counts}); sync-debug warnings "
-        f"{len(sync_warnings)} (all token fetches); admissions {eng.admissions}")
-    n_waves = len(records)
+        f"{len(sync_warnings)} (all token fetches); admissions {eng.admissions}; KV cache "
+        f"{cache_bytes:,} B (= the count from the shapes, allocated); tokens crc32 {digest:08x}")
+    if chunked:
+        eng_c = ServeEngine(model, params, batch=4, max_seq=max_seq, decode="chunked", device=dev)
+        t0 = time.perf_counter()
+        check(eng_c.generate(reqs) == outs,
+              f"phase {phase}: decode='chunked' tokens differ from decode='scan'")
+        check(eng_c.host_syncs == -(-len(reqs) // 4),
+              f"phase {phase}: chunked host syncs {eng_c.host_syncs}, want one per chunk")
+        log(f"phase {phase}: decode='chunked' gives the same tokens ({eng_c.host_syncs} host "
+            f"syncs, {time.perf_counter() - t0:.2f} s)")
+        del eng_c
     if kernel == "lut_stream_gemm":
         # The same requests on the path as it was before the redesign (the torch
         # chain's canonicalization, the CUDA-core kernel): the same tokens.
@@ -1126,37 +1284,32 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
 
     # Steady-state times, outside the counted run.
     caches = eng._new_cache()
-    toks = torch.randint(0, cfg.vocab_size, (4, 128), device=dev, dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (4, timing[0]), device=dev, dtype=torch.int32)
     pad = torch.zeros((4,), dtype=torch.int32, device=dev)
-    prefill_ms = time_ms(torch, lambda i: model.prefill(params, toks, caches, pad_len=pad),
-                         iters[0])
-    tok = toks[:, -1:]
-    pos = torch.full((4,), 128, dtype=torch.int32, device=dev)
-    step_ms = time_ms(torch, lambda i: model.decode_step(params, tok, caches, pos, pad_len=pad),
-                      iters[1])
-    peak = torch.cuda.max_memory_allocated(dev)
-    log(f"phase {phase} [{smi}]: prefill B=4 x 128 tokens {prefill_ms:.2f} ms; decode step "
-        f"B=4 {step_ms:.2f} ms ({4e3 / step_ms:.1f} tok/s); peak memory {peak/1e9:.2f} GB")
+    tok, pos = toks[:, -1:], torch.full((4,), timing[1], dtype=torch.int32, device=dev)
+    prefill = lambda: model.prefill(params, toks, caches, pad_len=pad)
+    step = lambda: model.decode_step(params, tok, caches, pos, pad_len=pad)
+    out["prefill_ms"] = time_ms(torch, lambda i: prefill(), iters[0])
+    out["step_ms"] = time_ms(torch, lambda i: step(), iters[1])
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"phase {phase} [{smi}]: prefill B=4 x {timing[0]} tokens {out['prefill_ms']:.2f} ms; "
+        f"decode step B=4 at {timing[1]} {out['step_ms']:.2f} ms "
+        f"({4e3 / out['step_ms']:.1f} tok/s); peak memory {out['peak_gb']:.2f} GB")
     log(f"phase {phase}: where the device time goes (torch.profiler; wall time from the "
         "unprofiled runs above):")
-    pre = log_breakdown("prefill B=4 x 128", device_time_by_kernel(
-        torch, lambda: model.prefill(params, toks, caches, pad_len=pad), max(1, iters[0] - 1)),
-        prefill_ms, kernel=kernel, card=smi)
-    dec = log_breakdown("decode step B=4", device_time_by_kernel(
-        torch, lambda: model.decode_step(params, tok, caches, pos, pad_len=pad), iters[1] // 2),
-        step_ms, kernel=kernel, card=smi)
+    out["prefill_profile"] = log_breakdown(
+        f"prefill B=4 x {timing[0]}", device_time_by_kernel(torch, prefill, max(1, iters[0] - 1)),
+        out["prefill_ms"], kernel=kernel, card=smi)
+    out["decode_profile"] = dec = log_breakdown(
+        f"decode step B=4 at {timing[1]}", device_time_by_kernel(torch, step, iters[1] // 2),
+        out["step_ms"], kernel=kernel, card=smi)
     if dec is not None:
         log(f"phase {phase} [{smi}]: decode step: {dec['launches']:.0f} kernel launches "
             f"({dec['launches'] / (7 * cfg.n_layers):.1f} per projection), idle share "
             f"{dec['idle_share']:.3f}")
     del eng, params, caches
     torch.cuda.empty_cache()
-    return dict(launches=launches, launches_tc=counts.get(f"{kernel}_tc"),
-                launches_canon=counts.get(f"{kernel}_canon"), wall_s=wall, tokens_crc32=digest,
-                outs=outs,
-                tokens=n_tok, prefill_ms=prefill_ms,
-                step_ms=step_ms, peak_gb=peak / 1e9, waves=n_waves,
-                prefill_profile=pre, decode_profile=dec)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1921,7 +2074,245 @@ def phase_gemma2_forward(torch, dev, smi):
                 lut_dequant_gemm_launches_tc=counts["lut_dequant_gemm_tc"])
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 14: gemma2-2b served at its 8192-token context (the ring-window, int8
+# and bf16-operand attention of the serve profile)
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_bytes(cfg, batch, max_seq):
+    """KV-cache bytes of ``cfg`` from the shapes alone (the reference's
+    ``_sublayer_cache``): f32 K and V per sublayer; an "L" sublayer holds
+    ``min(max_seq, window)`` slots under ``ring_window_cache``; a sublayer
+    holding all ``max_seq`` positions stores int8 codes + f32 row scales
+    under ``kv_cache_int8``."""
+    from repro_torch.models import transformer
+
+    total = 0
+    for pattern, n_units in transformer.segments(cfg):
+        for ch in pattern:
+            seq = min(max_seq, cfg.window) if ch == "L" and cfg.ring_window_cache else max_seq
+            rows = n_units * batch * seq * cfg.n_kv_heads
+            per_kv = rows * (cfg.hd + 4) if cfg.kv_cache_int8 and seq == max_seq else rows * cfg.hd * 4
+            total += 2 * per_kv
+    return total
+
+
+def teacher_forced_logits(torch, dev, cfg, params, toks, prefix):
+    """The reference's ``_decode_logits`` (tests/test_perf_features.py): a
+    ``prefix``-token prefill of ``toks`` into f32 caches of GEMMA_SERVE_SEQ
+    positions, then one teacher-forced ``decode_step`` for each later token;
+    the logits ``[B, 1 + steps, V]`` in f32."""
+    from repro_torch.models.model import build_model
+
+    m = build_model(cfg)
+    caches = m.init_cache(toks.shape[0], GEMMA_SERVE_SEQ, torch.float32, device=dev)
+    lg, caches = m.prefill(params, toks[:, :prefix], caches)
+    outs = [lg[:, 0].float()]
+    for t in range(prefix, toks.shape[1]):
+        lg, caches = m.decode_step(params, toks[:, t : t + 1], caches, t)
+        outs.append(lg[:, 0].float())
+    del caches
+    return torch.stack(outs, dim=1)
+
+
+def forward_logits(cfg, params, toks, prefix):
+    """The cache-free ``Model.forward`` (``attn_impl="xla"``) over ``toks``:
+    the logits at the positions :func:`teacher_forced_logits` gives, in f32."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    hidden, _ = build_model(dataclasses.replace(cfg, attn_impl="xla")).forward(
+        params, toks, return_hidden=True)
+    return transformer.lm_head(params, cfg, hidden[:, prefix - 1 :]).float()
+
+
+def rel_norm(torch, a, b):
+    """Relative Frobenius distance of ``a`` from ``b``."""
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_gemma2_semantics(torch, dev, cfg_full):
+    """14a: one "LG" unit of gemma2-2b at its published widths, f32 (the
+    CUDA-core route of lut_dequant_gemm), W4A4 pallas prepared, B = 2,
+    max_seq 8192: a GEMMA_PREFIX-token prefill and GEMMA_DECODE teacher-forced
+    decode steps (the local ring of 4096 slots wraps at step 4096 -
+    GEMMA_PREFIX), the reference's ``_decode_logits`` at full width.  Ring vs
+    the baseline's full cache, the baseline vs the cache-free forward over the
+    same tokens, the serve profile vs the baseline; the profile's defective
+    combination (an int8 "L" cache no longer than the window) refused."""
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.models.profiles import apply_perf_profile
+    import numpy as np
+
+    base = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    cfgs = {"baseline": base, "ring": dataclasses.replace(base, ring_window_cache=True),
+            "serve profile": apply_perf_profile(base, "serve")}
+    model = build_model(base)
+    params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
+                                                device=dev), n_hint=2)
+    total = GEMMA_PREFIX + GEMMA_DECODE
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, base.vocab_size, (2, total)).astype(np.int32)).to(dev)
+
+    t0 = time.perf_counter()
+    reset_launches()
+    out = {name: teacher_forced_logits(torch, dev, cfg, params, toks, GEMMA_PREFIX)
+           for name, cfg in cfgs.items()}
+    counts = read_launches()
+    calls = 3 * 7 * base.n_layers * (1 + GEMMA_DECODE)
+    check(counts["lut_dequant_gemm"] == calls and counts["lut_dequant_gemm_tc"] == 0,
+          f"14a: lut_dequant_gemm launches {counts['lut_dequant_gemm']} (tensor cores "
+          f"{counts['lut_dequant_gemm_tc']}) != {calls} on the CUDA cores (f32 x)")
+    fwd = forward_logits(base, params, toks, GEMMA_PREFIX)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, lg in {**out, "forward": fwd}.items():
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (2, 1 + GEMMA_DECODE, base.vocab_size),
+              f"14a: {name} logits {tuple(lg.shape)} or not finite")
+    b, r = out["baseline"], out["ring"]
+    ring_abs = (r - b).abs().max().item()
+    ring_excess = ((r - b).abs() - TOL_RING * b.abs()).max().item()      # <= TOL_RING
+    fwd_err = (b - fwd).abs().max().item() / fwd.abs().max().item()
+    prof_rel = rel_norm(torch, out["serve profile"], b)
+    wrap = base.window - GEMMA_PREFIX
+    log(f"phase 14a: {base.name} 1 x 'LG' at full width (d_model {base.d_model}, heads "
+        f"{base.n_heads}/{base.n_kv_heads}, hd {base.hd}, window {base.window}), f32, W4A4 pallas "
+        f"(the CUDA-core route), B=2, max_seq {GEMMA_SERVE_SEQ}: prefill {GEMMA_PREFIX} + "
+        f"{GEMMA_DECODE} decode steps (the ring wraps at step {wrap}) under each config, and the "
+        f"cache-free forward over the {total} tokens, in {wall:.1f} s")
+    log(f"  (i) ring == baseline: max |diff| {ring_abs:.3e}, |diff| - {TOL_RING} x |baseline| at "
+        f"most {ring_excess:.3e} (allclose rtol = atol = {TOL_RING} needs <= {TOL_RING})")
+    log(f"  (ii) baseline decode == cache-free forward: max |diff| {fwd_err:.3e} x max |logit| "
+        f"(<= {TOL_DECODE_FWD})")
+    log(f"  (iii) serve profile vs baseline: relative Frobenius {prof_rel:.4f} (< {TOL_PROFILE})")
+    check(ring_excess <= TOL_RING, f"14a: ring vs baseline beyond rtol = atol = {TOL_RING}")
+    check(fwd_err <= TOL_DECODE_FWD, f"14a: baseline decode vs forward {fwd_err:.3e} x max |logit|")
+    check(prof_rel < TOL_PROFILE, f"14a: serve profile vs baseline {prof_rel:.4f}")
+    try:
+        build_model(cfgs["serve profile"]).init_cache(2, base.window, torch.float32, device=dev)
+    except NotImplementedError as e:
+        log(f"  (iv) serve profile at max_seq = window ({base.window}) refused: {str(e)[:90]}...")
+    else:
+        raise SmokeFailure("14a: an int8 'L' cache no longer than the window was not refused")
+    del out, fwd, params
+    torch.cuda.empty_cache()
+    return dict(ring_max_abs=ring_abs, decode_vs_forward=fwd_err, profile_rel=prof_rel,
+                wall_s=wall)
+
+
+def phase_gemma2_decode_vs_forward(torch, dev, cfg):
+    """14b's answers: all 26 layers of gemma2-2b in bf16 under the serve
+    profile (ring, int8 and bf16-operand attention), W4A4 pallas prepared,
+    B = 2: a GEMMA_TF_PREFIX-token prefill and GEMMA_TF_DECODE teacher-forced
+    decode steps (the local rings wrap at step 4096 - GEMMA_TF_PREFIX), held
+    against the cache-free f32 forward over the same tokens.  The limit comes
+    from the run itself: TOL_FORWARD_BF16 x the bf16 forward's own distance
+    from the f32 forward (the bf16 rounding), plus the ring + int8 decode's
+    distance in f32 (the cache's quantization), which is held to TOL_INT8.
+    Both are checked over all steps and over the steps after the wrap."""
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.models.profiles import apply_perf_profile
+    import numpy as np
+
+    prof = apply_perf_profile(cfg, "serve")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    model = build_model(prof)
+    params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
+                                                device=dev), n_hint=2)
+    total = GEMMA_TF_PREFIX + GEMMA_TF_DECODE
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, total)).astype(np.int32)).to(dev)
+    lg = {"decode, serve profile, bf16": teacher_forced_logits(
+              torch, dev, prof, params, toks, GEMMA_TF_PREFIX),
+          "decode, ring + int8, f32": teacher_forced_logits(
+              torch, dev, dataclasses.replace(f32, ring_window_cache=True, kv_cache_int8=True),
+              params, toks, GEMMA_TF_PREFIX),
+          "forward, serve profile, bf16": forward_logits(prof, params, toks, GEMMA_TF_PREFIX),
+          "forward, f32": forward_logits(f32, params, toks, GEMMA_TF_PREFIX)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, x in lg.items():
+        check(bool(torch.isfinite(x).all()) and x.shape == (2, 1 + GEMMA_TF_DECODE, cfg.vocab_size),
+              f"14b: {name} logits {tuple(x.shape)} or not finite")
+    wrap = 1 + cfg.window - GEMMA_TF_PREFIX            # the first logits row after the wrap
+    ref = lg["forward, f32"]
+    dist = {part: {name: rel_norm(torch, x[:, rows], ref[:, rows]) for name, x in lg.items()
+                   if name != "forward, f32"}
+            for part, rows in (("all steps", slice(None)), ("after the wrap", slice(wrap, None)))}
+    log(f"phase 14b: {cfg.name} {cfg.n_layers} layers, W4A4 pallas, B=2: prefill "
+        f"{GEMMA_TF_PREFIX} + {GEMMA_TF_DECODE} teacher-forced decode steps (the rings wrap at "
+        f"step {wrap - 1}) against the cache-free f32 forward over the {total} tokens, in "
+        f"{wall:.1f} s; relative Frobenius distance from it:")
+    for part, d in dist.items():
+        floor, int8 = d["forward, serve profile, bf16"], d["decode, ring + int8, f32"]
+        limit = TOL_FORWARD_BF16 * floor + int8
+        err = d["decode, serve profile, bf16"]
+        log(f"  {part}: {', '.join(f'{name} {v:.4e}' for name, v in d.items())}; the bf16 "
+            f"decode's limit {TOL_FORWARD_BF16} x {floor:.4e} + {int8:.4e} = {limit:.4e}")
+        check(int8 < TOL_INT8, f"14b ({part}): ring + int8 decode in f32 {int8:.4e} from the f32 "
+                               f"forward (>= {TOL_INT8})")
+        check(err <= limit, f"14b ({part}): the bf16 serve profile's decode {err:.4e} from the "
+                            f"f32 forward, beyond {limit:.4e}")
+    del lg, ref, params
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, limit_factor=TOL_FORWARD_BF16, **{
+        part: {name: v for name, v in d.items()} for part, d in dist.items()})
+
+
+def phase_gemma2_serve(torch, dev, smi):
+    """Phase 14: gemma2-2b serving.  14a (:func:`phase_gemma2_semantics`),
+    then 14b: all 26 layers at published widths, seed-0 weights, W4A4 pallas
+    prepared, bf16, under ``apply_perf_profile(cfg, "serve")`` through
+    ``ServeEngine(batch=4, max_seq=8192)``: GEMMA_REQUESTS requests of
+    3072-4096 prompt tokens, GEMMA_NEW new tokens each (the longest wrap the
+    local rings while decoding), the same tokens under ``decode="chunked"``;
+    the same requests under the baseline profile (plain 8192 caches); and
+    the profile's answers against the cache-free forward
+    (:func:`phase_gemma2_decode_vs_forward`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models.profiles import apply_perf_profile
+
+    cfg = get_config("gemma2-2b")
+    sem = phase_gemma2_semantics(torch, dev, cfg)
+    served = {}
+    for name, c in (("serve profile", apply_perf_profile(cfg, "serve")), ("baseline", cfg)):
+        served[name] = phase_serve(
+            torch, dev, c, smi, phase=f"14b {name}", spec=LutLinearSpec(bw=4, ba=4, mode="pallas"),
+            kernel="lut_dequant_gemm", max_prompt=GEMMA_BUCKET, max_new=GEMMA_NEW,
+            min_prompt=3072, n_layers=None, max_seq=GEMMA_SERVE_SEQ,
+            timing=(GEMMA_BUCKET, GEMMA_BUCKET + GEMMA_NEW // 2),
+            chunked=name == "serve profile", iters=(2, 10))
+    prof, base = served["serve profile"], served["baseline"]
+    agree = sum(a == b for o1, o2 in zip(prof["outs"], base["outs"])
+                for a, b in zip(o1, o2)) / sum(len(o) for o in prof["outs"])
+    log(f"phase 14b [{smi}]: the serve profile against the baseline: KV cache "
+        f"{prof['cache_bytes'] / 1e9:.3f} / {base['cache_bytes'] / 1e9:.3f} GB, decode step "
+        f"{prof['step_ms']:.2f} / {base['step_ms']:.2f} ms, prefill 4 x {GEMMA_BUCKET} "
+        f"{prof['prefill_ms']:.2f} / {base['prefill_ms']:.2f} ms, {prof['tok_s']:.1f} / "
+        f"{base['tok_s']:.1f} tok/s, peak {prof['peak_gb']:.2f} / {base['peak_gb']:.2f} "
+        f"GB; tokens equal at {agree:.3f} of positions")
+    for r in (prof, base):
+        r.pop("outs")
+    answers = phase_gemma2_decode_vs_forward(torch, dev, cfg)
+    return dict(semantics=sem, serve_profile=prof, baseline=base, token_agreement=agree,
+                answers=answers)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve"),
+                    help="after the build, run this phase alone and print its result as one "
+                         "JSON line (phase 6's cp.async repeats, or phase 14)")
+    ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
+                    help="the directory holding the repro_torch whose kernels are built and "
+                         "driven (default: this checkout's): run two trees in turns in one "
+                         "call to compare their kernels on one card")
+    args = ap.parse_args(argv)
     # torch.compile (the flex_attention yardstick of phase 10) caches what it
     # builds; keep that inside the checkout's git-ignored build directory.
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"), ("TRITON_CACHE_DIR", "triton")):
@@ -1934,11 +2325,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT}/src/repro_torch not found: run from a checkout",
+    if not (args.src / "repro_torch").is_dir():
+        print(f"chip_smoke: {args.src}/repro_torch not found: run from a checkout",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -1972,14 +2363,23 @@ def main() -> int:
                     f"{'PRESENT' if 'C7518' in info['log'] else 'absent'}; "
                     f"{wgmma_waits(info['path'])}")
         cfg = get_config("stablelm-12b")
+        alone = {"tc_cp_async": lambda: phase_tc_cp_async(torch, dev, cfg, hw.H100_SXM, smi),
+                 "gemma2_serve": lambda: phase_gemma2_serve(torch, dev, smi)}
+        if args.phase:
+            result = alone[args.phase]()
+            print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
+                              "seconds": time.perf_counter() - t_all, "result": result},
+                             default=str))
+            return 0
         flash_abs = phase_flash_kernel(torch, dev)
         frows = phase_flash_times(torch, dev, hw.H100_SXM, smi)
         fwd = phase_gemma2_forward(torch, dev, smi)
         grows, g_rel, g_abs = phase_kernel_times(
-            torch, dev, get_config("gemma2-2b"), hw.H100_SXM, bs=(FLASH_SEQ,), iters=(5, 3, 3),
-            label="phase 12")
+            torch, dev, get_config("gemma2-2b"), hw.H100_SXM,
+            bs=(4, 4 * GEMMA_BUCKET, FLASH_SEQ), iters=(5, 3, 3), label="phase 12")
         phase_stream_kernel(torch, dev)
         srows, stream_abs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi)
+        cprows = alone["tc_cp_async"]()
         lrows, lookup_abs = phase_lookup_times(torch, dev, cfg, hw.H100_SXM, smi)
         phase_lut_layer(torch, dev, cfg)
         lserve = phase_serve(torch, dev, cfg, smi, phase=8,
@@ -1995,6 +2395,7 @@ def main() -> int:
                             spec=LutLinearSpec(bw=4, ba=4, mode="pallas"),
                             kernel="lut_dequant_gemm", max_prompt=96, max_new=32)
         cpu_rel, lut_cpu_rel = phase_cpu_and_loop(torch, dev, cfg)
+        gserve = alone["gemma2_serve"]()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2057,6 +2458,19 @@ def main() -> int:
             "launches": fwd["lut_dequant_gemm_launches"],
             "launches_tc": fwd["lut_dequant_gemm_launches_tc"],
             "ms_in_forward": fwd["lut_dequant_gemm_profiled_ms"]},
+        "gemma2_serve": {
+            "at": f"phase 14b: gemma2-2b, 26 layers, W4A4 pallas, bf16, ServeEngine(batch=4, "
+                  f"max_seq={GEMMA_SERVE_SEQ}), {GEMMA_REQUESTS} requests of 3072-4096 prompt "
+                  f"tokens, {GEMMA_NEW} new each; prefill_ms at 4 x 4096 and step_ms on CUDA "
+                  f"events, busy from torch.profiler, the rest on the host clock",
+            **{name: {key: r[key] for key in GEMMA_SERVE_KEYS}
+               for name, r in (("serve_profile", gserve["serve_profile"]),
+                               ("baseline", gserve["baseline"]))},
+            "decode": times(grows, 4, "one gemma2-2b layer's 7 projections at B=4, W4, bf16 x"),
+            "prefill": times(grows, 4 * GEMMA_BUCKET, f"one gemma2-2b layer's 7 projections at "
+                                                      f"B=4x{GEMMA_BUCKET}, W4, bf16 x"),
+            "token_agreement": gserve["token_agreement"],
+            "semantics": gserve["semantics"], "answers": gserve["answers"]},
         "card_vs_cpu_rel_err": cpu_rel,
         "ok": True,
     }, {
@@ -2076,6 +2490,8 @@ def main() -> int:
                                  "one-hot [M, G*R] f32 torch.matmul; cuda_core_ms: the CUDA-core "
                                  "kernel on the same inputs)"),
         "prefill": stream_times(srows, 512, "one layer's 7 projections at N=4x128, W1A3 p=4"),
+        "cp_async": {"at": "stablelm-12b w_down at W1A3 p=5 (wpacked by cp.async: 4G % 16 != 0), "
+                           "device time", "rows": cprows},
         "serve": {"decode_step": lserve["decode_profile"], "prefill": lserve["prefill_profile"],
                   "prefill_ms": lserve["prefill_ms"], "step_ms": lserve["step_ms"]},
         "card_vs_cpu_rel_err": lut_cpu_rel,

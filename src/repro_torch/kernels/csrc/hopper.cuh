@@ -510,10 +510,4 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One arrival on `bar` once every cp.async this thread issued so far has
-// landed (.noinc: the barrier's expected count includes this arrival).
-__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
 }  // namespace hopper

@@ -40,8 +40,10 @@
 //   swizzle (zero fill past N and past G*R), and the stage's [128 rows x KC/R
 //   groups] of wpacked by TMA where its row pitch 4G is a multiple of 16
 //   bytes (every serve shape), else by 4-byte cp.async from all four producer
-//   warps (zero fill past M and G either way), counted on the stage's
-//   mbarrier.  TMA comes first because a stage is 1024 such 4-byte requests
+//   warps (zero fill past M and G either way).  A cp.async stage is released
+//   one stage behind: each producer thread waits for its copies of the stage
+//   (cp.async.wait_group 1) and then arrives on the stage's mbarrier, whose
+//   release orders the words before the consumers' acquire.  TMA comes first because a stage is 1024 such 4-byte requests
 //   at R = 16: issued by one warp, they hold the whole kernel back.  A
 //   zero-filled group decodes as r = 0 and meets B's zero fill.  3 to 12 stages, as many as 200 KB of shared memory holds.  Each
 //   consumer warpgroup decodes chunk c + 1 while chunk c's products run; at
@@ -153,7 +155,7 @@ lut_stream_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tb,
   if (tid == 0) {
     for (int st = 0; st < NST; ++st) {
       // TMA: one arrival (with the bytes); cp.async: each producer thread's
-      // arrival once its copies land, and thread 0's for B's bytes.
+      // plain arrival once its copies have landed, and thread 0's for B's bytes.
       mbar_init(full(st), P.tma_w ? 1 : PTHREADS + 1);
       mbar_init(empty(st), NCWG * 128);
     }
@@ -190,8 +192,19 @@ lut_stream_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tb,
             const bool ok = m < P.M && g < P.G;
             cp_async_4(dst + 4 * e, P.wp + (ok ? (size_t)m * P.G + g : 0), ok ? 4u : 0u);
           }
-          cp_async_mbar_arrive_noinc(full(st));
+          // A stage's words are released once this thread's copies of it
+          // have landed (wait_group, then an arrive with release semantics):
+          // the previous stage's here, this one still in flight.
+          cp_async_commit();
+          if (i > 0) {
+            cp_async_wait_group<1>();
+            mbar_arrive(full((i - 1) % NST));
+          }
         }
+      }
+      if (!P.tma_w) {
+        cp_async_wait_group<0>();
+        mbar_arrive(full((nloc - 1) % NST));
       }
     }
   } else {

@@ -13,6 +13,10 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --full --mode lut --bw 1 --ba 3 --calibrate 32
     # the GPU, full width, int-LUT under a plan autotuned inline to a 16 GiB budget
     PYTHONPATH=src python -m repro_torch.launch.serve --full --mode lut --bw 1 --ba 3 --autotune 16384 --batch 4
+    # the GPU, gemma2-2b at full width and its 8192-token context under the
+    # serve profile (ring-window local caches, int8 global caches, bf16-operand
+    # attention)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --full --mode pallas --profile serve --batch 4 --max-seq 8192 --prompt-len 4000 --max-new 64
     # the CPU, smoke size, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --device cpu
@@ -31,6 +35,7 @@ from repro_torch import timing
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import LutLinearSpec
 from repro_torch.models.model import build_model
+from repro_torch.models.profiles import PROFILES, apply_perf_profile
 from repro_torch.serve.serving import Request, ServeEngine
 
 
@@ -70,6 +75,10 @@ def build_args(argv=None):
                          "LUT-capacity budget (MB) and serve the result")
     ap.add_argument("--prompt-bucket", type=int, default=8,
                     help="power-of-two prompt-length bucketing floor (1 disables)")
+    ap.add_argument("--profile", default="baseline", choices=list(PROFILES),
+                    help="serve: ring-window caches, int8 KV caches and bf16-operand "
+                         "attention, where the config allows them "
+                         "(repro_torch.models.profiles)")
     ap.add_argument("--calibrate", type=int, default=None, metavar="TOKENS",
                     help="freeze per-layer activation scales from a seeded "
                          "synthetic calibration batch of this many tokens at "
@@ -92,6 +101,9 @@ def build_args(argv=None):
 def main(argv=None):
     args = build_args(argv)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.profile != "baseline":
+        cfg = apply_perf_profile(cfg, args.profile)
+        print(f"perf profile: {args.profile}")
     model = build_model(cfg)
     t0 = time.time()
     params = model.init_quantized(

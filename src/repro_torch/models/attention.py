@@ -1,4 +1,4 @@
-"""Grouped-query attention with a plain KV cache (port of the GQA branch of
+"""Grouped-query attention with a KV cache (port of the GQA branch of
 ``repro.models.attention``).
 
 ``cache=None`` runs full-sequence attention; otherwise ``cache`` is a dict of
@@ -7,10 +7,13 @@ reference (functional updates on donated buffers), cache writes here update
 the buffers **in place** and the returned cache dict holds the same tensors.
 
 Ported: the plain-cache and no-cache branches, pad masking, query-chunked
-long prefill, and ``attn_impl="flash"`` on the no-cache branch (the
-``flash_attention`` kernel).  Not yet: the ring-window KV cache (the next
-module slice of the port), and the int8 KV cache, MLA and cross attention
-(the slice of the other model families) — each raises
+long prefill, ``attn_impl="flash"`` on the no-cache branch (the
+``flash_attention`` kernel), the ring-window cache of a sliding-window layer
+(any cache no longer than the window), the int8 KV cache (``{"k", "k_s",
+"v", "v_s"}``: codes and per-row scales) and ``attend_bf16`` (bf16 Q/K/V and
+probabilities, f32 scores and sums).  The decode-time attention is plain
+torch ops, as it is plain XLA in the reference.  MLA and cross attention
+(the slice of the other model families) are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -88,20 +91,29 @@ def _attend(
     *,
     mask: torch.Tensor,         # [B, 1, S, T] or broadcastable boolean
     softcap_val: Optional[float],
+    bf16_operands: bool = False,
 ) -> torch.Tensor:
-    """Masked softmax attention in f32; output in ``q.dtype``."""
+    """Masked softmax attention with f32 scores and sums; output in
+    ``q.dtype``.  ``bf16_operands`` rounds Q, K, V and the probabilities to
+    bf16 first (the reference's bf16 einsums with f32 accumulation): the
+    products of bf16 values are exact in f32, so the scores are f32 sums of
+    the same products — never rounded to bf16 before the softcap."""
     b, s, h, hd = q.shape
     hkv = k.shape[2]
     rep = h // hkv
     qg = q.reshape(b, s, hkv, rep, hd)
-    scores = torch.einsum(
-        "bsgrd,btgd->bgrst", qg.to(torch.float32), k.to(torch.float32)
-    ) / math.sqrt(hd)
+    op = _bf16_rounded if bf16_operands else (lambda t: t.to(torch.float32))
+    scores = torch.einsum("bsgrd,btgd->bgrst", op(qg), op(k)) / math.sqrt(hd)
     scores = layers.softcap(scores, softcap_val)
     scores = torch.where(mask[:, :, None] if mask.ndim == 4 else mask, scores, MASK_FILL)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrst,btgd->bsgrd", w, v.to(torch.float32))
+    w = op(torch.softmax(scores, dim=-1))
+    out = torch.einsum("bgrst,btgd->bsgrd", w, op(v))
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and held in f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def causal_mask(s: int, t: int, *, offset: int = 0, window: Optional[int] = None,
@@ -130,6 +142,7 @@ def _attend_chunked(
     window: Optional[int],
     softcap_val: Optional[float],
     causal: bool,
+    bf16_operands: bool = False,
     pad_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     b, s, h, hd = q.shape
@@ -144,14 +157,46 @@ def _attend_chunked(
             m = torch.ones((b, q_i.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
             if window is not None:
                 m = m & (kpos[:, None, :] > pos_i[:, :, None] - window)
-        outs.append(_attend(q_i, k, v, mask=m[:, None], softcap_val=softcap_val))
+        outs.append(_attend(q_i, k, v, mask=m[:, None], softcap_val=softcap_val,
+                            bf16_operands=bf16_operands))
     return torch.cat(outs, dim=1)
+
+
+def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-(token, head) row quantization: [B,S,H,hd] ->
+    (int8 codes, f32 scales [B,S,H]).  ``torch.round`` rounds half to even,
+    as ``jnp.round`` does, so equal inputs give the reference's codes and
+    scales bit for bit.  (Under ``jit`` XLA turns the reference's ``/ 127``
+    into a product with ``f32(1/127)``: its jitted scales may differ in the
+    last bit.)"""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _ring_update(cache_arr: torch.Tensor, new: torch.Tensor, global_start, tail: int):
+    """Write the last ``tail`` tokens of ``new`` into the ring buffer at their
+    ``global_position % W`` slots, in place; returns ``cache_arr``.
+    ``global_start`` is an int, written at ``[:, idx]``, or a per-slot ``[B]``
+    tensor (continuous-batching decode), written at ``[arange(B)[:, None],
+    idx]``.  The ``tail <= W`` slots are distinct: no write lands twice."""
+    w, dev = cache_arr.shape[1], cache_arr.device
+    src = new[:, -tail:].to(cache_arr.dtype)
+    ar = torch.arange(tail, device=dev)
+    if isinstance(global_start, torch.Tensor) and global_start.ndim:
+        b = cache_arr.shape[0]
+        idx = (global_start.long()[:, None] + ar[None, :]) % w           # [B, tail]
+        cache_arr[torch.arange(b, device=dev)[:, None], idx] = src
+    else:
+        cache_arr[:, (global_start + ar) % w] = src
+    return cache_arr
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: the ring-window KV cache and the "
-        f"other model families); this slice runs GQA with a plain KV cache"
+        f"{what} is not ported yet (ROADMAP: the other model families); this "
+        f"slice runs GQA attention"
     )
 
 
@@ -169,45 +214,99 @@ def gqa_attention(
 ) -> tuple[torch.Tensor, Optional[dict]]:
     b, s, _ = x.shape
     hd = cfg.hd
-    if cache is not None and "k_s" in cache:
-        raise _unported("the int8 KV cache")
-    if cache is not None and window is not None and cache["k"].shape[1] <= window:
-        raise _unported("the ring window cache")
+    bf16 = cfg.attend_bf16
+    softcap_val = cfg.attn_logit_softcap
     q = _split_heads(linear(p["wq"], x), cfg.n_heads)
     k = _split_heads(linear(p["wk"], x), cfg.n_kv_heads)
     v = _split_heads(linear(p["wv"], x), cfg.n_kv_heads)
     q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_kind)
     k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_kind)
+    chunked = s > CHUNK_THRESHOLD and s % CHUNK_SIZE == 0
+
+    # Sliding-window layers may carry a ring-buffer cache of exactly `window`
+    # slots (Mistral-style): decode reads W entries instead of the full
+    # context.  Any cache no longer than the window takes this branch.
+    if cache is not None and window is not None and cache["k"].shape[1] <= window:
+        w = cache["k"].shape[1]
+        if s == 1:  # decode: write slot pos % W, then attend over the ring
+            kc = _ring_update(cache["k"], k, pos, 1)
+            vc = _ring_update(cache["v"], v, pos, 1)
+            slots = torch.arange(w, device=x.device)[None]                 # [1, W]
+            pos2 = pos.long()[:, None] if isinstance(pos, torch.Tensor) and pos.ndim else pos
+            kpos_global = pos2 - ((pos2 - slots) % w)                      # in (pos-W, pos]
+            start = 0 if pad_len is None else pad_len[:, None]
+            m = (kpos_global >= start)[:, None, :].expand(b, 1, w)
+            out = _attend(q, kc, vc, mask=m[:, None], softcap_val=softcap_val,
+                          bf16_operands=bf16)
+        else:       # prefill: in-sequence attention; store the last W tokens
+            if chunked:
+                out = _attend_chunked(q, k, v, positions, window=window,
+                                      softcap_val=softcap_val, causal=True,
+                                      bf16_operands=bf16, pad_len=pad_len)
+            else:
+                if pad_len is None:
+                    m = causal_mask(s, s, window=window, device=x.device)
+                else:
+                    m = _key_mask(torch.arange(s, device=x.device)[None, :],
+                                  positions[:, :, None], pad_len, window)[:, None]
+                out = _attend(q, k, v, mask=m, softcap_val=softcap_val, bf16_operands=bf16)
+            tail = min(s, w)
+            kc = _ring_update(cache["k"], k, pos + s - tail, tail)
+            vc = _ring_update(cache["v"], v, pos + s - tail, tail)
+        y = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
+        return y, {"k": kc, "v": vc}
 
     if cache is not None:
-        kc = _cache_write(cache["k"], k, pos)
-        vc = _cache_write(cache["v"], v, pos)
-        new_cache = {"k": kc, "v": vc}
-        if s > CHUNK_THRESHOLD and s % CHUNK_SIZE == 0:
+        if "k_s" in cache:
+            # int8 KV cache: codes + per-row scales are stored; attention
+            # reads them back as codes * scale in f32.
+            k8, ks = _quant_rows(k)
+            v8, vs = _quant_rows(v)
+            new_cache = {"k": _cache_write(cache["k"], k8, pos),
+                         "k_s": _cache_write(cache["k_s"], ks, pos),
+                         "v": _cache_write(cache["v"], v8, pos),
+                         "v_s": _cache_write(cache["v_s"], vs, pos)}
+            kc = new_cache["k"].to(torch.float32) * new_cache["k_s"][..., None]
+            vc = new_cache["v"].to(torch.float32) * new_cache["v_s"][..., None]
+        else:
+            kc = _cache_write(cache["k"], k, pos)
+            vc = _cache_write(cache["v"], v, pos)
+            new_cache = {"k": kc, "v": vc}
+        if chunked:
             out = _attend_chunked(
-                q, kc, vc, positions, window=window,
-                softcap_val=cfg.attn_logit_softcap, causal=True, pad_len=pad_len,
+                q, kc, vc, positions, window=window, softcap_val=softcap_val,
+                causal=True, bf16_operands=bf16, pad_len=pad_len,
             )
         else:
             t = kc.shape[1]
             m = _key_mask(torch.arange(t, device=x.device)[None, :],
                           positions[:, :, None], pad_len, window)   # [B, S, T]
-            out = _attend(q, kc, vc, mask=m[:, None], softcap_val=cfg.attn_logit_softcap)
+            out = _attend(q, kc, vc, mask=m[:, None], softcap_val=softcap_val,
+                          bf16_operands=bf16)
     else:
         new_cache = None
-        if cfg.attn_impl == "flash":
+        if cfg.attn_impl == "flash":   # attend_bf16 does not reach it, as in the reference
             out = ops.flash_attention(
-                q, k, v, causal=causal, window=window,
-                softcap=cfg.attn_logit_softcap,
+                q, k, v, causal=causal, window=window, softcap=softcap_val,
             )
-        elif s > CHUNK_THRESHOLD and s % CHUNK_SIZE == 0:
+        elif chunked:
             out = _attend_chunked(
-                q, k, v, positions, window=window,
-                softcap_val=cfg.attn_logit_softcap, causal=causal,
+                q, k, v, positions, window=window, softcap_val=softcap_val,
+                causal=causal, bf16_operands=bf16,
             )
         else:
             m = (causal_mask(s, s, window=window, device=x.device) if causal
                  else torch.ones((1, 1, s, s), dtype=torch.bool, device=x.device))
-            out = _attend(q, k, v, mask=m, softcap_val=cfg.attn_logit_softcap)
+            out = _attend(q, k, v, mask=m, softcap_val=softcap_val, bf16_operands=bf16)
     y = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
     return y, new_cache
+
+
+def cross_attention(*args, **kwargs):
+    """Enc-dec cross attention (``repro.models.attention.cross_attention``)."""
+    raise _unported("cross attention")
+
+
+def mla_attention(*args, **kwargs):
+    """Multi-head latent attention (``repro.models.attention.mla_attention``)."""
+    raise _unported("MLA")

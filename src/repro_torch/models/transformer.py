@@ -62,12 +62,6 @@ def check_supported(cfg: ModelConfig) -> None:
         )
     if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
         raise NotImplementedError(f"{cfg.name}: frontends / enc-dec are not ported yet")
-    if cfg.attend_bf16:
-        raise NotImplementedError(
-            f"{cfg.name}: attend_bf16=True (bf16 attention operands, f32 sums) is not "
-            f"ported yet: the attention here computes in f32; it waits for the other "
-            f"model families (ROADMAP)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -129,21 +123,41 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
 # ---------------------------------------------------------------------------
 
 
+def _sublayer_cache(cfg: ModelConfig, ch: str, n_units: int, batch: int, max_seq: int,
+                    dtype, device) -> dict:
+    """One sublayer's stacked cache, as the reference's ``_sublayer_cache``
+    sizes it: an ``"L"`` cache holds ``min(max_seq, window)`` slots under
+    ``ring_window_cache``; a cache that holds all ``max_seq`` positions is
+    int8 codes + f32 per-row scales under ``kv_cache_int8``."""
+    seq = max_seq
+    if ch == "L" and cfg.ring_window_cache and cfg.window:
+        seq = min(max_seq, cfg.window)   # ring buffer
+    lead = (n_units, batch, seq, cfg.n_kv_heads)
+    if cfg.kv_cache_int8 and seq == max_seq:
+        if ch == "L" and cfg.window and seq <= cfg.window:
+            raise NotImplementedError(
+                f"{cfg.name}: an int8 'L' cache of {seq} slots is no longer than the "
+                f"window ({cfg.window}), so it would take the ring branch; the reference "
+                f"writes int8 codes there without a scale and drops k_s / v_s "
+                f"(repro.models.attention._ring_update; ROADMAP Queue 3). Serve with "
+                f"max_seq > window"
+            )
+        return {"k": torch.zeros(lead + (cfg.hd,), dtype=torch.int8, device=device),
+                "k_s": torch.zeros(lead, dtype=torch.float32, device=device),
+                "v": torch.zeros(lead + (cfg.hd,), dtype=torch.int8, device=device),
+                "v_s": torch.zeros(lead, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(lead + (cfg.hd,), dtype=dtype, device=device),
+            "v": torch.zeros(lead + (cfg.hd,), dtype=dtype, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                *, device) -> list:
-    """Stacked zero KV caches mirroring the parameter segmentation."""
+    """Stacked zero KV caches mirroring the parameter segmentation
+    (``[n_units, B, seq, ...]`` per sublayer; see :func:`_sublayer_cache`)."""
     check_supported(cfg)
-    if cfg.kv_cache_int8:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
-    out = []
-    for pattern, n_units in segments(cfg):
-        shape = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        out.append({
-            f"s{i}_{ch}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                           "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i, ch in enumerate(pattern)
-        })
-    return out
+    return [{f"s{i}_{ch}": _sublayer_cache(cfg, ch, n_units, batch, max_seq, dtype, device)
+             for i, ch in enumerate(pattern)}
+            for pattern, n_units in segments(cfg)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,191 @@
+"""Port parity: the attention helpers of repro_torch.models.attention against
+the JAX reference's (repro.models.attention) on the same numpy-seeded inputs
+(CPU): int8 row quantization and the ring-buffer write bit for bit, the
+bf16-operand attend within 1e-6 x max |out|, and gqa_attention's ring, int8
+and bf16 branches on one layer."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+TOL_BF16 = 1e-6      # bf16-operand attend, relative to max |out|: the same exact
+                     # products summed in another order in f32
+TOL_LAYER = 1e-5     # one attention layer in f32, relative to max |y|
+
+
+def _normal(rng, shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,scale", [((2, 5, 3, 16), 1.0), ((1, 9, 2, 32), 300.0),
+                                         ((3, 1, 4, 8), 1e-3)])
+def test_quant_rows_bit_equal_to_reference(shape, scale):
+    x = _normal(np.random.default_rng(sum(shape)), shape, scale)
+    x[0, 0, 0] = 0.0                                  # an all-zero row: the 1e-8 floor
+    x[0, -1, -1, :4] = [127.0, 2.5, -3.5, 0.5]        # scale 1: halves round to even
+    x[0, -1, -1, 4:] = 0.0
+    jc, js = jattn._quant_rows(jnp.asarray(x))
+    tc, ts = tattn._quant_rows(torch.from_numpy(x))
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert list(tc[0, -1, -1, :4]) == [127, 2, -4, 0]
+
+
+@pytest.mark.parametrize("start,tail", [(0, 6), (5, 3), (13, 8), ("per_slot", 1),
+                                        ("per_slot_wide", 4)])
+def test_ring_update_bit_equal_to_reference(start, tail):
+    """Int starts (prefill: the last ``tail`` tokens, wrapping past W) and
+    per-slot [B] starts (continuous-batching decode), written in place."""
+    rng = np.random.default_rng(tail)
+    b, w, s = 3, 8, 10
+    cache = _normal(rng, (b, w, 2, 4))
+    new = _normal(rng, (b, s, 2, 4))
+    if start == "per_slot":
+        gs = np.array([0, 7, 21], np.int32)           # slot 7, a wrap to 5
+    elif start == "per_slot_wide":
+        gs = np.array([6, 3, 15], np.int32)           # tails that cross the end
+    else:
+        gs = start
+    want = np.asarray(jattn._ring_update(jnp.asarray(cache), jnp.asarray(new),
+                                         jnp.asarray(gs) if isinstance(gs, np.ndarray) else gs,
+                                         tail))
+    t_cache = torch.from_numpy(cache.copy())
+    got = tattn._ring_update(t_cache, torch.from_numpy(new),
+                             torch.from_numpy(gs) if isinstance(gs, np.ndarray) else gs, tail)
+    assert got is t_cache                              # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(want, cache)
+
+
+def _attend_inputs(seed, b=2, s=16, t=16, h=4, hkv=2, hd=32):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, (b, s, h, hd), 2.0), _normal(rng, (b, t, hkv, hd), 2.0),
+            _normal(rng, (b, t, hkv, hd)))
+
+
+@pytest.mark.parametrize("softcap,window", [(50.0, None), (None, 5), (30.0, 7)])
+def test_attend_bf16_operands_matches_reference(softcap, window):
+    q, k, v = _attend_inputs(int(softcap or 0) + (window or 0))
+    jm = jattn.causal_mask(16, 16, window=window)
+    tm = tattn.causal_mask(16, 16, window=window)
+    want = np.asarray(jattn._attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jm,
+                                    softcap_val=softcap, bf16_operands=True))
+    got = tattn._attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                        mask=tm, softcap_val=softcap, bf16_operands=True)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL_BF16 * np.abs(want).max())
+    # and it is another function than the f32 attend
+    f32 = tattn._attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                        mask=tm, softcap_val=softcap)
+    assert (f32 - got).abs().max().item() > 100 * TOL_BF16 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_attend_chunked_matches_reference(bf16):
+    """The query-chunked long-prefill path (S = 2 x CHUNK_SIZE, reached
+    through the function itself) with left padding.  f32: within 1e-5 x max
+    |out|.  bf16 operands over 1024 keys: a probability whose f32 value
+    differs in its last bits between the packages may round to the next bf16
+    value (one bf16 ulp, 2^-8 of it), so the output is held within 2^-8 x
+    max |v|, the bound if every probability of a row did."""
+    q, k, v = _attend_inputs(3, b=2, s=2 * tattn.CHUNK_SIZE, t=2 * tattn.CHUNK_SIZE, h=2,
+                             hkv=1, hd=16)
+    pad = np.array([0, 37], np.int32)
+    pos = (np.arange(q.shape[1])[None] - pad[:, None]).astype(np.int32)
+    want = np.asarray(jattn._attend_chunked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos), window=300,
+        softcap_val=50.0, causal=True, bf16_operands=bf16, pad_len=jnp.asarray(pad)))
+    got = tattn._attend_chunked(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(pos),
+        window=300, softcap_val=50.0, causal=True, bf16_operands=bf16,
+        pad_len=torch.from_numpy(pad))
+    tol = 2.0**-8 * np.abs(v).max() if bf16 else 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# gqa_attention's cached branches on one gemma2-2b smoke layer (window 8,
+# softcap 50), f32, weights from the reference's init
+# ---------------------------------------------------------------------------
+
+
+def _layer(**kw):
+    jcfg = dataclasses.replace(jget_config("gemma2-2b", smoke=True), dtype="float32", **kw)
+    tcfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), dtype="float32", **kw)
+    jp = jattn.gqa_init(jcfg, jax.random.PRNGKey(2))
+    return jcfg, tcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _cache(b, t, hkv, hd, int8):
+    if int8:
+        return {"k": np.zeros((b, t, hkv, hd), np.int8), "k_s": np.zeros((b, t, hkv), np.float32),
+                "v": np.zeros((b, t, hkv, hd), np.int8), "v_s": np.zeros((b, t, hkv), np.float32)}
+    return {"k": np.zeros((b, t, hkv, hd), np.float32), "v": np.zeros((b, t, hkv, hd), np.float32)}
+
+
+@pytest.mark.parametrize("branch", ["ring", "ring_per_slot", "int8", "int8_bf16", "plain_bf16"])
+def test_gqa_attention_cached_branches_match_reference(branch):
+    """Prefill 11 left-padded tokens, then 6 decode steps; ``ring*``: a
+    cache of W = 8 slots (the window), so prefill keeps the last 8 tokens
+    and decode wraps; ``int8``: codes and scales written and read back.
+    Every output and every cache leaf against the reference's."""
+    bf16 = branch.endswith("bf16")
+    jcfg, tcfg, jp, tp = _layer(attend_bf16=bf16)
+    b, s, steps = 2, 11, 6
+    t = jcfg.window if branch.startswith("ring") else s + steps
+    rng = np.random.default_rng(len(branch))
+    pad = np.array([0, 3], np.int32)
+    xs = _normal(rng, (b, s + steps, jcfg.d_model))
+    jc = {k: jnp.asarray(v) for k, v in _cache(b, t, jcfg.n_kv_heads, jcfg.hd,
+                                               branch.startswith("int8")).items()}
+    tc = {k: torch.from_numpy(v) for k, v in _cache(b, t, jcfg.n_kv_heads, jcfg.hd,
+                                                    branch.startswith("int8")).items()}
+    window = jcfg.window if branch != "plain_bf16" else None
+
+    def step(x, pos, positions):
+        nonlocal jc, tc
+        jy, jc = jattn.gqa_attention(jp, jnp.asarray(x), cfg=jcfg,
+                                     positions=jnp.asarray(positions), cache=jc,
+                                     pos=jnp.asarray(pos) if isinstance(pos, np.ndarray) else pos,
+                                     window=window, pad_len=jnp.asarray(pad))
+        ty, tc = tattn.gqa_attention(tp, torch.from_numpy(x), cfg=tcfg,
+                                     positions=torch.from_numpy(positions), cache=tc,
+                                     pos=torch.from_numpy(pos) if isinstance(pos, np.ndarray) else pos,
+                                     window=window, pad_len=torch.from_numpy(pad))
+        want = np.asarray(jy)
+        np.testing.assert_allclose(ty.numpy(), want, rtol=0, atol=TOL_LAYER * np.abs(want).max())
+        assert sorted(tc) == sorted(jc)
+        for key in jc:
+            w = np.asarray(jc[key])
+            assert tc[key].numpy().dtype == w.dtype, key
+            if w.dtype == np.int8:       # codes of values equal within 1e-5: at most one step
+                assert np.abs(tc[key].numpy().astype(int) - w.astype(int)).max() <= 1, key
+            else:
+                np.testing.assert_allclose(tc[key].numpy(), w, rtol=0,
+                                           atol=TOL_LAYER * max(np.abs(w).max(), 1e-30))
+
+    positions = (np.arange(s)[None] - pad[:, None]).astype(np.int32)
+    step(xs[:, :s], 0, positions)
+    for i in range(steps):
+        p = s + i
+        pos = np.full((b,), p, np.int32) if branch == "ring_per_slot" else p
+        step(xs[:, p : p + 1], pos, (np.full((b, 1), p) - pad[:, None]).astype(np.int32))
+
+
+def test_unported_attention_kinds_raise():
+    with pytest.raises(NotImplementedError, match="MLA is not ported"):
+        tattn.mla_attention()
+    with pytest.raises(NotImplementedError, match="cross attention is not ported"):
+        tattn.cross_attention()

@@ -1,7 +1,9 @@
 """Port parity: the dense GQA decoder of repro_torch against the JAX reference
-on stablelm-12b smoke (f32, W4A4, mode="pallas", prepared) and on gemma2-2b
-smoke's cache-free forward through attn_impl="flash", on weights converted
-from the reference (CPU)."""
+on stablelm-12b smoke (f32, W4A4, mode="pallas", prepared), on gemma2-2b
+smoke's cache-free forward through attn_impl="flash", and on the reference's
+§Perf cache features (the ring-window cache, the int8 KV cache, bf16-operand
+attention, the serve profile: mirrors of tests/test_perf_features.py), on
+weights converted from the reference (CPU)."""
 
 import dataclasses
 
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.core import LutLinearSpec as JSpec  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
+from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import LutLinearSpec, PreparedLinear  # noqa: E402
@@ -96,19 +99,6 @@ def test_unported_families_raise():
     for arch in ("zamba2-7b", "deepseek-v2-lite-16b", "rwkv6-3b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11|not ported"):
             transformer.check_supported(get_config(arch, smoke=True))
-
-
-def test_attend_bf16_is_refused():
-    """The port's attention computes in f32; a config asking for the
-    reference's bf16 operands is refused rather than run as another function."""
-    cfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), attend_bf16=True)
-    with pytest.raises(NotImplementedError, match="attend_bf16"):
-        transformer.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="attend_bf16"):
-        build_model(cfg).init_quantized(LutLinearSpec(bw=4, mode="pallas"), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="attend_bf16"):
-        build_model(cfg).init_cache(1, 8, torch.float32, device="cpu")
-    transformer.check_supported(dataclasses.replace(cfg, attend_bf16=False))
 
 
 def test_init_quantized_builds_stacked_leaves():
@@ -217,3 +207,154 @@ def test_gemma2_lut_calibration_through_flash_matches_reference(gemma):
         want = np.asarray(lj.ascale)
         assert tl[path].ascale.shape == want.shape == (2,), path
         np.testing.assert_allclose(tl[path].ascale.numpy(), want, rtol=2**-21, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The §Perf cache features: mirrors of tests/test_perf_features.py, each
+# also held against the reference's logits on the same converted tree
+# ---------------------------------------------------------------------------
+
+TOL_INT8 = 1e-3    # int8 KV cache, relative to max |logit|: a K/V value whose f32
+                   # bits differ between the packages may round to the next code
+
+
+def _pair_cfgs(arch, **kw):
+    """The smoke config in both packages, in f32 (in bf16 the packages differ
+    in the last bits: ROADMAP Queue 3)."""
+    jcfg = dataclasses.replace(jget_config(arch, smoke=True), dtype="float32", **kw)
+    tcfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32", **kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    return jcfg, tcfg
+
+
+def _profiled_cfgs(arch, tp=2):
+    from repro.models.profiles import apply_perf_profile as japply
+    from repro_torch.models.profiles import apply_perf_profile as tapply
+
+    jbase, tbase = _pair_cfgs(arch)
+    jcfg, tcfg = japply(jbase, "serve", tp=tp), tapply(tbase, "serve", tp=tp)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    return jcfg, tcfg
+
+
+def _decode_pair(jcfg, tcfg, seed=0, max_seq=32, prefix=6, total=14):
+    """The reference's ``_decode_logits`` (prefill ``prefix`` tokens, then
+    teacher-forced decode steps to ``total``) in both packages on the
+    reference's seed-``seed`` weights: (reference logits, port logits)."""
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, total)).astype(np.int32)
+    jc = jm.init_cache(2, max_seq, dtype=jnp.float32)
+    tc = tm.init_cache(2, max_seq, torch.float32, device="cpu")
+    jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :prefix]), jc)
+    tl, tc = tm.prefill(tp, torch.from_numpy(toks[:, :prefix]), tc)
+    jout, tout = [jl[:, 0]], [tl[:, 0]]
+    for t in range(prefix, total):
+        jl, jc = jm.decode_step(jp, jnp.asarray(toks[:, t : t + 1]), jc, jnp.int32(t))
+        tl, tc = tm.decode_step(tp, torch.from_numpy(toks[:, t : t + 1]), tc, t)
+        jout.append(jl[:, 0])
+        tout.append(tl[:, 0])
+    return np.asarray(jnp.stack(jout, axis=1)), torch.stack(tout, dim=1).numpy()
+
+
+def _close_to_reference(got, want, tol):
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+def _rel(a, b):
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _nbytes(caches):
+    sizes = []
+    tree.tree_map(lambda t: sizes.append(t.numel() * t.element_size()), caches)
+    return sum(sizes)
+
+
+@pytest.fixture(scope="module")
+def gemma_base_logits():
+    return _decode_pair(*_pair_cfgs("gemma2-2b"))
+
+
+def test_ring_window_cache_matches_full_cache(gemma_base_logits):
+    """gemma2 local layers (window 8, 14 positions): ring decode == full
+    decode within the reference's 3e-3; each == the reference's logits."""
+    j_full, t_full = gemma_base_logits
+    j_ring, t_ring = _decode_pair(*_pair_cfgs("gemma2-2b", ring_window_cache=True))
+    np.testing.assert_allclose(t_ring, t_full, rtol=3e-3, atol=3e-3)
+    _close_to_reference(t_full, j_full, TOL)
+    _close_to_reference(t_ring, j_ring, TOL)
+
+
+def test_ring_cache_is_smaller():
+    _j, base = _pair_cfgs("gemma2-2b")
+    ring = dataclasses.replace(base, ring_window_cache=True)
+    cb = build_model(base).init_cache(2, 32, torch.float32, device="cpu")
+    cr = build_model(ring).init_cache(2, 32, torch.float32, device="cpu")
+    assert _nbytes(cr) < _nbytes(cb)
+    assert tuple(cr[0]["s0_L"]["k"].shape) == (2, 2, base.window, base.n_kv_heads, base.hd)
+    assert tuple(cr[0]["s1_G"]["k"].shape) == (2, 2, 32, base.n_kv_heads, base.hd)
+
+
+def test_int8_kv_cache_close_to_fp():
+    j_fp, t_fp = _decode_pair(*_pair_cfgs("chatglm3-6b"))
+    j_q8, t_q8 = _decode_pair(*_pair_cfgs("chatglm3-6b", kv_cache_int8=True))
+    assert _rel(t_q8, t_fp) < 0.05
+    _close_to_reference(t_fp, j_fp, TOL)
+    _close_to_reference(t_q8, j_q8, TOL_INT8)
+    _j, base = _pair_cfgs("chatglm3-6b")
+    cb = build_model(base).init_cache(2, 32, torch.bfloat16, device="cpu")
+    c8 = build_model(dataclasses.replace(base, kv_cache_int8=True)).init_cache(
+        2, 32, torch.bfloat16, device="cpu")
+    assert _nbytes(c8) < 0.8 * _nbytes(cb)
+    leaf = c8[0]["s0_D"]
+    assert sorted(leaf) == ["k", "k_s", "v", "v_s"]
+    assert leaf["k"].dtype == torch.int8 and leaf["k_s"].dtype == torch.float32
+    assert tuple(leaf["k_s"].shape) == tuple(leaf["k"].shape[:-1])
+
+
+def test_bf16_attend_close_to_f32(gemma_base_logits):
+    j_base, t_base = gemma_base_logits
+    j_bf, t_bf = _decode_pair(*_pair_cfgs("gemma2-2b", attend_bf16=True))
+    assert _rel(t_bf, t_base) < 0.05
+    _close_to_reference(t_bf, j_bf, TOL)
+
+
+def test_serve_profile_preserves_decode_semantics(gemma_base_logits):
+    """The serve profile at max_seq 32 > window 8: ring local caches (f32),
+    int8 global caches, bf16-operand attention."""
+    j_base, t_base = gemma_base_logits
+    jcfg, tcfg = _profiled_cfgs("gemma2-2b")
+    assert tcfg.ring_window_cache and tcfg.kv_cache_int8 and tcfg.attend_bf16
+    assert tcfg.gqa_prefill_headshard            # n_heads 4 % tp 2: set, a no-op on one card
+    j_prof, t_prof = _decode_pair(jcfg, tcfg)
+    assert _rel(t_prof, t_base) < 0.06
+    _close_to_reference(t_prof, j_prof, TOL_INT8)
+    caches = build_model(tcfg).init_cache(2, 32, torch.float32, device="cpu")[0]
+    assert sorted(caches["s0_L"]) == ["k", "v"] and caches["s0_L"]["k"].shape[2] == 8
+    assert sorted(caches["s1_G"]) == ["k", "k_s", "v", "v_s"]
+
+
+@pytest.mark.parametrize("profile", [True, False])
+def test_int8_cache_no_longer_than_window_is_refused(profile):
+    """An int8 "L" cache that is no longer than the window would take the
+    ring branch, where the reference writes int8 codes without a scale and
+    drops k_s / v_s; the port refuses it rather than run another function."""
+    cfg = (_profiled_cfgs("gemma2-2b")[1] if profile else
+           dataclasses.replace(get_config("gemma2-2b", smoke=True), kv_cache_int8=True))
+    m = build_model(cfg)
+    for max_seq in (4, cfg.window):
+        with pytest.raises(NotImplementedError, match="max_seq > window"):
+            m.init_cache(2, max_seq, torch.float32, device="cpu")
+    m.init_cache(2, cfg.window + 1, torch.float32, device="cpu")
+    # the flag alone is no longer refused
+    transformer.check_supported(dataclasses.replace(cfg, attend_bf16=True))
+
+
+def test_stablelm_serve_profile_matches_reference():
+    """stablelm-12b smoke under the profile: int8 "D" caches, bf16 attend."""
+    jcfg, tcfg = _profiled_cfgs("stablelm-12b")
+    assert tcfg.kv_cache_int8 and tcfg.attend_bf16 and not tcfg.ring_window_cache
+    j_prof, t_prof = _decode_pair(jcfg, tcfg)
+    _close_to_reference(t_prof, j_prof, TOL_INT8)

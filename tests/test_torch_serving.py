@@ -344,3 +344,111 @@ def test_model_prepare_with_plan_and_calibration(planned_models):
         ServeEngine(tm, calibrated, batch=2, max_seq=32, device="cpu").generate(reqs)
     with pytest.raises(ValueError, match="raw quantized tree"):
         ServeEngine(tm, calibrated, batch=2, max_seq=32, plan=tplan, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# gemma2-2b smoke (2 x "LG", window 8, softcap 50; f32, W4A4 pallas prepared)
+# through the ring-window cache: at max_seq <= window every local cache
+# takes the ring branch without a flag; under the serve profile at max_seq 32
+# > window the local layers hold rings of 8 slots (prompts of up to 12 tokens
+# and decode wrap them) and the global layers int8 caches
+# ---------------------------------------------------------------------------
+
+
+def _pallas_pair(jcfg, tcfg):
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jp = jm.prepare(jm.quantize(jm.init(jax.random.PRNGKey(0)), JSpec(bw=4, ba=4, mode="pallas")))
+    return jm, jp, tm, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _gemma_cfgs(profile, **kw):
+    from repro.models.profiles import apply_perf_profile as japply
+    from repro_torch.models.profiles import apply_perf_profile as tapply
+
+    jcfg = dataclasses.replace(jget_config("gemma2-2b", smoke=True), dtype="float32", **kw)
+    tcfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), dtype="float32", **kw)
+    return japply(jcfg, profile, tp=2), tapply(tcfg, profile, tp=2)
+
+
+@pytest.fixture(scope="module")
+def gemma_ring():
+    """window 64 > max_seq 32: the flag-free ring branch (no wrap)."""
+    return _pallas_pair(*_gemma_cfgs("baseline", window=64))
+
+
+@pytest.fixture(scope="module")
+def gemma_profile():
+    return _pallas_pair(*_gemma_cfgs("serve"))
+
+
+def _serve_pair(jm, jp, tm, tp, reqs, decode):
+    jreqs = [JRequest(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs]
+    jeng = JServeEngine(jm, jp, batch=2, max_seq=32, decode=decode)
+    teng = _engine(tm, tp, decode)
+    want = jeng.generate(jreqs)
+    got = teng.generate(reqs)
+    return jeng, teng, want, got
+
+
+@pytest.mark.parametrize("which", ["ring", "profile"])
+def test_gemma2_ring_serve_matches_reference(which, gemma_ring, gemma_profile):
+    jm, jp, tm, tp = gemma_ring if which == "ring" else gemma_profile
+    caches = tm.init_cache(2, 32, torch.float32, device="cpu")[0]
+    if which == "ring":
+        assert caches["s0_L"]["k"].shape[2] == 32 <= tm.cfg.window
+    else:
+        assert caches["s0_L"]["k"].shape[2] == tm.cfg.window == 8
+        assert caches["s1_G"]["k"].dtype == torch.int8
+    reqs = _ragged(tm.cfg, seed=7)
+    jeng, teng, want, got = _serve_pair(jm, jp, tm, tp, reqs, "scan")
+    assert got == want
+    assert [len(o) for o in got] == [r.max_new_tokens for r in reqs]
+    assert teng.admissions == jeng.admissions
+    assert teng.host_syncs == jeng.host_syncs
+    assert teng.bucket_counts == jeng.bucket_counts
+
+
+def test_gemma2_profile_serves_under_every_decode_mode(gemma_profile):
+    """decode="scan", "chunked" and "loop" serve the ring and int8 caches:
+    scan == loop token for token, chunked == the reference's chunked."""
+    jm, jp, tm, tp = gemma_profile
+    reqs = _ragged(tm.cfg, seed=8)
+    scan = _engine(tm, tp, "scan").generate(reqs)
+    assert _engine(tm, tp, "loop").generate(reqs) == scan
+    jeng, teng, want, got = _serve_pair(jm, jp, tm, tp, reqs, "chunked")
+    assert got == want
+    assert teng.host_syncs == jeng.host_syncs == -(-len(reqs) // 2)
+
+
+def test_stablelm_serve_profile_matches_reference():
+    """stablelm-12b smoke under the profile: int8 "D" caches, bf16 attend."""
+    from repro.models.profiles import apply_perf_profile as japply
+    from repro_torch.models.profiles import apply_perf_profile as tapply
+
+    jcfg = japply(dataclasses.replace(jget_config("stablelm-12b", smoke=True), dtype="float32"),
+                  "serve")
+    tcfg = tapply(dataclasses.replace(get_config("stablelm-12b", smoke=True), dtype="float32"),
+                  "serve")
+    assert tcfg.kv_cache_int8 and tcfg.attend_bf16 and not tcfg.ring_window_cache
+    jm, jp, tm, tp = _pallas_pair(jcfg, tcfg)
+    reqs = _ragged(tm.cfg, seed=9)
+    jeng, teng, want, got = _serve_pair(jm, jp, tm, tp, reqs, "scan")
+    assert got == want
+    assert teng.admissions == jeng.admissions and teng.host_syncs == jeng.host_syncs
+
+
+def test_launch_serve_profile_flag(capsys):
+    """``python -m repro_torch.launch.serve --profile serve`` applies the
+    profile before building the model and says so."""
+    from repro_torch.launch import serve as launch_serve
+
+    outs = launch_serve.main(["--arch", "gemma2-2b", "--smoke", "--mode", "pallas",
+                              "--profile", "serve", "--device", "cpu", "--requests", "2",
+                              "--max-new", "4"])
+    printed = capsys.readouterr().out
+    assert "perf profile: serve\n" in printed
+    assert [len(o) for o in outs] == [4, 4]
+    launch_serve.main(["--arch", "gemma2-2b", "--smoke", "--mode", "pallas", "--device", "cpu",
+                       "--requests", "1", "--max-new", "2"])
+    assert "perf profile" not in capsys.readouterr().out
