@@ -5,8 +5,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-(``--phase tc_cp_async`` or ``--phase gemma2_serve`` runs one phase alone
-after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
+(``--phase tc_cp_async``, ``--phase gemma2_serve`` or ``--phase live_ops``
+runs one phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
@@ -46,7 +46,13 @@ measured on the card, so ``lut_stream_gemm`` runs on two of its routes
 (the int8 tensor cores at p <= 5; at p = 6-8, R = 64-256, the lookup route,
 ``lut_stream_lookup_sm90.cu``, the composed LUT slices streamed through
 shared memory), and the fixed-chunk driver (``decode="chunked"``); every
-planned serve gives phase 8's tokens.  Every
+planned serve gives phase 8's tokens.  Last, phase 8's model under live
+operations (phase 15, ``repro_torch.ckpt``, ``serve.ops``, ``ft``): a
+prepared checkpoint saved and restored onto the card, a ``LiveServer`` whose
+factory restores it, killed at three waves, with its durable request log
+replayed, a plan swap staged on a side stream and flipped at a wave
+boundary, the chaos sweep at a cut depth, and the kernels' refusal of
+inputs that require grad.  Every
 kernel's launch count is set to 0 just before a path and read just after.  It checks the card
 against the CPU and the continuous driver against the per-token loop.  Any
 failed phase exits non-zero.  It imports no JAX and nothing of the JAX
@@ -2303,11 +2309,596 @@ def phase_gemma2_serve(torch, dev, smi):
                 answers=answers)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: live operations at full width (prepared checkpoints, kill +
+# replay from the durable request log, hot-swap under a plan, the chaos sweep)
+# ---------------------------------------------------------------------------
+
+LIVE_DIR = ROOT / "build" / "live_ops"   # git-ignored; removed at the end of the phase
+LIVE_BUDGET_SEED = 15         # phase 15: new-token budgets in [4, 16] from default_rng(15) on
+                              # phase 8's prompts: 5 admission waves undisturbed
+LIVE_KILL_WAVES = (0, 1, 2)   # 15b: each attempt dies at the next of these waves (per-attempt
+                              # numbering, after the wave's tokens are durable): 3 restarts
+LIVE_FLIP_AFTER = 1           # 15c: the flip is requested once wave 1 has synced: it lands at 2
+LIVE_CHAOS_LAYERS = 4         # 15d: the chaos sweep's depth (width not cut): 10 points, each a
+                              # supervised serve, two of them saving a prepared checkpoint
+LIVE_CHAOS_POINTS = 2         # 15d: points per seam
+LIVE_STAGES_TIMED = 4         # 15c: stages run back to back while decode steps are timed
+LIVE_HELD_SLACK = 1 << 30     # 15b: what the card may hold above the raw tree when a restart
+                              # builds its engine (a second 17 GB serving tree fails it)
+
+
+def live_requests(cfg):
+    """Phase 8's 8 prompts with budgets in [4, 16] from
+    ``default_rng(LIVE_BUDGET_SEED)``: slots free at different waves, so a
+    serve has 5 admission waves (phase 8's has 2)."""
+    import numpy as np
+
+    _lens, reqs = serve_requests(cfg, 64, 16)
+    budgets = np.random.default_rng(LIVE_BUDGET_SEED).integers(4, 17, len(reqs))
+    return [dataclasses.replace(r, max_new_tokens=int(b)) for r, b in zip(reqs, budgets)]
+
+
+class ThreadSyncs:
+    """Synchronizing calls caught by ``torch.cuda.set_sync_debug_mode``,
+    counted by the thread that made them (the mode is process-wide: a stage
+    thread's syncs are not the serving thread's)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seen = []
+
+    def __enter__(self):
+        import threading
+
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing CUDA operation" in str(message):
+                self.seen.append(threading.get_ident())
+
+        warnings.showwarning = show
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._cm.__exit__(*exc)
+
+    def on(self, ident):
+        return sum(1 for t in self.seen if t == ident)
+
+
+def npy_payload_bytes(path):
+    """The bytes of a .npy file after its header."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        major, _minor = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if major == 1
+                else np.lib.format.read_array_header_2_0)
+        read(f)
+        header = f.tell()
+    return os.path.getsize(path) - header
+
+
+def check_grad_refusal(torch, dev):
+    """15e: each kernel entry refuses a CUDA input that requires grad with
+    grad enabled (the kernels have no backward), and launches under
+    ``torch.no_grad()``."""
+    import numpy as np
+
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(4, 64)).astype(np.float32)).to(dev)
+    q = api.quantize_linear(torch.from_numpy(rng.normal(size=(64, 32)).astype(np.float32))
+                            .to(dev), api.LutLinearSpec(bw=4))
+    qkv = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+           for s in ((1, 8, 2, 16), (1, 8, 1, 16), (1, 8, 1, 16))]
+    codes = [torch.from_numpy(rng.integers(0, 2, s).astype(np.float32)).to(dev)
+             for s in ((4, 12), (12, 3))]
+    calls = {
+        "lut_dequant_gemm": lambda g: ops.lut_dequant_gemm(
+            x.requires_grad_(g), q.codes, q.scale, bw=4, k=q.k),
+        "flash_attention": lambda g: ops.flash_attention(*(t.requires_grad_(g) for t in qkv)),
+        "lut_stream_gemm": lambda g: ops.lut_stream_gemm_full(
+            *(t.requires_grad_(g) for t in codes), api._lut_pack_cache(1, 1, 3, "int", "int")),
+    }
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call(True)
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward" in str(e)
+        check(refused[name], f"15e: {name} did not refuse a CUDA input that requires grad")
+    with torch.no_grad():
+        check(calls["lut_dequant_gemm"](True).grad_fn is None
+              and calls["flash_attention"](True).grad_fn is None,
+              "15e: under no_grad the kernels must launch")
+    log(f"phase 15e: the three kernel entries refuse CUDA inputs that require grad: {refused}")
+    return refused
+
+
+def check_cached_attention(torch, n_layers, run):
+    """15b at full width: the full-cache branch's attention
+    (``_attend_cache_invariant``) against the reference's function,
+    ``_attend`` over the cache with ``_key_mask``, on the inputs the served
+    forwards of ``run()`` give their first and last layers: the served output
+    is the f32 result in its dtype, and that f32 result is within
+    TOL_FLASH_F32 x max |out| of the plain one.  Returns (calls checked, the
+    largest relative error)."""
+    from repro_torch.models import attention as A
+
+    inner, seen, count = A._attend_cache_invariant, [], [0]
+
+    def recording(q, kc, vc, positions, **kw):
+        out = inner(q, kc, vc, positions, **kw)
+        if count[0] % n_layers in (0, n_layers - 1):   # the cache is written in place
+            seen.append((q.clone(), kc.clone(), vc.clone(), positions.clone(), kw, out.clone()))
+        count[0] += 1
+        return out
+
+    A._attend_cache_invariant = recording
+    try:
+        run()
+    finally:
+        A._attend_cache_invariant = inner
+    worst = 0.0
+    for q, kc, vc, positions, kw, out in seen:
+        q32 = q.to(torch.float32)
+        got = inner(q32, kc, vc, positions, **kw)
+        check(bool(torch.equal(got.to(out.dtype), out)),
+              "15b: the served cached attention is not its f32 result in the served dtype")
+        m = A._key_mask(torch.arange(kc.shape[1], device=q.device)[None], positions[:, :, None],
+                        kw["pad_len"], kw["window"])
+        want = A._attend(q32, kc, vc, mask=m[:, None], softcap_val=kw["softcap_val"],
+                         bf16_operands=kw["bf16_operands"])
+        worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+    check(len(seen) > 0 and worst <= TOL_FLASH_F32,
+          f"15b: the cached attention {worst:.3e} x max |out| from _attend with _key_mask "
+          f"over {len(seen)} calls (tolerance {TOL_FLASH_F32})")
+    return len(seen), worst
+
+
+def check_replay_identity(torch, dev, model, tree):
+    """15b: the identity a teacher-forced replay rests on, bit for bit: 30
+    tokens prefilled behind a pad of 5 and 18 more decoded one at a time,
+    against one prefill of all 48 behind a pad of 16 (what a restart does
+    with a partly decoded request).  Returns the last logits' max |diff|."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(1, model.cfg.vocab_size, (4, 48), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+    def left(t, pad):
+        x = torch.zeros((4, pad + t.shape[1]), dtype=torch.int32, device=dev)
+        x[:, pad:] = t
+        return x, torch.full((4,), pad, dtype=torch.int32, device=dev)
+
+    x, pad = left(toks[:, :30], 5)
+    caches = model.init_cache(4, 256, dtype=torch.float32, device=dev)
+    lg, caches = model.prefill(tree, x, caches, pad_len=pad)
+    pos = torch.full((4,), x.shape[1], dtype=torch.int32, device=dev)
+    for t in range(30, 48):
+        lg, caches = model.decode_step(tree, toks[:, t : t + 1], caches, pos, pad_len=pad)
+        pos = pos + 1
+    x, pad = left(toks, 16)
+    lg2, _ = model.prefill(tree, x, model.init_cache(4, 256, dtype=torch.float32, device=dev),
+                           pad_len=pad)
+    diff = (lg[:, -1] - lg2[:, -1]).abs().max().item()
+    check(bool(torch.equal(lg[:, -1], lg2[:, -1])),
+          f"15b: prefill + decode steps and one prefill behind another pad give other logits "
+          f"(max |diff| {diff}): a replay would not continue the stream")
+    return diff
+
+
+def phase_live_ops(torch, dev, cfg, smi, lserve=None):
+    """Phase 15: stablelm-12b at full width (40 layers, seed 0, bf16, W1A3 p=4
+    lut, calibrated as in phase 8) under live operations: (a) a prepared
+    checkpoint saved and restored onto the card serves phase 8's requests
+    with phase 8's tokens and launches; (b) a ``LiveServer`` whose factory
+    restores that checkpoint, killed at 3 waves, gives the undisturbed
+    tokens, one host sync per wave on every attempt, and its request log
+    replays them in a fresh server with 0 new waves; (c) a plan swap staged
+    on a side stream while waves decode lands at a wave boundary with the
+    same tokens, the launches split by route, and a drifting tree refused;
+    (d) the chaos sweep over its five seams at a cut depth; (e) the grad
+    refusal.  ``lserve`` is phase 8's result (None when the phase runs
+    alone: then the in-memory tree's own serve is the reference)."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.core.calibrate import calibrate_tree
+    from repro_torch.ft.chaos import SEAMS, chaos_sweep
+    from repro_torch.ft.supervisor import FailureInjector
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.ops import LiveServer, SwapController
+    from repro_torch.serve.serving import ServeEngine
+    from repro_torch.tune import plan_model
+    from repro_torch.tune.plan import (map_quantized_leaves, param_fingerprint,
+                                       quantized_leaf_items)
+
+    out = {"grad_refusal": check_grad_refusal(torch, dev)}
+    if cfg.n_layers != N_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=N_LAYERS)
+    model = build_model(cfg)
+    spec = LutLinearSpec(mode="lut", **LUT_SPEC)
+    shutil.rmtree(LIVE_DIR, ignore_errors=True)
+    LIVE_DIR.mkdir(parents=True)
+    ckdir = str(LIVE_DIR / "prepared")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        # --- (a) cold start from a prepared checkpoint ----------------------
+        t0 = time.perf_counter()
+        raw = model.init_quantized(spec, seed=0, device=dev)
+        cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        tokens = torch.as_tensor(cal, device=dev)
+        calibrated = calibrate_tree(lambda probed: model.forward(probed, tokens)[0], raw)
+        del raw
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prepared = model.prepare(calibrated, n_hint=4)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        leaves = ckpt._flatten(prepared, [])
+        tree_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        t0 = time.perf_counter()
+        step_dir = ckpt.save_prepared(ckdir, 0, prepared)
+        save_s = time.perf_counter() - t0
+        files = sorted(n for n in os.listdir(step_dir) if n.endswith(".npy"))
+        disk = sum(npy_payload_bytes(os.path.join(step_dir, n)) for n in files)
+        check(len(files) == len(leaves) and disk == tree_bytes,
+              f"15a: {len(files)} leaf files holding {disk} B, the tree {len(leaves)} leaves of "
+              f"{tree_bytes} B")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore_prepared(ckdir, 0, device=dev,
+                                         expect_fingerprint=param_fingerprint(prepared))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = ckpt._flatten(restored, [])
+        check(len(back) == len(leaves) and all(
+            a.dtype == b.dtype and a.device == b.device and a.shape == b.shape
+            and bool(torch.equal(a, b)) for a, b in zip(leaves, back)),
+            "15a: a restored tensor differs from the in-memory one (bits, dtype or device)")
+        check([(p, l.spec, l.k, l.p) for p, l in quantized_leaf_items(prepared)]
+              == [(p, l.spec, l.k, l.p) for p, l in quantized_leaf_items(restored)]
+              and param_fingerprint(restored) == param_fingerprint(prepared),
+              "15a: restored static fields or fingerprint differ")
+        log(f"phase 15a [{smi}]: {cfg.name} {cfg.n_layers} layers W1A3 p=4 lut: initialized + "
+            f"calibrated in {init_s:.1f} s, Model.prepare {prepare_s:.2f} s; prepared checkpoint "
+            f"of {len(leaves)} leaves, {tree_bytes:,} B (= the bytes on disk after the .npy "
+            f"headers): save {save_s:.2f} s ({tree_bytes / save_s / 1e9:.2f} GB/s), restore "
+            f"onto the card {restore_s:.2f} s ({tree_bytes / restore_s / 1e9:.2f} GB/s, the "
+            f"files just written: read from the page cache); every tensor bit-equal, same "
+            f"dtype and device, fingerprint {param_fingerprint(restored)}")
+        _lens, reqs8 = serve_requests(cfg, 64, 16)
+        if lserve is None:
+            eng = ServeEngine(model, prepared, batch=4, max_seq=256, device=dev)
+            eng.generate([dataclasses.replace(reqs8[0], prompt=reqs8[0].prompt[:16],
+                                              max_new_tokens=2)])
+            outs, _w, records, counts, _s = counted_generate(torch, eng, reqs8)
+            ref = dict(outs=outs, launches=counts["lut_stream_gemm"],
+                       launches_tc=counts["lut_stream_gemm_tc"],
+                       launches_canon=counts["lut_stream_gemm_canon"])
+            del eng
+        else:
+            ref = lserve
+        del prepared, leaves, back
+        torch.cuda.empty_cache()
+        eng = ServeEngine(model, restored, batch=4, max_seq=256, device=dev)
+        eng.generate([dataclasses.replace(reqs8[0], prompt=reqs8[0].prompt[:16],
+                                          max_new_tokens=2)])        # warmup
+        outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs8)
+        check_served(cfg, eng, outs, 16, records, counts, sync_warnings,
+                     kernel="lut_stream_gemm", what="15a")
+        digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+        check(outs == ref["outs"], f"15a: tokens (crc32 {digest:08x}) differ from phase 8's")
+        want_counts = (ref["launches"], ref["launches_tc"], ref["launches_canon"])
+        got_counts = (counts["lut_stream_gemm"], counts["lut_stream_gemm_tc"],
+                      counts["lut_stream_gemm_canon"])
+        check(got_counts == want_counts and counts["lut_stream_gemm_lookup"] == 0,
+              f"15a: launches (all, tensor cores, canon) {got_counts} != phase 8's {want_counts}")
+        out["a"] = dict(init_s=init_s, prepare_s=prepare_s, save_s=save_s, restore_s=restore_s,
+                        tree_bytes=tree_bytes, restore_gb_s=tree_bytes / restore_s / 1e9,
+                        leaves=len(files), tokens_crc32=digest, wall_s=wall,
+                        launches=counts["lut_stream_gemm"],
+                        launches_tc=counts["lut_stream_gemm_tc"],
+                        launches_canon=counts["lut_stream_gemm_canon"])
+        log(f"phase 15a: the restored tree served phase 8's requests with phase 8's tokens "
+            f"(crc32 {digest:08x}) and launches {got_counts}, all on the tensor cores")
+
+        # --- (b) kill + replay from the durable request log -----------------
+        n_att, att_err = check_cached_attention(
+            torch, cfg.n_layers, lambda: check_replay_identity(torch, dev, model, restored))
+        log("phase 15b: 30 tokens prefilled behind a pad of 5 + 18 decoded one by one give the "
+            "logits of one 48-token prefill behind a pad of 16, bit for bit (40 layers)")
+        log(f"phase 15b: the cached attention of the first and last layers ({n_att} calls: "
+            f"35- and 64-row prefills, 1-row decodes) is {att_err:.3e} x max |out| from "
+            f"_attend with _key_mask in f32 (tolerance {TOL_FLASH_F32})")
+        reqs = live_requests(cfg)
+        want_eng = ServeEngine(model, restored, batch=4, max_seq=256, device=dev)
+        want = want_eng.generate(reqs)
+        check(want_eng.host_syncs == 5, f"15b: the undisturbed serve took {want_eng.host_syncs} "
+                                        f"waves, the design 5")
+        del eng, want_eng, restored
+        torch.cuda.empty_cache()
+        base_held = torch.cuda.memory_allocated(dev)      # the calibrated raw tree alone
+        attempts, restores, restarts_at = [], [], []
+
+        class CountedEngine(ServeEngine):
+            """Each attempt's waves, host syncs and the serving thread's
+            synchronizing calls (the LiveServer sets ``on_wave`` before
+            calling generate)."""
+
+            def generate(self, requests):
+                recs, inner = [], self.on_wave
+                self.on_wave = lambda r: (recs.append(r), inner(r))
+                self.host_syncs = 0
+                with ThreadSyncs(torch) as syncs:
+                    try:
+                        return super().generate(requests)
+                    finally:
+                        attempts.append(dict(
+                            waves=len(recs), host_syncs=self.host_syncs,
+                            syncs=syncs.on(threading.get_ident()),
+                            prefills=sum(1 for r in recs if r.admitted),
+                            steps=sum(r.steps for r in recs),
+                            first_sync=recs[0].t_sync if recs else None))
+
+        def factory():
+            held = torch.cuda.memory_allocated(dev)
+            check(held <= base_held + LIVE_HELD_SLACK,
+                  f"15b: {held / 1e9:.2f} GB held when the factory runs, {base_held / 1e9:.2f} "
+                  f"GB without a serving tree: the previous engine was not freed")
+            t0 = time.perf_counter()
+            tree = ckpt.restore_prepared(ckdir, 0, device=dev)
+            torch.cuda.synchronize()
+            restores.append(dict(seconds=time.perf_counter() - t0, held_before_gb=held / 1e9))
+            return CountedEngine(model, tree, batch=4, max_seq=256, device=dev)
+
+        log_path = str(LIVE_DIR / "serve.jsonl")
+        inj = FailureInjector(fail_at_waves=LIVE_KILL_WAVES)
+        srv = LiveServer(factory, log_path=log_path, injector=inj,
+                         on_restart=lambda n, e: restarts_at.append(time.perf_counter()))
+        reset_launches()
+        t0 = time.perf_counter()
+        got = srv.serve(reqs)
+        live_wall = time.perf_counter() - t0
+        live_counts = read_launches()
+        check(sorted(w for _k, w in inj.fired) == list(LIVE_KILL_WAVES)
+              and srv.restarts == len(LIVE_KILL_WAVES) and srv.rebuilds == len(LIVE_KILL_WAVES) + 1,
+              f"15b: fired {sorted(inj.fired)}, restarts {srv.restarts}, rebuilds {srv.rebuilds}")
+        check(got == want and not srv.quarantined and not srv.shed
+              and all(len(o) == r.max_new_tokens for o, r in zip(got, reqs)),
+              "15b: the killed serve's tokens differ from the undisturbed serve's, or a "
+              "request was dropped")
+        check(all(a["syncs"] == a["host_syncs"] == a["waves"] for a in attempts),
+              f"15b: host syncs per attempt (serving thread, counted, waves): "
+              f"{[(a['syncs'], a['host_syncs'], a['waves']) for a in attempts]}")
+        calls = cfg.n_layers * sum(a["prefills"] + a["steps"] for a in attempts)
+        check(live_counts["lut_stream_gemm"] == live_counts["lut_stream_gemm_tc"]
+              == live_counts["lut_stream_gemm_canon"] == 7 * calls,
+              f"15b: launches {live_counts} != 7 x {calls} calls, all on the tensor cores")
+        to_first = [a["first_sync"] - t for a, t in zip(attempts[1:], restarts_at)]
+        restore_list = ", ".join("%.2f" % r["seconds"] for r in restores)
+        held_list = ", ".join("%.2f" % r["held_before_gb"] for r in restores)
+        log(f"phase 15b [{smi}]: LiveServer killed at waves {list(LIVE_KILL_WAVES)} of its "
+            f"attempts: {srv.restarts} restarts, {srv.rebuilds} engines restored from the "
+            f"checkpoint ({restore_list} s; {held_list} GB held before each), 0 dropped, "
+            f"tokens equal to the undisturbed serve's; waves per attempt "
+            f"{[a['waves'] for a in attempts]}, one host sync a wave on the serving thread; "
+            f"restart to first token {', '.join('%.2f' % x for x in to_first)} s; "
+            f"{live_wall:.2f} s in all; lut_stream_gemm {live_counts['lut_stream_gemm']} "
+            f"launches (tensor cores)")
+        out["b"] = dict(restarts=srv.restarts, rebuilds=srv.rebuilds, kill_waves=LIVE_KILL_WAVES,
+                        waves=[a["waves"] for a in attempts],
+                        restore_s=[r["seconds"] for r in restores],
+                        restart_to_first_token_s=to_first, wall_s=live_wall,
+                        launches=live_counts["lut_stream_gemm"],
+                        launches_tc=live_counts["lut_stream_gemm_tc"],
+                        launches_canon=live_counts["lut_stream_gemm_canon"])
+        srv.engine = None                 # its tree goes before the fresh server restores one
+        replay_attempts = len(attempts)
+        fresh = LiveServer(factory, log_path=log_path)
+        check(fresh.serve(reqs) == want and fresh.engine.host_syncs == 0
+              and fresh.rebuilds == 1 and len(attempts) == replay_attempts,
+              "15b: the request log did not replay to the same tokens with 0 new waves")
+        log("phase 15b: a fresh LiveServer over the same log replays every token, 0 new waves")
+        tree_a = fresh.engine.params
+        del srv, fresh
+        torch.cuda.empty_cache()
+
+        # --- (c) hot-swap under phase 13's 16 GiB plan -----------------------
+        plan = plan_model(calibrated, lut_budget_bytes=16 << 30, n_hint=4, measure=False)
+        layers_want, total_want, tables_want = PLANS_WANT[16]
+        check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan.layers.items()}
+              == layers_want and plan.total_bytes == total_want,
+              "15c: the 16 GiB analytic plan differs from phase 13's")
+        routes = plan_routes(plan)
+        n_tc, n_lookup = (sum(r == w for r in routes.values()) for w in ("tc", "lookup"))
+        drift = map_quantized_leaves(tree_a, lambda _p, leaf: dataclasses.replace(
+            leaf, spec=dataclasses.replace(leaf.spec, bw=2)))
+        eng = ServeEngine(model, tree_a, batch=4, max_seq=256, device=dev)
+        ctl = SwapController(eng)
+        wave_counts, flip = {}, {}
+        waved, go = threading.Event(), threading.Event()
+
+        def on_wave(rec):
+            wave_counts[rec.wave] = read_launches()
+            waved.set()
+            if rec.wave == LIVE_FLIP_AFTER:
+                # Hold this boundary until the operator's flip is parked at
+                # the engine: it lands at the next one (a thread join and a
+                # lock, no CUDA sync on this thread).
+                go.set()
+                while "error" not in flip and not ctl.status()["flip_pending"] \
+                        and eng.swaps == 0:
+                    time.sleep(0.001)
+
+        def operator():
+            try:
+                staged = flip["staged"] = ctl.stage(qparams=calibrated, plan=plan)
+                waved.wait()
+                bad = ctl.stage(params=drift)
+                try:
+                    ctl.flip(bad, timeout=60)
+                    flip["drift"] = "accepted"
+                except ValueError as e:
+                    flip["drift"] = str(e)[:160]
+                flip["after_drift"] = (eng.params is tree_a, eng.swaps)
+                go.wait()
+                flip["report"] = ctl.flip(staged, timeout=900)
+            except Exception as e:          # reported by the check after the serve
+                flip["error"] = repr(e)
+
+        eng.generate([dataclasses.replace(reqs[0], prompt=reqs[0].prompt[:16],
+                                          max_new_tokens=2)])        # warmup
+        op = threading.Thread(target=operator, daemon=True)
+        records = []
+        eng.on_wave = lambda r: (records.append(r), on_wave(r))
+        eng.host_syncs = 0
+        reset_launches()
+        with ThreadSyncs(torch) as syncs:
+            op.start()
+            t0 = time.perf_counter()
+            got = eng.generate(reqs)
+            swap_wall = time.perf_counter() - t0
+            op.join(900)
+        final = read_launches()
+        check("error" not in flip and not op.is_alive(), f"15c: the operator failed: {flip}")
+        rep = flip["report"]
+        check(flip["drift"].startswith("incompatible hot-swap refused")
+              and "bw 1 -> 2" in flip["drift"] and flip["after_drift"] == (True, 0),
+              f"15c: the drifting tree was not refused with the active tree untouched: {flip}")
+        check(got == want, "15c: tokens across the swap differ from the undisturbed serve's")
+        check(eng.swaps == 1 and eng.last_swap_wave == LIVE_FLIP_AFTER + 1 == rep.wave
+              and eng.params is flip["staged"].tree and flip["staged"].ready is not None,
+              f"15c: swaps {eng.swaps}, landed at wave {eng.last_swap_wave}, want "
+              f"{LIVE_FLIP_AFTER + 1}")
+        serving = threading.get_ident()
+        check(syncs.on(serving) == eng.host_syncs == len(records),
+              f"15c: {syncs.on(serving)} synchronizing calls on the serving thread, "
+              f"{len(records)} waves")
+        before = [r for r in records if r.wave <= LIVE_FLIP_AFTER]
+        after = [r for r in records if r.wave > LIVE_FLIP_AFTER]
+        calls_before = cfg.n_layers * sum((1 if r.admitted else 0) + r.steps for r in before)
+        calls_after = cfg.n_layers * sum((1 if r.admitted else 0) + r.steps for r in after)
+        mid = wave_counts[LIVE_FLIP_AFTER]
+        split = {"before": {k: mid[k] for k in ("lut_stream_gemm_tc", "lut_stream_gemm_lookup",
+                                                "lut_stream_gemm_canon")},
+                 "after": {k: final[k] - mid[k] for k in ("lut_stream_gemm_tc",
+                                                          "lut_stream_gemm_lookup",
+                                                          "lut_stream_gemm_canon")}}
+        want_split = {"before": {"lut_stream_gemm_tc": 7 * calls_before,
+                                 "lut_stream_gemm_lookup": 0,
+                                 "lut_stream_gemm_canon": 7 * calls_before},
+                      "after": {"lut_stream_gemm_tc": n_tc * calls_after,
+                                "lut_stream_gemm_lookup": n_lookup * calls_after,
+                                "lut_stream_gemm_canon": 7 * calls_after}}
+        check(split == want_split and final["lut_stream_gemm"] ==
+              final["lut_stream_gemm_tc"] + final["lut_stream_gemm_lookup"],
+              f"15c: launches by route {split} != {want_split} (p = 4 before the flip; after "
+              f"it {n_tc} projections on the tensor cores, {n_lookup} on the lookup route)")
+        others = len(syncs.seen) - syncs.on(serving)
+        log(f"phase 15c [{smi}]: plan swap staged on a side stream (stage {rep.stage_seconds:.2f} "
+            f"s) while waves decoded, flip requested after wave {LIVE_FLIP_AFTER} landed at "
+            f"wave {rep.wave} ({rep.flip_wait_seconds:.3f} s from the request); tokens equal; "
+            f"launches by route {split}; {syncs.on(serving)} syncs on the serving thread "
+            f"(one a wave), {others} on the stage / operator threads; the bw-drifting tree "
+            f"refused, active tree untouched; {swap_wall:.2f} s in all")
+
+        # Decode steps with a stage running on the side stream, and without.
+        caches = eng._new_cache()
+        tok = torch.randint(0, cfg.vocab_size, (4, 1), device=dev, dtype=torch.int32)
+        pad = torch.zeros((4,), dtype=torch.int32, device=dev)
+        pos = torch.full((4,), 128, dtype=torch.int32, device=dev)
+        step = lambda: model.decode_step(eng.params, tok, caches, pos, pad_len=pad)
+        step()
+
+        def timed_step():
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            w0 = time.perf_counter()
+            e0.record()
+            step()
+            e1.record()
+            e1.synchronize()
+            return time.perf_counter() - w0, e0.elapsed_time(e1)
+
+        during = []
+        for _ in range(LIVE_STAGES_TIMED):
+            side = ctl.stage(qparams=calibrated, plan=plan)
+            while side.running:
+                during.append(timed_step())
+            side.wait(900)
+            del side
+        quiet = [timed_step() for _ in range(max(5, len(during)))]
+        mean = lambda xs, i: sum(x[i] for x in xs) / max(1, len(xs))
+        out["c"] = dict(stage_s=rep.stage_seconds, flip_wave=rep.wave,
+                        flip_wait_s=rep.flip_wait_seconds, wall_s=swap_wall, split=split,
+                        drift_refused=flip["drift"][:80], serving_syncs=syncs.on(serving),
+                        other_thread_syncs=others,
+                        step_with_stage_ms=mean(during, 1), step_with_stage_wall_ms=1e3 * mean(during, 0),
+                        step_quiet_ms=mean(quiet, 1), step_quiet_wall_ms=1e3 * mean(quiet, 0),
+                        steps_during_stage=len(during),
+                        launches=final["lut_stream_gemm"], launches_tc=final["lut_stream_gemm_tc"],
+                        launches_lookup=final["lut_stream_gemm_lookup"],
+                        launches_canon=final["lut_stream_gemm_canon"])
+        log(f"phase 15c [{smi}]: decode step B=4 at 128 under the plan tree: "
+            f"{out['c']['step_with_stage_ms']:.2f} ms on CUDA events "
+            f"({out['c']['step_with_stage_wall_ms']:.2f} ms wall) over {len(during)} steps "
+            f"while {LIVE_STAGES_TIMED} stages ran on the side stream one after another, "
+            f"{out['c']['step_quiet_ms']:.2f} ms "
+            f"({out['c']['step_quiet_wall_ms']:.2f} ms wall) without")
+        del eng, ctl, caches, tree_a, drift, calibrated
+        torch.cuda.empty_cache()
+
+        # --- (d) the chaos sweep, depth cut --------------------------------
+        cfg_d = dataclasses.replace(cfg, n_layers=LIVE_CHAOS_LAYERS)
+        model_d = build_model(cfg_d)
+        tree_d = model_d.prepare(model_d.init_quantized(spec, seed=0, device=dev), calibrate=cal,
+                                 n_hint=4)
+        t0 = time.perf_counter()
+        rep_d = chaos_sweep(model=model_d, prepared=tree_d, requests=reqs,
+                            workdir=str(LIVE_DIR / "chaos"), batch=4, max_seq=256,
+                            points_per_seam=LIVE_CHAOS_POINTS, seed=0, device=dev)
+        chaos_s = time.perf_counter() - t0
+        check(rep_d["points"] == len(SEAMS) * LIVE_CHAOS_POINTS and rep_d["dropped"] == 0
+              and rep_d["token_mismatches"] == 0 and rep_d["restarts"] > 0
+              and all(r["fired"] for r in rep_d["results"])
+              and rep_d["cold_fallbacks"] >= LIVE_CHAOS_POINTS,
+              f"15d: chaos sweep {({k: v for k, v in rep_d.items() if k != 'results'})}, "
+              f"points {[(r['seam'], r['point'], r['fired'], r['dropped'], r['token_mismatches']) for r in rep_d['results']]}")
+        out["d"] = dict(layers=LIVE_CHAOS_LAYERS, seconds=chaos_s,
+                        **{k: v for k, v in rep_d.items() if k != "results"},
+                        rebuilds=sum(r["rebuilds"] for r in rep_d["results"]))
+        log(f"phase 15d [{smi}]: chaos sweep at full width, {LIVE_CHAOS_LAYERS} layers (depth "
+            f"cut), seams {list(SEAMS)} x {LIVE_CHAOS_POINTS} points: every fault fired, 0 "
+            f"dropped, 0 token mismatches, {rep_d['restarts']} restarts, "
+            f"{out['d']['rebuilds']} engines built, {rep_d['cold_fallbacks']} torn-checkpoint "
+            f"fallbacks to the cold tree, {chaos_s:.1f} s")
+        del tree_d
+    finally:
+        shutil.rmtree(LIVE_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve"),
+    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, or phase 14)")
+                         "JSON line (phase 6's cp.async repeats, phase 14 or phase 15)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -2364,7 +2955,8 @@ def main(argv=None) -> int:
                     f"{wgmma_waits(info['path'])}")
         cfg = get_config("stablelm-12b")
         alone = {"tc_cp_async": lambda: phase_tc_cp_async(torch, dev, cfg, hw.H100_SXM, smi),
-                 "gemma2_serve": lambda: phase_gemma2_serve(torch, dev, smi)}
+                 "gemma2_serve": lambda: phase_gemma2_serve(torch, dev, smi),
+                 "live_ops": lambda: phase_live_ops(torch, dev, cfg, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -2396,6 +2988,7 @@ def main(argv=None) -> int:
                             kernel="lut_dequant_gemm", max_prompt=96, max_new=32)
         cpu_rel, lut_cpu_rel = phase_cpu_and_loop(torch, dev, cfg)
         gserve = alone["gemma2_serve"]()
+        live = phase_live_ops(torch, dev, cfg, smi, lserve)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2501,6 +3094,18 @@ def main(argv=None) -> int:
             **{name: {key: r[key] for key in PLANNED_KEYS if key in r}
                for name, r in planned.items()},
             "candidates": planned["measured_16GiB"]["candidates"]},
+        "live_ops": {
+            "at": "phase 15: phase 8's model at full width; a: phase 8's requests served from "
+                  "the restored prepared checkpoint; b: the LiveServer serve killed at 3 waves "
+                  "(all attempts); c: the serve across the hot-swap to the 16 GiB plan",
+            **{k: {key: live[k][key] for key in ("launches", "launches_tc", "launches_lookup")
+                   if key in live[k]} for k in ("a", "b", "c")},
+            "restore_s": live["a"]["restore_s"], "restore_gb_s": live["a"]["restore_gb_s"],
+            "prepare_s": live["a"]["prepare_s"], "save_s": live["a"]["save_s"],
+            "restart_to_first_token_s": live["b"]["restart_to_first_token_s"],
+            "stage_s": live["c"]["stage_s"], "flip_wave": live["c"]["flip_wave"],
+            "step_with_stage_ms": live["c"]["step_with_stage_ms"],
+            "step_quiet_ms": live["c"]["step_quiet_ms"], "chaos": live["d"]},
         "ok": True,
     }, {
         "name": "lut_stream_gemm_lookup",
@@ -2522,6 +3127,7 @@ def main(argv=None) -> int:
                      "prefill": lookup_times(p, 512, f"N=4x128, W1A3 p={p}")}
                  for p in LOOKUP_PS},
         "planned_serve": {name: {"launches": r["launches_lookup"]} for name, r in planned.items()},
+        "live_ops": {"c": {"launches": live["c"]["launches_lookup"]}},
         "ok": True,
     }, {
         "name": "lut_stream_gemm_canon",
@@ -2537,6 +3143,7 @@ def main(argv=None) -> int:
                                 "the torch chain of argsort, gather, rank, Lehmer id)"),
         "prefill": canon_times(srows, 512, "one layer's 7 projections at N=4x128"),
         "planned_serve": {name: {"launches": r["launches_canon"]} for name, r in planned.items()},
+        "live_ops": {k: {"launches": live[k]["launches_canon"]} for k in ("a", "b", "c")},
         "ok": True,
     }, {
         "name": "flash_attention",

@@ -133,6 +133,10 @@ def prepare_linear(
         wcodes = packing.unpack_bits(q.codes, spec.bw)[:, : q.k]     # [F, K]
     if spec.mode in ("lut", "stream"):
         pack = _lut_pack_cache(spec.bw, spec.ba, p, spec.w_kind, spec.a_kind)
+        # The pack's tables on the weights' device, uploaded here once: the
+        # first serve under a new p (a hot-swapped plan) copies nothing from
+        # the host, so its waves keep their one host sync.
+        engine.device_tables(pack, q.codes.device)
         if spec.mode == "stream" and host_products:
             # One prepare_stream_weights call yields both the packed group
             # indices (on the weights' device) and the host one-hot.

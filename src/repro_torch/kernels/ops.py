@@ -3,6 +3,11 @@
 Each one launches its CUDA kernel for a CUDA tensor and runs the kernel's
 plain version (:mod:`repro_torch.kernels.ref`) only for a CPU tensor.  There
 is no fallback: on a CUDA tensor the kernel runs or the call raises.
+
+The kernels have no backward: a CUDA call whose input requires grad, with
+grad enabled, raises (as the reference's Pallas kernels do under
+``jax.grad``) instead of returning a result with no autograd path.  The
+plain versions on the CPU are differentiable torch ops.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ def lut_dequant_gemm(
 ) -> torch.Tensor:
     """Packed-code GEMM.  x [B,K] -> y [B,F] float32."""
     grid = _grid(bw, grid_kind)
+    _refuse_grad("lut_dequant_gemm", x, codes, scale)
     if x.device.type == "cuda":
         return _dq.lut_dequant_gemm(x, codes, scale, bw=bw, k=k, grid_values=grid)
     if x.device.type == "cpu":
@@ -56,6 +62,7 @@ def lut_stream_gemm_full(
     or its plain version for a CPU tensor, and subtracts the exact pad
     correction.
     """
+    _refuse_grad("lut_stream_gemm", wcodes, acodes)
     if pack.canonical.dtype.kind not in "iu":
         raise ValueError(
             "lut_stream_gemm_full accumulates in int32; float-grid packs run "
@@ -87,11 +94,24 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax attention.  q [B,S,H,hd], k/v [B,T,Hkv,hd] -> [B,S,H,hd]
     in ``q.dtype``, computed in f32."""
+    _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cuda":
         return _fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+
+
+def _refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise for a CUDA input that requires grad while grad is enabled: the
+    kernel fills its output through ctypes, so the result would carry no
+    ``grad_fn`` and the loss would silently get no gradient through it."""
+    if torch.is_grad_enabled() and any(t.is_cuda and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: a CUDA input requires grad (the reference's "
+            f"Pallas kernel raises under jax.grad too); call it under torch.no_grad() "
+            f"or detach the inputs"
+        )
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,10 +17,18 @@ Examples:
     # serve profile (ring-window local caches, int8 global caches, bf16-operand
     # attention)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --full --mode pallas --profile serve --batch 4 --max-seq 8192 --prompt-len 4000 --max-new 64
+    # the GPU, full width, int-LUT: the first run prepares and saves the
+    # serve-ready tree, a rerun restores it (skipping quantize + prepare);
+    # every wave's tokens go to a durable log, and a rerun over the same log
+    # replays them (0 new waves)
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --mode lut --bw 1 --ba 3 --calibrate 32 --batch 4 --prepared-ckpt build/serve_ckpt --request-log build/serve.jsonl
     # the CPU, smoke size, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --bw 1 --ba 3 --plan plan.json --decode chunked --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --prepared-ckpt /tmp/lo/ckpt --request-log /tmp/lo/serve.jsonl --device cpu
+
+Not yet ported: ``--trace`` and ``--metrics`` (observability, ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -84,9 +92,23 @@ def build_args(argv=None):
                          "synthetic calibration batch of this many tokens at "
                          "prepare time: the int-LUT engines become "
                          "batch-composition invariant")
+    ap.add_argument("--prepared-ckpt", default=None, metavar="DIR",
+                    help="prepared-pytree checkpoint dir: restore the serve-ready tree "
+                         "from it when present (fast cold start, skipping quantize + "
+                         "prepare), else save one after preparing; either package's "
+                         "checkpoint restores")
+    ap.add_argument("--request-log", default=None, metavar="PATH",
+                    help="serve under repro_torch.serve.ops.LiveServer with a durable "
+                         "request log at PATH: every admission wave's tokens are "
+                         "fsynced, a crashed engine restarts and replays its in-flight "
+                         "slots token for token, and a rerun over the same log replays "
+                         "what it holds (requires --decode scan)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    if args.request_log and args.decode != "scan":
+        ap.error("--request-log needs the continuous driver (--decode scan): "
+                 "wave-level token logging is its host-sync hook")
     if args.plan and args.autotune is not None:
         ap.error("--plan and --autotune are mutually exclusive")
     if args.calibrate is not None and (
@@ -98,13 +120,9 @@ def build_args(argv=None):
     return args
 
 
-def main(argv=None):
-    args = build_args(argv)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    if args.profile != "baseline":
-        cfg = apply_perf_profile(cfg, args.profile)
-        print(f"perf profile: {args.profile}")
-    model = build_model(cfg)
+def _quantize_and_prepare(args, cfg, model):
+    """The seeded weights, quantized and prepared at one spec (or left raw
+    for a plan, which ``ServeEngine`` applies); returns ``(params, plan)``."""
     t0 = time.time()
     params = model.init_quantized(
         LutLinearSpec(bw=args.bw, ba=args.ba, mode=args.mode), seed=0, device=args.device
@@ -139,18 +157,61 @@ def main(argv=None):
         else:
             params = model.prepare(params, n_hint=args.batch)
             print(f"prepared weight-stationary serve products in {time.time()-t0:.1f}s")
+    return params, plan
+
+
+def main(argv=None):
+    args = build_args(argv)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.profile != "baseline":
+        cfg = apply_perf_profile(cfg, args.profile)
+        print(f"perf profile: {args.profile}")
+    model = build_model(cfg)
+    plan = None
+    restored = False
+    if args.prepared_ckpt:
+        from repro_torch.ckpt import checkpoint as ckpt
+
+        latest = ckpt.latest_step(args.prepared_ckpt)
+        if latest is not None:
+            params, dt = timing.timed(ckpt.restore_prepared, args.prepared_ckpt, latest,
+                                      device=args.device)
+            print(f"restored prepared checkpoint step {latest} from {args.prepared_ckpt} "
+                  f"in {dt:.2f}s (skipped quantize + prepare)")
+            restored = True
+    if not restored:
+        params, plan = _quantize_and_prepare(args, cfg, model)
     # ``plan`` routes through ServeEngine's autotuned path (spec rewrite +
     # prepare happen inside, fingerprint-checked).
     eng = ServeEngine(model, params, batch=args.batch, max_seq=args.max_seq,
                       decode=args.decode, prompt_bucket=args.prompt_bucket,
                       plan=plan, device=args.device)
+    if args.prepared_ckpt and not restored and (args.prepare or plan is not None):
+        _path, dt = timing.timed(ckpt.save_prepared, args.prepared_ckpt, 0, eng.params)
+        print(f"saved prepared checkpoint to {args.prepared_ckpt} in {dt:.2f}s (the next "
+              f"cold start restores it)")
     rng = np.random.default_rng(0)
     reqs = [
         Request(prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
                 max_new_tokens=args.max_new)
         for _ in range(args.requests)
     ]
-    outs, dt = timing.timed(eng.generate, reqs)
+    if args.request_log:
+        from repro_torch.serve.ops import LiveServer
+
+        served = eng.params      # prepared / plan-applied
+        server = LiveServer(
+            lambda: ServeEngine(model, served, batch=args.batch, max_seq=args.max_seq,
+                                decode="scan", prompt_bucket=args.prompt_bucket,
+                                device=args.device),
+            log_path=args.request_log,
+        )
+        del eng
+        outs, dt = timing.timed(server.serve, reqs)
+        eng = server.engine
+        print(f"live serve: {server.restarts} restarts, log at {args.request_log}")
+    else:
+        outs, dt = timing.timed(eng.generate, reqs)
     total_tokens = sum(len(o) for o in outs)
     print(f"served {len(reqs)} requests, {total_tokens} tokens in {dt:.2f}s "
           f"({total_tokens/dt:.1f} tok/s), {eng.host_syncs} host syncs")

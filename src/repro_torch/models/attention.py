@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -131,6 +132,69 @@ def causal_mask(s: int, t: int, *, offset: int = 0, window: Optional[int] = None
 # chunks so scores never materialize at [S, S].
 CHUNK_THRESHOLD = 4096
 CHUNK_SIZE = 512
+# The full-cache branch attends in blocks of this many query rows.
+INVARIANT_ROWS = 32
+
+
+def _attend_cache_invariant(
+    q: torch.Tensor,            # [B, S, H, hd]
+    kc: torch.Tensor,           # [B, T, Hkv, hd] the cache, buffer order
+    vc: torch.Tensor,
+    positions: torch.Tensor,    # [B, S] query positions (logical)
+    *,
+    window: Optional[int],
+    softcap_val: Optional[float],
+    bf16_operands: bool,
+    pad_len: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """The cached branch's attention, computed so that a query row's bits do
+    not depend on how many rows share the call or on its row's left pad:
+    the function is ``_attend`` over the cache with ``_key_mask``.
+
+    Served on the card, a row is decoded alone (S = 1) and, after a restart,
+    prefilled among S rows behind another pad (the request log's
+    teacher-forced replay).  cuBLAS picks its GEMM kernel by the shape, and
+    the softmax and the GEMMs group their sums by buffer index, so the same
+    row can come out with other last bits — which the 3-bit activation
+    quantizer of the next layer turns into other codes.  Here each row's
+    keys are first rolled into logical order (key ``j`` at index ``j``, the
+    pad wrapped past the end and masked) and laid out once for the products,
+    and the queries go through in blocks of :data:`INVARIANT_ROWS` rows, the
+    last block padded with masked rows: every product has one shape, every
+    sum one grouping."""
+    b, s, h, hd = q.shape
+    t, hkv = kc.shape[1], kc.shape[2]
+    rep = h // hkv
+    n = INVARIANT_ROWS
+    blocks = -(-s // n)
+    j = torch.arange(t, device=q.device)
+    shift = 0 if pad_len is None else pad_len.long()[:, None]
+    idx = (j[None, :] + shift) % t if pad_len is not None else j[None, :].expand(b, t)
+    valid = j[None, :] < t - shift                                        # [B|1, T]
+    m = (j[None, None, :] <= positions[:, :, None]) & valid[:, None, :]  # [B, S, T]
+    if window is not None:
+        m = m & (j[None, None, :] > positions[:, :, None] - window)
+    op = _bf16_rounded if bf16_operands else (lambda x: x.to(torch.float32))
+    # Keys and values rolled into logical order and laid out for the
+    # products in one gather each; the queries in their blocks in one copy.
+    kt = op(torch.gather(kc.permute(0, 2, 3, 1), 3,
+                         idx[:, None, None, :].expand(b, hkv, hd, t)))    # [B, Hkv, hd, T]
+    vt = op(torch.gather(vc.permute(0, 2, 1, 3), 2,
+                         idx[:, None, :, None].expand(b, hkv, t, hd)))    # [B, Hkv, T, hd]
+    if blocks * n != s:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, blocks * n - s))
+        m = torch.nn.functional.pad(m, (0, 0, 0, blocks * n - s))
+    qb = op(q).view(b, blocks, n, hkv, rep, hd).permute(1, 0, 3, 4, 2, 5).contiguous()
+    mb = m.view(b, 1, 1, blocks, n, t)
+    outs = []
+    for i in range(blocks):                         # [B, Hkv, rep * n, hd] each
+        scores = torch.matmul(qb[i].view(b, hkv, rep * n, hd), kt) / math.sqrt(hd)
+        scores = torch.where(mb[:, :, :, i], layers.softcap(scores, softcap_val)
+                             .view(b, hkv, rep, n, t), MASK_FILL)
+        w = op(torch.softmax(scores, dim=-1)).view(b, hkv, rep * n, t)
+        outs.append(torch.matmul(w, vt))
+    out = torch.stack(outs).view(blocks, b, hkv, rep, n, hd).permute(1, 0, 4, 2, 3, 5)
+    return out.reshape(b, blocks * n, h, hd)[:, :s].to(q.dtype)
 
 
 def _attend_chunked(
@@ -164,13 +228,15 @@ def _attend_chunked(
 
 def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per-(token, head) row quantization: [B,S,H,hd] ->
-    (int8 codes, f32 scales [B,S,H]).  ``torch.round`` rounds half to even,
-    as ``jnp.round`` does, so equal inputs give the reference's codes and
-    scales bit for bit.  (Under ``jit`` XLA turns the reference's ``/ 127``
-    into a product with ``f32(1/127)``: its jitted scales may differ in the
-    last bit.)"""
+    (int8 codes, f32 scales [B,S,H]).  The reference serves this function
+    under ``jit``, where XLA turns its ``/ 127`` into a product with
+    ``f32(1/127)``; the scale here is that product, so it equals the served
+    (jitted) scale bit for bit, where a true quotient can differ in the last
+    bit.  ``torch.round`` rounds half to even, as ``jnp.round`` does, so the
+    codes are the reference's too."""
     xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    recip = float(np.float32(1.0) / np.float32(127.0))
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) * recip
     codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return codes, scale
 
@@ -272,17 +338,12 @@ def gqa_attention(
             kc = _cache_write(cache["k"], k, pos)
             vc = _cache_write(cache["v"], v, pos)
             new_cache = {"k": kc, "v": vc}
-        if chunked:
-            out = _attend_chunked(
-                q, kc, vc, positions, window=window, softcap_val=softcap_val,
-                causal=True, bf16_operands=bf16, pad_len=pad_len,
-            )
-        else:
-            t = kc.shape[1]
-            m = _key_mask(torch.arange(t, device=x.device)[None, :],
-                          positions[:, :, None], pad_len, window)   # [B, S, T]
-            out = _attend(q, kc, vc, mask=m[:, None], softcap_val=softcap_val,
-                          bf16_operands=bf16)
+        # One form at every S: its blocks bound the scores as the reference's
+        # query chunks do (S > CHUNK_THRESHOLD), and keep a row's bits.
+        out = _attend_cache_invariant(
+            q, kc, vc, positions, window=window, softcap_val=softcap_val,
+            bf16_operands=bf16, pad_len=pad_len,
+        )
     else:
         new_cache = None
         if cfg.attn_impl == "flash":   # attend_bf16 does not reach it, as in the reference

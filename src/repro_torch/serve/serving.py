@@ -22,7 +22,26 @@ Three schedulers share the prefill/decode functions:
 the raw quantized tree is prepared leaf by leaf at the plan's configs
 (``Model.prepare(plan=)``, fingerprint-checked).
 
-Not yet ported: ``obs=`` (observability) and hot-swap (live ops).
+**Live operations** (:mod:`repro_torch.serve.ops` drives these hooks):
+
+* *Hot-swap*: :meth:`ServeEngine.request_swap` stages a replacement tree;
+  :meth:`ServeEngine._poll_swap`, the only place ``self.params`` changes
+  while serving, installs it at the next admission-wave boundary of the
+  continuous driver, at the next chunk boundary of the other two, at the end
+  of ``generate``, or at once when idle.  In-flight slots keep decoding
+  across the flip: zero requests dropped.  A tree whose quantized leaves
+  drift (shape, bitwidth, numerics family, frozen calibration) or whose
+  dense remainder differs is refused with a per-layer diagnostic and the
+  active tree untouched.  A tree staged on another CUDA stream comes with
+  the event its stage recorded; the serving stream waits on that event at
+  the flip (no host sync on the serving thread).
+* *Wave records*: ``on_wave`` fires once per admission wave, after the
+  wave's single host sync and before the engine's own bookkeeping, with a
+  :class:`WaveRecord` — the durable request log's write point
+  (:mod:`repro_torch.serve.request_log`) and where failure injection lands.
+
+Not yet ported: ``obs=`` (observability, ROADMAP Queue 1): a non-``None``
+``obs`` raises.
 
 **Prefill pad mask.**  Prompt lengths are bucketed to powers of two and
 left-padded into the bucket; the per-row pad length reaches the attention
@@ -43,6 +62,7 @@ reference donates its buffers); the admission merge builds new tensors.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -90,6 +110,12 @@ class WaveRecord:
 class Request:
     prompt: np.ndarray                  # [S] int32
     max_new_tokens: int = 16
+    # Live-ops annotations (consumed by repro_torch.serve.ops.LiveServer;
+    # the bare engine ignores them):
+    deadline_s: Optional[float] = None  # shed if still unfinished this many
+                                        # seconds after serve() starts
+    max_retries: Optional[int] = None   # per-request crash budget override
+                                        # (None -> server default)
 
 
 def admit_merge(caches, new_caches, vecs, new_vecs, mask: torch.Tensor):
@@ -117,8 +143,14 @@ class ServeEngine:
         decode: str = "scan",
         prompt_bucket: int = 8,
         plan=None,
+        obs=None,
         device="cuda",
     ):
+        if obs is not None:
+            raise NotImplementedError(
+                "ServeEngine(obs=) is not ported yet: observability (repro.obs) is the "
+                "next item of ROADMAP Queue 1"
+            )
         if decode not in ("scan", "chunked", "loop"):
             raise ValueError(
                 f"decode must be 'scan', 'chunked' or 'loop', got {decode!r}"
@@ -143,6 +175,11 @@ class ServeEngine:
         self.admissions: list[tuple[int, int]] = []   # (request_idx, slot), per call
         self.bucket_counts: dict[int, int] = {}       # prefill bucket -> uses
         self.on_wave = None             # callback(WaveRecord)
+        self.swaps = 0                  # completed hot-swaps, cumulative
+        self.last_swap_wave: Optional[int] = None
+        self._swap_pending = None       # (params, on_applied, ready) under _swap_lock
+        self._swap_lock = threading.Lock()
+        self._serving = False
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """The ONLY device->host crossing point — counted so the O(1)-syncs
@@ -176,14 +213,115 @@ class ServeEngine:
         """Serve a list of equal-or-ragged prompts; returns per-request
         greedy tokens in request order."""
         self._validate(requests)
-        if self.decode == "scan":
-            return self._generate_continuous(requests)
-        run = self._generate_batch_chunked if self.decode == "chunked" else \
-            self._generate_batch_loop
-        out: list[list[int]] = []
-        for start in range(0, len(requests), self.batch):
-            out.extend(run(requests[start : start + self.batch]))
-        return out
+        self._serving = True
+        try:
+            if self.decode == "scan":
+                return self._generate_continuous(requests)
+            run = self._generate_batch_chunked if self.decode == "chunked" else \
+                self._generate_batch_loop
+            out: list[list[int]] = []
+            for start in range(0, len(requests), self.batch):
+                # Chunk boundary: no decode in flight, a staged swap lands here.
+                self._poll_swap(start // self.batch)
+                out.extend(run(requests[start : start + self.batch]))
+            return out
+        finally:
+            self._serving = False
+            # Batch drained: the boundary a swap requested during the final
+            # wave or chunk lands on.
+            self._poll_swap()
+
+    # --- live operations: double-buffered parameter hot-swap --------------
+
+    def request_swap(self, new_params, *, check: bool = True, on_applied=None,
+                     ready=None) -> None:
+        """Stage ``new_params`` as the serving tree; :meth:`_poll_swap`
+        installs it at the next wave or chunk boundary (at once when idle).
+        In-flight slots are never dropped: they continue decoding across the
+        flip.
+
+        ``check`` (default) refuses incompatible trees — quantized-leaf
+        drift (shape / bitwidth / numerics family / frozen calibration,
+        diagnosed per layer) or a different dense remainder — leaving the
+        active tree untouched.  ``on_applied()`` fires on the serving thread
+        the moment the flip lands.  ``ready`` is a ``torch.cuda.Event``
+        recorded where ``new_params`` was built on another stream: the check
+        here and the serving stream at the flip wait on it."""
+        if check:
+            if ready is not None:
+                torch.cuda.current_stream(ready.device).wait_event(ready)
+            errs = self._swap_drift(self.params, new_params)
+            if errs:
+                shown = "; ".join(errs[:6]) + ("; ..." if len(errs) > 6 else "")
+                raise ValueError(
+                    f"incompatible hot-swap refused (active tree untouched): {shown}"
+                )
+        with self._swap_lock:
+            self._swap_pending = (new_params, on_applied, ready)
+        if not self._serving:
+            self._poll_swap()
+
+    @staticmethod
+    def _swap_drift(old_params, new_params) -> list[str]:
+        """Why two trees cannot be hot-swapped (empty list == compatible):
+        the quantized leaves must share their plan-invariant identities and
+        frozen calibrations (``repro_torch.tune.plan.describe_drift``), and
+        the *dense* remainder — embeddings, norms, anything un-quantized —
+        must match leaf for leaf in structure, shape and dtype.  The prepared
+        products (``p`` / ``wpk`` / ``wcanon``, the mode within a family) may
+        differ freely: those are what a plan swap replaces."""
+        from repro_torch.tune.plan import describe_drift, map_quantized_leaves
+
+        msgs = describe_drift(old_params, new_params)
+
+        def dense_sig(params):
+            # Non-tensor leaves degrade to their type name: a malformed tree
+            # is refused (signature mismatch), never a crash mid-check.
+            leaves: list = []
+
+            def walk(node) -> str:
+                if isinstance(node, dict):
+                    return "{" + ",".join(f"{k!r}:{walk(node[k])}" for k in sorted(node)) + "}"
+                if isinstance(node, (list, tuple)):
+                    return "[" + ",".join(walk(v) for v in node) + "]"
+                if node is None:
+                    return "None"
+                leaves.append((tuple(getattr(node, "shape", ())),
+                               str(getattr(node, "dtype", type(node).__name__))))
+                return "*"
+
+            return walk(map_quantized_leaves(params, lambda _p, _q: None)), leaves
+
+        if dense_sig(old_params) != dense_sig(new_params):
+            msgs.append(
+                "dense (non-quantized) parameter structure/shapes/dtypes "
+                "differ between the active and staged trees"
+            )
+        return msgs
+
+    def _poll_swap(self, wave: Optional[int] = None) -> None:
+        """Install a pending staged tree, if any — the single point where
+        ``self.params`` changes while serving (called only between waves /
+        chunks, never with a decode in flight).  A tree built on another
+        stream is ordered before every later use on this thread's stream by
+        waiting on its event, and its tensors are recorded as in use here,
+        so the allocator never hands their memory to the stage's stream
+        while this stream may still read it."""
+        with self._swap_lock:
+            pending, self._swap_pending = self._swap_pending, None
+        if pending is None:
+            return
+        new_params, on_applied, ready = pending
+        if ready is not None:
+            stream = torch.cuda.current_stream(ready.device)
+            stream.wait_event(ready)
+            for t in tree.tensors(new_params):
+                t.record_stream(stream)
+        self.params = new_params
+        self.swaps += 1
+        self.last_swap_wave = wave
+        if on_applied is not None:
+            on_applied()
 
     # --- shared helpers ---------------------------------------------------
 
@@ -249,6 +387,10 @@ class ServeEngine:
         qi = 0
         wave = 0
         while qi < len(queue) or any(s is not None for s in slot_req):
+            # Admission-wave boundary: no decode in flight, so a staged
+            # hot-swap installs atomically here — new admissions prefill
+            # under the new tree, carried slots continue under it.
+            self._poll_swap(wave)
             t_wave = timing.clock()
             plen_b: Optional[int] = None
             admitted: list[int] = []

@@ -34,6 +34,22 @@ def tree_map(fn, tree, *rest):
     return tree
 
 
+def tensors(tree) -> list:
+    """Every tensor leaf of ``tree`` (any order), without rebuilding it."""
+    out, stack = [], [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, torch.Tensor):
+            out.append(node)
+        elif isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif _is_node(node):
+            stack.extend(getattr(node, f.name) for f in dataclasses.fields(node))
+    return out
+
+
 def _is_node(x) -> bool:
     return dataclasses.is_dataclass(x) and not isinstance(x, type)
 

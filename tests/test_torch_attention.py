@@ -35,7 +35,7 @@ def test_quant_rows_bit_equal_to_reference(shape, scale):
     x[0, 0, 0] = 0.0                                  # an all-zero row: the 1e-8 floor
     x[0, -1, -1, :4] = [127.0, 2.5, -3.5, 0.5]        # scale 1: halves round to even
     x[0, -1, -1, 4:] = 0.0
-    jc, js = jattn._quant_rows(jnp.asarray(x))
+    jc, js = jax.jit(jattn._quant_rows)(jnp.asarray(x))    # as the reference serves it
     tc, ts = tattn._quant_rows(torch.from_numpy(x))
     assert tc.dtype == torch.int8 and ts.dtype == torch.float32
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
@@ -135,15 +135,20 @@ def _cache(b, t, hkv, hd, int8):
     return {"k": np.zeros((b, t, hkv, hd), np.float32), "v": np.zeros((b, t, hkv, hd), np.float32)}
 
 
-@pytest.mark.parametrize("branch", ["ring", "ring_per_slot", "int8", "int8_bf16", "plain_bf16"])
+@pytest.mark.parametrize("branch", ["ring", "ring_per_slot", "int8", "int8_bf16", "plain_bf16",
+                                    "long_prefill"])
 def test_gqa_attention_cached_branches_match_reference(branch):
     """Prefill 11 left-padded tokens, then 6 decode steps; ``ring*``: a
     cache of W = 8 slots (the window), so prefill keeps the last 8 tokens
-    and decode wraps; ``int8``: codes and scales written and read back.
-    Every output and every cache leaf against the reference's."""
+    and decode wraps; ``int8``: codes and scales written and read back;
+    ``long_prefill``: 4608 tokens, where the reference attends over the
+    cache in query chunks and the port in its row-invariant blocks, then 2
+    steps.  Every output and every cache leaf against the reference's."""
     bf16 = branch.endswith("bf16")
     jcfg, tcfg, jp, tp = _layer(attend_bf16=bf16)
     b, s, steps = 2, 11, 6
+    if branch == "long_prefill":
+        s, steps = tattn.CHUNK_THRESHOLD + tattn.CHUNK_SIZE, 2
     t = jcfg.window if branch.startswith("ring") else s + steps
     rng = np.random.default_rng(len(branch))
     pad = np.array([0, 3], np.int32)
@@ -189,3 +194,132 @@ def test_unported_attention_kinds_raise():
         tattn.mla_attention()
     with pytest.raises(NotImplementedError, match="cross attention is not ported"):
         tattn.cross_attention()
+
+
+def test_quant_rows_equal_to_jitted_reference_at_served_shape():
+    """The int8 KV cache's rows at a served shape ([4, 512, 4, 256] f32): the
+    codes and scales of the reference's ``_quant_rows`` as it serves it,
+    under ``jax.jit`` (XLA multiplies by ``f32(1/127)``), bit for bit; the
+    eager quotient differs from it in the last bit of some scales."""
+    x = _normal(np.random.default_rng(0), (4, 512, 4, 256), 3.0)
+    jc, js = jax.jit(jattn._quant_rows)(jnp.asarray(x))
+    tc, ts = tattn._quant_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    _ec, es = jattn._quant_rows(jnp.asarray(x))
+    assert (np.asarray(es) != np.asarray(js)).sum() > 0     # the eager scales are another function
+
+
+def test_int8_cache_after_served_prefill_matches_reference(monkeypatch):
+    """One prefill as ``ServeEngine`` serves it on gemma2-2b smoke under the
+    serve profile (f32, ``max_seq`` 32 > the window 8: ring "L" caches, int8
+    "G" caches), on converted weights.  Every K / V block the port quantizes
+    is written as the reference's jitted ``_quant_rows`` writes it, codes and
+    scales bit for bit; and the int8 leaves (``k``, ``v``, ``k_s``, ``v_s``)
+    agree with the reference's jitted ``Model.prefill`` as far as its f32 K / V
+    do: the projections sum in another order in each package and the drift
+    grows through the layer below (the f32 ring leaves differ in their last
+    bits), so the scales are held to the reference's f32 tolerance, 1e-4 of
+    the largest, and a code may move by one step at a rounding boundary."""
+    from repro.models.model import build_model as jbuild
+    from repro.models.profiles import apply_perf_profile as japply
+    from repro_torch.models.model import build_model
+    from repro_torch.models.profiles import apply_perf_profile as tapply
+
+    jcfg = japply(dataclasses.replace(jget_config("gemma2-2b", smoke=True), dtype="float32"),
+                  "serve")
+    tcfg = tapply(dataclasses.replace(get_config("gemma2-2b", smoke=True), dtype="float32"),
+                  "serve")
+    assert tcfg.kv_cache_int8 and tcfg.ring_window_cache
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(4).integers(1, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    pad = np.array([0, 5], np.int32)
+    quantized = []
+    port_quant_rows = tattn._quant_rows
+
+    def recording(x):
+        out = port_quant_rows(x)
+        quantized.append((x.numpy().copy(),) + tuple(t.numpy().copy() for t in out))
+        return out
+
+    monkeypatch.setattr(tattn, "_quant_rows", recording)
+    _jl, jc = jax.jit(jm.prefill)(jp, jnp.asarray(toks), jm.init_cache(2, 32, jnp.float32),
+                                  pad_len=jnp.asarray(pad))
+    _tl, tc = tm.prefill(tp, torch.from_numpy(toks), tm.init_cache(2, 32, torch.float32,
+                                                                   device="cpu"),
+                         pad_len=torch.from_numpy(pad))
+    served = jax.jit(jattn._quant_rows)
+    eager_differs = 0
+    n_global = sum(tu[name]["k"].shape[0] for tu in tc for name in tu if name.endswith("_G"))
+    assert n_global > 0 and len(quantized) == 2 * n_global     # K and V of every "G" unit
+    for x, codes, scale in quantized:
+        jcodes, jscale = served(jnp.asarray(x))
+        np.testing.assert_array_equal(codes, np.asarray(jcodes))
+        np.testing.assert_array_equal(scale, np.asarray(jscale))
+        eager_differs += int((np.asarray(jattn._quant_rows(jnp.asarray(x))[1]) != scale).sum())
+    assert eager_differs > 0            # the eager quotient would not have passed
+    compared = 0
+    for ju, tu in zip(jc, tc):
+        for name in tu:
+            if name.endswith("_G"):
+                assert sorted(tu[name]) == ["k", "k_s", "v", "v_s"]
+                for leaf in ("k_s", "v_s"):
+                    want = np.asarray(ju[name][leaf])
+                    np.testing.assert_allclose(tu[name][leaf].numpy(), want, rtol=0,
+                                               atol=1e-4 * np.abs(want).max())
+                for leaf in ("k", "v"):
+                    got = tu[name][leaf].numpy().astype(np.int32)
+                    want = np.asarray(ju[name][leaf]).astype(np.int32)
+                    assert np.abs(got - want).max() <= 1 and (got != want).mean() < 1e-2
+                compared += 1
+    assert compared == len(tc)
+
+
+@pytest.mark.parametrize("window,softcap,bf16", [(None, None, False), (9, 30.0, False),
+                                                 (None, 30.0, True), (40, None, True)])
+@pytest.mark.parametrize("s", [33, 70, 128])
+def test_cache_invariant_attend_is_the_same_function_and_row_invariant(s, window, softcap,
+                                                                       bf16):
+    """The full-cache branch's attention (``_attend_cache_invariant``) against
+    the reference's function, ``_attend`` over the cache with ``_key_mask``:
+    f32 within 1e-5 x max |out|; bf16 operands within 2^-8 x max |v| (a
+    probability's f32 value may differ in its last bit and round to the next
+    bf16 value), with under 1% of the outputs off by more than 1e-6 x max
+    |out|.  At S that spans several blocks of
+    ``INVARIANT_ROWS`` and ends in a part-filled one; and a query row's bits
+    the same whether it comes with the others or alone, in another block, and
+    whatever its row's left pad."""
+    rng = np.random.default_rng(11 + s + (window or 0))
+    b, t, hkv, rep, hd = 3, 160, 2, 2, 16
+    assert s > tattn.INVARIANT_ROWS and (s % tattn.INVARIANT_ROWS or s == 128)
+    q = _normal(rng, (b, s, hkv * rep, hd), 2.0)
+    kc = _normal(rng, (b, t, hkv, hd), 2.0)
+    vc = _normal(rng, (b, t, hkv, hd))
+    pad = np.array([0, 5, 11], np.int32)
+    positions = (np.arange(s)[None] + 7 - pad[:, None]).astype(np.int32)     # logical
+    jm = jattn._key_mask(jnp.arange(t)[None], jnp.asarray(positions)[:, :, None],
+                         jnp.asarray(pad), window)
+    want = np.asarray(jattn._attend(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                    mask=jm[:, None], softcap_val=softcap,
+                                    bf16_operands=bf16))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, kc, vc))
+    tpos, tpad = torch.from_numpy(positions), torch.from_numpy(pad)
+    got = tattn._attend_cache_invariant(tq, tk, tv, tpos, window=window, softcap_val=softcap,
+                                        bf16_operands=bf16, pad_len=tpad)
+    assert got.shape == (b, s, hkv * rep, hd) and got.dtype == torch.float32
+    if bf16:    # a probability may round to the next bf16 value, as in the chunked test
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2.0**-8 * np.abs(vc).max())
+        assert (np.abs(got.numpy() - want) > TOL_BF16 * np.abs(want).max()).mean() < 1e-2
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=TOL_LAYER * np.abs(want).max())
+    pad2 = torch.tensor([3, 0, 2])               # the same keys behind other pads
+    idx = (torch.arange(t)[None] - pad2[:, None] + tpad[:, None]) % t
+    rows = torch.arange(b)[:, None]
+    for sl in (slice(s - 1, s), slice(0, 20), slice(tattn.INVARIANT_ROWS - 3, s)):
+        part = tattn._attend_cache_invariant(tq[:, sl], tk[rows, idx], tv[rows, idx],
+                                             tpos[:, sl], window=window, softcap_val=softcap,
+                                             bf16_operands=bf16, pad_len=pad2)
+        assert torch.equal(part, got[:, sl])

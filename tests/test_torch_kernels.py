@@ -723,6 +723,10 @@ def test_port_imports_no_jax_and_no_reference():
                      if n == "jax" or n.startswith("jax.") or n == "repro"
                      or n.startswith("repro."))
         assert not bad, bad
+        live_ops = {"repro_torch.ckpt.checkpoint", "repro_torch.serve.request_log",
+                    "repro_torch.serve.ops", "repro_torch.ft.supervisor",
+                    "repro_torch.ft.chaos", "repro_torch.launch.serve"}
+        assert live_ops <= set(sys.modules), sorted(live_ops - set(sys.modules))
         from repro_torch.kernels import build
         assert not build._loaded            # importing built / loaded nothing
         print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
@@ -737,6 +741,53 @@ def test_port_imports_no_jax_and_no_reference():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def _grad_inputs(dev):
+    """One small call's inputs to each of the three entries, float inputs
+    requiring grad (``lut_stream_gemm``'s codes as float values)."""
+    w, x = _case(4, (3, 32, 16), "grad")
+    q = tapi.quantize_linear(torch.from_numpy(w), tapi.LutLinearSpec(bw=4))
+    rng = np.random.default_rng(3)
+    qkv = [torch.from_numpy(rng.normal(size=shp).astype(np.float32)).to(dev).requires_grad_()
+           for shp in ((1, 8, 2, 16), (1, 8, 1, 16), (1, 8, 1, 16))]
+    codes = [torch.from_numpy(rng.integers(0, 2, shp).astype(np.float32)).to(dev)
+             .requires_grad_() for shp in ((4, 12), (12, 3))]
+    return {
+        "lut_dequant_gemm": lambda: tops.lut_dequant_gemm(
+            torch.from_numpy(x).to(dev).requires_grad_(), q.codes.to(dev), q.scale.to(dev),
+            bw=4, k=q.k),
+        "flash_attention": lambda: tops.flash_attention(*qkv),
+        "lut_stream_gemm": lambda: tops.lut_stream_gemm_full(
+            *codes, tapi._lut_pack_cache(1, 1, 3, "int", "int")),
+    }
+
+
+def test_cpu_plain_versions_stay_differentiable():
+    """On the CPU the entries run the plain versions, torch ops with a
+    gradient: the grad refusal is for CUDA inputs only."""
+    calls = _grad_inputs(torch.device("cpu"))
+    for name in ("lut_dequant_gemm", "flash_attention"):
+        out = calls[name]()
+        assert out.grad_fn is not None, name
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_cuda_entries_refuse_inputs_that_require_grad():
+    """A CUDA input that requires grad, with grad enabled: each of the three
+    entries raises before launching (the kernels have no backward, as the
+    reference's Pallas kernels have none under ``jax.grad``); under
+    ``torch.no_grad()`` the same call launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    calls = _grad_inputs(torch.device("cuda"))
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    with torch.no_grad():
+        assert calls["lut_dequant_gemm"]().grad_fn is None
+        assert calls["flash_attention"]().grad_fn is None
 
 
 def _csrc_copy(tmp_path, monkeypatch):
