@@ -5,8 +5,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-(``--phase tc_cp_async``, ``--phase gemma2_serve`` or ``--phase live_ops``
-runs one phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
+(``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops`` or
+``--phase obs`` runs one phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
@@ -52,7 +52,12 @@ prepared checkpoint saved and restored onto the card, a ``LiveServer`` whose
 factory restores it, killed at three waves, with its durable request log
 replayed, a plan swap staged on a side stream and flipped at a wave
 boundary, the chaos sweep at a cut depth, and the kernels' refusal of
-inputs that require grad.  Every
+inputs that require grad.  Then the same model traced (phase 16,
+``repro_torch.obs``): ``ServeEngine(obs=)`` must leave the tokens, host syncs,
+admissions, kernel launches and synchronizing calls of the untraced serve,
+the chunked and loop drivers and a ``Measurer`` under phase 13's plan
+traced, a traced ``LiveServer`` killed once and a traced swap at a cut
+depth, and ``launch/serve.py --trace --metrics``.  Every
 kernel's launch count is set to 0 just before a path and read just after.  It checks the card
 against the CPU and the continuous driver against the per-token loop.  Any
 failed phase exits non-zero.  It imports no JAX and nothing of the JAX
@@ -2894,11 +2899,464 @@ def phase_live_ops(torch, dev, cfg, smi, lserve=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: observability (repro_torch.obs) threaded through the serve path,
+# the tuner and live ops, on phase 8's model
+# ---------------------------------------------------------------------------
+
+OBS_DIR = ROOT / "build" / "obs"   # git-ignored: the phase's Perfetto and metrics files
+OBS_LIVE_LAYERS = LIVE_CHAOS_LAYERS   # 16c: depth of the traced LiveServer and swap (width
+                                      # not cut), as phase 15d
+OBS_MEASURED = ("wq", "w_up")   # 16b: the layers whose candidates a traced Measurer times
+OBS_ROUNDS = 2                # 16a: rounds of (off, on, on, off) serves: the decode step's
+                              # spread with the observer on and off, drift cancelled
+
+
+def timed_observer():
+    """A ``repro_torch.obs.Observer`` whose serve hooks' host time is summed
+    here (a check of this script, not of the package), and whose ops spans
+    note the thread that recorded them."""
+    import threading
+
+    from repro_torch.obs import Observer
+
+    class TimedObserver(Observer):
+        def __init__(self):
+            super().__init__()
+            self.hook_s = {"serve_begin": 0.0, "wave": 0.0, "serve_end": 0.0}
+            self.hook_calls = dict.fromkeys(self.hook_s, 0)
+            self.span_threads: dict = {}
+
+        def _timed(self, name, fn, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.hook_s[name] += time.perf_counter() - t0
+                self.hook_calls[name] += 1
+
+        def serve_begin(self, *args, **kw):
+            return self._timed("serve_begin", super().serve_begin, *args, **kw)
+
+        def wave(self, *args, **kw):
+            return self._timed("wave", super().wave, *args, **kw)
+
+        def serve_end(self, *args, **kw):
+            return self._timed("serve_end", super().serve_end, *args, **kw)
+
+        def ops_span(self, name, *args, **kw):
+            self.span_threads.setdefault(name, []).append(threading.get_ident())
+            return super().ops_span(name, *args, **kw)
+
+    return TimedObserver()
+
+
+def decode_events(torch, eng):
+    """Wrap ``eng._decode_wave`` (in this script) so that each wave's decode
+    steps are bracketed by two CUDA events recorded on the serving stream;
+    returns the list ``[(start, end, steps)]`` it fills.  The end event is
+    recorded when the host has enqueued the wave's last step, so the span is
+    the decode's wall time whichever of host and card is the slower."""
+    spans, inner = [], eng._decode_wave
+
+    def timed(token, caches, pos, pad, active, steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(token, caches, pos, pad, active, steps)
+        e1.record()
+        spans.append((e0, e1, steps))
+        return out
+
+    eng._decode_wave = timed
+    return spans
+
+
+def step_ms(spans):
+    """Decode wall per step (ms) over the recorded waves; read after a sync."""
+    steps = sum(s for _a, _b, s in spans)
+    return sum(a.elapsed_time(b) for a, b, _s in spans) / max(1, steps)
+
+
+def trace_counts(obs, name_prefix):
+    return sum(1 for e in obs.tracer.events() if e.name.startswith(name_prefix))
+
+
+def check_coarse_trace(obs, reqs, what, *, waves):
+    """The trace a serve leaves: ``waves`` wave spans and host_sync spans,
+    one lifecycle span per request with its budget of tokens, nothing
+    dropped, every request completed."""
+    evs = obs.tracer.events()
+    life = sorted((e for e in evs if e.name.endswith(" lifecycle")),
+                  key=lambda e: e.args["request"])
+    check(trace_counts(obs, "wave ") == waves and trace_counts(obs, "host_sync") == waves,
+          f"{what}: {trace_counts(obs, 'wave ')} wave and {trace_counts(obs, 'host_sync')} "
+          f"host_sync spans, want {waves} each")
+    check([e.args["request"] for e in life] == list(range(len(reqs)))
+          and all(e.args["tokens"] == r.max_new_tokens for e, r in zip(life, reqs)),
+          f"{what}: lifecycle spans {[(e.args['request'], e.args['tokens']) for e in life]}")
+    slo = obs.slo()
+    check(obs.tracer.dropped == 0 and slo["completed"] == len(reqs),
+          f"{what}: {obs.tracer.dropped} events dropped, {slo['completed']} of {len(reqs)} "
+          f"completed")
+    return slo
+
+
+def slo_summary(slo):
+    return {"ttft_p50_s": slo["ttft"]["p50_s"], "ttft_p99_s": slo["ttft"]["p99_s"],
+            "tpot_p50_s": slo["tpot"]["p50_s"], "tpot_p99_s": slo["tpot"]["p99_s"],
+            "queue_wait_p99_s": slo["queue_wait"]["p99_s"],
+            "goodput_tok_s": slo["goodput"]["tokens_per_s"],
+            "goodput_wall_s": slo["goodput"]["wall_s"]}
+
+
+def phase_obs(torch, dev, cfg, smi, lserve=None):
+    """Phase 16: ``repro_torch.obs`` on phase 8's model (stablelm-12b at full
+    width, 40 layers, seed 0, bf16, W1A3 p=4 lut, calibrated and prepared).
+    (a) ``ServeEngine(obs=)`` serves phase 8's requests with the tokens, host
+    syncs, admissions, buckets, launches and synchronizing calls of the
+    untraced serve, and its trace holds every wave, sync and request; the
+    Perfetto and metrics files load; the hooks' host time, the export time and
+    the decode step with the observer on and off are logged.  (b) The chunked
+    and loop drivers under phase 13's 16 GiB plan, traced: phase 8's tokens,
+    one coarse record a chunk, the plan gauges; a traced ``Measurer`` over
+    two full-width layers' candidates.  (c) At 4 layers: a traced
+    ``LiveServer`` killed at wave 1 and its trace file, and a traced swap to
+    the 16 GiB plan staged on a side stream.  (d) ``launch/serve.py --trace
+    --metrics`` in-process.  ``lserve`` is phase 8's result (None when the
+    phase runs alone: the untraced serve here is the reference)."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.core.calibrate import calibrate_tree
+    from repro_torch.ft.supervisor import FailureInjector
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import Observer, scrape_engine, write_metrics_jsonl, write_perfetto
+    from repro_torch.serve.ops import LiveServer, SwapController
+    from repro_torch.serve.serving import ServeEngine
+    from repro_torch.tune import Measurer, plan_model, space
+    from repro_torch.tune.measure import sample_activations
+    from repro_torch.tune.plan import quantized_leaf_items
+    from repro_torch.tune.planner import _unit_slice
+
+    if cfg.n_layers != N_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=N_LAYERS)
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    out = {}
+    model = build_model(cfg)
+    spec = LutLinearSpec(mode="lut", **LUT_SPEC)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    tokens = torch.as_tensor(cal, device=dev)
+    calibrated = calibrate_tree(lambda probed: model.forward(probed, tokens)[0],
+                                model.init_quantized(spec, seed=0, device=dev))
+    prepared = model.prepare(calibrated, n_hint=4)
+    torch.cuda.synchronize()
+    log(f"phase 16 [{smi}]: {cfg.name} {cfg.n_layers} layers W1A3 p=4 lut, calibrated and "
+        f"prepared in {time.perf_counter() - t0:.1f} s")
+
+    # --- (a) tracing is invisible ----------------------------------------------
+    _lens, reqs = serve_requests(cfg, 64, 16)
+    eng_off = ServeEngine(model, prepared, batch=4, max_seq=256, device=dev)
+    eng_on = ServeEngine(model, prepared, batch=4, max_seq=256, obs=timed_observer(),
+                         device=dev)
+    eng_off.generate([dataclasses.replace(reqs[0], prompt=reqs[0].prompt[:16],
+                                          max_new_tokens=2)])          # warmup
+    torch.cuda.synchronize()
+    runs = []
+    for eng in (eng_off, eng_on, eng_on, eng_off) * OBS_ROUNDS:
+        if eng is eng_on:
+            eng.obs = timed_observer()                # a fresh observer a run
+        eng.bucket_counts = {}
+        spans = decode_events(torch, eng)
+        outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+        del eng._decode_wave
+        check_served(cfg, eng, outs, 16, records, counts, sync_warnings,
+                     kernel="lut_stream_gemm", what="16a")
+        runs.append(dict(obs=eng.obs, outs=outs, wall_s=wall, waves=len(records),
+                         host_syncs=eng.host_syncs, admissions=list(eng.admissions),
+                         bucket_counts=dict(eng.bucket_counts), sync_warnings=sync_warnings,
+                         counts={k: counts[k] for k in ("lut_stream_gemm", "lut_stream_gemm_tc",
+                                                        "lut_stream_gemm_canon")},
+                         step_ms=step_ms(spans), steps=sum(s for _a, _b, s in spans)))
+    off = runs[0]
+    fields = ("outs", "host_syncs", "admissions", "bucket_counts", "counts", "sync_warnings")
+    for i, r in enumerate(runs[1:], 1):
+        diff = [f for f in fields if r[f] != off[f]]
+        check(not diff, f"16a: run {i} ({'on' if r['obs'] else 'off'}) differs from the "
+                        f"untraced serve in {diff}")
+    if lserve is not None:
+        check(off["outs"] == lserve["outs"] and off["host_syncs"] == lserve["host_syncs"]
+              and off["counts"]["lut_stream_gemm"] == lserve["launches"]
+              and off["counts"]["lut_stream_gemm_canon"] == lserve["launches_canon"],
+              "16a: the untraced serve differs from phase 8's (tokens, syncs or launches)")
+    want = off["outs"]
+    obs = runs[1]["obs"]
+    slo = check_coarse_trace(obs, reqs, "16a", waves=off["host_syncs"])
+    t0 = time.perf_counter()
+    tpath = write_perfetto(obs, str(OBS_DIR / "serve_trace.json"))
+    mpath = write_metrics_jsonl(obs, str(OBS_DIR / "serve_metrics.jsonl"))
+    export_s = time.perf_counter() - t0
+    with open(tpath) as f:
+        n_json = len(json.load(f)["traceEvents"])
+    with open(mpath) as f:
+        recs = [json.loads(ln) for ln in f]
+    check(n_json > len(obs.tracer) and [r["t"] for r in recs[:2]] == ["snapshot", "slo"]
+          and sum(r["t"] == "request" for r in recs) == len(reqs),
+          f"16a: reloaded files: {n_json} trace events for {len(obs.tracer)} recorded, "
+          f"metrics records {[r['t'] for r in recs]}")
+    on_runs = [r for r in runs if r["obs"] is not None]
+    off_runs = [r for r in runs if r["obs"] is None]
+    hooks = [r["obs"].hook_s for r in on_runs]
+    median = lambda xs: sorted(xs)[len(xs) // 2]
+    out["a"] = dict(
+        tokens_crc32=zlib.crc32(json.dumps([list(map(int, o)) for o in want]).encode()),
+        host_syncs=off["host_syncs"], waves=off["waves"], launches=off["counts"],
+        events=len(obs.tracer), trace_bytes=os.path.getsize(tpath),
+        metrics_bytes=os.path.getsize(mpath), export_s=export_s,
+        hook_wave_ms=[1e3 * h["wave"] / r["waves"] for h, r in zip(hooks, on_runs)],
+        hook_serve_begin_ms=[1e3 * h["serve_begin"] for h in hooks],
+        hook_serve_end_ms=[1e3 * h["serve_end"] for h in hooks],
+        step_ms={"off": [r["step_ms"] for r in off_runs], "on": [r["step_ms"] for r in on_runs]},
+        wall_s={"off": [r["wall_s"] for r in off_runs], "on": [r["wall_s"] for r in on_runs]},
+        decode_steps=off["steps"], slo=slo_summary(slo))
+    fmt = lambda xs, f: " / ".join(f % x for x in xs)
+    a = out["a"]
+    log(f"phase 16a [{smi}]: tracing is invisible: tokens (crc32 {a['tokens_crc32']:08x}), "
+        f"{off['host_syncs']} host syncs, admissions, buckets {off['bucket_counts']}, launches "
+        f"{off['counts']} and {len(off['sync_warnings'])} sync-debug warnings equal with the "
+        f"observer on ({len(on_runs)} serves) and off ({len(off_runs)}); trace: {a['events']} "
+        f"events (0 dropped), "
+        f"{a['trace_bytes']:,} B Perfetto + {a['metrics_bytes']:,} B metrics JSONL, written in "
+        f"{1e3 * export_s:.2f} ms and reloaded")
+    log(f"phase 16a [{smi}]: host time in the Observer's hooks: wave "
+        f"{fmt(a['hook_wave_ms'], '%.3f')} ms a wave, serve_begin "
+        f"{fmt(a['hook_serve_begin_ms'], '%.3f')} ms, serve_end "
+        f"{fmt(a['hook_serve_end_ms'], '%.3f')} ms")
+    log(f"phase 16a [{smi}]: decode step wall (CUDA events, {off['steps']} steps a serve, "
+        f"serves in the order (off, on, on, off) x {OBS_ROUNDS}): off "
+        f"{fmt(a['step_ms']['off'], '%.2f')} ms (median {median(a['step_ms']['off']):.2f}), on "
+        f"{fmt(a['step_ms']['on'], '%.2f')} ms (median {median(a['step_ms']['on']):.2f}); serve "
+        f"wall off {fmt(a['wall_s']['off'], '%.3f')} s, on {fmt(a['wall_s']['on'], '%.3f')} s")
+    log(f"phase 16a [{smi}]: the observer's SLOs: TTFT p50 {slo['ttft']['p50_s']:.4f} s p99 "
+        f"{slo['ttft']['p99_s']:.4f} s, TPOT p50 {slo['tpot']['p50_s']:.6f} s p99 "
+        f"{slo['tpot']['p99_s']:.6f} s, queue wait p99 {slo['queue_wait']['p99_s']:.4f} s, "
+        f"goodput {slo['goodput']['tokens_per_s']:.2f} tok/s over "
+        f"{slo['goodput']['wall_s']:.3f} s")
+    del eng_off, eng_on, runs, prepared
+    torch.cuda.empty_cache()
+
+    # --- (b) the chunked and loop drivers under the 16 GiB plan; the tuner ------
+    plan = plan_model(calibrated, lut_budget_bytes=16 << 30, n_hint=4, measure=False)
+    layers_want, total_want, _tables = PLANS_WANT[16]
+    check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan.layers.items()}
+          == layers_want and plan.total_bytes == total_want,
+          "16b: the 16 GiB analytic plan differs from phase 13's")
+    routes = plan_routes(plan)
+    n_tc, n_lookup = (sum(r == w for r in routes.values()) for w in ("tc", "lookup"))
+    out["b"] = {}
+    for decode in ("chunked", "loop"):
+        what = f"16b ({decode}, 16 GiB plan)"
+        eng = ServeEngine(model, calibrated, batch=4, max_seq=256, decode=decode, plan=plan,
+                          obs=Observer(), device=dev)
+        eng.generate([dataclasses.replace(reqs[0], prompt=reqs[0].prompt[:16],
+                                          max_new_tokens=2)])          # warmup
+        eng.obs = Observer()                          # the counted serve's own
+        outs, wall, _records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+        chunks, steps = chunk_calls(reqs, eng.batch, eng.max_seq)
+        syncs = chunks if decode == "chunked" else sum(
+            max(r.max_new_tokens for r in reqs[s : s + 4]) for s in range(0, len(reqs), 4))
+        check(outs == want, f"{what}: tokens differ from phase 8's")
+        check(eng.host_syncs == syncs == len(sync_warnings),
+              f"{what}: {eng.host_syncs} host syncs, {len(sync_warnings)} synchronizing calls, "
+              f"want {syncs}")
+        calls = cfg.n_layers * (chunks + steps)
+        got = {k: counts[k] for k in ("lut_stream_gemm_tc", "lut_stream_gemm_lookup",
+                                      "lut_stream_gemm_canon")}
+        check(got == {"lut_stream_gemm_tc": n_tc * calls, "lut_stream_gemm_lookup":
+                      n_lookup * calls, "lut_stream_gemm_canon": 7 * calls},
+              f"{what}: launches {got}, want {n_tc} / {n_lookup} / 7 x {calls}")
+        bslo = check_coarse_trace(eng.obs, reqs, what, waves=chunks)
+        scraped = scrape_engine(eng)["plan"]
+        modes, ps = {}, {}
+        for lp in plan.layers.values():
+            modes[lp.mode] = modes.get(lp.mode, 0) + 1
+            ps[str(lp.p)] = ps.get(str(lp.p), 0) + 1
+        gauges = eng.obs.metrics.snapshot()["gauges"]
+        check(scraped == dict(layers=len(plan.layers), budget_bytes=plan.budget_bytes,
+                              total_bytes=plan.total_bytes, modes=modes, p=ps)
+              and gauges["plan_layers"] == len(plan.layers)
+              and gauges["plan_total_bytes"] == plan.total_bytes,
+              f"{what}: plan gauges {scraped}, {gauges} against the plan's layers")
+        out["b"][decode] = dict(host_syncs=eng.host_syncs, wall_s=wall, launches=got,
+                                plan=scraped, slo=slo_summary(bslo))
+        log(f"phase 16b [{smi}]: {what}: phase 8's tokens, {eng.host_syncs} host syncs (= "
+            f"synchronizing calls), {chunks} coarse wave records, launches {got}; plan gauges "
+            f"{scraped}; {wall:.2f} s; TTFT p50 {bslo['ttft']['p50_s']:.3f} s, goodput "
+            f"{bslo['goodput']['tokens_per_s']:.2f} tok/s")
+        del eng
+        torch.cuda.empty_cache()
+    tobs = Observer()
+    meas = Measurer(cache={}, obs=tobs)
+    leaves = dict(quantized_leaf_items(calibrated))
+    n_cands = 0
+    t0 = time.perf_counter()
+    for name in OBS_MEASURED:
+        q = next(lf for path, lf in leaves.items() if path.endswith("/" + name))
+        unit = _unit_slice(q)
+        f, k = int(unit.codes.shape[-2]), unit.k
+        cands = space.layer_candidates(f, k, n_hint=4, base_spec=q.spec, stack=N_LAYERS,
+                                       servable_only=True)
+        x = sample_activations(k, 128, device=dev)
+        for _repeat in range(2):                      # the second pass hits the cache
+            for c in cands:
+                meas.measure(unit, x, c)
+        n_cands += len(cands)
+    meas_s = time.perf_counter() - t0
+    counters = tobs.metrics.snapshot()["counters"]
+    spans = [e for e in tobs.tracer.events() if e.cat == "tune"]
+    check(counters["tune_measure_misses"] == meas.misses == n_cands
+          and counters["tune_measure_hits"] == meas.hits == n_cands
+          and len(spans) == n_cands and all(e.track == "tune.measure" and e.ph == "X"
+                                            for e in spans),
+          f"16b: Measurer counters {counters}, misses {meas.misses}, hits {meas.hits}, "
+          f"{len(spans)} tune spans, {n_cands} candidates")
+    out["b"]["measurer"] = dict(candidates=n_cands, seconds=meas_s,
+                                span_us={e.name: e.args["us"] for e in spans})
+    log(f"phase 16b [{smi}]: a traced Measurer over {n_cands} candidates of {OBS_MEASURED} "
+        f"(full width, N=128): {meas.misses} misses, {meas.hits} hits (the repeats), "
+        f"{len(spans)} tune spans on tune.measure; {meas_s:.1f} s")
+    del calibrated, leaves, unit, x
+    torch.cuda.empty_cache()
+
+    # --- (c) live ops traced, depth cut ------------------------------------------
+    cfg_d = dataclasses.replace(cfg, n_layers=OBS_LIVE_LAYERS)
+    model_d = build_model(cfg_d)
+    cal_d = calibrate_tree(lambda probed: model_d.forward(probed, tokens)[0],
+                           model_d.init_quantized(spec, seed=0, device=dev))
+    tree_d = model_d.prepare(cal_d, n_hint=4)
+    lreqs = live_requests(cfg)
+    want_d = ServeEngine(model_d, tree_d, batch=4, max_seq=256, device=dev).generate(lreqs)
+    attempts = []
+
+    class CountedEngine(ServeEngine):
+        """Each attempt's waves, host syncs and the serving thread's
+        synchronizing calls."""
+
+        def generate(self, requests):
+            recs, inner = [], self.on_wave
+            self.on_wave = lambda r: (recs.append(r), inner(r))
+            self.host_syncs = 0
+            with ThreadSyncs(torch) as syncs:
+                try:
+                    return super().generate(requests)
+                finally:
+                    attempts.append((len(recs), self.host_syncs,
+                                     syncs.on(threading.get_ident())))
+
+    lobs = timed_observer()
+    live_path = OBS_DIR / "live.json"
+    srv = LiveServer(lambda: CountedEngine(model_d, tree_d, batch=4, max_seq=256, device=dev),
+                     log_path=str(OBS_DIR / "serve.jsonl"), obs=lobs, trace_path=str(live_path),
+                     injector=FailureInjector(fail_at_waves=(1,)))
+    got = srv.serve(lreqs)
+    check(got == want_d and srv.restarts == 1 and not srv.quarantined and not srv.shed,
+          f"16c: the traced, killed LiveServer gave other tokens or {srv.restarts} restarts")
+    check(all(w == h == s for w, h, s in attempts),
+          f"16c: (waves, host syncs, serving-thread syncs) per attempt {attempts}")
+    with open(live_path) as f:
+        levs = json.load(f)["traceEvents"]
+    tid = next(e["tid"] for e in levs if e["ph"] == "M" and e["args"]["name"] == "supervisor")
+    sup_names = {e["name"] for e in levs if e.get("tid") == tid and e["ph"] != "M"}
+    tmp_left = [p.name for p in OBS_DIR.iterdir() if ".tmp." in p.name]
+    check({"restart", "replay"} <= sup_names and not tmp_left,
+          f"16c: supervisor events in the trace file {sorted(sup_names)}, tmp files {tmp_left}")
+    plan_d = plan_model(cal_d, lut_budget_bytes=16 << 30, n_hint=4, measure=False)
+    check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan_d.layers.items()}
+          == layers_want, "16c: the 4-layer 16 GiB plan's choices differ from phase 13's")
+    sobs = timed_observer()
+    eng = ServeEngine(model_d, tree_d, batch=4, max_seq=256, obs=sobs, device=dev)
+    ctl = SwapController(eng, obs=sobs)
+    flip, waved = {}, threading.Event()
+
+    def on_wave(rec):
+        if rec.wave == 0:
+            # Hold the boundary until the operator's flip is parked: it lands
+            # at wave 1 (a lock and a thread join, no CUDA sync here).
+            waved.set()
+            while "error" not in flip and not ctl.status()["flip_pending"] and eng.swaps == 0:
+                time.sleep(0.001)
+
+    def operator():
+        try:
+            staged = ctl.stage(qparams=cal_d, plan=plan_d)
+            waved.wait(600)
+            flip["report"] = ctl.flip(staged, timeout=600)
+        except Exception as e:                        # reported by the check below
+            flip["error"] = repr(e)
+
+    records = []
+    eng.on_wave = lambda r: (records.append(r), on_wave(r))
+    op = threading.Thread(target=operator, daemon=True)
+    with ThreadSyncs(torch) as syncs:
+        op.start()
+        got = eng.generate(lreqs)
+        op.join(600)
+    serving = threading.get_ident()
+    stage_threads = sobs.span_threads.get("swap stage", [])
+    check("error" not in flip and not op.is_alive() and got == want_d and eng.swaps == 1
+          and eng.last_swap_wave == 1, f"16c: swap {flip}, swaps {eng.swaps} at wave "
+                                       f"{eng.last_swap_wave}, tokens equal {got == want_d}")
+    check(trace_counts(sobs, "swap stage") == 1 and trace_counts(sobs, "swap flip") == 1
+          and len(stage_threads) == 1 and stage_threads[0] not in (serving, op.ident),
+          f"16c: {trace_counts(sobs, 'swap stage')} stage / {trace_counts(sobs, 'swap flip')} "
+          f"flip spans; the stage span recorded on the serving or operator thread")
+    check(syncs.on(serving) == eng.host_syncs == len(records),
+          f"16c: {syncs.on(serving)} synchronizing calls on the serving thread, "
+          f"{eng.host_syncs} host syncs, {len(records)} waves")
+    rep = flip["report"]
+    out["c"] = dict(layers=OBS_LIVE_LAYERS, attempts=attempts, live_trace_events=len(levs),
+                    supervisor_events=sorted(sup_names), stage_s=rep.stage_seconds,
+                    flip_wait_s=rep.flip_wait_seconds, flip_wave=rep.wave,
+                    swap_spans={e.name: e.dur for e in sobs.tracer.events() if e.track == "swap"})
+    log(f"phase 16c [{smi}]: {OBS_LIVE_LAYERS} layers: a traced LiveServer killed at wave 1 gave "
+        f"the undisturbed tokens, (waves, syncs, serving-thread syncs) per attempt {attempts}; "
+        f"its trace file ({len(levs)} events) loads with {sorted(sup_names)} on the supervisor "
+        f"track, no tmp file left; a traced swap to the 16 GiB plan, staged on a side stream "
+        f"({rep.stage_seconds:.2f} s, its span recorded on the stage's thread), flipped at wave "
+        f"{rep.wave} ({rep.flip_wait_seconds:.3f} s), tokens equal, one sync a wave on the "
+        f"serving thread")
+    del eng, ctl, srv, tree_d, cal_d, model_d
+    torch.cuda.empty_cache()
+
+    # --- (d) the launcher ---------------------------------------------------------
+    ltrace, lmetrics = OBS_DIR / "launch_trace.json", OBS_DIR / "launch_metrics.jsonl"
+    louts = launch_serve.main(["--smoke", "--mode", "lut", "--calibrate", "32",
+                               "--trace", str(ltrace), "--metrics", str(lmetrics)])
+    with open(ltrace) as f:
+        n_life = sum(1 for e in json.load(f)["traceEvents"] if e["name"].endswith(" lifecycle"))
+    with open(lmetrics) as f:
+        lslo = [json.loads(ln) for ln in f][1]
+    check(n_life == len(louts) and lslo["t"] == "slo" and lslo["completed"] == len(louts),
+          f"16d: launch/serve.py --trace --metrics: {n_life} lifecycle spans, slo {lslo}")
+    out["d"] = dict(requests=len(louts), trace_bytes=os.path.getsize(ltrace),
+                    metrics_bytes=os.path.getsize(lmetrics))
+    log(f"phase 16d: launch/serve.py --smoke --mode lut --calibrate 32 --trace --metrics on "
+        f"the card: both files load ({n_life} lifecycle spans, {lslo['completed']} completed)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops"),
+    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, phase 14 or phase 15)")
+                         "JSON line (phase 6's cp.async repeats, phase 14, 15 or 16)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -2956,7 +3414,8 @@ def main(argv=None) -> int:
         cfg = get_config("stablelm-12b")
         alone = {"tc_cp_async": lambda: phase_tc_cp_async(torch, dev, cfg, hw.H100_SXM, smi),
                  "gemma2_serve": lambda: phase_gemma2_serve(torch, dev, smi),
-                 "live_ops": lambda: phase_live_ops(torch, dev, cfg, smi)}
+                 "live_ops": lambda: phase_live_ops(torch, dev, cfg, smi),
+                 "obs": lambda: phase_obs(torch, dev, cfg, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -2989,6 +3448,7 @@ def main(argv=None) -> int:
         cpu_rel, lut_cpu_rel = phase_cpu_and_loop(torch, dev, cfg)
         gserve = alone["gemma2_serve"]()
         live = phase_live_ops(torch, dev, cfg, smi, lserve)
+        obs = phase_obs(torch, dev, cfg, smi, lserve)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3159,6 +3619,7 @@ def main(argv=None) -> int:
         "forward": fwd,
         "ok": True,
     }]}
+    print(json.dumps({"phase": "obs", "card": smi, "result": obs}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,10 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --bw 1 --ba 3 --plan plan.json --decode chunked --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --prepared-ckpt /tmp/lo/ckpt --request-log /tmp/lo/serve.jsonl --device cpu
 
-Not yet ported: ``--trace`` and ``--metrics`` (observability, ROADMAP Queue 1).
+``--trace PATH`` records the zero-sync ``repro_torch.obs`` trace and writes
+it as Chrome/Perfetto JSON; ``--metrics [PATH]`` prints the metrics and SLO
+snapshot and, with a PATH, writes them as JSONL:
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --trace build/obs/trace.json --metrics build/obs/metrics.jsonl --device cpu
 """
 
 from __future__ import annotations
@@ -103,6 +106,15 @@ def build_args(argv=None):
                          "fsynced, a crashed engine restarts and replays its in-flight "
                          "slots token for token, and a rerun over the same log replays "
                          "what it holds (requires --decode scan)")
+    ap.add_argument("--trace", default=None, metavar="OUT_JSON",
+                    help="record the zero-sync repro_torch.obs trace and write it as "
+                         "Chrome/Perfetto trace_event JSON; recording happens only at "
+                         "existing host syncs, so tokens and sync counts are those of "
+                         "an untraced serve")
+    ap.add_argument("--metrics", nargs="?", const="-", default=None, metavar="OUT_JSONL",
+                    help="print the repro_torch.obs metrics + SLO snapshot after serving; "
+                         "with a PATH, also write the metrics (snapshot, SLO stats, "
+                         "per-request lifecycle records) as JSONL")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -181,11 +193,16 @@ def main(argv=None):
             restored = True
     if not restored:
         params, plan = _quantize_and_prepare(args, cfg, model)
+    obs = None
+    if args.trace or args.metrics:
+        from repro_torch.obs import Observer
+
+        obs = Observer()
     # ``plan`` routes through ServeEngine's autotuned path (spec rewrite +
     # prepare happen inside, fingerprint-checked).
     eng = ServeEngine(model, params, batch=args.batch, max_seq=args.max_seq,
                       decode=args.decode, prompt_bucket=args.prompt_bucket,
-                      plan=plan, device=args.device)
+                      plan=plan, obs=obs, device=args.device)
     if args.prepared_ckpt and not restored and (args.prepare or plan is not None):
         _path, dt = timing.timed(ckpt.save_prepared, args.prepared_ckpt, 0, eng.params)
         print(f"saved prepared checkpoint to {args.prepared_ckpt} in {dt:.2f}s (the next "
@@ -205,6 +222,7 @@ def main(argv=None):
                                 decode="scan", prompt_bucket=args.prompt_bucket,
                                 device=args.device),
             log_path=args.request_log,
+            obs=obs, trace_path=args.trace,
         )
         del eng
         outs, dt = timing.timed(server.serve, reqs)
@@ -222,6 +240,18 @@ def main(argv=None):
     if eng.device.type == "cuda":
         print(f"{torch.cuda.get_device_name(eng.device)}: peak memory "
               f"{torch.cuda.max_memory_allocated(eng.device)/1e9:.2f} GB")
+    if obs is not None:
+        from repro_torch.obs import snapshot_text, write_metrics_jsonl, write_perfetto
+
+        if args.trace:
+            path = write_perfetto(obs, args.trace)
+            print(f"perfetto trace: {path} ({len(obs.tracer)} events, "
+                  f"{obs.tracer.dropped} dropped)")
+        if args.metrics:
+            print(snapshot_text(obs, title=f"repro.serve {args.arch}"))
+            if args.metrics != "-":
+                path = write_metrics_jsonl(obs, args.metrics)
+                print(f"metrics jsonl: {path}")
     return outs
 
 

@@ -72,9 +72,6 @@ event when it ends, and the serving stream waits on that event at the flip
 thread never syncs for a swap.  Before each restart the server drops the
 failed attempt's engine and clears the frames of its failure, so the old
 tree and caches are freed before ``engine_factory`` builds the next.
-
-Not yet ported: observability (``obs=``, ``trace_path=``), ROADMAP Queue 1;
-a non-``None`` value raises.
 """
 
 from __future__ import annotations
@@ -91,15 +88,6 @@ from repro_torch import timing
 from repro_torch.ft.supervisor import RestartPolicy, supervise
 from repro_torch.serve.request_log import RequestLog, replay_state
 from repro_torch.serve.serving import Request, ServeEngine
-
-
-def _refuse_obs(what: str, **kw) -> None:
-    given = sorted(k for k, v in kw.items() if v is not None)
-    if given:
-        raise NotImplementedError(
-            f"{what}({', '.join(f'{k}=' for k in given)}) is not ported yet: observability "
-            f"(repro.obs) is the next item of ROADMAP Queue 1"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +115,11 @@ class StagedSwap:
     On a CUDA ``device`` the build runs on a stream of its own, ordered after
     the work the caller had enqueued when the stage started; ``ready`` is the
     event recorded on that stream when the build ends (the flip's serving
-    stream waits on it)."""
+    stream waits on it).  ``obs`` gets the ``swap stage`` span, recorded
+    from the stage's thread when the build (on a card, its device work) has
+    finished."""
 
     def __init__(self, build: Callable[[], object], *, device=None, obs=None):
-        _refuse_obs("StagedSwap", obs=obs)
         self.tree = None
         self.error: Optional[BaseException] = None
         self.stage_seconds = 0.0
@@ -160,7 +149,11 @@ class StagedSwap:
             except BaseException as e:  # surfaced on wait(), not swallowed
                 self.error = e
             finally:
-                self.stage_seconds = timing.clock() - t0
+                t1 = timing.clock()
+                self.stage_seconds = t1 - t0
+                if obs is not None:     # the tracer's append is atomic under the GIL
+                    obs.ops_span("swap stage", t0, t1, actor="swap",
+                                 ok=self.error is None and self.tree is not None)
 
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
@@ -194,11 +187,13 @@ class StagedSwap:
 
 
 class SwapController:
-    """Double-buffered parameter swaps against a live :class:`ServeEngine`."""
+    """Double-buffered parameter swaps against a live :class:`ServeEngine`.
+    ``obs`` (default: the engine's) gets the stage and flip spans and a
+    refused swap's event on the ``swap`` track."""
 
     def __init__(self, engine: ServeEngine, *, obs=None):
-        _refuse_obs("SwapController", obs=obs)
         self.engine = engine
+        self.obs = obs if obs is not None else engine.obs
         self.last_staged: Optional[StagedSwap] = None
 
     def stage(self, *, params=None, qparams=None, plan=None,
@@ -219,7 +214,7 @@ class SwapController:
             kw = dict(n_hint=self.engine.batch)
             kw.update(prepare_kw or {})
             build = lambda: self.engine.model.prepare(qparams, plan=plan, **kw)
-        staged = StagedSwap(build, device=self.engine.device)
+        staged = StagedSwap(build, device=self.engine.device, obs=self.obs)
         self.last_staged = staged
         return staged
 
@@ -236,13 +231,23 @@ class SwapController:
         tree = staged.wait(timeout)
         applied = threading.Event()
         t0 = timing.clock()
-        self.engine.request_swap(tree, check=check, on_applied=applied.set, ready=staged.ready)
+        try:
+            self.engine.request_swap(tree, check=check, on_applied=applied.set,
+                                     ready=staged.ready)
+        except Exception as e:
+            if self.obs is not None:     # fingerprint / drift refusal
+                self.obs.ops_event("swap refuse", actor="swap", error=type(e).__name__)
+            raise
         if wait and not applied.wait(timeout):
             raise TimeoutError(f"hot-swap staged but not applied within {timeout}s "
                                f"(engine stalled?)")
+        t1 = timing.clock()
+        if self.obs is not None:
+            self.obs.ops_span("swap flip", t0, t1, actor="swap",
+                              wave=self.engine.last_swap_wave, swaps=self.engine.swaps)
         return SwapReport(
             stage_seconds=staged.stage_seconds,
-            flip_wait_seconds=timing.clock() - t0,
+            flip_wait_seconds=t1 - t0,
             wave=self.engine.last_swap_wave,
             swaps=self.engine.swaps,
         )
@@ -313,13 +318,21 @@ class LiveServer:
     ``clock`` is injectable (deadline shedding and the supervisor's
     wall-clock giveup share it) for deterministic tests; it defaults to the
     process-wide :func:`repro_torch.timing.clock`, so
-    ``timing.override_clock`` steers the server and the supervisor together.
+    ``timing.override_clock`` steers the server, the supervisor and every
+    trace timestamp together.
+
+    ``obs`` threads a :class:`repro_torch.obs.Observer` through the server
+    and every engine the factory builds (engines built without their own
+    observer inherit it); restart / quarantine / shed / giveup / replay land
+    as ``ops`` events on the ``supervisor`` track.  ``trace_path`` makes the
+    server export the Perfetto trace atomically at every attempt's start and
+    at completion: a kill mid-attempt leaves the previous complete export,
+    never a torn file.
 
     Each attempt drops the previous attempt's engine before it calls
     ``engine_factory()``, and each restart clears the frames of the failure
     that caused it: the old tree and its caches are freed first, so a card
     holds one serving tree at a time (plus what the factory keeps).
-    ``obs`` / ``trace_path`` (observability) are not ported and raise.
     """
 
     def __init__(
@@ -338,7 +351,6 @@ class LiveServer:
         obs=None,
         trace_path: Optional[str] = None,
     ):
-        _refuse_obs("LiveServer", obs=obs, trace_path=trace_path)
         self.engine_factory = engine_factory
         self.log_path = str(log_path)
         self.policy = policy or RestartPolicy()
@@ -349,6 +361,8 @@ class LiveServer:
         self.queue_limit = queue_limit
         self.max_request_retries = max_request_retries
         self.clock = clock
+        self.obs = obs
+        self.trace_path = None if trace_path is None else str(trace_path)
         self.engine: Optional[ServeEngine] = None
         self.restarts = 0
         self.rebuilds = 0               # engine_factory invocations
@@ -362,6 +376,19 @@ class LiveServer:
         self._ident = 0
         self._pool: set = set()
         self._probe: Optional[set] = None
+
+    def _export_trace(self) -> None:
+        """Atomic Perfetto export (tmp + rename), at attempt starts and at
+        completion, so a kill anywhere leaves a loadable trace."""
+        if self.obs is None or self.trace_path is None:
+            return
+        from repro_torch.obs.export import write_perfetto
+
+        write_perfetto(self.obs, self.trace_path)
+
+    def _ops(self, name: str, **args) -> None:
+        if self.obs is not None:
+            self.obs.ops_event(name, actor="supervisor", **args)
 
     # --- bounded admission queue ------------------------------------------
 
@@ -441,6 +468,7 @@ class LiveServer:
                         )
                         state.shed.add(i)
                         state.shed_reasons[i] = f"deadline {r.deadline_s}s exceeded"
+                        self._ops("shed", request=i, deadline_s=r.deadline_s)
 
             def body(attempt: int):
                 state = replay_state(self.log_path)
@@ -452,8 +480,15 @@ class LiveServer:
                 # before the factory builds the next one.
                 self.engine = None
                 engine = self.engine_factory()
+                if self.obs is not None and engine.obs is None:
+                    engine.obs = self.obs     # factory-built engines inherit
                 self.engine = engine
                 self.rebuilds += 1
+                self._ops("replay", attempt=attempt, pending=len(pend),
+                          probe=sorted(self._probe) if self._probe else None)
+                # Attempt boundary: flush what we have, so a kill during this
+                # attempt still leaves a complete, loadable trace on disk.
+                self._export_trace()
                 results = {i: list(t) for i, t in state.emitted.items()}
                 gmap = [idx for idx, _, _ in pend]
                 rem = {idx: b for idx, _, b in pend}
@@ -511,6 +546,7 @@ class LiveServer:
 
             def on_restart(attempt: int, exc: BaseException):
                 log.log_restart(attempt, repr(exc))
+                self._ops("restart", attempt=attempt, error=type(exc).__name__)
                 # The failed attempt's frames hold its engine and caches;
                 # the exception is kept (the supervisor may re-raise it),
                 # its locals are not.
@@ -522,6 +558,8 @@ class LiveServer:
                 # Flush the terminal verdict while the process still can:
                 # a successor server reads it from the log.
                 log.log_giveup(repr(first))
+                self._ops("giveup", error=type(first).__name__)
+                self._export_trace()
 
             result, self.restarts = supervise(
                 body, policy=policy, on_restart=on_restart,
@@ -530,6 +568,7 @@ class LiveServer:
             return result
         finally:
             log.close()
+            self._export_trace()
 
     # --- poison attribution -----------------------------------------------
 
@@ -547,6 +586,7 @@ class LiveServer:
                 log.log_quarantine(gi, reason)
                 self.quarantined[gi] = reason
                 budget_hits.append(gi)
+                self._ops("quarantine", request=gi, kind="retry_budget")
         if budget_hits:
             # The blunt path just isolated suspect(s) the identical-crash
             # chain was built on; attributing the pool's remainder would
@@ -578,6 +618,7 @@ class LiveServer:
             )
             log.log_quarantine(gi, reason)
             self.quarantined[gi] = reason
+            self._ops("quarantine", request=gi, kind="poison_attributed")
             self._probe = None
             self._pool = set()
             self._last_sig, self._ident = None, 0

@@ -39,9 +39,15 @@ the raw quantized tree is prepared leaf by leaf at the plan's configs
   wave's single host sync and before the engine's own bookkeeping, with a
   :class:`WaveRecord` — the durable request log's write point
   (:mod:`repro_torch.serve.request_log`) and where failure injection lands.
-
-Not yet ported: ``obs=`` (observability, ROADMAP Queue 1): a non-``None``
-``obs`` raises.
+  The positional signature ``on_wave(wave, admitted, emitted)`` still works
+  through a deprecation shim (:meth:`ServeEngine._dispatch_wave`).
+* *Structured observability*: ``ServeEngine(obs=...)`` threads a
+  :class:`repro_torch.obs.Observer` through every driver.  It records only
+  at the existing host syncs, from values already on the host (no
+  ``.item()``, ``.cpu()`` or ``torch.cuda.synchronize()`` of its own), so
+  tokens, ``host_syncs`` and ``admissions`` are those of an untraced run.
+  The continuous driver records each wave; the chunked and loop drivers one
+  coarse record per chunk at its last sync.
 
 **Prefill pad mask.**  Prompt lengths are bucketed to powers of two and
 left-padded into the bucket; the per-row pad length reaches the attention
@@ -62,7 +68,9 @@ reference donates its buffers); the admission merge builds new tensors.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import threading
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -106,6 +114,24 @@ class WaveRecord:
         return self.t_sync - self.t_fetch
 
 
+def _wave_cb_is_legacy(cb) -> bool:
+    """True when ``cb`` expects the older positional signature ``(wave,
+    admitted, emitted)`` rather than one :class:`WaveRecord`.  Detection is
+    by required-positional-parameter count; undecidable callables (builtins)
+    are treated as record-style, ``*args`` as legacy."""
+    try:
+        sig = inspect.signature(cb)
+    except (TypeError, ValueError):
+        return False
+    required = 0
+    for p in sig.parameters.values():
+        if p.kind == p.VAR_POSITIONAL:
+            return True
+        if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD) and p.default is p.empty:
+            required += 1
+    return required >= 2
+
+
 @dataclasses.dataclass
 class Request:
     prompt: np.ndarray                  # [S] int32
@@ -146,11 +172,6 @@ class ServeEngine:
         obs=None,
         device="cuda",
     ):
-        if obs is not None:
-            raise NotImplementedError(
-                "ServeEngine(obs=) is not ported yet: observability (repro.obs) is the "
-                "next item of ROADMAP Queue 1"
-            )
         if decode not in ("scan", "chunked", "loop"):
             raise ValueError(
                 f"decode must be 'scan', 'chunked' or 'loop', got {decode!r}"
@@ -174,6 +195,8 @@ class ServeEngine:
         self.host_syncs = 0             # device->host transfers, cumulative
         self.admissions: list[tuple[int, int]] = []   # (request_idx, slot), per call
         self.bucket_counts: dict[int, int] = {}       # prefill bucket -> uses
+        self.obs = obs                  # repro_torch.obs.Observer or None
+        self._obs_gen = 0               # the Observer's generation of this call
         self.on_wave = None             # callback(WaveRecord)
         self.swaps = 0                  # completed hot-swaps, cumulative
         self.last_swap_wave: Optional[int] = None
@@ -214,6 +237,9 @@ class ServeEngine:
         greedy tokens in request order."""
         self._validate(requests)
         self._serving = True
+        if self.obs is not None:
+            self._obs_gen = self.obs.serve_begin(len(requests), decode=self.decode,
+                                                 batch=self.batch)
         try:
             if self.decode == "scan":
                 return self._generate_continuous(requests)
@@ -223,13 +249,40 @@ class ServeEngine:
             for start in range(0, len(requests), self.batch):
                 # Chunk boundary: no decode in flight, a staged swap lands here.
                 self._poll_swap(start // self.batch)
-                out.extend(run(requests[start : start + self.batch]))
+                out.extend(run(requests[start : start + self.batch], start))
             return out
         finally:
             self._serving = False
             # Batch drained: the boundary a swap requested during the final
             # wave or chunk lands on.
             self._poll_swap()
+            if self.obs is not None:
+                self.obs.serve_end(self._obs_gen, engine=self)
+
+    def _dispatch_wave(self, rec: WaveRecord) -> None:
+        """Deliver one wave's record to ``obs`` and ``on_wave``, after the
+        wave's host sync and before the engine's own output bookkeeping (the
+        durable log's crash window).  ``obs`` records first, so a crash
+        injected through ``on_wave`` still leaves the wave traced.  An
+        ``on_wave`` written against the positional signature ``(wave,
+        admitted, emitted)`` is called that way, with a
+        ``DeprecationWarning``."""
+        if self.obs is not None:
+            self.obs.wave(rec, gen=self._obs_gen, engine=self)
+        cb = self.on_wave
+        if cb is None:
+            return
+        if _wave_cb_is_legacy(cb):
+            warnings.warn(
+                "ServeEngine.on_wave(wave, admitted, emitted) is deprecated; "
+                "accept a single serving.WaveRecord instead (its .wave, "
+                ".admitted, .emitted fields carry the old arguments). The "
+                "positional shim will be removed in the next release.",
+                DeprecationWarning, stacklevel=3,
+            )
+            cb(rec.wave, rec.admitted, rec.emitted)
+        else:
+            cb(rec)
 
     # --- live operations: double-buffered parameter hot-swap --------------
 
@@ -444,18 +497,19 @@ class ServeEngine:
                     continue
                 lo = 0 if s in admitted else 1   # col 0 = wave-start token
                 emitted.append((i, s, [int(t) for t in mat[s, lo : 1 + steps]]))
-            if self.on_wave is not None:
-                self.on_wave(WaveRecord(
-                    wave=wave,
-                    admitted=[(slot_req[s], s) for s in admitted],
-                    emitted=emitted,
-                    finished=frozenset(i for i, s, _t in emitted if slot_rem[s] == steps),
-                    steps=steps,
-                    t_start=t_wave, t_decode=t_decode, t_fetch=t_fetch, t_sync=t_sync,
-                    prefill_bucket=plen_b,
-                    queue_depth=len(queue) - qi,
-                    active_slots=int(active.sum()),
-                ))
+            # After the sync, before the output bookkeeping: the request log's
+            # write point.  Every field is already on the host.
+            self._dispatch_wave(WaveRecord(
+                wave=wave,
+                admitted=[(slot_req[s], s) for s in admitted],
+                emitted=emitted,
+                finished=frozenset(i for i, s, _t in emitted if slot_rem[s] == steps),
+                steps=steps,
+                t_start=t_wave, t_decode=t_decode, t_fetch=t_fetch, t_sync=t_sync,
+                prefill_bucket=plen_b,
+                queue_depth=len(queue) - qi,
+                active_slots=int(active.sum()),
+            ))
             for i, s, toks_w in emitted:
                 outs[i].extend(toks_w)
                 slot_rem[s] -= steps
@@ -476,11 +530,13 @@ class ServeEngine:
             pad[i] = plen - len(r.prompt)
         return toks, pad
 
-    def _generate_batch_chunked(self, chunk: list[Request]) -> list[list[int]]:
+    def _generate_batch_chunked(self, chunk: list[Request], start: int = 0) -> list[list[int]]:
         """Prefill the chunk at its prompt bucket, decode every row to the
         chunk's worst-case budget on the device, fetch the token matrix
         once.  Rows past their own budget keep stepping; the host keeps each
-        row's first ``max_new_tokens``."""
+        row's first ``max_new_tokens``.  ``start`` is the chunk's first
+        request index (the ``obs`` record's request ids)."""
+        t_wave = timing.clock()
         plen = max(len(r.prompt) for r in chunk)
         max_new = max(r.max_new_tokens for r in chunk)
         # The whole chunk decodes to the worst-case budget, so the chunk's
@@ -498,20 +554,45 @@ class ServeEngine:
         toks, pad = self._pad_prompts(chunk, plen_b)
         token, caches = self._prefill(toks, pad)
         pad_dev = self._upload(pad)
+        t_decode = timing.clock()
         ys = torch.empty((self.batch, length), dtype=torch.int32, device=self.device)
         ys[:, 0] = token[:, 0]
         for t in range(length - 1):
             token, caches = self._step(token, caches, plen_b + t, pad_dev)
             ys[:, t + 1] = token[:, 0]
+        t_fetch = timing.clock()
         mat = self._fetch(ys)            # the chunk's single device->host sync
-        return [[int(t) for t in mat[i, : chunk[i].max_new_tokens]]
+        t_sync = timing.clock()
+        outs = [[int(t) for t in mat[i, : chunk[i].max_new_tokens]]
                 for i in range(len(chunk))]
+        if self.obs is not None:
+            # One coarse record a chunk (a chunk is one "wave"), at its sync.
+            self.obs.wave(self._chunk_record(chunk, start, outs, steps=length, t_start=t_wave,
+                                             t_decode=t_decode, t_fetch=t_fetch, t_sync=t_sync,
+                                             bucket=plen_b),
+                          gen=self._obs_gen, engine=self)
+        return outs
+
+    def _chunk_record(self, chunk, start, outs, *, steps, t_start, t_decode, t_fetch, t_sync,
+                      bucket) -> WaveRecord:
+        """The chunked and loop drivers' coarse per-chunk record: every row
+        admitted into slot ``i``, and finished, within the chunk."""
+        return WaveRecord(
+            wave=start // self.batch,
+            admitted=[(start + i, i) for i in range(len(chunk))],
+            emitted=[(start + i, i, outs[i]) for i in range(len(chunk))],
+            finished=frozenset(start + i for i in range(len(chunk))),
+            steps=steps, t_start=t_start, t_decode=t_decode, t_fetch=t_fetch, t_sync=t_sync,
+            prefill_bucket=bucket, queue_depth=0, active_slots=len(chunk),
+        )
 
     # --- oracle: per-token loop ---------------------------------------------
 
-    def _generate_batch_loop(self, chunk: list[Request]) -> list[list[int]]:
+    def _generate_batch_loop(self, chunk: list[Request], start: int = 0) -> list[list[int]]:
         """Prefill the chunk at its exact max prompt length, then one decode
-        step and one host sync per token."""
+        step and one host sync per token.  ``start`` is the chunk's first
+        request index (the ``obs`` record's request ids)."""
+        t_wave = timing.clock()
         plen = max(len(r.prompt) for r in chunk)
         self._check_fits(plen, max(r.max_new_tokens for r in chunk))
         self.bucket_counts[plen] = self.bucket_counts.get(plen, 0) + 1
@@ -532,4 +613,12 @@ class ServeEngine:
             for i, r in enumerate(chunk):
                 if len(outs[i]) < r.max_new_tokens:
                     outs[i].append(int(tok_h[i, 0]))
+        if self.obs is not None:
+            # The loop syncs every step; one coarse record a chunk, ending at
+            # its last sync, keeps the SLO stats comparable across drivers.
+            t_sync = timing.clock()
+            self.obs.wave(self._chunk_record(chunk, start, outs, steps=max_new, t_start=t_wave,
+                                             t_decode=t_wave, t_fetch=t_wave, t_sync=t_sync,
+                                             bucket=plen),
+                          gen=self._obs_gen, engine=self)
         return outs

@@ -11,9 +11,8 @@ calls first (the kernels' first build lands there), then the median of
 Measurements are cached process-wide by the candidate's full identity
 ``(f, k, n, bw, ba, p, mode, tile_n, buffer_bytes, wcanon, prepared,
 kinds)``, so a sweep over many budgets measures each distinct config once.
-
-The reference's ``Measurer(obs=)`` (spans and hit/miss counters of
-``repro.obs``) is not ported: observability is a later slice of the port.
+``Measurer(obs=)`` counts the cache's hits and misses and records one
+``tune`` span per miss (:meth:`repro_torch.obs.Observer.measurement`).
 """
 
 from __future__ import annotations
@@ -62,10 +61,12 @@ def _cuda_us(fn, x: torch.Tensor, *, iters: int, warmup: int) -> float:
 class Measurer:
     """Timed ``apply_linear`` per candidate, cached by candidate identity."""
 
-    def __init__(self, *, iters: int = 3, warmup: int = 1, cache: Optional[dict] = None):
+    def __init__(self, *, iters: int = 3, warmup: int = 1, cache: Optional[dict] = None,
+                 obs=None):
         self.iters = iters
         self.warmup = warmup
         self.cache = _GLOBAL_CACHE if cache is None else cache
+        self.obs = obs                  # repro_torch.obs.Observer or None
         self.hits = 0
         self.misses = 0
 
@@ -79,10 +80,16 @@ class Measurer:
         dispatch; here the call is eager, about two dozen launches a
         projection on the lut path, so the host's launch time is part of
         what is measured.  On the CPU: the host clock
-        (:func:`repro_torch.timing.time_fn`)."""
+        (:func:`repro_torch.timing.time_fn`).
+
+        With ``obs``, a miss's ``tune`` span ends at the host clock read
+        after the last timed call finished (on a card, after its end event's
+        ``synchronize``) and starts ``us`` earlier, as in the reference."""
         key = measure_key(q.f, q.k, x.shape[0], q.spec, cand)
         if key in self.cache:
             self.hits += 1
+            if self.obs is not None:
+                self.obs.measurement(key, self.cache[key], cached=True)
             return self.cache[key]
         self.misses += 1
         qq = dataclasses.replace(q, spec=cand.spec_for(q.spec))
@@ -98,6 +105,8 @@ class Measurer:
         else:
             us = timing.time_fn(fn, x, iters=self.iters, warmup=self.warmup)
         self.cache[key] = us
+        if self.obs is not None:
+            self.obs.measurement(key, us, cached=False)
         return us
 
 

@@ -725,7 +725,9 @@ def test_port_imports_no_jax_and_no_reference():
         assert not bad, bad
         live_ops = {"repro_torch.ckpt.checkpoint", "repro_torch.serve.request_log",
                     "repro_torch.serve.ops", "repro_torch.ft.supervisor",
-                    "repro_torch.ft.chaos", "repro_torch.launch.serve"}
+                    "repro_torch.ft.chaos", "repro_torch.launch.serve",
+                    "repro_torch.obs.trace", "repro_torch.obs.metrics",
+                    "repro_torch.obs.export"}
         assert live_ops <= set(sys.modules), sorted(live_ops - set(sys.modules))
         from repro_torch.kernels import build
         assert not build._loaded            # importing built / loaded nothing

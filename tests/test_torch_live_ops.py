@@ -299,8 +299,8 @@ def test_swap_lands_at_a_chunk_boundary_in_the_chunked_driver(lut, monkeypatch):
     eng = ServeEngine(lut["tm"], lut["tp"], batch=2, max_seq=32, decode="chunked", device="cpu")
     run = eng._generate_batch_chunked
 
-    def first_chunk_requests_swap(chunk):
-        out = run(chunk)
+    def first_chunk_requests_swap(chunk, start=0):
+        out = run(chunk, start)
         if eng.swaps == 0 and eng._swap_pending is None:
             eng.request_swap(tree_b)
         return out
@@ -376,15 +376,6 @@ def test_swap_status_and_dead_stage_surfaced(lut):
     assert ctrl.status()["stage_dead"]
     rep = ctrl.flip(ctrl.stage(params=lut["tp"]), timeout=60.0)
     assert rep.swaps == 1 and ctrl.status()["staged_ready"]
-
-
-def test_observability_is_refused_until_ported(lut, tmp_path):
-    with pytest.raises(NotImplementedError, match="observability"):
-        ServeEngine(lut["tm"], lut["tp"], batch=2, max_seq=32, device="cpu", obs=object())
-    with pytest.raises(NotImplementedError, match="obs=, trace_path="):
-        _live(lut, tmp_path / "l.jsonl", obs=object(), trace_path=str(tmp_path / "t.json"))
-    with pytest.raises(NotImplementedError, match="observability"):
-        StagedSwap(lambda: None, obs=object())
 
 
 # --- request fault domains ---------------------------------------------------------
