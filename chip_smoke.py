@@ -5,8 +5,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-(``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops`` or
-``--phase obs`` runs one phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
+(``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
+``--phase obs`` or ``--phase deepseek`` runs one phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
@@ -38,6 +38,15 @@ entry points at published full widths:
   full cache, the decode against the cache-free forward and the profile
   against the baseline, and last the 26-layer bf16 profile's teacher-forced
   decode is held against the cache-free f32 forward (phase 14);
+
+* deepseek-v2-lite-16b whole (phase 17): all 27 layers at published widths
+  (multi-head latent attention with its compressed latent cache; 64 routed
+  experts top-6 + 2 shared, the published capacity factor; a dense first
+  layer), W4A4 ``pallas`` prepared, bf16, served through ``ServeEngine`` —
+  every applied projection on ``lut_dequant_gemm``'s tensor-core route, the
+  expert stacks decoded and multiplied in plain torch as the reference does;
+  then the chunked 4608-token MLA prefill, a 4-layer W1A3 ``lut`` serve and
+  a 2-layer f32 prefill against the CPU (logits and expert ids);
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
@@ -71,6 +80,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -453,11 +463,12 @@ def phase_row_invariance(torch, dev):
 
 
 def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 5),
-                       label="phase 2"):
-    """Kernel, plain-version and library times at one layer's 7 projection
-    shapes of ``cfg`` for each row count in ``bs`` (the serve path's decode
-    B = 4 and largest prefill B = 4 x 128; gemma2-2b's served decode B = 4,
-    its 4 x 4096 prefill and its forward, B = 8192),
+                       label="phase 2", shapes=None):
+    """Kernel, plain-version and library times at ``shapes`` (``{name: (K,
+    F)}``; default: one layer's 7 projection shapes of ``cfg``) for each row
+    count in ``bs`` (the serve path's decode B = 4 and largest prefill B = 4
+    x 128; gemma2-2b's served decode B = 4, its 4 x 4096 prefill and its
+    forward, B = 8192),
     W4, bf16 x (the tensor-core route), with ``iters`` timed calls of the
     kernel, the plain version and each yardstick, device time (:func:`device_ms`);
     the kernel is held against its plain version at each of them too.  Two
@@ -478,7 +489,8 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     worst_rel = worst_abs = 0.0
-    for name, (k, f) in layer_shapes(cfg).items():
+    shapes = layer_shapes(cfg) if shapes is None else shapes
+    for name, (k, f) in shapes.items():
         w = torch.randn((k, f), generator=gen, device=dev)
         q = quantize_linear(w, LutLinearSpec(bw=4))
         w_t = dequantize_weights(q).T.contiguous()          # [F, K] f32, pre-decoded
@@ -534,7 +546,7 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
         picked = [r for r in rows if r["B"] == b]
         t = {key: sum(r[key] for r in picked)
              for key in ("ms", "plain_ms", "library_ms", "library_bf16_ms", "bound_ms")}
-        log(f"{label}: {cfg.name} layer (7 projections) at B={b}: kernel "
+        log(f"{label}: {cfg.name}, {len(shapes)} projection shapes at B={b}: kernel "
             f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of the bound {t['bound_ms']:.4f} "
             f"ms), plain {t['plain_ms']:.4f} ms, torch.matmul f32 {t['library_ms']:.4f} ms "
             f"({t['library_ms'] / t['ms']:.2f}x the kernel), bf16 {t['library_bf16_ms']:.4f} ms")
@@ -716,9 +728,10 @@ def phase_stream_kernel(torch, dev):
         f"compose modes) equal bit for bit")
 
 
-def phase_stream_times(torch, dev, cfg, card, smi):
-    """Times at the lut serve path's shapes: one stablelm-12b layer's seven
-    projections at W1A3 p=4, decode (N = 4) and prefill (N = 4 x 128).  The
+def phase_stream_times(torch, dev, cfg, card, smi, *, shapes=None, label="phase 6"):
+    """Times at the lut serve path's shapes (``shapes``, ``{name: (K, F)}``;
+    default: one layer's seven projections of ``cfg``) at W1A3 p=4, decode
+    (N = 4) and prefill (N = 4 x 128).  The
     canonicalize kernel on the quantizer's codes (a transposed view, as on the
     path) beside the plain chain; lut_stream_gemm on its route (the int8
     tensor cores, the composed operand as given) and on the CUDA cores, both
@@ -742,7 +755,8 @@ def phase_stream_times(torch, dev, cfg, card, smi):
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     worst = 0
-    for name, (k, f) in layer_shapes(cfg).items():
+    shapes = layer_shapes(cfg) if shapes is None else shapes
+    for name, (k, f) in shapes.items():
         w = torch.randn((k, f), generator=gen, device=dev)
         wpk = prepare_linear(quantize_linear(w, spec), n_hint=4).wpk          # [F, G]
         del w
@@ -824,7 +838,8 @@ def phase_stream_times(torch, dev, cfg, card, smi):
         t = {key: sum(row[key] for row in picked)
              for key in ("ms", "cuda_core_ms", "plain_ms", "library_ms", "bound_ms",
                          "lookup_bound_ms", "canon_ms", "canon_plain_ms", "canon_bound_ms")}
-        log(f"phase 6: {cfg.name} layer (7 projections) at N={b}: lut_stream_gemm (tc) "
+        log(f"{label}: {cfg.name}, {len(shapes)} projection shapes at N={b}: lut_stream_gemm "
+            f"(tc) "
             f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of its bound {t['bound_ms']:.4f} "
             f"ms; lookup bound {t['lookup_bound_ms']:.4f} ms), CUDA-core kernel "
             f"{t['cuda_core_ms']:.4f} ms ({t['cuda_core_ms'] / t['ms']:.2f}x), plain "
@@ -832,7 +847,7 @@ def phase_stream_times(torch, dev, cfg, card, smi):
             f"({t['library_ms'] / t['ms']:.2f}x); canonicalize {t['canon_ms']:.4f} ms "
             f"(bound {t['canon_bound_ms']:.4f} ms), plain chain {t['canon_plain_ms']:.4f} ms "
             f"[{smi}]")
-    log("phase 6: the lut serve path's shapes (N=4 and 512) equal the plain version and the "
+    log(f"{label}: the lut serve path's shapes (N=4 and 512) equal the plain version and the "
         "one-hot yardstick bit for bit on both routes")
     return rows, worst
 
@@ -1133,10 +1148,11 @@ def counted_generate(torch, eng, reqs):
 def check_served(cfg, eng, outs, max_new, records, counts, sync_warnings, *, kernel, what):
     """The checks every continuous-batching serve phase makes: ``max_new``
     tokens a request, within the vocabulary; one host sync per wave and no
-    other synchronizing call; ``kernel`` launched 7 x layers x (prefills +
-    decode steps) times (every projection), on the tensor cores where it is
-    lut_dequant_gemm, and no other kernel.  Returns (prefills, decode steps,
-    launches)."""
+    other synchronizing call; ``kernel`` launched (the applied projections
+    per forward, counted from the engine's tree by
+    :func:`applied_projections`) x (prefills + decode steps) times, on the
+    tensor cores where it is lut_dequant_gemm, and no other kernel.  Returns
+    (prefills, decode steps, launches)."""
     check(all(len(o) == max_new for o in outs),
           f"{what}: token counts {[len(o) for o in outs]} != {max_new} each")
     check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
@@ -1149,8 +1165,9 @@ def check_served(cfg, eng, outs, max_new, records, counts, sync_warnings, *, ker
     prefills = sum(1 for r in records if r.admitted)
     steps = sum(r.steps for r in records)
     launches = counts[kernel]
-    want = 7 * cfg.n_layers * (prefills + steps)
-    check(launches == want, f"{what}: {kernel} launches {launches} != 7 x {cfg.n_layers} x "
+    per, _ = applied_projections(eng.params)
+    want = per * (prefills + steps)
+    check(launches == want, f"{what}: {kernel} launches {launches} != {per} x "
                             f"({prefills} prefills + {steps} decode steps) = {want}")
     check(all(n == 0 for name, n in counts.items() if not name.startswith(kernel)),
           f"{what}: the path launched another kernel: {counts}")
@@ -3352,11 +3369,478 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: deepseek-v2-lite-16b whole (MoE + multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+DS_MAX_SEQ = 512              # 17a / 17c: ServeEngine(batch=4, max_seq=512)
+DS_NEW = 32                   # new tokens a request
+DS_PROMPT = 128               # the longest prompt, and the timed prefill's length
+DS_CHUNKED_SEQ = 4608         # 17b: one row through MLA's chunked branch (> 4096, % 512 == 0)
+DS_LUT_LAYERS = 4             # 17c: depth cut to 1 "F" + 3 "D" units
+TOL_MLA_CHUNKED = 2e-4        # 17b: chunked vs unchunked latent attention (f32), relative to
+                              # max |y|: the same per-row sums, in other GEMM shapes
+TOL_CPU_DS = 1e-4             # 17d: card vs CPU logits (f32, 2 layers), relative to max |logit|
+DS_REGIONS = ("expert dequant", "expert bmm", "moe routing", "moe dispatch+combine",
+              "latent attention")
+
+
+def applied_projections(params):
+    """The quantized projections one forward applies, counted from the tree:
+    every quantized leaf times its stack, except MLA's absorbed ``W_kup`` /
+    ``W_vup`` (decoded, never applied) and the MoE expert stacks (decoded for
+    the batched expert GEMMs); a MoE block's shared experts are applied.
+    Returns ``(count, {leaf path: (count, K, F)})``."""
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    by_path = {}
+    for path, leaf in quantized_leaf_items(params):
+        parts = path.split("/")
+        if parts[-1] in ("w_kup", "w_vup") or ("moe" in parts and "shared" not in parts):
+            continue
+        by_path[path] = (leaf.codes.shape[0] if leaf.codes.ndim == 3 else 1, leaf.k, leaf.f)
+    return sum(n for n, _k, _f in by_path.values()), by_path
+
+
+def projection_shapes(params):
+    """``{name: (K, F)}``: each distinct shape among the applied projections
+    (:func:`applied_projections`) once, named by the last two parts of the
+    paths that have it."""
+    names = {}
+    for path, (_n, k, f) in applied_projections(params)[1].items():
+        names.setdefault((k, f), []).append("/".join(path.split("/")[-2:]))
+    return {"+".join(dict.fromkeys(ns)): kf for kf, ns in names.items()}
+
+
+def deepseek_requests(cfg):
+    """Phase 17's 8 requests: prompts of 16-128 tokens from ``default_rng(0)``,
+    the first of each group of 4 (one wave, one chunk) exactly DS_PROMPT
+    tokens, so the continuous and chunked drivers' prompt bucket and the loop
+    driver's exact length agree (the MoE capacity follows the prefill's token
+    count); DS_NEW new tokens each."""
+    from repro_torch.serve.serving import Request
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, DS_PROMPT + 1, 8)
+    lens[0] = lens[4] = DS_PROMPT
+    return lens, [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                          max_new_tokens=DS_NEW) for n in lens]
+
+
+class _RegionLabels:
+    """Label phase 17's regions with torch.profiler ranges while it records
+    (a check of this script; the port has no such hooks): the expert
+    stacks' dequantization (``models.model.maybe_dequant``, which
+    ``moe_apply`` imports at each call), the routing (``moe._route``), the
+    dispatch and combine around the expert GEMMs (``moe._dispatch_compute``)
+    and the latent attention (``attention._latent_attend``).  The expert
+    GEMMs are the ``aten::bmm`` ops inside the dispatch range
+    (:func:`region_of`)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import attention, model, moe
+
+        self.torch, self.modules = torch, ((model, "maybe_dequant", "expert dequant"),
+                                           (moe, "_route", "moe routing"),
+                                           (moe, "_dispatch_compute", "moe dispatch+combine"),
+                                           (attention, "_latent_attend", "latent attention"))
+
+    def __enter__(self):
+        rf = self.torch.profiler.record_function
+        self.saved = [getattr(mod, name) for mod, name, _label in self.modules]
+        for (mod, name, label), fn in zip(self.modules, self.saved):
+            def wrapped(*args, _fn=fn, _label=label, **kw):
+                with rf(_label):
+                    return _fn(*args, **kw)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _label), fn in zip(self.modules, self.saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def region_of(event):
+    """The region (:data:`DS_REGIONS`) of a profiled host event: its
+    innermost enclosing :class:`_RegionLabels` range, read as "expert bmm"
+    where an ``aten::bmm`` lies between the event and the dispatch range;
+    ``None`` outside every range."""
+    bmm = False
+    while event is not None:
+        if event.name == "aten::bmm":
+            bmm = True
+        if event.name in DS_REGIONS:
+            return "expert bmm" if bmm and event.name == "moe dispatch+combine" else event.name
+        event = event.cpu_parent
+    return None
+
+
+def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what):
+    """Device time of one call of ``fn`` by region (:class:`_RegionLabels`),
+    beside ``kernel``'s time, the busy time and the idle share against
+    ``wall_ms``, from torch.profiler over ``iters`` calls after a warmup
+    call; logs it and returns it, or ``None`` when the profiler saw no
+    device time.  Each device kernel counts once, in the region of the host
+    event that launched it (:func:`region_of`), so the regions, ``kernel``
+    and the rest partition the busy time.  Fails where a region reads 0 or
+    the rest is negative."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with _RegionLabels(torch):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    busy = ours = ours_n = 0.0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in DS_REGIONS:
+            continue                   # host events; the ranges' device-side spans
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        ms = us / 1e3 / iters
+        busy += ms
+        by_name[e.key] = by_name.get(e.key, 0.0) + ms
+        if kernel in e.key:
+            ours += ms
+            ours_n += e.count / iters
+    if busy <= 0:
+        log(f"  {what}: device time by region not measured (the profiler saw no device time)")
+        return None
+    regions = dict.fromkeys(DS_REGIONS, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        region = region_of(e)
+        if region is not None:
+            us = sum(k.duration for k in e.kernels if kernel not in k.name)
+            regions[region] += us / 1e3 / iters
+    out = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms, kernel_ms=ours,
+               kernel_launches=ours_n, regions_ms=regions,
+               other_ms=busy - ours - sum(regions.values()),
+               top=[(name, ms) for ms, name in sorted(((ms, n) for n, ms in by_name.items()),
+                                                      reverse=True)[:8]])
+    log(f"  {what} [{card}]: device busy {busy:.2f} of {wall_ms:.2f} ms (idle share "
+        f"{out['idle_share']:.3f}); {kernel} {ours:.2f} ms in {ours_n:.0f} launches; "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in regions.items())
+        + f"; the rest {out['other_ms']:.2f} ms; largest device ops:")
+    for name, ms in out["top"]:
+        log(f"    {ms:8.3f} ms  {name[:100]}")
+    check(all(v > 0 for v in regions.values()),
+          f"{what}: a region read no device time: {regions} (a renamed function of the port?)")
+    check(out["other_ms"] >= -1e-6 * busy,
+          f"{what}: the regions and {kernel} add up to more than the busy time ({busy:.3f} ms)")
+    return out
+
+
+def held_on_card(torch, dev, top=3):
+    """What the card holds: ``torch.cuda.memory_allocated`` and the CUDA
+    tensors the Python heap still references, each storage once: ``(allocated
+    bytes, referenced bytes, storages, the largest top as (bytes, shape,
+    dtype))``.  Tensor subclasses (torch.compile's fake and functional
+    tensors) own no device memory and are not counted."""
+    storages = {}
+    for o in gc.get_objects():
+        if type(o) in (torch.Tensor, torch.nn.Parameter) and o.is_cuda:
+            st = o.untyped_storage()
+            storages[st.data_ptr()] = (st.nbytes(), tuple(o.shape), str(o.dtype))
+    return (torch.cuda.memory_allocated(dev), sum(n for n, _s, _d in storages.values()),
+            len(storages), sorted(storages.values(), reverse=True)[:top])
+
+
+def phase_deepseek(torch, dev, smi):
+    """Phase 17: deepseek-v2-lite-16b (MLA attention, 64 routed + 2 shared
+    experts top-6, a dense first layer) at its published widths.
+
+    17a: all 27 layers, W4A4 ``pallas`` prepared, bf16, served through
+    ``ServeEngine(batch=4, max_seq=512)`` (the published capacity factor):
+    exact token counts, one host sync a wave and no other synchronizing
+    call, ``lut_dequant_gemm`` launched (applied projections per forward,
+    counted from the tree) x (prefills + steps) times, all on the tensor
+    cores; ``decode="loop"`` and ``"chunked"`` give the same tokens; one MoE
+    layer twice on the same input gives the same bits; times and the
+    profiler's breakdown.  17b: one layer's ``mla_attention`` on one row of
+    4608 tokens (the chunked branch) against its unchunked latent attention.
+    17c: W1A3 ``lut``, calibrated and prepared, 4 layers, phase 17a's
+    requests: ``lut_stream_gemm`` and canonicalize launches per route, scan
+    == loop.  17d: 2 layers in f32, one prefill on the card against the
+    CPU's (the kernels' plain versions): logits and expert ids.  17e: each
+    distinct shape of 17a's applied projections, B = 4 and 4 x 128, bf16 x:
+    ``lut_dequant_gemm`` on the tensor cores against its plain version (phase
+    2's sweep), ``lut_stream_gemm`` and ``lut_canon`` at W1A3 p=4 against
+    theirs (phase 6's), with times.
+
+    scan == loop == chunked holds on these waves because each wave's longest
+    prompt is a bucket: the MoE capacity follows the call's token count, pads
+    included, so on other waves the drivers may route otherwise, as the
+    reference's do (ROADMAP Numerics rules)."""
+    from repro_torch import hw, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import attention, moe
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune.plan import quantized_leaf_items
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cfg = get_config(DEEPSEEK)
+    out = {}
+
+    # --- 17a: all 27 layers, W4A4 pallas, bf16, served -----------------------
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    before_gc = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base, referenced, n_storages, largest = held_on_card(torch, dev)
+    log(f"phase 17a: held on the card before the build (what earlier phases left): "
+        f"{before_gc / 1e9:.2f} GB allocated, {base / 1e9:.2f} GB after gc.collect(); "
+        f"{n_storages} CUDA storages referenced from Python, {referenced / 1e9:.2f} GB, the "
+        f"largest {[(f'{n / 1e9:.2f} GB', shape, dt) for n, shape, dt in largest]}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
+                                                device=dev), n_hint=4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    code_bytes = sum(leaf.codes.numel() for _p, leaf in quantized_leaf_items(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.tensors(params))
+    per_forward, by_path = applied_projections(params)
+    shapes = projection_shapes(params)
+    log(f"phase 17a: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} MLA lora="
+        f"{cfg.mla.kv_lora_rank} rope={cfg.mla.qk_rope_dim} experts={cfg.moe.n_experts} "
+        f"(+{cfg.moe.n_shared_experts} shared) top-{cfg.moe.top_k} d_ff_expert="
+        f"{cfg.moe.d_ff_expert} capacity_factor={cfg.moe.capacity_factor} vocab="
+        f"{cfg.vocab_size} layers={cfg.n_layers} (1 F + {cfg.n_layers - 1} D), W4A4 pallas, "
+        f"bf16, built + prepared in {build_s:.1f} s; codes {code_bytes:,} B, parameters "
+        f"{param_bytes:,} B, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the card; "
+        f"{per_forward} applied projections per forward "
+        f"({', '.join(f'{p.split('/', 2)[-1]} x{n}' for p, (n, _k, _f) in by_path.items())})")
+    eng = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
+    lens, reqs = deepseek_requests(cfg)
+    eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+    prefills, steps, launches = check_served(cfg, eng, outs, DS_NEW, records, counts,
+                                             sync_warnings, kernel="lut_dequant_gemm",
+                                             what="phase 17a")
+    digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+    n_tok = sum(len(o) for o in outs)
+    log(f"phase 17a [{smi}]: served {len(reqs)} requests (prompt lengths {lens.tolist()}, "
+        f"prefill buckets {sorted({r.prefill_bucket for r in records if r.prefill_bucket})}), "
+        f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s end to end); {len(records)} "
+        f"waves, {prefills} prefills, {steps} decode steps, {eng.host_syncs} host syncs, "
+        f"{launches} lut_dequant_gemm launches (= {per_forward} x {prefills + steps}, all on the "
+        f"tensor cores); sync-debug warnings {len(sync_warnings)} (the token fetches); "
+        f"admissions {eng.admissions}; tokens crc32 {digest:08x}")
+    for decode in ("loop", "chunked"):
+        t0 = time.perf_counter()
+        other = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode=decode, device=dev)
+        check(other.generate(reqs) == outs, f"phase 17a: decode={decode!r} tokens differ from "
+                                            f"decode='scan'")
+        log(f"phase 17a: decode={decode!r} gives scan's tokens bit for bit on these waves, "
+            f"each led by a {DS_PROMPT}-token prompt (a bucket) ({other.host_syncs} "
+            f"host syncs, {time.perf_counter() - t0:.2f} s)")
+        del other
+    unit = tree.index(params["segments"][1], 0)["s0_D"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xm = torch.randn((4, DS_PROMPT, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    y1, aux1 = moe.moe_apply(unit["moe"], xm, cfg)
+    y2, aux2 = moe.moe_apply(unit["moe"], xm, cfg)
+    check(torch.equal(y1, y2) and torch.equal(aux1, aux2),
+          "phase 17a: one MoE layer twice on the same input gave other bits")
+    check(bool(torch.isfinite(y1).all()), "phase 17a: MoE output not finite")
+    log(f"phase 17a: one MoE layer twice on the same [4, {DS_PROMPT}, {cfg.d_model}] bf16 input: "
+        f"the same bits (aux {aux1.item():.6f})")
+    del y1, y2, xm
+
+    caches = eng._new_cache()
+    toks = torch.randint(0, cfg.vocab_size, (4, DS_PROMPT), device=dev, dtype=torch.int32)
+    pad = torch.zeros((4,), dtype=torch.int32, device=dev)
+    tok, pos = toks[:, -1:], torch.full((4,), DS_PROMPT, dtype=torch.int32, device=dev)
+    prefill = lambda: model.prefill(params, toks, caches, pad_len=pad)            # noqa: E731
+    step = lambda: model.decode_step(params, tok, caches, pos, pad_len=pad)       # noqa: E731
+    prefill_ms = time_ms(torch, lambda i: prefill(), 3)
+    step_ms = time_ms(torch, lambda i: step(), 5)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    log(f"phase 17a [{smi}]: prefill B=4 x {DS_PROMPT} tokens {prefill_ms:.2f} ms; decode step "
+        f"B=4 at {DS_PROMPT} {step_ms:.2f} ms ({4e3 / step_ms:.1f} tok/s); peak memory "
+        f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated less the {base / 1e9:.2f} GB held "
+        f"before the build)")
+    log("phase 17a: where the device time goes (torch.profiler; wall time from the unprofiled "
+        "runs above):")
+    prefill_prof = region_breakdown(torch, prefill, 2, prefill_ms, kernel="lut_dequant_gemm",
+                                    card=smi, what=f"prefill B=4 x {DS_PROMPT}")
+    step_prof = region_breakdown(torch, step, 3, step_ms, kernel="lut_dequant_gemm", card=smi,
+                                 what=f"decode step B=4 at {DS_PROMPT}")
+    out["a"] = dict(
+        launches=launches, launches_tc=counts["lut_dequant_gemm_tc"], per_forward=per_forward,
+        prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs, waves=len(records),
+        wall_s=wall, tokens=n_tok, tok_s=n_tok / wall, tokens_crc32=digest,
+        prefill_wall_s=sum(r.t_decode - r.t_start for r in records),
+        decode_wall_s=sum(r.t_sync - r.t_decode for r in records),
+        prefill_ms=prefill_ms, step_ms=step_ms, peak_gb=peak_gb, held_before_gb=base / 1e9,
+        held_before_gc_gb=before_gc / 1e9, code_bytes=code_bytes,
+        param_bytes=param_bytes, build_s=build_s, prefill_profile=prefill_prof,
+        decode_profile=step_prof)
+    del eng, caches, prefill, step
+
+    # --- 17b: MLA's chunked prefill at full width, one row, f32 ----------------
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    layer = tree.index(params["segments"][1], 0)["s0_D"]["attn"]
+    xa = torch.randn((1, DS_CHUNKED_SEQ, cfg.d_model), generator=gen, device=dev)
+    positions = torch.arange(DS_CHUNKED_SEQ, device=dev)[None]
+    chunks = []
+    attend = attention._latent_attend
+    threshold = attention.CHUNK_THRESHOLD
+    run = lambda i=0: attention.mla_attention(layer, xa, cfg=f32, positions=positions)  # noqa: E731
+    try:
+        attention._latent_attend = lambda *a: chunks.append(a[0].shape[1]) or attend(*a)
+        y_chunked, _ = run()
+        n_chunks = list(chunks)
+        attention.CHUNK_THRESHOLD = DS_CHUNKED_SEQ     # the unchunked latent attention
+        chunks.clear()
+        y_whole, _ = run()
+        attention._latent_attend = attend
+        whole_ms = time_ms(torch, run, 3)
+        attention.CHUNK_THRESHOLD = threshold
+        chunked_ms = time_ms(torch, run, 3)
+    finally:
+        attention._latent_attend, attention.CHUNK_THRESHOLD = attend, threshold
+    check(n_chunks == [attention.CHUNK_SIZE] * (DS_CHUNKED_SEQ // attention.CHUNK_SIZE)
+          and chunks == [DS_CHUNKED_SEQ], f"phase 17b: chunks {n_chunks}, then {chunks}")
+    scale = y_whole.abs().max().item()
+    err = (y_chunked - y_whole).abs().max().item()
+    check(math.isfinite(err) and err <= TOL_MLA_CHUNKED * scale,
+          f"phase 17b: chunked vs unchunked MLA max err {err:.3e} > {TOL_MLA_CHUNKED} x "
+          f"max|y| {scale:.3e}")
+    log(f"phase 17b [{smi}]: one MLA layer, one row of {DS_CHUNKED_SEQ} tokens, f32: "
+        f"{len(n_chunks)} query chunks of {attention.CHUNK_SIZE} in {chunked_ms:.2f} ms vs the "
+        f"unchunked latent attention in {whole_ms:.2f} ms (CUDA events, 3 calls after a "
+        f"warmup); max err {err:.3e} = "
+        f"{err / scale:.3e} x max|y|")
+    out["b"] = dict(chunks=len(n_chunks), chunked_ms=chunked_ms, unchunked_ms=whole_ms,
+                    rel_err=err / scale)
+    del params, layer, xa, y_chunked, y_whole, unit
+    torch.cuda.empty_cache()
+
+    # --- 17c: W1A3 lut, calibrated + prepared, 4 layers ------------------------
+    lcfg = dataclasses.replace(cfg, n_layers=DS_LUT_LAYERS)
+    lmodel = build_model(lcfg)
+    t0 = time.perf_counter()
+    cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    lparams = lmodel.prepare(lmodel.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0,
+                                                   device=dev), calibrate=cal, n_hint=4)
+    torch.cuda.synchronize()
+    lper, _ = applied_projections(lparams)
+    scaled = [leaf for _p, leaf in quantized_leaf_items(lparams) if leaf.ascale is not None]
+    check(len(scaled) == len(applied_projections(lparams)[1]),
+          f"phase 17c: {len(scaled)} leaves carry a frozen scale, want every applied projection")
+    log(f"phase 17c: {lcfg.n_layers} layers (1 F + {lcfg.n_layers - 1} D), W1A3 p=4 lut, "
+        f"calibrated on {cal.size} tokens and prepared in {time.perf_counter() - t0:.1f} s; "
+        f"{lper} applied projections per forward")
+    leng = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
+    leng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    louts, lwall, lrecords, lcounts, lsync = counted_generate(torch, leng, reqs)
+    lprefills, lsteps, llaunches = check_served(lcfg, leng, louts, DS_NEW, lrecords, lcounts, lsync,
+                                                kernel="lut_stream_gemm", what="phase 17c")
+    check(lcounts["lut_stream_gemm_tc"] == llaunches and lcounts["lut_stream_gemm_lookup"] == 0,
+          f"phase 17c: lut_stream_gemm routes {lcounts}: the W1A3 p=4 pack must take the "
+          f"tensor-core route on every launch")
+    check(lcounts["lut_stream_gemm_canon"] == llaunches,
+          f"phase 17c: canonicalize launches {lcounts['lut_stream_gemm_canon']} != "
+          f"{llaunches}: one per projection")
+    t0 = time.perf_counter()
+    lloop = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="loop", device=dev)
+    check(lloop.generate(reqs) == louts, "phase 17c: decode='loop' tokens differ from scan's")
+    ldigest = zlib.crc32(json.dumps([list(map(int, o)) for o in louts]).encode())
+    log(f"phase 17c [{smi}]: served the 8 requests, {sum(map(len, louts))} tokens in "
+        f"{lwall:.3f} s; {len(lrecords)} waves, {lprefills} prefills, {lsteps} decode steps, "
+        f"{leng.host_syncs} host syncs; lut_stream_gemm {llaunches} launches (= {lper} x "
+        f"{lprefills + lsteps}; tensor cores {lcounts['lut_stream_gemm_tc']}, lookup "
+        f"{lcounts['lut_stream_gemm_lookup']}, CUDA cores "
+        f"{llaunches - lcounts['lut_stream_gemm_tc'] - lcounts['lut_stream_gemm_lookup']}), "
+        f"canonicalize {lcounts['lut_stream_gemm_canon']}; decode='loop' gives the same tokens "
+        f"({time.perf_counter() - t0:.2f} s); tokens crc32 {ldigest:08x}")
+    out["c"] = dict(launches=llaunches, launches_tc=lcounts["lut_stream_gemm_tc"],
+                    launches_lookup=lcounts["lut_stream_gemm_lookup"],
+                    launches_canon=lcounts["lut_stream_gemm_canon"], per_forward=lper,
+                    prefills=lprefills, decode_steps=lsteps, host_syncs=leng.host_syncs,
+                    waves=len(lrecords), wall_s=lwall, tokens_crc32=ldigest)
+    del leng, lloop, lparams
+    torch.cuda.empty_cache()
+
+    # --- 17d: the card against the CPU, 2 layers, f32 -------------------------
+    dcfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    dmodel = build_model(dcfg)
+    dparams = dmodel.prepare(dmodel.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
+                                                   seed=3, device=dev), n_hint=4)
+    dtoks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    ids = []
+    route = moe._route
+
+    def recorded(*args):
+        r = route(*args)
+        ids.append(r[1].cpu())
+        return r
+
+    moe._route = recorded
+    try:
+        lg_gpu, _ = dmodel.prefill(dparams, torch.from_numpy(dtoks).to(dev),
+                                   dmodel.init_cache(2, 64, torch.float32, device=dev))
+        lg_gpu = lg_gpu.cpu()
+        gpu_ids, ids[:] = list(ids), []
+        params_cpu = tree.tree_map(lambda t: t.cpu(), dparams)
+        del dparams
+        t1 = time.perf_counter()
+        lg_cpu, _ = dmodel.prefill(params_cpu, torch.from_numpy(dtoks),
+                                   dmodel.init_cache(2, 64, torch.float32, device="cpu"))
+        cpu_s = time.perf_counter() - t1
+    finally:
+        moe._route = route
+    del params_cpu
+    lscale = lg_cpu.abs().max().item()
+    lerr = (lg_gpu - lg_cpu).abs().max().item()
+    check(bool(torch.isfinite(lg_gpu).all()) and lg_gpu.shape == (2, 1, cfg.vocab_size),
+          f"phase 17d: logits of shape {tuple(lg_gpu.shape)} or not finite")
+    check(lerr <= TOL_CPU_DS * lscale, f"phase 17d: card vs CPU logits max err {lerr:.3e} > "
+                                       f"{TOL_CPU_DS} x max|logit| {lscale:.3e}")
+    check(len(gpu_ids) == len(ids) == 1 and all(torch.equal(a, b) for a, b in zip(gpu_ids, ids)),
+          f"phase 17d: expert ids differ between the card and the CPU ({len(gpu_ids)} / "
+          f"{len(ids)} MoE layers)")
+    log(f"phase 17d [{smi}]: 2 layers (F + D) at full width, f32, one prefill of 2 x 64 tokens: "
+        f"card (lut_dequant_gemm) vs CPU (plain versions, {cpu_s:.1f} s): max err {lerr:.3e} = "
+        f"{lerr / lscale:.3e} x max|logit|; expert ids equal ({gpu_ids[0].numel()} routed slots)")
+    out["d"] = dict(rel_err=lerr / lscale, routed_slots=gpu_ids[0].numel(), cpu_s=cpu_s)
+
+    # --- 17e: the kernels against their plain versions at deepseek's shapes ---
+    log(f"phase 17e: {cfg.name}'s {len(shapes)} distinct applied projection shapes (K, F) "
+        f"{shapes}, B = 4 and 4 x {DS_PROMPT}, bf16 x [{smi}]:")
+    rows, rel, abs_err = phase_kernel_times(torch, dev, cfg, hw.H100_SXM, iters=(10, 3, 3),
+                                            label="phase 17e", shapes=shapes)
+    srows, sabs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi, shapes=shapes,
+                                     label="phase 17e")
+    out["e"] = dict(shapes=shapes, dequant_rows=rows, dequant_rel=rel, dequant_abs=abs_err,
+                    stream_rows=srows, stream_abs=sabs)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs"),
+    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
+                                        "deepseek"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, phase 14, 15 or 16)")
+                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16 or 17)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -3415,44 +3899,75 @@ def main(argv=None) -> int:
         alone = {"tc_cp_async": lambda: phase_tc_cp_async(torch, dev, cfg, hw.H100_SXM, smi),
                  "gemma2_serve": lambda: phase_gemma2_serve(torch, dev, smi),
                  "live_ops": lambda: phase_live_ops(torch, dev, cfg, smi),
-                 "obs": lambda: phase_obs(torch, dev, cfg, smi)}
+                 "obs": lambda: phase_obs(torch, dev, cfg, smi),
+                 "deepseek": lambda: phase_deepseek(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
                               "seconds": time.perf_counter() - t_all, "result": result},
                              default=str))
             return 0
+        laps = [("1 builds", time.perf_counter() - t_all)]
+
+        def lap(what):
+            laps.append((what, time.perf_counter() - t_all - sum(t for _w, t in laps)))
+
         flash_abs = phase_flash_kernel(torch, dev)
+        lap("9 flash kernel")
         frows = phase_flash_times(torch, dev, hw.H100_SXM, smi)
+        lap("10 flash times")
         fwd = phase_gemma2_forward(torch, dev, smi)
+        lap("11 gemma2 forward")
         grows, g_rel, g_abs = phase_kernel_times(
             torch, dev, get_config("gemma2-2b"), hw.H100_SXM,
             bs=(4, 4 * GEMMA_BUCKET, FLASH_SEQ), iters=(5, 3, 3), label="phase 12")
+        lap("12 gemma2 shapes")
         phase_stream_kernel(torch, dev)
+        lap("6 stream kernel")
         srows, stream_abs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi)
+        lap("6 stream times")
         cprows = alone["tc_cp_async"]()
+        lap("6 cp.async")
         lrows, lookup_abs = phase_lookup_times(torch, dev, cfg, hw.H100_SXM, smi)
+        lap("6 lookup times")
         phase_lut_layer(torch, dev, cfg)
+        lap("7 lut layer")
         lserve = phase_serve(torch, dev, cfg, smi, phase=8,
                              spec=LutLinearSpec(mode="lut", **LUT_SPEC),
                              kernel="lut_stream_gemm", max_prompt=64, max_new=16,
                              calibrate=True, iters=(2, 5))
+        lap("8 lut serve")
         planned = phase_planned_serve(torch, dev, cfg, smi, lserve)
+        lap("13 planned serve")
         worst_rel, worst_abs = phase_kernel(torch, dev)
+        lap("2 kernel sweep")
         phase_row_invariance(torch, dev)
+        lap("2 row invariance")
         rows, rel2, abs2 = phase_kernel_times(torch, dev, cfg, hw.H100_SXM)
+        lap("2 stablelm shapes")
         worst_rel, worst_abs = max(worst_rel, rel2, g_rel), max(worst_abs, abs2, g_abs)
         serve = phase_serve(torch, dev, cfg, smi, phase=3,
                             spec=LutLinearSpec(bw=4, ba=4, mode="pallas"),
                             kernel="lut_dequant_gemm", max_prompt=96, max_new=32)
+        lap("3 pallas serve")
         cpu_rel, lut_cpu_rel = phase_cpu_and_loop(torch, dev, cfg)
+        lap("4-5 cpu and loop")
         gserve = alone["gemma2_serve"]()
+        lap("14 gemma2 serve")
         live = phase_live_ops(torch, dev, cfg, smi, lserve)
+        lap("15 live ops")
         obs = phase_obs(torch, dev, cfg, smi, lserve)
+        lap("16 obs")
+        deepseek = alone["deepseek"]()
+        lap("17 deepseek")
+        worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"])
+        worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"])
+        stream_abs = max(stream_abs, deepseek["e"]["stream_abs"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+    log(f"all phases passed in {time.perf_counter() - t_all:.1f} s; seconds by phase: "
+        + ", ".join(f"{what} {t:.1f}" for what, t in laps))
 
     def layer_sum(rs, b, key):
         return sum(r[key] for r in rs if r["B"] == b)
@@ -3483,6 +3998,10 @@ def main(argv=None) -> int:
                 "cuda_core_ms": layer_sum(rs, b, "cuda_core_ms"),
                 "canon_ms": layer_sum(rs, b, "canon_ms"),
                 "canon_bound_ms": layer_sum(rs, b, "canon_bound_ms")}
+
+    def ds_at(what):
+        return (f"phase 17e: deepseek-v2-lite-16b's distinct applied projection shapes, once each "
+                f"({', '.join(deepseek['e']['shapes'])}), {what} (device time)")
 
     def canon_times(rs, b, at):
         return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
@@ -3525,6 +4044,16 @@ def main(argv=None) -> int:
             "token_agreement": gserve["token_agreement"],
             "semantics": gserve["semantics"], "answers": gserve["answers"]},
         "card_vs_cpu_rel_err": cpu_rel,
+        "deepseek": {
+            "at": f"phase 17a: deepseek-v2-lite-16b, all 27 layers, W4A4 pallas, bf16, "
+                  f"ServeEngine(batch=4, max_seq={DS_MAX_SEQ}), 8 requests of 16-{DS_PROMPT} "
+                  f"prompt tokens, {DS_NEW} new each; prefill_ms at 4 x {DS_PROMPT} and step_ms "
+                  f"on CUDA events, profiles from torch.profiler, the rest on the host clock",
+            **deepseek["a"],
+            "mla_chunked": deepseek["b"], "card_vs_cpu_rel_err": deepseek["d"]["rel_err"],
+            "decode": times(deepseek["e"]["dequant_rows"], 4, ds_at("B=4, W4, bf16 x")),
+            "prefill": times(deepseek["e"]["dequant_rows"], 4 * DS_PROMPT,
+                             ds_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
         "ok": True,
     }, {
         "name": "lut_stream_gemm",
@@ -3548,6 +4077,14 @@ def main(argv=None) -> int:
         "serve": {"decode_step": lserve["decode_profile"], "prefill": lserve["prefill_profile"],
                   "prefill_ms": lserve["prefill_ms"], "step_ms": lserve["step_ms"]},
         "card_vs_cpu_rel_err": lut_cpu_rel,
+        "deepseek": {
+            "at": f"phase 17c: deepseek-v2-lite-16b at full width, depth cut to "
+                  f"{DS_LUT_LAYERS} layers, W1A3 p=4 lut calibrated + prepared, phase 17a's "
+                  f"requests",
+            **deepseek["c"],
+            "decode": stream_times(deepseek["e"]["stream_rows"], 4, ds_at("N=4, W1A3 p=4")),
+            "prefill": stream_times(deepseek["e"]["stream_rows"], 4 * DS_PROMPT,
+                                    ds_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
         "planned_serve": {
             "at": "phase 13: stablelm-12b W1A3 lut served through ServeEngine(plan=) on phase "
                   "8's requests; launches by route from the counters, times on the host clock",
@@ -3604,6 +4141,11 @@ def main(argv=None) -> int:
         "prefill": canon_times(srows, 512, "one layer's 7 projections at N=4x128"),
         "planned_serve": {name: {"launches": r["launches_canon"]} for name, r in planned.items()},
         "live_ops": {k: {"launches": live[k]["launches_canon"]} for k in ("a", "b", "c")},
+        "deepseek": {
+            "launches": deepseek["c"]["launches_canon"],
+            "decode": canon_times(deepseek["e"]["stream_rows"], 4, ds_at("N=4, W1A3 p=4")),
+            "prefill": canon_times(deepseek["e"]["stream_rows"], 4 * DS_PROMPT,
+                                   ds_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
         "ok": True,
     }, {
         "name": "flash_attention",
@@ -3620,6 +4162,7 @@ def main(argv=None) -> int:
         "ok": True,
     }]}
     print(json.dumps({"phase": "obs", "card": smi, "result": obs}, default=str))
+    print(json.dumps({"phase": "deepseek", "card": smi, "result": deepseek}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

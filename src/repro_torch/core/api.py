@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core import engine, luts, packing, perfmodel
 from repro_torch.core.quantize import (
-    QuantSpec, grid_tensor, quantize, quantize_activation, zero_code,
+    QuantSpec, device_grid, grid_tensor, quantize, quantize_activation, zero_code,
 )
 
 
@@ -100,11 +100,23 @@ def quantize_linear(
 
 
 def dequantize_weights(q: QuantizedLinear) -> torch.Tensor:
-    """Value-LUT decode back to a dense ``[K, F]`` float32 weight."""
-    grid = grid_tensor(q.spec.wspec(), q.codes.device)
-    codes = packing.unpack_bits(q.codes, q.spec.bw)[:, : q.k]   # [F, K]
-    w_t = grid[codes.long()] * q.scale[:, None]
-    return w_t.T
+    """Value-LUT decode back to a dense ``[..., K, F]`` float32 weight:
+    ``grid[code] * scale``, one f32 rounding.  Leading stack dims (scanned
+    units, MoE experts) decode together.  Each packed byte is looked up whole
+    in a ``[256, codes per byte]`` table of grid values, kept on the codes'
+    device, so a call copies nothing from the host."""
+    table = _byte_table(q.spec.bw, q.spec.w_kind, q.codes.device)
+    w_t = torch.nn.functional.embedding(q.codes.to(torch.int32), table)
+    w_t = w_t.reshape(q.codes.shape[:-1] + (-1,))[..., : q.k]           # [..., F, K]
+    return (w_t * q.scale[..., None]).transpose(-1, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_table(bw: int, grid_kind: str, device: torch.device) -> torch.Tensor:
+    """``[256, 8 // bw]`` f32: the grid values of the codes one byte packs, in
+    :func:`repro_torch.core.packing.unpack_bits`'s order."""
+    codes = packing.unpack_bits(torch.arange(256, dtype=torch.int32).to(torch.uint8)[:, None], bw)
+    return device_grid(bw, grid_kind, torch.device("cpu"))[codes.long()].to(device)
 
 
 def apply_linear(q, x: torch.Tensor) -> torch.Tensor:

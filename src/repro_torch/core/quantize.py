@@ -17,6 +17,7 @@ the scale, and rounding is half-to-even (``torch.round``, like ``jnp.round``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -84,6 +85,14 @@ class QuantSpec:
 
 def grid_tensor(spec: QuantSpec, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(spec.grid().astype(np.float32), device=device).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def device_grid(bits: int, grid_kind: str, device: torch.device) -> torch.Tensor:
+    """The f32 value grid on ``device``, uploaded once per (bits, kind,
+    device): a serve step that decodes weights copies nothing from the
+    host."""
+    return grid_tensor(QuantSpec(bits, grid_kind), device)
 
 
 # Distance-tensor elements per slice of the argmin quantizer.

@@ -1,20 +1,24 @@
-"""Grouped-query attention with a KV cache (port of the GQA branch of
+"""Attention with a KV cache: grouped-query attention and DeepSeek's
+multi-head latent attention (port of the GQA and MLA branches of
 ``repro.models.attention``).
 
 ``cache=None`` runs full-sequence attention; otherwise ``cache`` is a dict of
-preallocated ``[B, Smax, Hkv, hd]`` buffers written at ``pos``.  Unlike the
-reference (functional updates on donated buffers), cache writes here update
-the buffers **in place** and the returned cache dict holds the same tensors.
+preallocated buffers written at ``pos``: ``[B, Smax, Hkv, hd]`` keys and
+values for GQA, the ``[B, Smax, lora]`` compressed latent and ``[B, Smax,
+rope]`` rotated key part for MLA.  Unlike the reference (functional updates
+on donated buffers), cache writes here update the buffers **in place** and
+the returned cache dict holds the same tensors.
 
-Ported: the plain-cache and no-cache branches, pad masking, query-chunked
-long prefill, ``attn_impl="flash"`` on the no-cache branch (the
+GQA: the plain-cache and no-cache branches, pad masking, query-chunked long
+prefill, ``attn_impl="flash"`` on the no-cache branch (the
 ``flash_attention`` kernel), the ring-window cache of a sliding-window layer
 (any cache no longer than the window), the int8 KV cache (``{"k", "k_s",
 "v", "v_s"}``: codes and per-row scales) and ``attend_bf16`` (bf16 Q/K/V and
-probabilities, f32 scores and sums).  The decode-time attention is plain
-torch ops, as it is plain XLA in the reference.  MLA and cross attention
-(the slice of the other model families) are not ported yet and raise
-``NotImplementedError``.
+probabilities, f32 scores and sums).  MLA (:func:`mla_attention`): the
+absorbed formulation, the latent cache, pad masking, the chunked long
+prefill and ``attend_bf16``.  The attention itself is plain torch ops, as it
+is plain XLA in the reference.  Cross attention (the enc-dec family) is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import PreparedLinear, QuantizedLinear
+from repro_torch.core.calibrate import unwrap
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -261,8 +267,8 @@ def _ring_update(cache_arr: torch.Tensor, new: torch.Tensor, global_start, tail:
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: the other model families); this "
-        f"slice runs GQA attention"
+        f"{what} is not ported yet (ROADMAP: the other model families); the port "
+        f"runs GQA and MLA attention"
     )
 
 
@@ -368,6 +374,114 @@ def cross_attention(*args, **kwargs):
     raise _unported("cross attention")
 
 
-def mla_attention(*args, **kwargs):
-    """Multi-head latent attention (``repro.models.attention.mla_attention``)."""
-    raise _unported("MLA")
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention, absorbed formulation)
+# ---------------------------------------------------------------------------
+
+
+def _dense_weight(p) -> torch.Tensor:
+    """The f32 ``[K, F]`` matrix of a dense dict, a ``QuantizedLinear`` or a
+    ``PreparedLinear`` (MLA absorbs ``W_kup`` / ``W_vup`` into the query and
+    output paths, so it needs the matrix itself).  A prepared leaf decodes
+    as ``maybe_dequant`` decodes one, so a prepared layer equals its raw
+    layer bit for bit; the reference's ``_dense_weight`` decodes only a
+    ``QuantizedLinear`` and raises on a ``PreparedLinear`` (ROADMAP, reference
+    caveats)."""
+    p = unwrap(p)   # absorbed matrices never consume an activation scale
+    if isinstance(p, (QuantizedLinear, PreparedLinear)):
+        return layers.decode_weight(p)
+    return p["w"]
+
+
+def mla_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim, device=device),
+        "w_kup": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_dim, device=device),
+        "w_vup": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, device=device),
+        "wq": dense_init(gen, d, h * (m.qk_nope_dim + m.qk_rope_dim), device=device),
+        "wo": dense_init(gen, h * m.v_head_dim, d, device=device),
+        "kv_norm": layers.rmsnorm_init(m.kv_lora_rank, device),
+    }
+
+
+def _latent_attend(q_lat, q_rope, ckv, krope, positions, pad_len, scale: float,
+                   bf16: bool) -> torch.Tensor:
+    """Softmax attention of the absorbed queries over the latent keys:
+    ``q_lat [B, S, H, lora]``, ``q_rope [B, S, H, rope]`` against ``ckv
+    [B, T, lora]``, ``krope [B, T, rope]`` (all f32; bf16 values held in f32
+    under ``bf16``), masked by :func:`_key_mask` at the logical query
+    ``positions [B, S]``.  Returns ``[B, S, H, lora]`` f32: the probabilities
+    times the latent values (the latent itself)."""
+    sc = (torch.einsum("bshl,btl->bhst", q_lat, ckv)
+          + torch.einsum("bshr,btr->bhst", q_rope, krope)) * scale
+    kpos = torch.arange(ckv.shape[1], device=ckv.device)[None, :]
+    mk = _key_mask(kpos, positions[:, :, None], pad_len, None)           # [B, S, T]
+    sc = torch.where(mk[:, None], sc, MASK_FILL)
+    w = torch.softmax(sc, dim=-1)
+    if bf16:
+        w = _bf16_rounded(w)
+    return torch.einsum("bhst,btl->bshl", w, ckv)
+
+
+def mla_attention(
+    p: dict,
+    x: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    positions: torch.Tensor,                 # [B, S] logical positions
+    cache: Optional[dict] = None,            # {"ckv": [B, Smax, lora], "krope": [B, Smax, rope]}
+    pos=None,                                # cache write offset: int or [B] tensor
+    pad_len: Optional[torch.Tensor] = None,  # [B] left-pad lengths: pad keys masked
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """Multi-head latent attention, absorbed: the cache holds the normed
+    compressed latent ``ckv`` and the rotated shared key part ``krope``;
+    ``W_kup`` is folded into the queries and ``W_vup`` into the output, so
+    keys and values are never expanded per head.  A prefill longer than
+    :data:`CHUNK_THRESHOLD` tokens and a multiple of :data:`CHUNK_SIZE` runs
+    in query chunks of that size.  The reference's head-sharding hint
+    (``ctx``) places heads on a mesh axis; with no mesh it changes nothing,
+    and it is not taken."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dkv = linear(p["w_dkv"], x)
+    ckv, krope = dkv[..., : m.kv_lora_rank], dkv[..., m.kv_lora_rank :]
+    ckv = layers.norm(p["kv_norm"], ckv, "rmsnorm", cfg.norm_eps)
+    krope = layers.apply_rope(krope[:, :, None, :], positions, cfg.rope_theta, "full")[:, :, 0, :]
+
+    q = linear(p["wq"], x).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta, "full")
+
+    # Absorb W_kup into the query: q_lat[b,s,h,lora] = q_nope . W_kup^T
+    wkup = _dense_weight(p["w_kup"]).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope.to(torch.float32), wkup)
+
+    if cache is not None:
+        ckv_c = _cache_write(cache["ckv"], ckv, pos)
+        krope_c = _cache_write(cache["krope"], krope, pos)
+        new_cache = {"ckv": ckv_c, "krope": krope_c}
+    else:
+        ckv_c, krope_c = ckv, krope
+        new_cache = None
+
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(m.qk_nope_dim + m.qk_rope_dim)))
+    op = _bf16_rounded if cfg.attend_bf16 else (lambda t: t.to(torch.float32))
+    ckv_f, krope_f, qr_f, q_lat = op(ckv_c), op(krope_c), op(q_rope), op(q_lat)
+
+    if s > CHUNK_THRESHOLD and s % CHUNK_SIZE == 0:
+        # chunked prefill: scores never materialize at [S, S]
+        out_lat = torch.cat([
+            _latent_attend(q_lat[:, c0 : c0 + CHUNK_SIZE], qr_f[:, c0 : c0 + CHUNK_SIZE],
+                           ckv_f, krope_f, positions[:, c0 : c0 + CHUNK_SIZE], pad_len, scale,
+                           cfg.attend_bf16)
+            for c0 in range(0, s, CHUNK_SIZE)], dim=1)
+    else:
+        out_lat = _latent_attend(q_lat, qr_f, ckv_f, krope_f, positions, pad_len, scale,
+                                 cfg.attend_bf16)
+    wvup = _dense_weight(p["w_vup"]).reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bshl,lhv->bshv", out_lat, wvup).to(x.dtype)
+    y = linear(p["wo"], out.reshape(b, s, h * m.v_head_dim))
+    return y, new_cache

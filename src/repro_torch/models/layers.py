@@ -16,8 +16,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import PreparedLinear, QuantizedLinear, apply_linear
+from repro_torch.core import PreparedLinear, QuantizedLinear, apply_linear, dequantize_weights
 from repro_torch.core.calibrate import CalibrationProbe, probe_apply
+from repro_torch.core.quantize import device_grid
 
 
 def dense_init(gen: torch.Generator, k: int, f: int, *, bias: bool = False,
@@ -39,6 +40,19 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def decode_weight(q) -> torch.Tensor:
+    """The dense f32 ``[..., K, F]`` weight of a (stacked) ``QuantizedLinear``
+    or ``PreparedLinear``, as the reference's ``maybe_dequant`` decodes one:
+    a prepared leaf that caches its unpacked codes (``wcodes``, the dequant
+    mode) from them, any other through ``dequantize_weights``.  Both give
+    ``grid[code] * scale``, one f32 rounding, so a prepared leaf decodes to
+    its raw leaf's bits."""
+    if isinstance(q, PreparedLinear) and q.wcodes is not None:
+        grid = device_grid(q.spec.bw, q.spec.w_kind, q.codes.device)
+        return (grid[q.wcodes.long()] * q.scale[..., None]).transpose(-1, -2)
+    return dequantize_weights(q)
 
 
 def rmsnorm_init(d: int, device=None):

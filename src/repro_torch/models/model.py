@@ -2,10 +2,11 @@
 (port of ``repro.models.model``).
 
 :func:`quantize_model` walks a parameter tree and replaces every GEMM weight
-named in ``_QUANT_LINEAR_NAMES`` with a bit-packed
-:class:`repro_torch.core.QuantizedLinear`; embeddings and the LM head stay
-dense, as in the reference.  :func:`prepare_params` freezes each quantized
-leaf into its weight-stationary :class:`repro_torch.core.PreparedLinear`.
+named in ``_QUANT_LINEAR_NAMES``, and every raw expert stack of a ``"moe"``
+subtree, with a bit-packed :class:`repro_torch.core.QuantizedLinear`;
+embeddings, the LM head and the MoE router stay dense, as in the reference.
+:func:`prepare_params` freezes each quantized leaf into its
+weight-stationary :class:`repro_torch.core.PreparedLinear`.
 ``Model.prepare(calibrate=tokens)`` freezes each int-LUT leaf's activation
 scale first (:mod:`repro_torch.core.calibrate`); ``Model.prepare(plan=)``
 prepares each leaf at its autotuned config instead
@@ -20,9 +21,13 @@ import math
 import torch
 
 from repro_torch import devices, tree
-from repro_torch.core import LutLinearSpec, QuantizedLinear, prepare_linear, quantize_linear
+from repro_torch.core import (
+    LutLinearSpec, PreparedLinear, QuantizedLinear, prepare_linear, quantize_linear,
+)
+from repro_torch.core.calibrate import unwrap
 from repro_torch.core.prepared import WCANON_MAX_ENTRIES
 from repro_torch.models import transformer
+from repro_torch.models.layers import decode_weight
 from repro_torch.models.config import ModelConfig
 
 _QUANT_LINEAR_NAMES = frozenset(
@@ -33,6 +38,14 @@ _QUANT_LINEAR_NAMES = frozenset(
         "in_proj", "out_proj",
     }
 )
+# Stacked expert-weight leaves inside a "moe" subtree.
+MOE_EXPERT_NAMES = frozenset({"w_gate", "w_up", "w_down"})
+
+
+def in_moe_subtree(key: str, under_moe: bool) -> bool:
+    """Propagate the 'inside a MoE block' flag through a parameter walk
+    (shared experts are ordinary FFNs, not expert stacks)."""
+    return key == "moe" or (under_moe and key != "shared")
 
 
 def _quantize_dense(p: dict, spec: LutLinearSpec) -> QuantizedLinear:
@@ -47,10 +60,17 @@ def _quantize_dense(p: dict, spec: LutLinearSpec) -> QuantizedLinear:
     ])
 
 
+def _quantize_raw(w: torch.Tensor, spec: LutLinearSpec) -> QuantizedLinear:
+    """Quantize a raw ``[..., K, F]`` expert stack, one expert at a time."""
+    if w.ndim == 2:
+        return quantize_linear(w, spec)
+    return tree.stack([_quantize_raw(w[i], spec) for i in range(w.shape[0])])
+
+
 def quantize_model(params, cfg: ModelConfig, spec: LutLinearSpec):
     """Replace GEMM weights with packed QuantizedLinear leaves (recursive)."""
 
-    def walk(node):
+    def walk(node, under_moe: bool = False):
         if isinstance(node, dict):
             out = {}
             for k, v in node.items():
@@ -61,11 +81,18 @@ def quantize_model(params, cfg: ModelConfig, spec: LutLinearSpec):
                     and k in _QUANT_LINEAR_NAMES
                 ):
                     out[k] = _quantize_dense(v, spec)
+                elif (
+                    under_moe
+                    and k in MOE_EXPERT_NAMES
+                    and isinstance(v, torch.Tensor)
+                    and v.ndim >= 3
+                ):
+                    out[k] = _quantize_raw(v, spec)
                 else:
-                    out[k] = walk(v)
+                    out[k] = walk(v, in_moe_subtree(k, under_moe))
             return out
         if isinstance(node, list):
-            return [walk(v) for v in node]
+            return [walk(v, under_moe) for v in node]
         return node
 
     return walk(params)
@@ -118,6 +145,19 @@ def prepare_params(params, plan=None, **kw):
         return node
 
     return walk(params)
+
+
+def maybe_dequant(p, dtype=torch.bfloat16):
+    """Raw-tensor-or-(Prepared)QuantizedLinear -> dense ``[..., K, F]`` tensor
+    (the MoE expert einsums).  A quantized leaf decodes in f32 and is cast to
+    ``dtype`` (:func:`repro_torch.models.layers.decode_weight`: from the
+    cached ``wcodes`` of a prepared dequant-mode leaf, else from the packed
+    codes); a raw tensor comes back as it is.  A calibration probe is
+    unwrapped: dense einsums consume no activation scale."""
+    p = unwrap(p)
+    if isinstance(p, (QuantizedLinear, PreparedLinear)):
+        return decode_weight(p).to(dtype)
+    return p
 
 
 @dataclasses.dataclass

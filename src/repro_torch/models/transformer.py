@@ -1,6 +1,8 @@
 """Transformer assembly over stacked units (port of
-``repro.models.transformer`` for ``"D"``, ``"L"`` and ``"G"`` segments:
-attention + FFN, with a sliding window on ``"L"``).
+``repro.models.transformer`` for ``"D"``, ``"L"``, ``"G"`` and ``"F"``
+segments: attention + FFN, with a sliding window on ``"L"``; on a MoE
+config a ``"D"`` unit's FFN is the MoE block and an ``"F"`` unit keeps a
+dense FFN).
 
 Every architecture is a sequence of *segments*; each segment is a stack of
 identical *units* whose parameters are stacked along a leading
@@ -10,9 +12,10 @@ and prepared checkpoints line up.  The reference scans a unit with
 Caches follow the same segmentation (``[n_units, B, Smax, Hkv, hd]``) and
 are updated in place.
 
-Only dense GQA decoders (``"D"``, ``"L"`` and ``"G"`` units, no MoE, no
-MLA) are ported; other unit kinds raise ``NotImplementedError`` until the
-slice of the other model families (ROADMAP).
+Decoders of ``"D"``, ``"L"``, ``"G"`` and ``"F"`` units are ported, with GQA
+or MLA attention (``cfg.attn_kind``) and dense or MoE FFNs; other unit
+kinds (Mamba2, RWKV, enc-dec, frontends) raise ``NotImplementedError`` until
+the slice of the other model families (ROADMAP).
 
 Inside a unit, a norm that follows a residual add reads the unrounded f32
 sum, while the residual stream itself is stored in ``x.dtype``: the
@@ -29,7 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import tree
-from repro_torch.models import attention, ffn, layers
+from repro_torch.models import attention, ffn, layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear, norm
 
@@ -54,11 +57,11 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
     kinds = {ch for pat, _ in segments(cfg) for ch in pat}
-    if not kinds <= {"D", "L", "G"} or cfg.moe is not None or cfg.attn_kind != "gqa":
+    if not kinds <= {"D", "L", "G", "F"} or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: units {sorted(kinds)}, moe={cfg.moe is not None}, "
-            f"attn_kind={cfg.attn_kind!r} are not ported yet (only dense GQA decoders, "
-            f"'D', 'L', 'G' units); they wait for the other model families (ROADMAP)"
+            f"{cfg.name}: units {sorted(kinds)}, attn_kind={cfg.attn_kind!r} are not "
+            f"ported yet (only decoders of 'D', 'L', 'G', 'F' units with GQA or MLA "
+            f"attention); they wait for the other model families (ROADMAP)"
         )
     if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
         raise NotImplementedError(f"{cfg.name}: frontends / enc-dec are not ported yet")
@@ -72,12 +75,16 @@ def check_supported(cfg: ModelConfig) -> None:
 def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device) -> dict:
     d = cfg.d_model
     nrm = layers.rmsnorm_init if cfg.norm_kind == "rmsnorm" else layers.layernorm_init
-    return {
-        "attn_norm": nrm(d, device),
-        "ffn_norm": nrm(d, device),
-        "attn": attention.gqa_init(cfg, gen, device),
-        "ffn": ffn.ffn_init(cfg, gen, device=device),
-    }
+    p = {"attn_norm": nrm(d, device), "ffn_norm": nrm(d, device)}
+    if cfg.attn_kind == "mla":
+        p["attn"] = attention.mla_init(cfg, gen, device)
+    else:
+        p["attn"] = attention.gqa_init(cfg, gen, device)
+    if cfg.moe is not None and ch == "D":
+        p["moe"] = moe.moe_init(cfg, gen, device)
+    else:
+        p["ffn"] = ffn.ffn_init(cfg, gen, device=device)
+    return p
 
 
 def unit_init(cfg: ModelConfig, pattern: str, gen: torch.Generator, device) -> dict:
@@ -128,7 +135,15 @@ def _sublayer_cache(cfg: ModelConfig, ch: str, n_units: int, batch: int, max_seq
     """One sublayer's stacked cache, as the reference's ``_sublayer_cache``
     sizes it: an ``"L"`` cache holds ``min(max_seq, window)`` slots under
     ``ring_window_cache``; a cache that holds all ``max_seq`` positions is
-    int8 codes + f32 per-row scales under ``kv_cache_int8``."""
+    int8 codes + f32 per-row scales under ``kv_cache_int8``.  An MLA cache is
+    the latent ``ckv`` and the rotated key part ``krope`` over all
+    ``max_seq`` positions (neither flag applies to it)."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return {"ckv": torch.zeros((n_units, batch, max_seq, m.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((n_units, batch, max_seq, m.qk_rope_dim), dtype=dtype,
+                                     device=device)}
     seq = max_seq
     if ch == "L" and cfg.ring_window_cache and cfg.window:
         seq = min(max_seq, cfg.window)   # ring buffer
@@ -174,22 +189,36 @@ class RunState:
     pos: object                             # cache write offset: None (no
                                             # cache), int, or [B] tensor
     pad_len: Optional[torch.Tensor] = None  # [B] left-pad lengths
+    aux: Optional[torch.Tensor] = None      # MoE load-balance loss, summed over
+                                            # the MoE layers of the pass (f32)
 
 
 def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
-    """One attention + FFN sublayer.  ``x_sum`` is the f32 sum that ``x`` was
-    rounded from (``None`` at the start of a unit); returns the new ``x``,
-    its f32 sum and the cache."""
+    """One attention + FFN (or MoE) sublayer.  ``x_sum`` is the f32 sum that
+    ``x`` was rounded from (``None`` at the start of a unit); returns the new
+    ``x``, its f32 sum and the cache.  A MoE block's aux loss is added to
+    ``rs.aux``."""
     cfg = rs.cfg
     nk, eps = cfg.norm_kind, cfg.norm_eps
     h = norm(p["attn_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
-    a, new_cache = attention.gqa_attention(
-        p["attn"], h, cfg=cfg, positions=rs.positions, cache=cache,
-        pos=rs.pos, window=cfg.window if ch == "L" else None, pad_len=rs.pad_len,
-    )
+    if cfg.attn_kind == "mla":
+        a, new_cache = attention.mla_attention(
+            p["attn"], h, cfg=cfg, positions=rs.positions, cache=cache,
+            pos=rs.pos, pad_len=rs.pad_len,
+        )
+    else:
+        a, new_cache = attention.gqa_attention(
+            p["attn"], h, cfg=cfg, positions=rs.positions, cache=cache,
+            pos=rs.pos, window=cfg.window if ch == "L" else None, pad_len=rs.pad_len,
+        )
     x, x_sum = _residual(x, a)
     h = norm(p["ffn_norm"], x_sum, nk, eps).to(x.dtype)
-    x, x_sum = _residual(x, ffn.ffn_apply(p["ffn"], h, cfg))
+    if "moe" in p:
+        f, aux = moe.moe_apply(p["moe"], h, cfg)
+        rs.aux = aux if rs.aux is None else rs.aux + aux
+    else:
+        f = ffn.ffn_apply(p["ffn"], h, cfg)
+    x, x_sum = _residual(x, f)
     return x, x_sum, new_cache
 
 

@@ -190,8 +190,6 @@ def test_gqa_attention_cached_branches_match_reference(branch):
 
 
 def test_unported_attention_kinds_raise():
-    with pytest.raises(NotImplementedError, match="MLA is not ported"):
-        tattn.mla_attention()
     with pytest.raises(NotImplementedError, match="cross attention is not ported"):
         tattn.cross_attention()
 
