@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
-``--phase obs`` or ``--phase deepseek`` runs one phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
+``--phase obs``, ``--phase deepseek`` or ``--phase zamba2`` runs one phase alone after the
+build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
@@ -48,6 +49,14 @@ entry points at published full widths:
   then the chunked 4608-token MLA prefill, a 4-layer W1A3 ``lut`` serve and
   a 2-layer f32 prefill against the CPU (logits and expert ids);
 
+* zamba2-7b whole (phase 18): all 81 layers at published widths (Mamba2
+  SSD mixers, and one shared attention + FFN block applied by 13 of them),
+  W4A4 ``pallas`` prepared, bf16, served through ``ServeEngine`` — 253
+  applied projections a forward on ``lut_dequant_gemm``'s tensor-core
+  route, the recurrence in plain torch as the reference's XLA; then a
+  6-layer W1A3 ``lut`` serve and a 6-layer f32 prefill against the CPU and
+  against a prefill followed by decode steps;
+
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
 with per-layer packing degrees from analytic plans at 16 and 4 GiB and a plan
@@ -56,7 +65,7 @@ measured on the card, so ``lut_stream_gemm`` runs on two of its routes
 ``lut_stream_lookup_sm90.cu``, the composed LUT slices streamed through
 shared memory), and the fixed-chunk driver (``decode="chunked"``); every
 planned serve gives phase 8's tokens.  Last, phase 8's model under live
-operations (phase 15, ``repro_torch.ckpt``, ``serve.ops``, ``ft``): a
+operations (phase 15, at 10 of its 40 layers; ``repro_torch.ckpt``, ``serve.ops``, ``ft``): a
 prepared checkpoint saved and restored onto the card, a ``LiveServer`` whose
 factory restores it, killed at three waves, with its durable request log
 replayed, a plan swap staged on a side stream and flipped at a wave
@@ -88,6 +97,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 import warnings
 import zlib
 
@@ -1363,6 +1373,15 @@ PLANS_WANT = {
 ROUTES_WANT = {16: (6400, 2560, 0), 4: (2560, 6400, 0)}
 
 
+def check_plan_choices(plan, what):
+    """A 16 GiB analytic plan over stablelm-12b at a cut depth: each
+    projection's (p, prepared) is phase 13's at 40 layers (the bytes scale
+    with the depth; ``verify_capacity`` checks them on the prepared tree)."""
+    check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan.layers.items()}
+          == PLANS_WANT[16][0], f"{what}: the 16 GiB analytic plan's choices differ from "
+                                f"phase 13's")
+
+
 def check_route_counts(what, out, want):
     got = (out["launches_tc"], out["launches_lookup"], out["launches_cuda_core"])
     check(got == want, f"{what}: lut_stream_gemm launches (tensor cores, lookup, CUDA cores) "
@@ -2337,6 +2356,8 @@ def phase_gemma2_serve(torch, dev, smi):
 # ---------------------------------------------------------------------------
 
 LIVE_DIR = ROOT / "build" / "live_ops"   # git-ignored; removed at the end of the phase
+LIVE_LAYERS = 10              # phases 15 and 16: stablelm-12b's depth cut from 40 to keep the
+                              # script in its time limit (each check holds at any depth)
 LIVE_BUDGET_SEED = 15         # phase 15: new-token budgets in [4, 16] from default_rng(15) on
                               # phase 8's prompts: 5 admission waves undisturbed
 LIVE_KILL_WAVES = (0, 1, 2)   # 15b: each attempt dies at the next of these waves (per-attempt
@@ -2518,19 +2539,19 @@ def check_replay_identity(torch, dev, model, tree):
     return diff
 
 
-def phase_live_ops(torch, dev, cfg, smi, lserve=None):
-    """Phase 15: stablelm-12b at full width (40 layers, seed 0, bf16, W1A3 p=4
-    lut, calibrated as in phase 8) under live operations: (a) a prepared
-    checkpoint saved and restored onto the card serves phase 8's requests
-    with phase 8's tokens and launches; (b) a ``LiveServer`` whose factory
+def phase_live_ops(torch, dev, cfg, smi):
+    """Phase 15: stablelm-12b at full width (LIVE_LAYERS of its 40 layers,
+    seed 0, bf16, W1A3 p=4 lut, calibrated as in phase 8) under live
+    operations: (a) a prepared checkpoint saved and restored onto the card
+    serves phase 8's requests with the tokens and launches of the in-memory
+    tree's serve (the reference serve, ``out["ref"]``); (b) a ``LiveServer`` whose factory
     restores that checkpoint, killed at 3 waves, gives the undisturbed
     tokens, one host sync per wave on every attempt, and its request log
     replays them in a fresh server with 0 new waves; (c) a plan swap staged
     on a side stream while waves decode lands at a wave boundary with the
     same tokens, the launches split by route, and a drifting tree refused;
     (d) the chaos sweep over its five seams at a cut depth; (e) the grad
-    refusal.  ``lserve`` is phase 8's result (None when the phase runs
-    alone: then the in-memory tree's own serve is the reference)."""
+    refusal."""
     import shutil
     import threading
 
@@ -2544,13 +2565,12 @@ def phase_live_ops(torch, dev, cfg, smi, lserve=None):
     from repro_torch.models.model import build_model
     from repro_torch.serve.ops import LiveServer, SwapController
     from repro_torch.serve.serving import ServeEngine
-    from repro_torch.tune import plan_model
+    from repro_torch.tune import plan_model, verify_capacity
     from repro_torch.tune.plan import (map_quantized_leaves, param_fingerprint,
                                        quantized_leaf_items)
 
     out = {"grad_refusal": check_grad_refusal(torch, dev)}
-    if cfg.n_layers != N_LAYERS:
-        cfg = dataclasses.replace(cfg, n_layers=N_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=LIVE_LAYERS)
     model = build_model(cfg)
     spec = LutLinearSpec(mode="lut", **LUT_SPEC)
     shutil.rmtree(LIVE_DIR, ignore_errors=True)
@@ -2605,17 +2625,15 @@ def phase_live_ops(torch, dev, cfg, smi, lserve=None):
             f"files just written: read from the page cache); every tensor bit-equal, same "
             f"dtype and device, fingerprint {param_fingerprint(restored)}")
         _lens, reqs8 = serve_requests(cfg, 64, 16)
-        if lserve is None:
-            eng = ServeEngine(model, prepared, batch=4, max_seq=256, device=dev)
-            eng.generate([dataclasses.replace(reqs8[0], prompt=reqs8[0].prompt[:16],
-                                              max_new_tokens=2)])
-            outs, _w, records, counts, _s = counted_generate(torch, eng, reqs8)
-            ref = dict(outs=outs, launches=counts["lut_stream_gemm"],
-                       launches_tc=counts["lut_stream_gemm_tc"],
-                       launches_canon=counts["lut_stream_gemm_canon"])
-            del eng
-        else:
-            ref = lserve
+        eng = ServeEngine(model, prepared, batch=4, max_seq=256, device=dev)
+        eng.generate([dataclasses.replace(reqs8[0], prompt=reqs8[0].prompt[:16],
+                                          max_new_tokens=2)])
+        outs, _w, records, counts, _s = counted_generate(torch, eng, reqs8)
+        out["ref"] = ref = dict(outs=outs, host_syncs=eng.host_syncs,
+                                launches=counts["lut_stream_gemm"],
+                                launches_tc=counts["lut_stream_gemm_tc"],
+                                launches_canon=counts["lut_stream_gemm_canon"])
+        del eng
         del prepared, leaves, back
         torch.cuda.empty_cache()
         eng = ServeEngine(model, restored, batch=4, max_seq=256, device=dev)
@@ -2625,19 +2643,22 @@ def phase_live_ops(torch, dev, cfg, smi, lserve=None):
         check_served(cfg, eng, outs, 16, records, counts, sync_warnings,
                      kernel="lut_stream_gemm", what="15a")
         digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
-        check(outs == ref["outs"], f"15a: tokens (crc32 {digest:08x}) differ from phase 8's")
+        check(outs == ref["outs"], f"15a: tokens (crc32 {digest:08x}) differ from the "
+                                   f"reference serve's")
         want_counts = (ref["launches"], ref["launches_tc"], ref["launches_canon"])
         got_counts = (counts["lut_stream_gemm"], counts["lut_stream_gemm_tc"],
                       counts["lut_stream_gemm_canon"])
         check(got_counts == want_counts and counts["lut_stream_gemm_lookup"] == 0,
-              f"15a: launches (all, tensor cores, canon) {got_counts} != phase 8's {want_counts}")
+              f"15a: launches (all, tensor cores, canon) {got_counts} != the reference serve's "
+              f"{want_counts}")
         out["a"] = dict(init_s=init_s, prepare_s=prepare_s, save_s=save_s, restore_s=restore_s,
                         tree_bytes=tree_bytes, restore_gb_s=tree_bytes / restore_s / 1e9,
                         leaves=len(files), tokens_crc32=digest, wall_s=wall,
                         launches=counts["lut_stream_gemm"],
                         launches_tc=counts["lut_stream_gemm_tc"],
                         launches_canon=counts["lut_stream_gemm_canon"])
-        log(f"phase 15a: the restored tree served phase 8's requests with phase 8's tokens "
+        log(f"phase 15a: the restored tree served phase 8's requests with the in-memory tree's "
+            f"tokens "
             f"(crc32 {digest:08x}) and launches {got_counts}, all on the tensor cores")
 
         # --- (b) kill + replay from the durable request log -----------------
@@ -2743,10 +2764,7 @@ def phase_live_ops(torch, dev, cfg, smi, lserve=None):
 
         # --- (c) hot-swap under phase 13's 16 GiB plan -----------------------
         plan = plan_model(calibrated, lut_budget_bytes=16 << 30, n_hint=4, measure=False)
-        layers_want, total_want, tables_want = PLANS_WANT[16]
-        check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan.layers.items()}
-              == layers_want and plan.total_bytes == total_want,
-              "15c: the 16 GiB analytic plan differs from phase 13's")
+        check_plan_choices(plan, "15c")
         routes = plan_routes(plan)
         n_tc, n_lookup = (sum(r == w for r in routes.values()) for w in ("tc", "lookup"))
         drift = map_quantized_leaves(tree_a, lambda _p, leaf: dataclasses.replace(
@@ -2798,12 +2816,14 @@ def phase_live_ops(torch, dev, cfg, smi, lserve=None):
             swap_wall = time.perf_counter() - t0
             op.join(900)
         final = read_launches()
+        eng.on_wave = None          # its hook closes over eng: a reference cycle
         check("error" not in flip and not op.is_alive(), f"15c: the operator failed: {flip}")
         rep = flip["report"]
         check(flip["drift"].startswith("incompatible hot-swap refused")
               and "bw 1 -> 2" in flip["drift"] and flip["after_drift"] == (True, 0),
               f"15c: the drifting tree was not refused with the active tree untouched: {flip}")
         check(got == want, "15c: tokens across the swap differ from the undisturbed serve's")
+        verify_capacity(eng.params, plan)
         check(eng.swaps == 1 and eng.last_swap_wave == LIVE_FLIP_AFTER + 1 == rep.wave
               and eng.params is flip["staged"].tree and flip["staged"].ready is not None,
               f"15c: swaps {eng.swaps}, landed at wave {eng.last_swap_wave}, want "
@@ -3027,20 +3047,21 @@ def slo_summary(slo):
 
 
 def phase_obs(torch, dev, cfg, smi, lserve=None):
-    """Phase 16: ``repro_torch.obs`` on phase 8's model (stablelm-12b at full
-    width, 40 layers, seed 0, bf16, W1A3 p=4 lut, calibrated and prepared).
+    """Phase 16: ``repro_torch.obs`` on phase 15's model (stablelm-12b at full
+    width, LIVE_LAYERS layers, seed 0, bf16, W1A3 p=4 lut, calibrated and
+    prepared).
     (a) ``ServeEngine(obs=)`` serves phase 8's requests with the tokens, host
     syncs, admissions, buckets, launches and synchronizing calls of the
     untraced serve, and its trace holds every wave, sync and request; the
     Perfetto and metrics files load; the hooks' host time, the export time and
     the decode step with the observer on and off are logged.  (b) The chunked
-    and loop drivers under phase 13's 16 GiB plan, traced: phase 8's tokens,
+    and loop drivers under phase 13's 16 GiB plan, traced: (a)'s tokens,
     one coarse record a chunk, the plan gauges; a traced ``Measurer`` over
     two full-width layers' candidates.  (c) At 4 layers: a traced
     ``LiveServer`` killed at wave 1 and its trace file, and a traced swap to
     the 16 GiB plan staged on a side stream.  (d) ``launch/serve.py --trace
-    --metrics`` in-process.  ``lserve`` is phase 8's result (None when the
-    phase runs alone: the untraced serve here is the reference)."""
+    --metrics`` in-process.  ``lserve`` is phase 15's reference serve (None
+    when the phase runs alone: the untraced serve here is the reference)."""
     import shutil
     import threading
 
@@ -3054,13 +3075,12 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
     from repro_torch.obs import Observer, scrape_engine, write_metrics_jsonl, write_perfetto
     from repro_torch.serve.ops import LiveServer, SwapController
     from repro_torch.serve.serving import ServeEngine
-    from repro_torch.tune import Measurer, plan_model, space
+    from repro_torch.tune import Measurer, plan_model, space, verify_capacity
     from repro_torch.tune.measure import sample_activations
     from repro_torch.tune.plan import quantized_leaf_items
     from repro_torch.tune.planner import _unit_slice
 
-    if cfg.n_layers != N_LAYERS:
-        cfg = dataclasses.replace(cfg, n_layers=N_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=LIVE_LAYERS)
     shutil.rmtree(OBS_DIR, ignore_errors=True)
     OBS_DIR.mkdir(parents=True)
     out = {}
@@ -3112,7 +3132,8 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
         check(off["outs"] == lserve["outs"] and off["host_syncs"] == lserve["host_syncs"]
               and off["counts"]["lut_stream_gemm"] == lserve["launches"]
               and off["counts"]["lut_stream_gemm_canon"] == lserve["launches_canon"],
-              "16a: the untraced serve differs from phase 8's (tokens, syncs or launches)")
+              "16a: the untraced serve differs from phase 15's reference serve (tokens, syncs "
+              "or launches)")
     want = off["outs"]
     obs = runs[1]["obs"]
     slo = check_coarse_trace(obs, reqs, "16a", waves=off["host_syncs"])
@@ -3171,10 +3192,7 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
 
     # --- (b) the chunked and loop drivers under the 16 GiB plan; the tuner ------
     plan = plan_model(calibrated, lut_budget_bytes=16 << 30, n_hint=4, measure=False)
-    layers_want, total_want, _tables = PLANS_WANT[16]
-    check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan.layers.items()}
-          == layers_want and plan.total_bytes == total_want,
-          "16b: the 16 GiB analytic plan differs from phase 13's")
+    check_plan_choices(plan, "16b")
     routes = plan_routes(plan)
     n_tc, n_lookup = (sum(r == w for r in routes.values()) for w in ("tc", "lookup"))
     out["b"] = {}
@@ -3189,7 +3207,8 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
         chunks, steps = chunk_calls(reqs, eng.batch, eng.max_seq)
         syncs = chunks if decode == "chunked" else sum(
             max(r.max_new_tokens for r in reqs[s : s + 4]) for s in range(0, len(reqs), 4))
-        check(outs == want, f"{what}: tokens differ from phase 8's")
+        check(outs == want, f"{what}: tokens differ from the untraced serve's")
+        verify_capacity(eng.params, plan)
         check(eng.host_syncs == syncs == len(sync_warnings),
               f"{what}: {eng.host_syncs} host syncs, {len(sync_warnings)} synchronizing calls, "
               f"want {syncs}")
@@ -3213,7 +3232,7 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
               f"{what}: plan gauges {scraped}, {gauges} against the plan's layers")
         out["b"][decode] = dict(host_syncs=eng.host_syncs, wall_s=wall, launches=got,
                                 plan=scraped, slo=slo_summary(bslo))
-        log(f"phase 16b [{smi}]: {what}: phase 8's tokens, {eng.host_syncs} host syncs (= "
+        log(f"phase 16b [{smi}]: {what}: (a)'s tokens, {eng.host_syncs} host syncs (= "
             f"synchronizing calls), {chunks} coarse wave records, launches {got}; plan gauges "
             f"{scraped}; {wall:.2f} s; TTFT p50 {bslo['ttft']['p50_s']:.3f} s, goodput "
             f"{bslo['goodput']['tokens_per_s']:.2f} tok/s")
@@ -3228,7 +3247,7 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
         q = next(lf for path, lf in leaves.items() if path.endswith("/" + name))
         unit = _unit_slice(q)
         f, k = int(unit.codes.shape[-2]), unit.k
-        cands = space.layer_candidates(f, k, n_hint=4, base_spec=q.spec, stack=N_LAYERS,
+        cands = space.layer_candidates(f, k, n_hint=4, base_spec=q.spec, stack=cfg.n_layers,
                                        servable_only=True)
         x = sample_activations(k, 128, device=dev)
         for _repeat in range(2):                      # the second pass hits the cache
@@ -3295,8 +3314,7 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
     check({"restart", "replay"} <= sup_names and not tmp_left,
           f"16c: supervisor events in the trace file {sorted(sup_names)}, tmp files {tmp_left}")
     plan_d = plan_model(cal_d, lut_budget_bytes=16 << 30, n_hint=4, measure=False)
-    check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan_d.layers.items()}
-          == layers_want, "16c: the 4-layer 16 GiB plan's choices differ from phase 13's")
+    check_plan_choices(plan_d, "16c")
     sobs = timed_observer()
     eng = ServeEngine(model_d, tree_d, batch=4, max_seq=256, obs=sobs, device=dev)
     ctl = SwapController(eng, obs=sobs)
@@ -3325,6 +3343,7 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
         op.start()
         got = eng.generate(lreqs)
         op.join(600)
+    eng.on_wave = None              # its hook closes over eng: a reference cycle
     serving = threading.get_ident()
     stage_threads = sobs.span_threads.get("swap stage", [])
     check("error" not in flip and not op.is_alive() and got == want_d and eng.swaps == 1
@@ -3382,16 +3401,16 @@ DS_LUT_LAYERS = 4             # 17c: depth cut to 1 "F" + 3 "D" units
 TOL_MLA_CHUNKED = 2e-4        # 17b: chunked vs unchunked latent attention (f32), relative to
                               # max |y|: the same per-row sums, in other GEMM shapes
 TOL_CPU_DS = 1e-4             # 17d: card vs CPU logits (f32, 2 layers), relative to max |logit|
-DS_REGIONS = ("expert dequant", "expert bmm", "moe routing", "moe dispatch+combine",
-              "latent attention")
 
 
 def applied_projections(params):
     """The quantized projections one forward applies, counted from the tree:
     every quantized leaf times its stack, except MLA's absorbed ``W_kup`` /
     ``W_vup`` (decoded, never applied) and the MoE expert stacks (decoded for
-    the batched expert GEMMs); a MoE block's shared experts are applied.
-    Returns ``(count, {leaf path: (count, K, F)})``."""
+    the batched expert GEMMs); a MoE block's shared experts are applied; a
+    leaf of zamba2's shared block (``shared_attn``, one copy in the tree) is
+    applied once per ``"S"`` sublayer (counted by their stacked Mamba2
+    ``in_proj`` leaves).  Returns ``(count, {leaf path: (count, K, F)})``."""
     from repro_torch.tune.plan import quantized_leaf_items
 
     by_path = {}
@@ -3400,6 +3419,11 @@ def applied_projections(params):
         if parts[-1] in ("w_kup", "w_vup") or ("moe" in parts and "shared" not in parts):
             continue
         by_path[path] = (leaf.codes.shape[0] if leaf.codes.ndim == 3 else 1, leaf.k, leaf.f)
+    n_shared = sum(n for path, (n, _k, _f) in by_path.items()
+                   if path.split("/")[-3].endswith("_S") and path.endswith("ssm/in_proj"))
+    for path, (_n, k, f) in by_path.items():
+        if path.startswith("shared_attn/"):
+            by_path[path] = (n_shared, k, f)
     return sum(n for n, _k, _f in by_path.values()), by_path
 
 
@@ -3413,8 +3437,8 @@ def projection_shapes(params):
     return {"+".join(dict.fromkeys(ns)): kf for kf, ns in names.items()}
 
 
-def deepseek_requests(cfg):
-    """Phase 17's 8 requests: prompts of 16-128 tokens from ``default_rng(0)``,
+def bucket_led_requests(cfg):
+    """Phases 17 and 18's 8 requests: prompts of 16-128 tokens from ``default_rng(0)``,
     the first of each group of 4 (one wave, one chunk) exactly DS_PROMPT
     tokens, so the continuous and chunked drivers' prompt bucket and the loop
     driver's exact length agree (the MoE capacity follows the prefill's token
@@ -3429,23 +3453,38 @@ def deepseek_requests(cfg):
                           max_new_tokens=DS_NEW) for n in lens]
 
 
-class _RegionLabels:
-    """Label phase 17's regions with torch.profiler ranges while it records
-    (a check of this script; the port has no such hooks): the expert
-    stacks' dequantization (``models.model.maybe_dequant``, which
+def deepseek_regions():
+    """Phase 17's profiler regions, ``(module, function, label)``: the
+    expert stacks' dequantization (``models.model.maybe_dequant``, which
     ``moe_apply`` imports at each call), the routing (``moe._route``), the
     dispatch and combine around the expert GEMMs (``moe._dispatch_compute``)
     and the latent attention (``attention._latent_attend``).  The expert
     GEMMs are the ``aten::bmm`` ops inside the dispatch range
     (:func:`region_of`)."""
+    from repro_torch.models import attention, model, moe
 
-    def __init__(self, torch):
-        from repro_torch.models import attention, model, moe
+    return ((model, "maybe_dequant", "expert dequant"), (moe, "_route", "moe routing"),
+            (moe, "_dispatch_compute", "moe dispatch+combine"),
+            (attention, "_latent_attend", "latent attention"))
 
-        self.torch, self.modules = torch, ((model, "maybe_dequant", "expert dequant"),
-                                           (moe, "_route", "moe routing"),
-                                           (moe, "_dispatch_compute", "moe dispatch+combine"),
-                                           (attention, "_latent_attend", "latent attention"))
+
+def zamba2_regions():
+    """Phase 18's profiler regions: the SSD recurrence (each step of
+    ``ssm._step``), the causal conv (``ssm._causal_conv``) and the shared
+    block's cached attention (``attention._attend_cache_invariant``)."""
+    from repro_torch.models import attention, ssm
+
+    return ((ssm, "_step", "ssd recurrence"), (ssm, "_causal_conv", "causal conv"),
+            (attention, "_attend_cache_invariant", "shared attention"))
+
+
+class _RegionLabels:
+    """Label a phase's regions (``(module, function, label)``, e.g.
+    :func:`deepseek_regions`) with torch.profiler ranges while it records (a
+    check of this script; the port has no such hooks)."""
+
+    def __init__(self, torch, labels):
+        self.torch, self.modules = torch, labels
 
     def __enter__(self):
         rf = self.torch.profiler.record_function
@@ -3463,22 +3502,31 @@ class _RegionLabels:
         return False
 
 
-def region_of(event):
-    """The region (:data:`DS_REGIONS`) of a profiled host event: its
-    innermost enclosing :class:`_RegionLabels` range, read as "expert bmm"
-    where an ``aten::bmm`` lies between the event and the dispatch range;
-    ``None`` outside every range."""
+def region_names(labels):
+    """The regions of ``labels``; with the MoE dispatch range, also the
+    expert bmm inside it."""
+    names = [label for _mod, _name, label in labels]
+    if "moe dispatch+combine" in names:
+        names.insert(1, "expert bmm")
+    return tuple(names)
+
+
+def region_of(event, names):
+    """The region (of ``names``) of a profiled host event: its innermost
+    enclosing :class:`_RegionLabels` range, read as "expert bmm" where an
+    ``aten::bmm`` lies between the event and the dispatch range; ``None``
+    outside every range."""
     bmm = False
     while event is not None:
         if event.name == "aten::bmm":
             bmm = True
-        if event.name in DS_REGIONS:
+        if event.name in names:
             return "expert bmm" if bmm and event.name == "moe dispatch+combine" else event.name
         event = event.cpu_parent
     return None
 
 
-def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what):
+def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what, labels):
     """Device time of one call of ``fn`` by region (:class:`_RegionLabels`),
     beside ``kernel``'s time, the busy time and the idle share against
     ``wall_ms``, from torch.profiler over ``iters`` calls after a warmup
@@ -3491,7 +3539,8 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what):
 
     fn()
     torch.cuda.synchronize()
-    with _RegionLabels(torch):
+    names = region_names(labels)
+    with _RegionLabels(torch, labels):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -3499,7 +3548,7 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what):
     busy = ours = ours_n = 0.0
     by_name = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in DS_REGIONS:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in names:
             continue                   # host events; the ranges' device-side spans
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3513,11 +3562,11 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what):
     if busy <= 0:
         log(f"  {what}: device time by region not measured (the profiler saw no device time)")
         return None
-    regions = dict.fromkeys(DS_REGIONS, 0.0)
+    regions = dict.fromkeys(names, 0.0)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
-        region = region_of(e)
+        region = region_of(e, names)
         if region is not None:
             us = sum(k.duration for k in e.kernels if kernel not in k.name)
             regions[region] += us / 1e3 / iters
@@ -3537,6 +3586,57 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what):
     check(out["other_ms"] >= -1e-6 * busy,
           f"{what}: the regions and {kernel} add up to more than the busy time ({busy:.3f} ms)")
     return out
+
+
+HELD_SLACK = 1 << 26          # phases 17-18: what gc.collect() may free on the card before a
+                              # build (64 MB): earlier phases leave no tree in a reference cycle
+
+
+def _cycle_owner(o):
+    """The qualified name of a function, or of an object's class, defined in
+    the port or in this script; ``None`` for anything else."""
+    fn = isinstance(o, types.FunctionType)
+    mod = o.__module__ if fn else type(o).__module__
+    if mod == "__main__" or str(mod).startswith("repro_torch"):
+        return o.__qualname__ if fn else type(o).__qualname__
+    return None
+
+
+def held_before_build(torch, dev, what):
+    """What the card holds before a phase builds its model, logged: the
+    bytes allocated, then the CUDA tensors that ``gc.collect()`` finds only
+    in reference cycles (and the functions and objects of the port and of
+    this script among the cycles), then the bytes allocated after the
+    collect.  Fails where the collect frees more than :data:`HELD_SLACK`:
+    each phase's memory must be its own without a collect.  Returns the bytes
+    held after the collect."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        cyclic = {}
+        for o in gc.garbage:
+            if type(o) in (torch.Tensor, torch.nn.Parameter) and o.is_cuda:
+                st = o.untyped_storage()
+                cyclic[st.data_ptr()] = st.nbytes()
+        owners = sorted({name for name in map(_cycle_owner, gc.garbage) if name})
+    finally:
+        gc.garbage.clear()
+        gc.set_debug(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after, referenced, n_storages, largest = held_on_card(torch, dev)
+    log(f"{what}: held on the card before the build (what earlier phases left): "
+        f"{before / 1e9:.3f} GB allocated, {after / 1e9:.3f} GB after gc.collect(); "
+        f"{len(cyclic)} CUDA storages ({sum(cyclic.values()) / 1e9:.3f} GB) only in reference "
+        f"cycles, among them objects of {owners[:12]}; {n_storages} CUDA storages referenced "
+        f"from Python, {referenced / 1e9:.2f} GB, the largest "
+        f"{[(f'{n / 1e9:.2f} GB', shape, dt) for n, shape, dt in largest]}")
+    check(before - after <= HELD_SLACK,
+          f"{what}: gc.collect() freed {(before - after) / 1e9:.3f} GB on the card: an earlier "
+          f"phase left a tree in a reference cycle ({owners[:12]})")
+    return before, after
 
 
 def held_on_card(torch, dev, top=3):
@@ -3595,15 +3695,7 @@ def phase_deepseek(torch, dev, smi):
 
     # --- 17a: all 27 layers, W4A4 pallas, bf16, served -----------------------
     model = build_model(cfg)
-    torch.cuda.synchronize()
-    before_gc = torch.cuda.memory_allocated(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    base, referenced, n_storages, largest = held_on_card(torch, dev)
-    log(f"phase 17a: held on the card before the build (what earlier phases left): "
-        f"{before_gc / 1e9:.2f} GB allocated, {base / 1e9:.2f} GB after gc.collect(); "
-        f"{n_storages} CUDA storages referenced from Python, {referenced / 1e9:.2f} GB, the "
-        f"largest {[(f'{n / 1e9:.2f} GB', shape, dt) for n, shape, dt in largest]}")
+    before_gc, base = held_before_build(torch, dev, "phase 17a")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
@@ -3624,7 +3716,7 @@ def phase_deepseek(torch, dev, smi):
         f"{per_forward} applied projections per forward "
         f"({', '.join(f'{p.split('/', 2)[-1]} x{n}' for p, (n, _k, _f) in by_path.items())})")
     eng = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
-    lens, reqs = deepseek_requests(cfg)
+    lens, reqs = bucket_led_requests(cfg)
     eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
     torch.cuda.synchronize()
     outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
@@ -3677,9 +3769,11 @@ def phase_deepseek(torch, dev, smi):
     log("phase 17a: where the device time goes (torch.profiler; wall time from the unprofiled "
         "runs above):")
     prefill_prof = region_breakdown(torch, prefill, 2, prefill_ms, kernel="lut_dequant_gemm",
-                                    card=smi, what=f"prefill B=4 x {DS_PROMPT}")
+                                    card=smi, what=f"prefill B=4 x {DS_PROMPT}",
+                                    labels=deepseek_regions())
     step_prof = region_breakdown(torch, step, 3, step_ms, kernel="lut_dequant_gemm", card=smi,
-                                 what=f"decode step B=4 at {DS_PROMPT}")
+                                 what=f"decode step B=4 at {DS_PROMPT}",
+                                 labels=deepseek_regions())
     out["a"] = dict(
         launches=launches, launches_tc=counts["lut_dequant_gemm_tc"], per_forward=per_forward,
         prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs, waves=len(records),
@@ -3835,12 +3929,290 @@ def phase_deepseek(torch, dev, smi):
     return out
 
 
+ZAMBA = "zamba2-7b"
+ZB_LUT_LAYERS = 6             # 18b / 18c: depth cut to one "MMMMMS" unit
+ZB_CPU_SEQ = 64               # 18c: one prefill of 2 x this many tokens on the card and the CPU
+ZB_TF = 8                     # 18c: decode steps after a prefill of ZB_CPU_SEQ - ZB_TF tokens
+ZB_PROFILED = 32              # 18a: the profiled prefill's length (B = 4): torch.profiler parses
+                              # about 4 host events a recurrence step and layer, ~0.5 M at 128
+TOL_CPU_ZB = 1e-4             # 18c: card vs CPU, and prefill vs prefill + decode (f32), relative
+                              # to max |logit|
+
+
+def zamba2_applied(cfg):
+    """``(applied projections a forward, "S" sublayers)`` of a zamba2 config
+    from its segments: an in_proj and an out_proj a layer, and the shared
+    block's 7 projections once per "S" sublayer."""
+    from repro_torch.models import transformer
+
+    n_s = sum(pat.count("S") * n for pat, n in transformer.segments(cfg))
+    return 2 * cfg.n_layers + 7 * n_s, n_s
+
+
+def cache_bytes(caches):
+    """``(attention K/V bytes, Mamba2 state bytes)`` of a zamba2 cache tree."""
+    from repro_torch import tree
+
+    kv = sum(t.numel() * t.element_size() for seg in caches for key, c in seg.items()
+             if key.endswith("_S") for t in tree.tensors(c["attn"]))
+    state = sum(t.numel() * t.element_size() for t in tree.tensors(caches)) - kv
+    return kv, state
+
+
+def phase_zamba2(torch, dev, smi):
+    """Phase 18: zamba2-7b (81 layers: 13 "MMMMMS" units + "MMM"; Mamba2 SSD
+    mixers, d_model 3584, 112 heads of 64, state 64, and one shared
+    attention + FFN block, 32/32 heads of 112, d_ff 14336, applied by each of
+    the 13 "S" sublayers) at its published widths.
+
+    18a: all 81 layers, W4A4 ``pallas`` prepared, bf16, served through
+    ``ServeEngine(batch=4, max_seq=512)`` on phase 17's requests (each wave
+    led by a 128-token prompt): exact token counts, one host sync a wave and
+    no other synchronizing call, ``lut_dequant_gemm`` launched 81 x 2 + 13 x
+    7 = 253 times a forward (the shared block per application), all on the
+    tensor cores; ``decode="loop"`` and ``"chunked"`` give the same tokens;
+    build time, bytes, the decode step and the 4 x 128 prefill on CUDA
+    events, the profiler's busy / idle and the recurrence's and the conv's
+    share, tok/s, peak memory.  18b: W1A3 ``lut`` p=4, calibrated and
+    prepared, 6 layers (one unit), 18a's requests: ``lut_stream_gemm`` and
+    canonicalize launches per route (the shared block per application),
+    scan == loop.  18c: 6 layers in f32, one prefill on the card against
+    the CPU's (the kernels' plain versions), and a prefill of S tokens
+    against a prefill of S - 8 followed by 8 decode steps, each within
+    1e-4 x max |logit|.  18d: each distinct applied shape at B = 4 and 4 x
+    128: ``lut_dequant_gemm`` against its plain version (phase 2's sweep),
+    ``lut_stream_gemm`` and ``lut_canon`` at W1A3 p=4 against theirs (phase
+    6's), with times.
+
+    The pads of a left-padded row go through the conv and the recurrence,
+    as in the reference, so scan == loop == chunked holds only where every
+    driver pads a row alike: each wave's longest prompt a bucket."""
+    from repro_torch import hw, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune.plan import quantized_leaf_items
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(what):
+        laps[what] = time.perf_counter() - t_phase - sum(laps.values())
+
+    cfg = get_config(ZAMBA)
+    out = {"laps_s": laps}
+    want_per, n_s = zamba2_applied(cfg)
+
+    # --- 18a: all 81 layers, W4A4 pallas, bf16, served -----------------------
+    model = build_model(cfg)
+    before_gc, base = held_before_build(torch, dev, "phase 18a")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
+                                                device=dev), n_hint=4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    code_bytes = sum(leaf.codes.numel() for _p, leaf in quantized_leaf_items(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.tensors(params))
+    per_forward, by_path = applied_projections(params)
+    shapes = projection_shapes(params)
+    check(per_forward == want_per, f"phase 18a: {per_forward} applied projections a forward, "
+                                   f"want 2 x {cfg.n_layers} + 7 x {n_s} = {want_per}")
+    log(f"phase 18a: {cfg.name} d_model={cfg.d_model} SSD heads="
+        f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} x {cfg.ssm.head_dim} state="
+        f"{cfg.ssm.d_state} conv={cfg.ssm.conv_width}; shared block {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads hd={cfg.hd} d_ff={cfg.d_ff}, applied by {n_s} 'S' sublayers; "
+        f"vocab={cfg.vocab_size} layers={cfg.n_layers} {transformer.segments(cfg)}, W4A4 pallas, "
+        f"bf16, built + prepared in {build_s:.1f} s; codes {code_bytes:,} B, parameters "
+        f"{param_bytes:,} B, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the card; "
+        f"{per_forward} applied projections per forward "
+        f"({', '.join(f'{p.split('/', 2)[-1]} x{n}' for p, (n, _k, _f) in by_path.items())})")
+    eng = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
+    kv_bytes, state_bytes = cache_bytes(eng._new_cache())
+    lens, reqs = bucket_led_requests(cfg)
+    eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+    prefills, steps, launches = check_served(cfg, eng, outs, DS_NEW, records, counts,
+                                             sync_warnings, kernel="lut_dequant_gemm",
+                                             what="phase 18a")
+    digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+    n_tok = sum(len(o) for o in outs)
+    log(f"phase 18a [{smi}]: served {len(reqs)} requests (prompt lengths {lens.tolist()}, "
+        f"prefill buckets {sorted({r.prefill_bucket for r in records if r.prefill_bucket})}), "
+        f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s end to end); {len(records)} "
+        f"waves, {prefills} prefills, {steps} decode steps, {eng.host_syncs} host syncs, "
+        f"{launches} lut_dequant_gemm launches (= {per_forward} x {prefills + steps}, all on the "
+        f"tensor cores); sync-debug warnings {len(sync_warnings)} (the token fetches); "
+        f"admissions {eng.admissions}; the serve's caches: shared-attention K/V "
+        f"{kv_bytes:,} B, Mamba2 state {state_bytes:,} B (f32); tokens crc32 {digest:08x}")
+    for decode in ("loop", "chunked"):
+        t0 = time.perf_counter()
+        other = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode=decode, device=dev)
+        check(other.generate(reqs) == outs, f"phase 18a: decode={decode!r} tokens differ from "
+                                            f"decode='scan'")
+        log(f"phase 18a: decode={decode!r} gives scan's tokens bit for bit on these waves, "
+            f"each led by a {DS_PROMPT}-token prompt (a bucket) ({other.host_syncs} "
+            f"host syncs, {time.perf_counter() - t0:.2f} s)")
+        del other
+
+    caches = eng._new_cache()
+    toks = torch.randint(0, cfg.vocab_size, (4, DS_PROMPT), device=dev, dtype=torch.int32)
+    pad = torch.zeros((4,), dtype=torch.int32, device=dev)
+    tok, pos = toks[:, -1:], torch.full((4,), DS_PROMPT, dtype=torch.int32, device=dev)
+    prefill = lambda: model.prefill(params, toks, caches, pad_len=pad)            # noqa: E731
+    short = lambda: model.prefill(params, toks[:, :ZB_PROFILED], caches, pad_len=pad)  # noqa: E731
+    step = lambda: model.decode_step(params, tok, caches, pos, pad_len=pad)       # noqa: E731
+    prefill_ms = time_ms(torch, lambda i: prefill(), 2)
+    short_ms = time_ms(torch, lambda i: short(), 2)
+    step_ms = time_ms(torch, lambda i: step(), 5)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    log(f"phase 18a [{smi}]: prefill B=4 x {DS_PROMPT} tokens {prefill_ms:.2f} ms (B=4 x "
+        f"{ZB_PROFILED}: {short_ms:.2f} ms); decode step "
+        f"B=4 at {DS_PROMPT} {step_ms:.2f} ms ({4e3 / step_ms:.1f} tok/s); peak memory "
+        f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated less the {base / 1e9:.2f} GB held "
+        f"before the build)")
+    log("phase 18a: where the device time goes (torch.profiler; wall time from the unprofiled "
+        "runs above):")
+    profiles = {}
+    for name, fn, iters, ms, what in (
+            ("prefill", short, 1, short_ms, f"prefill B=4 x {ZB_PROFILED}"),
+            ("decode", step, 3, step_ms, f"decode step B=4 at {DS_PROMPT}")):
+        prof = region_breakdown(torch, fn, iters, ms, kernel="lut_dequant_gemm", card=smi,
+                                what=what, labels=zamba2_regions())
+        if prof is not None:
+            shares = {k: v / prof["busy_ms"] for k, v in prof["regions_ms"].items()}
+            log(f"  {name}: share of busy: " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+                + f", lut_dequant_gemm {prof['kernel_ms'] / prof['busy_ms']:.3f}")
+            prof["shares"] = shares
+        profiles[name] = prof
+    out["a"] = dict(
+        launches=launches, launches_tc=counts["lut_dequant_gemm_tc"], per_forward=per_forward,
+        prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs, waves=len(records),
+        wall_s=wall, tokens=n_tok, tok_s=n_tok / wall, tokens_crc32=digest,
+        prefill_wall_s=sum(r.t_decode - r.t_start for r in records),
+        decode_wall_s=sum(r.t_sync - r.t_decode for r in records),
+        prefill_ms=prefill_ms, profiled_prefill_ms=short_ms, step_ms=step_ms, peak_gb=peak_gb,
+        held_before_gb=base / 1e9, held_before_gc_gb=before_gc / 1e9, code_bytes=code_bytes,
+        param_bytes=param_bytes, kv_cache_bytes=kv_bytes, state_bytes=state_bytes, build_s=build_s,
+        prefill_profile=profiles["prefill"], decode_profile=profiles["decode"])
+    del eng, caches, prefill, short, step, params
+    torch.cuda.empty_cache()
+    lap("18a")
+
+    # --- 18b: W1A3 lut, calibrated + prepared, one unit ------------------------
+    lcfg = dataclasses.replace(cfg, n_layers=ZB_LUT_LAYERS)
+    lmodel = build_model(lcfg)
+    t0 = time.perf_counter()
+    cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    lparams = lmodel.prepare(lmodel.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0,
+                                                   device=dev), calibrate=cal, n_hint=4)
+    torch.cuda.synchronize()
+    lper, lby = applied_projections(lparams)
+    scaled = [leaf for _p, leaf in quantized_leaf_items(lparams) if leaf.ascale is not None]
+    check(len(scaled) == len(lby) and lper == zamba2_applied(lcfg)[0],
+          f"phase 18b: {len(scaled)} of {len(lby)} leaves carry a frozen scale; {lper} applied "
+          f"projections a forward")
+    log(f"phase 18b: {lcfg.n_layers} layers {transformer.segments(lcfg)}, W1A3 p=4 lut, "
+        f"calibrated on {cal.size} tokens and prepared in {time.perf_counter() - t0:.1f} s; "
+        f"{lper} applied projections per forward")
+    leng = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
+    leng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    louts, lwall, lrecords, lcounts, lsync = counted_generate(torch, leng, reqs)
+    lprefills, lsteps, llaunches = check_served(lcfg, leng, louts, DS_NEW, lrecords, lcounts, lsync,
+                                                kernel="lut_stream_gemm", what="phase 18b")
+    check(lcounts["lut_stream_gemm_tc"] == llaunches and lcounts["lut_stream_gemm_lookup"] == 0,
+          f"phase 18b: lut_stream_gemm routes {lcounts}: the W1A3 p=4 pack must take the "
+          f"tensor-core route on every launch")
+    check(lcounts["lut_stream_gemm_canon"] == llaunches,
+          f"phase 18b: canonicalize launches {lcounts['lut_stream_gemm_canon']} != "
+          f"{llaunches}: one per projection")
+    t0 = time.perf_counter()
+    lloop = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="loop", device=dev)
+    check(lloop.generate(reqs) == louts, "phase 18b: decode='loop' tokens differ from scan's")
+    ldigest = zlib.crc32(json.dumps([list(map(int, o)) for o in louts]).encode())
+    log(f"phase 18b [{smi}]: served the 8 requests, {sum(map(len, louts))} tokens in "
+        f"{lwall:.3f} s; {len(lrecords)} waves, {lprefills} prefills, {lsteps} decode steps, "
+        f"{leng.host_syncs} host syncs; lut_stream_gemm {llaunches} launches (= {lper} x "
+        f"{lprefills + lsteps}; tensor cores {lcounts['lut_stream_gemm_tc']}, lookup "
+        f"{lcounts['lut_stream_gemm_lookup']}, CUDA cores "
+        f"{llaunches - lcounts['lut_stream_gemm_tc'] - lcounts['lut_stream_gemm_lookup']}), "
+        f"canonicalize {lcounts['lut_stream_gemm_canon']}; decode='loop' gives the same tokens "
+        f"({time.perf_counter() - t0:.2f} s); tokens crc32 {ldigest:08x}")
+    out["b"] = dict(launches=llaunches, launches_tc=lcounts["lut_stream_gemm_tc"],
+                    launches_lookup=lcounts["lut_stream_gemm_lookup"],
+                    launches_canon=lcounts["lut_stream_gemm_canon"], per_forward=lper,
+                    prefills=lprefills, decode_steps=lsteps, host_syncs=leng.host_syncs,
+                    waves=len(lrecords), wall_s=lwall, tokens_crc32=ldigest)
+    del leng, lloop, lparams
+    torch.cuda.empty_cache()
+    lap("18b")
+
+    # --- 18c: f32, one unit: the card against the CPU; prefill vs decode -------
+    dcfg = dataclasses.replace(cfg, n_layers=ZB_LUT_LAYERS, dtype="float32")
+    dmodel = build_model(dcfg)
+    dparams = dmodel.prepare(dmodel.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
+                                                   seed=3, device=dev), n_hint=4)
+    dtoks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, ZB_CPU_SEQ)).astype(np.int32)
+    toks_gpu = torch.from_numpy(dtoks).to(dev)
+    lg_gpu, _ = dmodel.prefill(dparams, toks_gpu,
+                               dmodel.init_cache(2, ZB_CPU_SEQ, torch.float32, device=dev))
+    split = dmodel.init_cache(2, ZB_CPU_SEQ, torch.float32, device=dev)
+    dmodel.prefill(dparams, toks_gpu[:, : ZB_CPU_SEQ - ZB_TF], split)
+    for t in range(ZB_CPU_SEQ - ZB_TF, ZB_CPU_SEQ):
+        lg_split, _ = dmodel.decode_step(dparams, toks_gpu[:, t : t + 1], split, t)
+    lg_gpu, lg_split = lg_gpu.cpu(), lg_split.cpu()
+    params_cpu = tree.tree_map(lambda t: t.cpu(), dparams)
+    del dparams, split
+    t1 = time.perf_counter()
+    lg_cpu, _ = dmodel.prefill(params_cpu, torch.from_numpy(dtoks),
+                               dmodel.init_cache(2, ZB_CPU_SEQ, torch.float32, device="cpu"))
+    cpu_s = time.perf_counter() - t1
+    del params_cpu
+    lscale = lg_cpu.abs().max().item()
+    lerr = (lg_gpu - lg_cpu).abs().max().item()
+    serr = (lg_split - lg_gpu).abs().max().item()
+    check(bool(torch.isfinite(lg_gpu).all()) and lg_gpu.shape == (2, 1, cfg.vocab_size),
+          f"phase 18c: logits of shape {tuple(lg_gpu.shape)} or not finite")
+    check(lerr <= TOL_CPU_ZB * lscale, f"phase 18c: card vs CPU logits max err {lerr:.3e} > "
+                                       f"{TOL_CPU_ZB} x max|logit| {lscale:.3e}")
+    check(serr <= TOL_CPU_ZB * lscale,
+          f"phase 18c: prefill of {ZB_CPU_SEQ} vs prefill of {ZB_CPU_SEQ - ZB_TF} + {ZB_TF} "
+          f"decode steps: max err {serr:.3e} > {TOL_CPU_ZB} x max|logit| {lscale:.3e}")
+    log(f"phase 18c [{smi}]: {ZB_LUT_LAYERS} layers at full width, f32, one prefill of 2 x "
+        f"{ZB_CPU_SEQ} tokens: card (lut_dequant_gemm's CUDA-core route) vs CPU (plain "
+        f"versions, {cpu_s:.1f} s): max err {lerr:.3e} = {lerr / lscale:.3e} x max|logit|; a "
+        f"prefill of {ZB_CPU_SEQ - ZB_TF} + {ZB_TF} decode steps on the card: {serr:.3e} = "
+        f"{serr / lscale:.3e} x max|logit|")
+    out["c"] = dict(rel_err=lerr / lscale, prefill_vs_decode_rel_err=serr / lscale, cpu_s=cpu_s)
+    lap("18c")
+
+    # --- 18d: the kernels against their plain versions at zamba2's shapes -----
+    log(f"phase 18d: {cfg.name}'s {len(shapes)} distinct applied projection shapes (K, F) "
+        f"{shapes}, B = 4 and 4 x {DS_PROMPT}, bf16 x [{smi}]:")
+    rows, rel, abs_err = phase_kernel_times(torch, dev, cfg, hw.H100_SXM, iters=(10, 3, 3),
+                                            label="phase 18d", shapes=shapes)
+    srows, sabs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi, shapes=shapes,
+                                     label="phase 18d")
+    out["d"] = dict(shapes=shapes, dequant_rows=rows, dequant_rel=rel, dequant_abs=abs_err,
+                    stream_rows=srows, stream_abs=sabs)
+    lap("18d")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['seconds']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + ")")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
-                                        "deepseek"),
+                                        "deepseek", "zamba2"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16 or 17)")
+                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17 or 18)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -3900,7 +4272,8 @@ def main(argv=None) -> int:
                  "gemma2_serve": lambda: phase_gemma2_serve(torch, dev, smi),
                  "live_ops": lambda: phase_live_ops(torch, dev, cfg, smi),
                  "obs": lambda: phase_obs(torch, dev, cfg, smi),
-                 "deepseek": lambda: phase_deepseek(torch, dev, smi)}
+                 "deepseek": lambda: phase_deepseek(torch, dev, smi),
+                 "zamba2": lambda: phase_zamba2(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -3954,15 +4327,17 @@ def main(argv=None) -> int:
         lap("4-5 cpu and loop")
         gserve = alone["gemma2_serve"]()
         lap("14 gemma2 serve")
-        live = phase_live_ops(torch, dev, cfg, smi, lserve)
+        live = phase_live_ops(torch, dev, cfg, smi)
         lap("15 live ops")
-        obs = phase_obs(torch, dev, cfg, smi, lserve)
+        obs = phase_obs(torch, dev, cfg, smi, live["ref"])
         lap("16 obs")
         deepseek = alone["deepseek"]()
         lap("17 deepseek")
-        worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"])
-        worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"])
-        stream_abs = max(stream_abs, deepseek["e"]["stream_abs"])
+        zamba2 = alone["zamba2"]()
+        lap("18 zamba2")
+        worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"])
+        worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"], zamba2["d"]["dequant_abs"])
+        stream_abs = max(stream_abs, deepseek["e"]["stream_abs"], zamba2["d"]["stream_abs"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4002,6 +4377,10 @@ def main(argv=None) -> int:
     def ds_at(what):
         return (f"phase 17e: deepseek-v2-lite-16b's distinct applied projection shapes, once each "
                 f"({', '.join(deepseek['e']['shapes'])}), {what} (device time)")
+
+    def zb_at(what):
+        return (f"phase 18d: zamba2-7b's distinct applied projection shapes, once each "
+                f"({', '.join(zamba2['d']['shapes'])}), {what} (device time)")
 
     def canon_times(rs, b, at):
         return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
@@ -4054,6 +4433,16 @@ def main(argv=None) -> int:
             "decode": times(deepseek["e"]["dequant_rows"], 4, ds_at("B=4, W4, bf16 x")),
             "prefill": times(deepseek["e"]["dequant_rows"], 4 * DS_PROMPT,
                              ds_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
+        "zamba2": {
+            "at": f"phase 18a: zamba2-7b, all 81 layers, W4A4 pallas, bf16, "
+                  f"ServeEngine(batch=4, max_seq={DS_MAX_SEQ}), 8 requests of 16-{DS_PROMPT} "
+                  f"prompt tokens, {DS_NEW} new each; prefill_ms at 4 x {DS_PROMPT} and step_ms "
+                  f"on CUDA events, profiles from torch.profiler, the rest on the host clock",
+            **zamba2["a"], "card_vs_cpu_rel_err": zamba2["c"]["rel_err"],
+            "prefill_vs_decode_rel_err": zamba2["c"]["prefill_vs_decode_rel_err"],
+            "decode": times(zamba2["d"]["dequant_rows"], 4, zb_at("B=4, W4, bf16 x")),
+            "prefill": times(zamba2["d"]["dequant_rows"], 4 * DS_PROMPT,
+                             zb_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
         "ok": True,
     }, {
         "name": "lut_stream_gemm",
@@ -4085,6 +4474,13 @@ def main(argv=None) -> int:
             "decode": stream_times(deepseek["e"]["stream_rows"], 4, ds_at("N=4, W1A3 p=4")),
             "prefill": stream_times(deepseek["e"]["stream_rows"], 4 * DS_PROMPT,
                                     ds_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
+        "zamba2": {
+            "at": f"phase 18b: zamba2-7b at full width, depth cut to {ZB_LUT_LAYERS} layers (one "
+                  f"'MMMMMS' unit), W1A3 p=4 lut calibrated + prepared, phase 18a's requests",
+            **zamba2["b"],
+            "decode": stream_times(zamba2["d"]["stream_rows"], 4, zb_at("N=4, W1A3 p=4")),
+            "prefill": stream_times(zamba2["d"]["stream_rows"], 4 * DS_PROMPT,
+                                    zb_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
         "planned_serve": {
             "at": "phase 13: stablelm-12b W1A3 lut served through ServeEngine(plan=) on phase "
                   "8's requests; launches by route from the counters, times on the host clock",
@@ -4092,9 +4488,10 @@ def main(argv=None) -> int:
                for name, r in planned.items()},
             "candidates": planned["measured_16GiB"]["candidates"]},
         "live_ops": {
-            "at": "phase 15: phase 8's model at full width; a: phase 8's requests served from "
-                  "the restored prepared checkpoint; b: the LiveServer serve killed at 3 waves "
-                  "(all attempts); c: the serve across the hot-swap to the 16 GiB plan",
+            "at": f"phase 15: phase 8's model at full width, {LIVE_LAYERS} layers; a: phase 8's "
+                  f"requests served from the restored prepared checkpoint; b: the LiveServer "
+                  f"serve killed at 3 waves (all attempts); c: the serve across the hot-swap to "
+                  f"the 16 GiB plan",
             **{k: {key: live[k][key] for key in ("launches", "launches_tc", "launches_lookup")
                    if key in live[k]} for k in ("a", "b", "c")},
             "restore_s": live["a"]["restore_s"], "restore_gb_s": live["a"]["restore_gb_s"],
@@ -4146,6 +4543,11 @@ def main(argv=None) -> int:
             "decode": canon_times(deepseek["e"]["stream_rows"], 4, ds_at("N=4, W1A3 p=4")),
             "prefill": canon_times(deepseek["e"]["stream_rows"], 4 * DS_PROMPT,
                                    ds_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
+        "zamba2": {
+            "launches": zamba2["b"]["launches_canon"],
+            "decode": canon_times(zamba2["d"]["stream_rows"], 4, zb_at("N=4, W1A3 p=4")),
+            "prefill": canon_times(zamba2["d"]["stream_rows"], 4 * DS_PROMPT,
+                                   zb_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
         "ok": True,
     }, {
         "name": "flash_attention",
@@ -4163,6 +4565,7 @@ def main(argv=None) -> int:
     }]}
     print(json.dumps({"phase": "obs", "card": smi, "result": obs}, default=str))
     print(json.dumps({"phase": "deepseek", "card": smi, "result": deepseek}, default=str))
+    print(json.dumps({"phase": "zamba2", "card": smi, "result": zamba2}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -143,7 +143,7 @@ def supervise(
     restarts = 0
     while True:
         try:
-            return body(restarts), restarts
+            result = body(restarts)
         except policy.retryable as e:
             if first_failure is None:
                 first_failure = e
@@ -163,3 +163,10 @@ def supervise(
             delay = policy.delay_s(restarts, rng)
             if delay > 0:
                 sleep(delay)
+        else:
+            # A failure's traceback holds this frame, and the frame holds the
+            # failure: left set, the pair is a reference cycle that keeps
+            # ``body``'s closure (a server, its engine, its tree) alive until
+            # the garbage collector runs.
+            first_failure = None
+            return result, restarts

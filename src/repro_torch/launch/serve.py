@@ -24,10 +24,13 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --full --mode lut --bw 1 --ba 3 --calibrate 32 --batch 4 --prepared-ckpt build/serve_ckpt --request-log build/serve.jsonl
     # the GPU, deepseek-v2-lite-16b (MoE + multi-head latent attention) whole
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full --mode pallas --batch 4 --max-seq 512
+    # the GPU, zamba2-7b (Mamba2 + a shared attention block) whole
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --full --mode pallas --batch 4 --max-seq 512
     # the CPU, smoke size, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --smoke --mode lut --calibrate 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --bw 1 --ba 3 --plan plan.json --decode chunked --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --prepared-ckpt /tmp/lo/ckpt --request-log /tmp/lo/serve.jsonl --device cpu
@@ -49,6 +52,7 @@ import torch
 from repro_torch import timing
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import LutLinearSpec
+from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 from repro_torch.models.profiles import PROFILES, apply_perf_profile
 from repro_torch.serve.serving import Request, ServeEngine
@@ -179,11 +183,11 @@ def _quantize_and_prepare(args, cfg, model):
 def main(argv=None):
     args = build_args(argv)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if (cfg.moe is not None or cfg.attn_kind == "mla") and (
-        args.plan or args.autotune is not None or args.prepared_ckpt or args.request_log
-    ):
-        raise SystemExit(f"{cfg.name}: plans, prepared checkpoints and live ops of an MoE "
-                         f"or MLA tree are not ported yet (ROADMAP Queue 1)")
+    if args.plan or args.autotune is not None or args.prepared_ckpt or args.request_log:
+        refused = transformer.unported_for_plans(cfg)
+        if refused:
+            raise SystemExit(f"{cfg.name}: plans, prepared checkpoints and live ops of "
+                             f"{refused} are not ported yet (ROADMAP Queue 1)")
     if args.profile != "baseline":
         cfg = apply_perf_profile(cfg, args.profile)
         print(f"perf profile: {args.profile}")

@@ -22,6 +22,7 @@ import time
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import LutLinearSpec
+from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 from repro_torch.tune import plan_model
 
@@ -56,9 +57,10 @@ def build_args(argv=None):
 def main(argv=None):
     args = build_args(argv)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.moe is not None or cfg.attn_kind == "mla":
-        raise SystemExit(f"{cfg.name}: the autotuner over an MoE or MLA tree is not "
-                         f"ported yet (ROADMAP Queue 1)")
+    refused = transformer.unported_for_plans(cfg)
+    if refused:
+        raise SystemExit(f"{cfg.name}: the autotuner over {refused} is not ported yet "
+                         f"(ROADMAP Queue 1)")
     model = build_model(cfg)
     spec = LutLinearSpec(bw=args.bw, ba=args.ba, mode=args.mode)
     qparams = model.init_quantized(spec, seed=0, device=args.device)

@@ -174,9 +174,10 @@ class Model:
         return transformer.init_params(self.cfg, gen, device=dev, unit_fn=unit_fn)
 
     def init_quantized(self, spec: LutLinearSpec, seed: int = 0, *, device="cuda") -> dict:
-        """:meth:`init` + :meth:`quantize`, one unit at a time: each unit is
-        drawn in f32, quantized, and only then stacked, so a full-width model
-        never holds its f32 projection weights at once."""
+        """:meth:`init` + :meth:`quantize`, one unit at a time: each unit (and
+        zamba2's shared block, drawn once beside them) is drawn in f32,
+        quantized, and only then stacked, so a full-width model never holds
+        its f32 projection weights at once."""
         return self.init(seed, device=device,
                          unit_fn=lambda u: quantize_model(u, self.cfg, spec))
 

@@ -1,8 +1,10 @@
 """Transformer assembly over stacked units (port of
-``repro.models.transformer`` for ``"D"``, ``"L"``, ``"G"`` and ``"F"``
-segments: attention + FFN, with a sliding window on ``"L"``; on a MoE
-config a ``"D"`` unit's FFN is the MoE block and an ``"F"`` unit keeps a
-dense FFN).
+``repro.models.transformer`` for ``"D"``, ``"L"``, ``"G"``, ``"F"``, ``"M"``
+and ``"S"`` segments: attention + FFN, with a sliding window on ``"L"``; on
+a MoE config a ``"D"`` unit's FFN is the MoE block and an ``"F"`` unit keeps
+a dense FFN; ``"M"`` is a Mamba2 block (:mod:`repro_torch.models.ssm`) and
+``"S"`` a Mamba2 block followed by zamba2's *shared* attention + FFN block,
+whose parameters appear once in the tree, at ``params["shared_attn"]``).
 
 Every architecture is a sequence of *segments*; each segment is a stack of
 identical *units* whose parameters are stacked along a leading
@@ -13,9 +15,10 @@ Caches follow the same segmentation (``[n_units, B, Smax, Hkv, hd]``) and
 are updated in place.
 
 Decoders of ``"D"``, ``"L"``, ``"G"`` and ``"F"`` units are ported, with GQA
-or MLA attention (``cfg.attn_kind``) and dense or MoE FFNs; other unit
-kinds (Mamba2, RWKV, enc-dec, frontends) raise ``NotImplementedError`` until
-the slice of the other model families (ROADMAP).
+or MLA attention (``cfg.attn_kind``) and dense or MoE FFNs, and zamba2's
+hybrid of ``"M"`` and ``"S"`` units; other unit kinds (RWKV, enc-dec,
+frontends) raise ``NotImplementedError`` until the slice of the other model
+families (ROADMAP).
 
 Inside a unit, a norm that follows a residual add reads the unrounded f32
 sum, while the residual stream itself is stored in ``x.dtype``: the
@@ -32,7 +35,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import tree
-from repro_torch.models import attention, ffn, layers, moe
+from repro_torch.models import attention, ffn, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear, norm
 
@@ -54,13 +57,34 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     return [("D", cfg.n_layers)]
 
 
+PORTED_UNITS = frozenset({"D", "L", "G", "F", "M", "S"})
+RECURRENT_UNITS = frozenset({"M", "S", "R"})
+
+
+def unit_kinds(cfg: ModelConfig) -> set[str]:
+    return {ch for pat, _ in segments(cfg) for ch in pat}
+
+
+def unported_for_plans(cfg: ModelConfig) -> Optional[str]:
+    """What keeps a model from the autotuner, prepared checkpoints and live
+    ops (``None`` where nothing does): MoE and MLA trees (expert stacks and
+    ``W_kup`` / ``W_vup`` are decoded, not applied) and recurrent trees (a
+    shared leaf is applied once per ``"S"`` unit, and the pads pass through
+    the state, so a replay is not the reference's identity); ROADMAP Queue 1."""
+    if cfg.moe is not None or cfg.attn_kind == "mla":
+        return "an MoE or MLA tree"
+    if unit_kinds(cfg) & RECURRENT_UNITS:
+        return "a tree with recurrent units"
+    return None
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
-    kinds = {ch for pat, _ in segments(cfg) for ch in pat}
-    if not kinds <= {"D", "L", "G", "F"} or cfg.attn_kind not in ("gqa", "mla"):
+    kinds = unit_kinds(cfg)
+    if not kinds <= PORTED_UNITS or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: units {sorted(kinds)}, attn_kind={cfg.attn_kind!r} are not "
-            f"ported yet (only decoders of 'D', 'L', 'G', 'F' units with GQA or MLA "
+            f"ported yet (only decoders of {sorted(PORTED_UNITS)} units with GQA or MLA "
             f"attention); they wait for the other model families (ROADMAP)"
         )
     if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
@@ -75,6 +99,8 @@ def check_supported(cfg: ModelConfig) -> None:
 def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device) -> dict:
     d = cfg.d_model
     nrm = layers.rmsnorm_init if cfg.norm_kind == "rmsnorm" else layers.layernorm_init
+    if ch in ("M", "S"):
+        return {"norm": nrm(d, device), "ssm": ssm.ssm_init(cfg, gen, device)}
     p = {"attn_norm": nrm(d, device), "ffn_norm": nrm(d, device)}
     if cfg.attn_kind == "mla":
         p["attn"] = attention.mla_init(cfg, gen, device)
@@ -99,10 +125,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     (another generator); tests that compare the two packages convert the
     reference's tree instead (:mod:`repro_torch.convert`).
 
-    ``unit_fn`` maps each unit's tree before the units are stacked — e.g.
-    quantizing it — so a full-width model never holds all its f32 weights
-    at once.  Dict keys come in sorted order, as in the reference's trees
-    (:func:`repro_torch.tree.sort_keys`)."""
+    ``unit_fn`` maps each unit's tree before the units are stacked, and
+    zamba2's shared attention + FFN block (``params["shared_attn"]``, drawn
+    once beside the units) — e.g. quantizing it — so a full-width model
+    never holds all its f32 weights at once.  Dict keys come in sorted
+    order, as in the reference's trees (:func:`repro_torch.tree.sort_keys`)."""
     check_supported(cfg)
     unit_fn = unit_fn or (lambda u: u)
     seg_list = []
@@ -122,6 +149,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, device=device)
+    if "S" in unit_kinds(cfg):
+        params["shared_attn"] = unit_fn({
+            "attn_norm": layers.rmsnorm_init(cfg.d_model, device),
+            "attn": attention.gqa_init(cfg, gen, device),
+            "ffn_norm": layers.rmsnorm_init(cfg.d_model, device),
+            "ffn": ffn.ffn_init(cfg, gen, device=device),
+        })
     return tree.sort_keys(params)
 
 
@@ -137,7 +171,18 @@ def _sublayer_cache(cfg: ModelConfig, ch: str, n_units: int, batch: int, max_seq
     ``ring_window_cache``; a cache that holds all ``max_seq`` positions is
     int8 codes + f32 per-row scales under ``kv_cache_int8``.  An MLA cache is
     the latent ``ckv`` and the rotated key part ``krope`` over all
-    ``max_seq`` positions (neither flag applies to it)."""
+    ``max_seq`` positions (neither flag applies to it).  An ``"M"`` cache is
+    the Mamba2 state (:func:`repro_torch.models.ssm.init_ssm_state`); an
+    ``"S"`` cache is that state and the shared attention's plain K/V cache,
+    ``{"mamba": ..., "attn": {"k", "v"}}``, as in the reference."""
+    if ch in ("M", "S"):
+        state = ssm.init_ssm_state(cfg, batch, lead=(n_units,), device=device)
+        if ch == "M":
+            return state
+        lead = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        return {"mamba": state,
+                "attn": {"k": torch.zeros(lead, dtype=dtype, device=device),
+                         "v": torch.zeros(lead, dtype=dtype, device=device)}}
     if cfg.attn_kind == "mla":
         m = cfg.mla
         return {"ckv": torch.zeros((n_units, batch, max_seq, m.kv_lora_rank), dtype=dtype,
@@ -191,15 +236,19 @@ class RunState:
     pad_len: Optional[torch.Tensor] = None  # [B] left-pad lengths
     aux: Optional[torch.Tensor] = None      # MoE load-balance loss, summed over
                                             # the MoE layers of the pass (f32)
+    shared_attn: Optional[dict] = None      # zamba2's shared block parameters
 
 
 def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
-    """One attention + FFN (or MoE) sublayer.  ``x_sum`` is the f32 sum that
-    ``x`` was rounded from (``None`` at the start of a unit); returns the new
-    ``x``, its f32 sum and the cache.  A MoE block's aux loss is added to
-    ``rs.aux``."""
+    """One sublayer: attention + FFN (or MoE), or a Mamba2 block (``"M"``),
+    followed on ``"S"`` by the shared attention + FFN block.  ``x_sum`` is
+    the f32 sum that ``x`` was rounded from (``None`` at the start of a
+    unit); returns the new ``x``, its f32 sum and the cache.  A MoE block's
+    aux loss is added to ``rs.aux``."""
     cfg = rs.cfg
     nk, eps = cfg.norm_kind, cfg.norm_eps
+    if ch in ("M", "S"):
+        return _apply_mamba(rs, ch, p, x, x_sum, cache)
     h = norm(p["attn_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
     if cfg.attn_kind == "mla":
         a, new_cache = attention.mla_attention(
@@ -220,6 +269,29 @@ def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cach
         f = ffn.ffn_apply(p["ffn"], h, cfg)
     x, x_sum = _residual(x, f)
     return x, x_sum, new_cache
+
+
+def _apply_mamba(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
+    """An ``"M"`` sublayer, or an ``"S"`` one: the Mamba2 block, then the
+    shared block's attention (no window, its own plain K/V cache) and FFN."""
+    cfg = rs.cfg
+    nk, eps = cfg.norm_kind, cfg.norm_eps
+    h = norm(p["norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
+    state = cache if ch == "M" or cache is None else cache["mamba"]
+    y, _ = ssm.ssm_apply(p["ssm"], h, cfg, state)
+    x, x_sum = _residual(x, y)
+    if ch == "M":
+        return x, x_sum, cache
+    sp = rs.shared_attn
+    h = norm(sp["attn_norm"], x_sum, nk, eps).to(x.dtype)
+    a, _ = attention.gqa_attention(
+        sp["attn"], h, cfg=cfg, positions=rs.positions,
+        cache=cache["attn"] if cache is not None else None, pos=rs.pos, pad_len=rs.pad_len,
+    )
+    x, x_sum = _residual(x, a)
+    h = norm(sp["ffn_norm"], x_sum, nk, eps).to(x.dtype)
+    x, x_sum = _residual(x, ffn.ffn_apply(sp["ffn"], h, cfg))
+    return x, x_sum, cache
 
 
 def _residual(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -282,7 +354,8 @@ def forward(
         # logical position i; RoPE and the causal mask use logical
         # positions, cache writes keep buffer offsets (``pos``).
         positions = positions - pad_len[:, None]
-    rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len)
+    rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len,
+                  shared_attn=params.get("shared_attn"))
     x, caches = run_segments(rs, params["segments"], x, caches)
     x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if return_hidden:

@@ -567,6 +567,11 @@ class LiveServer:
             )
             return result
         finally:
+            # The engine's hook closes over this server: left set, the pair
+            # is a reference cycle that keeps the engine's tree alive until
+            # the garbage collector runs.
+            if self.engine is not None:
+                self.engine.on_wave = None
             log.close()
             self._export_trace()
 

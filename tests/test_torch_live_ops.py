@@ -251,6 +251,34 @@ def test_each_restart_frees_the_previous_engine(lut, tmp_path):
     assert srv.restarts == 2 and len(engines) == 3
 
 
+def test_served_server_leaves_no_reference_cycle(lut, tmp_path):
+    """Once a killed and replayed serve returns and the caller drops the
+    server, its last engine is gone without a garbage collection: neither
+    the engine's wave hook (it closes over the server) nor the supervisor's
+    first failure (its traceback holds the supervisor's frame) keeps a
+    cycle that would hold the engine and its tree."""
+    import gc
+
+    engines = []
+
+    def factory():
+        eng = _factory(lut)()
+        engines.append(weakref.ref(eng))
+        return eng
+
+    gc.collect()
+    gc.disable()
+    try:
+        srv = LiveServer(factory, log_path=str(tmp_path / "log.jsonl"),
+                         injector=sup.FailureInjector(fail_at_waves=(0, 1)))
+        assert srv.serve(_ragged(lut["cfg"])) == lut["want"] and srv.restarts == 2
+        assert srv.engine is not None and srv.engine.on_wave is None
+        del srv
+        assert [r() is None for r in engines] == [True] * 3
+    finally:
+        gc.enable()
+
+
 # --- hot-swap ------------------------------------------------------------------
 
 
