@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
-``--phase obs``, ``--phase deepseek`` or ``--phase zamba2`` runs one phase alone after the
-build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
+``--phase obs``, ``--phase deepseek``, ``--phase zamba2`` or ``--phase rwkv`` runs one
+phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
@@ -56,6 +56,15 @@ entry points at published full widths:
   route, the recurrence in plain torch as the reference's XLA; then a
   6-layer W1A3 ``lut`` serve and a 6-layer f32 prefill against the CPU and
   against a prefill followed by decode steps;
+
+* rwkv6-3b whole (phase 19): all 32 RWKV6 "Finch" layers at published
+  widths (no attention; an O(1) recurrent state a request, the same bytes
+  at any context), W4A4 ``pallas`` prepared, bf16, served through
+  ``ServeEngine`` — 256 applied projections a forward on
+  ``lut_dequant_gemm``'s tensor-core route, the WKV recurrence in plain
+  torch as the reference's XLA; then a 4-layer W1A3 ``lut`` serve (scan ==
+  loop == chunked) and a 2-layer f32 prefill against the CPU and against a
+  prefill followed by decode steps;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
@@ -3654,6 +3663,173 @@ def held_on_card(torch, dev, top=3):
             len(storages), sorted(storages.values(), reverse=True)[:top])
 
 
+def drivers_agree(torch, dev, cfg, n_layers, reqs, what):
+    """``decode="scan"``, ``"loop"`` and ``"chunked"`` serve ``reqs`` (each
+    wave led by a bucket) to the same tokens on a copy of ``cfg`` cut to
+    ``n_layers``, W4A4 ``pallas`` prepared in the config's dtype: the
+    drivers' equivalence holds at any depth, and a cut copy costs a fraction
+    of a second full-depth serve.  Returns each driver's host syncs and
+    seconds."""
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import ServeEngine
+
+    ccfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cmodel = build_model(ccfg)
+    cparams = cmodel.prepare(cmodel.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
+                                                   seed=0, device=dev), n_hint=4)
+    outs, out = {}, {}
+    for decode in ("scan", "loop", "chunked"):
+        t0 = time.perf_counter()
+        eng = ServeEngine(cmodel, cparams, batch=4, max_seq=DS_MAX_SEQ, decode=decode,
+                          device=dev)
+        outs[decode] = eng.generate(reqs)
+        out[decode] = dict(host_syncs=eng.host_syncs, seconds=time.perf_counter() - t0)
+        del eng
+    check(outs["loop"] == outs["scan"] and outs["chunked"] == outs["scan"],
+          f"{what}: at {n_layers} layers decode='loop' / 'chunked' tokens differ from "
+          f"decode='scan'")
+    check(all(len(o) == r.max_new_tokens for o, r in zip(outs["scan"], reqs)),
+          f"{what}: at {n_layers} layers token counts {[len(o) for o in outs['scan']]}")
+    log(f"{what}: decode='loop' and 'chunked' give scan's tokens bit for bit on these waves, "
+        f"each led by a {DS_PROMPT}-token prompt (a bucket), on a copy cut to {n_layers} "
+        f"layers {transformer.segments(ccfg)}: "
+        + ", ".join(f"{d} {r['host_syncs']} host syncs, {r['seconds']:.2f} s"
+                    for d, r in out.items()))
+    return out
+
+
+def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
+                  drivers=("loop",)):
+    """A copy of ``cfg`` cut to ``n_layers``, W1A3 p=4 ``lut``, calibrated and
+    prepared, served on ``reqs`` through ``ServeEngine(batch=4,
+    max_seq=512)``: every projection a frozen scale, ``want_per`` applied
+    projections a forward (when given), ``lut_stream_gemm`` launched on the
+    tensor-core route only with one canonicalize launch a projection
+    (:func:`check_served` too), and each of ``drivers`` giving the scan
+    driver's tokens (each wave led by a bucket).  Phases 17c, 18b and 19b."""
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune.plan import quantized_leaf_items
+    import numpy as np
+
+    lcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    lmodel = build_model(lcfg)
+    t0 = time.perf_counter()
+    cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    lparams = lmodel.prepare(lmodel.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0,
+                                                   device=dev), calibrate=cal, n_hint=4)
+    torch.cuda.synchronize()
+    lper, lby = applied_projections(lparams)
+    scaled = [leaf for _p, leaf in quantized_leaf_items(lparams) if leaf.ascale is not None]
+    check(len(scaled) == len(lby) and lper == (want_per or lper),
+          f"{what}: {len(scaled)} of {len(lby)} leaves carry a frozen scale; {lper} applied "
+          f"projections a forward, want {want_per}")
+    log(f"{what}: {lcfg.n_layers} layers {transformer.segments(lcfg)}, W1A3 p=4 lut, "
+        f"calibrated on {cal.size} tokens and prepared in {time.perf_counter() - t0:.1f} s; "
+        f"{lper} applied projections per forward")
+    leng = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
+    leng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    louts, lwall, lrecords, lcounts, lsync = counted_generate(torch, leng, reqs)
+    lprefills, lsteps, llaunches = check_served(lcfg, leng, louts, DS_NEW, lrecords, lcounts, lsync,
+                                                kernel="lut_stream_gemm", what=what)
+    check(lcounts["lut_stream_gemm_tc"] == llaunches and lcounts["lut_stream_gemm_lookup"] == 0,
+          f"{what}: lut_stream_gemm routes {lcounts}: the W1A3 p=4 pack must take the "
+          f"tensor-core route on every launch")
+    check(lcounts["lut_stream_gemm_canon"] == llaunches,
+          f"{what}: canonicalize launches {lcounts['lut_stream_gemm_canon']} != "
+          f"{llaunches}: one per projection")
+    others = {}
+    for decode in drivers:
+        t0 = time.perf_counter()
+        other = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode=decode,
+                            device=dev)
+        check(other.generate(reqs) == louts,
+              f"{what}: decode={decode!r} tokens differ from decode='scan'")
+        others[decode] = dict(host_syncs=other.host_syncs, seconds=time.perf_counter() - t0)
+        del other
+    ldigest = zlib.crc32(json.dumps([list(map(int, o)) for o in louts]).encode())
+    log(f"{what} [{smi}]: served the 8 requests, {sum(map(len, louts))} tokens in "
+        f"{lwall:.3f} s; {len(lrecords)} waves, {lprefills} prefills, {lsteps} decode steps, "
+        f"{leng.host_syncs} host syncs; lut_stream_gemm {llaunches} launches (= {lper} x "
+        f"{lprefills + lsteps}; tensor cores {lcounts['lut_stream_gemm_tc']}, lookup "
+        f"{lcounts['lut_stream_gemm_lookup']}, CUDA cores "
+        f"{llaunches - lcounts['lut_stream_gemm_tc'] - lcounts['lut_stream_gemm_lookup']}), "
+        f"canonicalize {lcounts['lut_stream_gemm_canon']}; scan's tokens under "
+        + ", ".join(f"decode={d!r} ({r['host_syncs']} host syncs, {r['seconds']:.2f} s)"
+                    for d, r in others.items())
+        + f"; tokens crc32 {ldigest:08x}")
+    out = dict(launches=llaunches, launches_tc=lcounts["lut_stream_gemm_tc"],
+               launches_lookup=lcounts["lut_stream_gemm_lookup"],
+               launches_canon=lcounts["lut_stream_gemm_canon"], per_forward=lper,
+               prefills=lprefills, decode_steps=lsteps, host_syncs=leng.host_syncs,
+               waves=len(lrecords), wall_s=lwall, tokens_crc32=ldigest, drivers=others)
+    del leng, lparams
+    torch.cuda.empty_cache()
+    return out
+
+
+CPU_SEQ = 64                  # 18c / 19c: one prefill of 2 x this many tokens on the card and
+                              # the CPU
+CPU_TF = 8                    # 18c / 19c: decode steps after a prefill of CPU_SEQ - CPU_TF tokens
+TOL_CPU_REC = 1e-4            # 18c / 19c: card vs CPU, and prefill vs prefill + decode (f32),
+                              # relative to max |logit|
+
+
+def card_vs_cpu(torch, dev, cfg, n_layers, smi, *, what, seq=CPU_SEQ, tf=CPU_TF,
+                tol=TOL_CPU_REC):
+    """A copy of ``cfg`` cut to ``n_layers`` in f32, W4A4 ``pallas`` prepared
+    (seed 3): one prefill of 2 x ``seq`` tokens on the card against the
+    CPU's (the kernels' plain versions), and against a prefill of ``seq -
+    tf`` followed by ``tf`` decode steps on the card, each within ``tol`` x
+    max |logit|.  Phases 18c and 19c."""
+    from repro_torch import tree
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models.model import build_model
+    import numpy as np
+
+    dcfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    dmodel = build_model(dcfg)
+    dparams = dmodel.prepare(dmodel.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
+                                                   seed=3, device=dev), n_hint=4)
+    dtoks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
+    toks_gpu = torch.from_numpy(dtoks).to(dev)
+    lg_gpu, _ = dmodel.prefill(dparams, toks_gpu,
+                               dmodel.init_cache(2, seq, torch.float32, device=dev))
+    split = dmodel.init_cache(2, seq, torch.float32, device=dev)
+    dmodel.prefill(dparams, toks_gpu[:, : seq - tf], split)
+    for t in range(seq - tf, seq):
+        lg_split, _ = dmodel.decode_step(dparams, toks_gpu[:, t : t + 1], split, t)
+    lg_gpu, lg_split = lg_gpu.cpu(), lg_split.cpu()
+    params_cpu = tree.tree_map(lambda t: t.cpu(), dparams)
+    del dparams, split
+    t1 = time.perf_counter()
+    lg_cpu, _ = dmodel.prefill(params_cpu, torch.from_numpy(dtoks),
+                               dmodel.init_cache(2, seq, torch.float32, device="cpu"))
+    cpu_s = time.perf_counter() - t1
+    del params_cpu
+    lscale = lg_cpu.abs().max().item()
+    lerr = (lg_gpu - lg_cpu).abs().max().item()
+    serr = (lg_split - lg_gpu).abs().max().item()
+    check(bool(torch.isfinite(lg_gpu).all()) and lg_gpu.shape == (2, 1, cfg.vocab_size),
+          f"{what}: logits of shape {tuple(lg_gpu.shape)} or not finite")
+    check(lerr <= tol * lscale, f"{what}: card vs CPU logits max err {lerr:.3e} > "
+                                f"{tol} x max|logit| {lscale:.3e}")
+    check(serr <= tol * lscale,
+          f"{what}: prefill of {seq} vs prefill of {seq - tf} + {tf} decode steps: max err "
+          f"{serr:.3e} > {tol} x max|logit| {lscale:.3e}")
+    log(f"{what} [{smi}]: {n_layers} layers at full width, f32, one prefill of 2 x {seq} "
+        f"tokens: card (lut_dequant_gemm's CUDA-core route) vs CPU (plain versions, "
+        f"{cpu_s:.1f} s): max err {lerr:.3e} = {lerr / lscale:.3e} x max|logit|; a prefill of "
+        f"{seq - tf} + {tf} decode steps on the card: {serr:.3e} = {serr / lscale:.3e} x "
+        f"max|logit|")
+    return dict(rel_err=lerr / lscale, prefill_vs_decode_rel_err=serr / lscale, cpu_s=cpu_s)
+
+
 def phase_deepseek(torch, dev, smi):
     """Phase 17: deepseek-v2-lite-16b (MLA attention, 64 routed + 2 shared
     experts top-6, a dense first layer) at its published widths.
@@ -3732,15 +3908,7 @@ def phase_deepseek(torch, dev, smi):
         f"{launches} lut_dequant_gemm launches (= {per_forward} x {prefills + steps}, all on the "
         f"tensor cores); sync-debug warnings {len(sync_warnings)} (the token fetches); "
         f"admissions {eng.admissions}; tokens crc32 {digest:08x}")
-    for decode in ("loop", "chunked"):
-        t0 = time.perf_counter()
-        other = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode=decode, device=dev)
-        check(other.generate(reqs) == outs, f"phase 17a: decode={decode!r} tokens differ from "
-                                            f"decode='scan'")
-        log(f"phase 17a: decode={decode!r} gives scan's tokens bit for bit on these waves, "
-            f"each led by a {DS_PROMPT}-token prompt (a bucket) ({other.host_syncs} "
-            f"host syncs, {time.perf_counter() - t0:.2f} s)")
-        del other
+    drivers = drivers_agree(torch, dev, cfg, DS_LUT_LAYERS, reqs, "phase 17a")
     unit = tree.index(params["segments"][1], 0)["s0_D"]
     gen = torch.Generator(device=dev).manual_seed(5)
     xm = torch.randn((4, DS_PROMPT, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
@@ -3783,7 +3951,7 @@ def phase_deepseek(torch, dev, smi):
         prefill_ms=prefill_ms, step_ms=step_ms, peak_gb=peak_gb, held_before_gb=base / 1e9,
         held_before_gc_gb=before_gc / 1e9, code_bytes=code_bytes,
         param_bytes=param_bytes, build_s=build_s, prefill_profile=prefill_prof,
-        decode_profile=step_prof)
+        decode_profile=step_prof, drivers=drivers)
     del eng, caches, prefill, step
 
     # --- 17b: MLA's chunked prefill at full width, one row, f32 ----------------
@@ -3826,51 +3994,7 @@ def phase_deepseek(torch, dev, smi):
     torch.cuda.empty_cache()
 
     # --- 17c: W1A3 lut, calibrated + prepared, 4 layers ------------------------
-    lcfg = dataclasses.replace(cfg, n_layers=DS_LUT_LAYERS)
-    lmodel = build_model(lcfg)
-    t0 = time.perf_counter()
-    cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-    lparams = lmodel.prepare(lmodel.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0,
-                                                   device=dev), calibrate=cal, n_hint=4)
-    torch.cuda.synchronize()
-    lper, _ = applied_projections(lparams)
-    scaled = [leaf for _p, leaf in quantized_leaf_items(lparams) if leaf.ascale is not None]
-    check(len(scaled) == len(applied_projections(lparams)[1]),
-          f"phase 17c: {len(scaled)} leaves carry a frozen scale, want every applied projection")
-    log(f"phase 17c: {lcfg.n_layers} layers (1 F + {lcfg.n_layers - 1} D), W1A3 p=4 lut, "
-        f"calibrated on {cal.size} tokens and prepared in {time.perf_counter() - t0:.1f} s; "
-        f"{lper} applied projections per forward")
-    leng = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
-    leng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
-    torch.cuda.synchronize()
-    louts, lwall, lrecords, lcounts, lsync = counted_generate(torch, leng, reqs)
-    lprefills, lsteps, llaunches = check_served(lcfg, leng, louts, DS_NEW, lrecords, lcounts, lsync,
-                                                kernel="lut_stream_gemm", what="phase 17c")
-    check(lcounts["lut_stream_gemm_tc"] == llaunches and lcounts["lut_stream_gemm_lookup"] == 0,
-          f"phase 17c: lut_stream_gemm routes {lcounts}: the W1A3 p=4 pack must take the "
-          f"tensor-core route on every launch")
-    check(lcounts["lut_stream_gemm_canon"] == llaunches,
-          f"phase 17c: canonicalize launches {lcounts['lut_stream_gemm_canon']} != "
-          f"{llaunches}: one per projection")
-    t0 = time.perf_counter()
-    lloop = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="loop", device=dev)
-    check(lloop.generate(reqs) == louts, "phase 17c: decode='loop' tokens differ from scan's")
-    ldigest = zlib.crc32(json.dumps([list(map(int, o)) for o in louts]).encode())
-    log(f"phase 17c [{smi}]: served the 8 requests, {sum(map(len, louts))} tokens in "
-        f"{lwall:.3f} s; {len(lrecords)} waves, {lprefills} prefills, {lsteps} decode steps, "
-        f"{leng.host_syncs} host syncs; lut_stream_gemm {llaunches} launches (= {lper} x "
-        f"{lprefills + lsteps}; tensor cores {lcounts['lut_stream_gemm_tc']}, lookup "
-        f"{lcounts['lut_stream_gemm_lookup']}, CUDA cores "
-        f"{llaunches - lcounts['lut_stream_gemm_tc'] - lcounts['lut_stream_gemm_lookup']}), "
-        f"canonicalize {lcounts['lut_stream_gemm_canon']}; decode='loop' gives the same tokens "
-        f"({time.perf_counter() - t0:.2f} s); tokens crc32 {ldigest:08x}")
-    out["c"] = dict(launches=llaunches, launches_tc=lcounts["lut_stream_gemm_tc"],
-                    launches_lookup=lcounts["lut_stream_gemm_lookup"],
-                    launches_canon=lcounts["lut_stream_gemm_canon"], per_forward=lper,
-                    prefills=lprefills, decode_steps=lsteps, host_syncs=leng.host_syncs,
-                    waves=len(lrecords), wall_s=lwall, tokens_crc32=ldigest)
-    del leng, lloop, lparams
-    torch.cuda.empty_cache()
+    out["c"] = lut_cut_serve(torch, dev, cfg, DS_LUT_LAYERS, reqs, smi, what="phase 17c")
 
     # --- 17d: the card against the CPU, 2 layers, f32 -------------------------
     dcfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -3931,12 +4055,8 @@ def phase_deepseek(torch, dev, smi):
 
 ZAMBA = "zamba2-7b"
 ZB_LUT_LAYERS = 6             # 18b / 18c: depth cut to one "MMMMMS" unit
-ZB_CPU_SEQ = 64               # 18c: one prefill of 2 x this many tokens on the card and the CPU
-ZB_TF = 8                     # 18c: decode steps after a prefill of ZB_CPU_SEQ - ZB_TF tokens
 ZB_PROFILED = 32              # 18a: the profiled prefill's length (B = 4): torch.profiler parses
                               # about 4 host events a recurrence step and layer, ~0.5 M at 128
-TOL_CPU_ZB = 1e-4             # 18c: card vs CPU, and prefill vs prefill + decode (f32), relative
-                              # to max |logit|
 
 
 def zamba2_applied(cfg):
@@ -3970,7 +4090,8 @@ def phase_zamba2(torch, dev, smi):
     led by a 128-token prompt): exact token counts, one host sync a wave and
     no other synchronizing call, ``lut_dequant_gemm`` launched 81 x 2 + 13 x
     7 = 253 times a forward (the shared block per application), all on the
-    tensor cores; ``decode="loop"`` and ``"chunked"`` give the same tokens;
+    tensor cores; ``decode="loop"`` and ``"chunked"`` give scan's tokens on a
+    copy cut to 6 layers (:func:`drivers_agree`);
     build time, bytes, the decode step and the 4 x 128 prefill on CUDA
     events, the profiler's busy / idle and the recurrence's and the conv's
     share, tok/s, peak memory.  18b: W1A3 ``lut`` p=4, calibrated and
@@ -3994,7 +4115,6 @@ def phase_zamba2(torch, dev, smi):
     from repro_torch.models.model import build_model
     from repro_torch.serve.serving import Request, ServeEngine
     from repro_torch.tune.plan import quantized_leaf_items
-    import numpy as np
 
     t_phase = time.perf_counter()
     laps = {}
@@ -4049,15 +4169,7 @@ def phase_zamba2(torch, dev, smi):
         f"tensor cores); sync-debug warnings {len(sync_warnings)} (the token fetches); "
         f"admissions {eng.admissions}; the serve's caches: shared-attention K/V "
         f"{kv_bytes:,} B, Mamba2 state {state_bytes:,} B (f32); tokens crc32 {digest:08x}")
-    for decode in ("loop", "chunked"):
-        t0 = time.perf_counter()
-        other = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode=decode, device=dev)
-        check(other.generate(reqs) == outs, f"phase 18a: decode={decode!r} tokens differ from "
-                                            f"decode='scan'")
-        log(f"phase 18a: decode={decode!r} gives scan's tokens bit for bit on these waves, "
-            f"each led by a {DS_PROMPT}-token prompt (a bucket) ({other.host_syncs} "
-            f"host syncs, {time.perf_counter() - t0:.2f} s)")
-        del other
+    drivers = drivers_agree(torch, dev, cfg, ZB_LUT_LAYERS, reqs, "phase 18a")
 
     caches = eng._new_cache()
     toks = torch.randint(0, cfg.vocab_size, (4, DS_PROMPT), device=dev, dtype=torch.int32)
@@ -4098,97 +4210,19 @@ def phase_zamba2(torch, dev, smi):
         prefill_ms=prefill_ms, profiled_prefill_ms=short_ms, step_ms=step_ms, peak_gb=peak_gb,
         held_before_gb=base / 1e9, held_before_gc_gb=before_gc / 1e9, code_bytes=code_bytes,
         param_bytes=param_bytes, kv_cache_bytes=kv_bytes, state_bytes=state_bytes, build_s=build_s,
-        prefill_profile=profiles["prefill"], decode_profile=profiles["decode"])
+        prefill_profile=profiles["prefill"], decode_profile=profiles["decode"], drivers=drivers)
     del eng, caches, prefill, short, step, params
     torch.cuda.empty_cache()
     lap("18a")
 
     # --- 18b: W1A3 lut, calibrated + prepared, one unit ------------------------
-    lcfg = dataclasses.replace(cfg, n_layers=ZB_LUT_LAYERS)
-    lmodel = build_model(lcfg)
-    t0 = time.perf_counter()
-    cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-    lparams = lmodel.prepare(lmodel.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0,
-                                                   device=dev), calibrate=cal, n_hint=4)
-    torch.cuda.synchronize()
-    lper, lby = applied_projections(lparams)
-    scaled = [leaf for _p, leaf in quantized_leaf_items(lparams) if leaf.ascale is not None]
-    check(len(scaled) == len(lby) and lper == zamba2_applied(lcfg)[0],
-          f"phase 18b: {len(scaled)} of {len(lby)} leaves carry a frozen scale; {lper} applied "
-          f"projections a forward")
-    log(f"phase 18b: {lcfg.n_layers} layers {transformer.segments(lcfg)}, W1A3 p=4 lut, "
-        f"calibrated on {cal.size} tokens and prepared in {time.perf_counter() - t0:.1f} s; "
-        f"{lper} applied projections per forward")
-    leng = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
-    leng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
-    torch.cuda.synchronize()
-    louts, lwall, lrecords, lcounts, lsync = counted_generate(torch, leng, reqs)
-    lprefills, lsteps, llaunches = check_served(lcfg, leng, louts, DS_NEW, lrecords, lcounts, lsync,
-                                                kernel="lut_stream_gemm", what="phase 18b")
-    check(lcounts["lut_stream_gemm_tc"] == llaunches and lcounts["lut_stream_gemm_lookup"] == 0,
-          f"phase 18b: lut_stream_gemm routes {lcounts}: the W1A3 p=4 pack must take the "
-          f"tensor-core route on every launch")
-    check(lcounts["lut_stream_gemm_canon"] == llaunches,
-          f"phase 18b: canonicalize launches {lcounts['lut_stream_gemm_canon']} != "
-          f"{llaunches}: one per projection")
-    t0 = time.perf_counter()
-    lloop = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="loop", device=dev)
-    check(lloop.generate(reqs) == louts, "phase 18b: decode='loop' tokens differ from scan's")
-    ldigest = zlib.crc32(json.dumps([list(map(int, o)) for o in louts]).encode())
-    log(f"phase 18b [{smi}]: served the 8 requests, {sum(map(len, louts))} tokens in "
-        f"{lwall:.3f} s; {len(lrecords)} waves, {lprefills} prefills, {lsteps} decode steps, "
-        f"{leng.host_syncs} host syncs; lut_stream_gemm {llaunches} launches (= {lper} x "
-        f"{lprefills + lsteps}; tensor cores {lcounts['lut_stream_gemm_tc']}, lookup "
-        f"{lcounts['lut_stream_gemm_lookup']}, CUDA cores "
-        f"{llaunches - lcounts['lut_stream_gemm_tc'] - lcounts['lut_stream_gemm_lookup']}), "
-        f"canonicalize {lcounts['lut_stream_gemm_canon']}; decode='loop' gives the same tokens "
-        f"({time.perf_counter() - t0:.2f} s); tokens crc32 {ldigest:08x}")
-    out["b"] = dict(launches=llaunches, launches_tc=lcounts["lut_stream_gemm_tc"],
-                    launches_lookup=lcounts["lut_stream_gemm_lookup"],
-                    launches_canon=lcounts["lut_stream_gemm_canon"], per_forward=lper,
-                    prefills=lprefills, decode_steps=lsteps, host_syncs=leng.host_syncs,
-                    waves=len(lrecords), wall_s=lwall, tokens_crc32=ldigest)
-    del leng, lloop, lparams
-    torch.cuda.empty_cache()
+    out["b"] = lut_cut_serve(torch, dev, cfg, ZB_LUT_LAYERS, reqs, smi, what="phase 18b",
+                             want_per=zamba2_applied(dataclasses.replace(
+                                 cfg, n_layers=ZB_LUT_LAYERS))[0])
     lap("18b")
 
     # --- 18c: f32, one unit: the card against the CPU; prefill vs decode -------
-    dcfg = dataclasses.replace(cfg, n_layers=ZB_LUT_LAYERS, dtype="float32")
-    dmodel = build_model(dcfg)
-    dparams = dmodel.prepare(dmodel.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
-                                                   seed=3, device=dev), n_hint=4)
-    dtoks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, ZB_CPU_SEQ)).astype(np.int32)
-    toks_gpu = torch.from_numpy(dtoks).to(dev)
-    lg_gpu, _ = dmodel.prefill(dparams, toks_gpu,
-                               dmodel.init_cache(2, ZB_CPU_SEQ, torch.float32, device=dev))
-    split = dmodel.init_cache(2, ZB_CPU_SEQ, torch.float32, device=dev)
-    dmodel.prefill(dparams, toks_gpu[:, : ZB_CPU_SEQ - ZB_TF], split)
-    for t in range(ZB_CPU_SEQ - ZB_TF, ZB_CPU_SEQ):
-        lg_split, _ = dmodel.decode_step(dparams, toks_gpu[:, t : t + 1], split, t)
-    lg_gpu, lg_split = lg_gpu.cpu(), lg_split.cpu()
-    params_cpu = tree.tree_map(lambda t: t.cpu(), dparams)
-    del dparams, split
-    t1 = time.perf_counter()
-    lg_cpu, _ = dmodel.prefill(params_cpu, torch.from_numpy(dtoks),
-                               dmodel.init_cache(2, ZB_CPU_SEQ, torch.float32, device="cpu"))
-    cpu_s = time.perf_counter() - t1
-    del params_cpu
-    lscale = lg_cpu.abs().max().item()
-    lerr = (lg_gpu - lg_cpu).abs().max().item()
-    serr = (lg_split - lg_gpu).abs().max().item()
-    check(bool(torch.isfinite(lg_gpu).all()) and lg_gpu.shape == (2, 1, cfg.vocab_size),
-          f"phase 18c: logits of shape {tuple(lg_gpu.shape)} or not finite")
-    check(lerr <= TOL_CPU_ZB * lscale, f"phase 18c: card vs CPU logits max err {lerr:.3e} > "
-                                       f"{TOL_CPU_ZB} x max|logit| {lscale:.3e}")
-    check(serr <= TOL_CPU_ZB * lscale,
-          f"phase 18c: prefill of {ZB_CPU_SEQ} vs prefill of {ZB_CPU_SEQ - ZB_TF} + {ZB_TF} "
-          f"decode steps: max err {serr:.3e} > {TOL_CPU_ZB} x max|logit| {lscale:.3e}")
-    log(f"phase 18c [{smi}]: {ZB_LUT_LAYERS} layers at full width, f32, one prefill of 2 x "
-        f"{ZB_CPU_SEQ} tokens: card (lut_dequant_gemm's CUDA-core route) vs CPU (plain "
-        f"versions, {cpu_s:.1f} s): max err {lerr:.3e} = {lerr / lscale:.3e} x max|logit|; a "
-        f"prefill of {ZB_CPU_SEQ - ZB_TF} + {ZB_TF} decode steps on the card: {serr:.3e} = "
-        f"{serr / lscale:.3e} x max|logit|")
-    out["c"] = dict(rel_err=lerr / lscale, prefill_vs_decode_rel_err=serr / lscale, cpu_s=cpu_s)
+    out["c"] = card_vs_cpu(torch, dev, cfg, ZB_LUT_LAYERS, smi, what="phase 18c")
     lap("18c")
 
     # --- 18d: the kernels against their plain versions at zamba2's shapes -----
@@ -4207,12 +4241,211 @@ def phase_zamba2(torch, dev, smi):
     return out
 
 
+RWKV = "rwkv6-3b"
+RW_LUT_LAYERS = 4             # 19b: depth cut to 4 "R" units
+RW_CPU_LAYERS = 2             # 19c: depth of the f32 card-vs-CPU check
+RW_PROFILED = 32              # 19a: the profiled prefill's length (B = 4), as 18a's
+RW_LONG_SEQ = 8192            # 19a: a second engine's max_seq: the state must not grow with it
+
+
+def rwkv_regions():
+    """Phase 19's profiler regions: the WKV recurrence (each step of
+    ``rwkv._step``), the rest of the time mix (token shift, the ddlerp
+    LoRA mixes, the decay, the group norm and the gate; ``rwkv_time_mix``
+    less its steps) and the channel mix's elementwise work
+    (``rwkv_channel_mix``); their projections are ``lut_dequant_gemm``."""
+    from repro_torch.models import rwkv
+
+    return ((rwkv, "_step", "wkv recurrence"), (rwkv, "rwkv_time_mix", "time mix rest"),
+            (rwkv, "rwkv_channel_mix", "channel mix rest"))
+
+
+def rwkv_state_bytes(cfg, batch):
+    """The RWKV6 serving state from the shapes, f32 (``ServeEngine``'s cache
+    dtype): per layer the WKV state ``[B, H, P, P]`` and the two token-shift
+    rows ``[B, D]``, whatever ``max_seq`` is."""
+    n_heads, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    return cfg.n_layers * (batch * n_heads * hd * hd + 2 * batch * cfg.d_model) * 4
+
+
+def phase_rwkv(torch, dev, smi):
+    """Phase 19: rwkv6-3b (32 RWKV6 "Finch" layers, d_model 2560, 40 heads of
+    64, d_ff 8960, vocab 65536; no attention) at its published widths.
+
+    19a: all 32 layers, W4A4 ``pallas`` prepared, bf16, served through
+    ``ServeEngine(batch=4, max_seq=512)`` on phase 17's requests (each wave
+    led by a 128-token prompt): exact token counts, one host sync a wave and
+    no other synchronizing call, ``lut_dequant_gemm`` launched 8 x 32 = 256
+    times a forward, all on the tensor cores, and no other kernel; the
+    serve's state bytes equal the count from the shapes and are the same at
+    ``max_seq`` 8192; build time, bytes, the decode step and the 4 x 128
+    prefill on CUDA events, the profiler's busy / idle and the recurrence's
+    share at a 4 x 32 prefill and a decode step, tok/s, peak memory.  19b:
+    W1A3 ``lut`` p=4, calibrated and prepared, 4 layers, 19a's requests:
+    ``lut_stream_gemm`` and canonicalize launches per route, scan == loop ==
+    chunked.  19c: 2 layers in f32, one prefill on the card against the
+    CPU's (the kernels' plain versions), and a prefill of S tokens against a
+    prefill of S - 8 followed by 8 decode steps, each within 1e-4 x max
+    |logit|.  19d: the 3 distinct applied shapes at B = 4 and 4 x 128:
+    ``lut_dequant_gemm`` against its plain version (phase 2's sweep),
+    ``lut_stream_gemm`` and ``lut_canon`` at W1A3 p=4 against theirs (phase
+    6's), with times.
+
+    The pads of a left-padded row go through the token shift and the
+    recurrence, as in the reference, so scan == loop == chunked holds only
+    where every driver pads a row alike: each wave's longest prompt a
+    bucket."""
+    from repro_torch import hw, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(what):
+        laps[what] = time.perf_counter() - t_phase - sum(laps.values())
+
+    cfg = get_config(RWKV)
+    out = {"laps_s": laps}
+    want_per = 8 * cfg.n_layers
+
+    # --- 19a: all 32 layers, W4A4 pallas, bf16, served -----------------------
+    model = build_model(cfg)
+    before_gc, base = held_before_build(torch, dev, "phase 19a")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
+                                                device=dev), n_hint=4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    code_bytes = sum(leaf.codes.numel() for _p, leaf in quantized_leaf_items(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.tensors(params))
+    dense_bytes = sum(v.numel() * v.element_size() for seg in params["segments"]
+                      for unit in seg.values() for sub in unit.values() for v in sub.values()
+                      if isinstance(v, torch.Tensor))
+    per_forward, by_path = applied_projections(params)
+    shapes = projection_shapes(params)
+    check(per_forward == want_per, f"phase 19a: {per_forward} applied projections a forward, "
+                                   f"want 8 x {cfg.n_layers} = {want_per}")
+    log(f"phase 19a: {cfg.name} d_model={cfg.d_model} heads={cfg.d_model // cfg.rwkv.head_dim} "
+        f"x {cfg.rwkv.head_dim} d_ff={cfg.d_ff} mix_lora={cfg.rwkv.mix_lora} decay_lora="
+        f"{cfg.rwkv.decay_lora} vocab={cfg.vocab_size} layers={cfg.n_layers} "
+        f"{transformer.segments(cfg)}, W4A4 pallas, bf16, built + prepared in {build_s:.1f} s; "
+        f"codes {code_bytes:,} B, parameters {param_bytes:,} B (the dense f32 LoRA, mix, "
+        f"decay, bonus and norm leaves of the units {dense_bytes:,} B), {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+        f"GB on the card; {per_forward} applied projections per forward "
+        f"({', '.join(f'{p.split('/', 2)[-1]} x{n}' for p, (n, _k, _f) in by_path.items())})")
+    eng = ServeEngine(model, params, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
+    state_bytes = sum(t.numel() * t.element_size() for t in tree.tensors(eng._new_cache()))
+    long_bytes = sum(t.numel() * t.element_size() for t in tree.tensors(
+        ServeEngine(model, params, batch=4, max_seq=RW_LONG_SEQ, decode="scan",
+                    device=dev)._new_cache()))
+    want_state = rwkv_state_bytes(cfg, 4)
+    check(state_bytes == want_state == long_bytes,
+          f"phase 19a: the serve's state {state_bytes:,} B at max_seq {DS_MAX_SEQ}, "
+          f"{long_bytes:,} B at {RW_LONG_SEQ}; from the shapes {want_state:,} B")
+    lens, reqs = bucket_led_requests(cfg)
+    eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+    prefills, steps, launches = check_served(cfg, eng, outs, DS_NEW, records, counts,
+                                             sync_warnings, kernel="lut_dequant_gemm",
+                                             what="phase 19a")
+    digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+    n_tok = sum(len(o) for o in outs)
+    log(f"phase 19a [{smi}]: served {len(reqs)} requests (prompt lengths {lens.tolist()}, "
+        f"prefill buckets {sorted({r.prefill_bucket for r in records if r.prefill_bucket})}), "
+        f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s end to end); {len(records)} "
+        f"waves, {prefills} prefills, {steps} decode steps, {eng.host_syncs} host syncs, "
+        f"{launches} lut_dequant_gemm launches (= {per_forward} x {prefills + steps}, all on the "
+        f"tensor cores), flash_attention {counts['flash_attention']}, lut_stream_gemm "
+        f"{counts['lut_stream_gemm']}; sync-debug warnings {len(sync_warnings)} (the token "
+        f"fetches); admissions {eng.admissions}; the serve's state {state_bytes:,} B (f32) at "
+        f"max_seq {DS_MAX_SEQ} and {long_bytes:,} B at {RW_LONG_SEQ} (from the shapes "
+        f"{want_state:,} B); tokens crc32 {digest:08x}")
+
+    caches = eng._new_cache()
+    toks = torch.randint(0, cfg.vocab_size, (4, DS_PROMPT), device=dev, dtype=torch.int32)
+    pad = torch.zeros((4,), dtype=torch.int32, device=dev)
+    tok, pos = toks[:, -1:], torch.full((4,), DS_PROMPT, dtype=torch.int32, device=dev)
+    prefill = lambda: model.prefill(params, toks, caches, pad_len=pad)            # noqa: E731
+    short = lambda: model.prefill(params, toks[:, :RW_PROFILED], caches, pad_len=pad)  # noqa: E731
+    step = lambda: model.decode_step(params, tok, caches, pos, pad_len=pad)       # noqa: E731
+    prefill_ms = time_ms(torch, lambda i: prefill(), 2)
+    short_ms = time_ms(torch, lambda i: short(), 2)
+    step_ms = time_ms(torch, lambda i: step(), 5)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    log(f"phase 19a [{smi}]: prefill B=4 x {DS_PROMPT} tokens {prefill_ms:.2f} ms (B=4 x "
+        f"{RW_PROFILED}: {short_ms:.2f} ms); decode step B=4 at {DS_PROMPT} {step_ms:.2f} ms "
+        f"({4e3 / step_ms:.1f} tok/s); peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated less the {base / 1e9:.2f} GB held before the build)")
+    log("phase 19a: where the device time goes (torch.profiler; wall time from the unprofiled "
+        "runs above):")
+    profiles = {}
+    for name, fn, iters, ms, what in (
+            ("prefill", short, 1, short_ms, f"prefill B=4 x {RW_PROFILED}"),
+            ("decode", step, 3, step_ms, f"decode step B=4 at {DS_PROMPT}")):
+        prof = region_breakdown(torch, fn, iters, ms, kernel="lut_dequant_gemm", card=smi,
+                                what=what, labels=rwkv_regions())
+        if prof is not None:
+            shares = {k: v / prof["busy_ms"] for k, v in prof["regions_ms"].items()}
+            log(f"  {name}: share of busy: " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+                + f", lut_dequant_gemm {prof['kernel_ms'] / prof['busy_ms']:.3f}")
+            prof["shares"] = shares
+        profiles[name] = prof
+    out["a"] = dict(
+        launches=launches, launches_tc=counts["lut_dequant_gemm_tc"], per_forward=per_forward,
+        flash_attention_launches=counts["flash_attention"],
+        lut_stream_gemm_launches=counts["lut_stream_gemm"],
+        prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs, waves=len(records),
+        wall_s=wall, tokens=n_tok, tok_s=n_tok / wall, tokens_crc32=digest,
+        prefill_wall_s=sum(r.t_decode - r.t_start for r in records),
+        decode_wall_s=sum(r.t_sync - r.t_decode for r in records),
+        prefill_ms=prefill_ms, profiled_prefill_ms=short_ms, step_ms=step_ms, peak_gb=peak_gb,
+        held_before_gb=base / 1e9, held_before_gc_gb=before_gc / 1e9, code_bytes=code_bytes,
+        param_bytes=param_bytes, dense_bytes=dense_bytes, state_bytes=state_bytes,
+        state_bytes_long=long_bytes, build_s=build_s,
+        prefill_profile=profiles["prefill"], decode_profile=profiles["decode"])
+    del eng, caches, prefill, short, step, params
+    torch.cuda.empty_cache()
+    lap("19a")
+
+    # --- 19b: W1A3 lut, calibrated + prepared, 4 layers ------------------------
+    out["b"] = lut_cut_serve(torch, dev, cfg, RW_LUT_LAYERS, reqs, smi, what="phase 19b",
+                             want_per=8 * RW_LUT_LAYERS, drivers=("loop", "chunked"))
+    lap("19b")
+
+    # --- 19c: f32, 2 layers: the card against the CPU; prefill vs decode -------
+    out["c"] = card_vs_cpu(torch, dev, cfg, RW_CPU_LAYERS, smi, what="phase 19c")
+    lap("19c")
+
+    # --- 19d: the kernels against their plain versions at rwkv's shapes -------
+    log(f"phase 19d: {cfg.name}'s {len(shapes)} distinct applied projection shapes (K, F) "
+        f"{shapes}, B = 4 and 4 x {DS_PROMPT}, bf16 x [{smi}]:")
+    rows, rel, abs_err = phase_kernel_times(torch, dev, cfg, hw.H100_SXM, iters=(10, 3, 3),
+                                            label="phase 19d", shapes=shapes)
+    srows, sabs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi, shapes=shapes,
+                                     label="phase 19d")
+    out["d"] = dict(shapes=shapes, dequant_rows=rows, dequant_rel=rel, dequant_abs=abs_err,
+                    stream_rows=srows, stream_abs=sabs)
+    lap("19d")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19: {out['seconds']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + ")")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
-                                        "deepseek", "zamba2"),
+                                        "deepseek", "zamba2", "rwkv"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17 or 18)")
+                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18 or "
+                         "19)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -4273,7 +4506,8 @@ def main(argv=None) -> int:
                  "live_ops": lambda: phase_live_ops(torch, dev, cfg, smi),
                  "obs": lambda: phase_obs(torch, dev, cfg, smi),
                  "deepseek": lambda: phase_deepseek(torch, dev, smi),
-                 "zamba2": lambda: phase_zamba2(torch, dev, smi)}
+                 "zamba2": lambda: phase_zamba2(torch, dev, smi),
+                 "rwkv": lambda: phase_rwkv(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -4335,9 +4569,14 @@ def main(argv=None) -> int:
         lap("17 deepseek")
         zamba2 = alone["zamba2"]()
         lap("18 zamba2")
-        worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"])
-        worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"], zamba2["d"]["dequant_abs"])
-        stream_abs = max(stream_abs, deepseek["e"]["stream_abs"], zamba2["d"]["stream_abs"])
+        rwkv = alone["rwkv"]()
+        lap("19 rwkv")
+        worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
+                        rwkv["d"]["dequant_rel"])
+        worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"], zamba2["d"]["dequant_abs"],
+                        rwkv["d"]["dequant_abs"])
+        stream_abs = max(stream_abs, deepseek["e"]["stream_abs"], zamba2["d"]["stream_abs"],
+                         rwkv["d"]["stream_abs"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4381,6 +4620,10 @@ def main(argv=None) -> int:
     def zb_at(what):
         return (f"phase 18d: zamba2-7b's distinct applied projection shapes, once each "
                 f"({', '.join(zamba2['d']['shapes'])}), {what} (device time)")
+
+    def rw_at(what):
+        return (f"phase 19d: rwkv6-3b's distinct applied projection shapes, once each "
+                f"({', '.join(rwkv['d']['shapes'])}), {what} (device time)")
 
     def canon_times(rs, b, at):
         return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
@@ -4443,6 +4686,16 @@ def main(argv=None) -> int:
             "decode": times(zamba2["d"]["dequant_rows"], 4, zb_at("B=4, W4, bf16 x")),
             "prefill": times(zamba2["d"]["dequant_rows"], 4 * DS_PROMPT,
                              zb_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
+        "rwkv": {
+            "at": f"phase 19a: rwkv6-3b, all 32 layers, W4A4 pallas, bf16, "
+                  f"ServeEngine(batch=4, max_seq={DS_MAX_SEQ}), 8 requests of 16-{DS_PROMPT} "
+                  f"prompt tokens, {DS_NEW} new each; prefill_ms at 4 x {DS_PROMPT} and step_ms "
+                  f"on CUDA events, profiles from torch.profiler, the rest on the host clock",
+            **rwkv["a"], "card_vs_cpu_rel_err": rwkv["c"]["rel_err"],
+            "prefill_vs_decode_rel_err": rwkv["c"]["prefill_vs_decode_rel_err"],
+            "decode": times(rwkv["d"]["dequant_rows"], 4, rw_at("B=4, W4, bf16 x")),
+            "prefill": times(rwkv["d"]["dequant_rows"], 4 * DS_PROMPT,
+                             rw_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
         "ok": True,
     }, {
         "name": "lut_stream_gemm",
@@ -4481,6 +4734,13 @@ def main(argv=None) -> int:
             "decode": stream_times(zamba2["d"]["stream_rows"], 4, zb_at("N=4, W1A3 p=4")),
             "prefill": stream_times(zamba2["d"]["stream_rows"], 4 * DS_PROMPT,
                                     zb_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
+        "rwkv": {
+            "at": f"phase 19b: rwkv6-3b at full width, depth cut to {RW_LUT_LAYERS} layers, "
+                  f"W1A3 p=4 lut calibrated + prepared, phase 19a's requests",
+            **rwkv["b"],
+            "decode": stream_times(rwkv["d"]["stream_rows"], 4, rw_at("N=4, W1A3 p=4")),
+            "prefill": stream_times(rwkv["d"]["stream_rows"], 4 * DS_PROMPT,
+                                    rw_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
         "planned_serve": {
             "at": "phase 13: stablelm-12b W1A3 lut served through ServeEngine(plan=) on phase "
                   "8's requests; launches by route from the counters, times on the host clock",
@@ -4548,6 +4808,11 @@ def main(argv=None) -> int:
             "decode": canon_times(zamba2["d"]["stream_rows"], 4, zb_at("N=4, W1A3 p=4")),
             "prefill": canon_times(zamba2["d"]["stream_rows"], 4 * DS_PROMPT,
                                    zb_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
+        "rwkv": {
+            "launches": rwkv["b"]["launches_canon"],
+            "decode": canon_times(rwkv["d"]["stream_rows"], 4, rw_at("N=4, W1A3 p=4")),
+            "prefill": canon_times(rwkv["d"]["stream_rows"], 4 * DS_PROMPT,
+                                   rw_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
         "ok": True,
     }, {
         "name": "flash_attention",
@@ -4561,11 +4826,14 @@ def main(argv=None) -> int:
         **flash_forward_times(frows, get_config("gemma2-2b"), fwd),
         "shapes": frows,
         "forward": fwd,
+        "rwkv": {"launches": rwkv["a"]["flash_attention_launches"],
+                 "at": "phase 19a: rwkv6-3b has no attention (asserted: no launch)"},
         "ok": True,
     }]}
     print(json.dumps({"phase": "obs", "card": smi, "result": obs}, default=str))
     print(json.dumps({"phase": "deepseek", "card": smi, "result": deepseek}, default=str))
     print(json.dumps({"phase": "zamba2", "card": smi, "result": zamba2}, default=str))
+    print(json.dumps({"phase": "rwkv", "card": smi, "result": rwkv}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

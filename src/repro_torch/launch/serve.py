@@ -26,11 +26,14 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full --mode pallas --batch 4 --max-seq 512
     # the GPU, zamba2-7b (Mamba2 + a shared attention block) whole
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --full --mode pallas --batch 4 --max-seq 512
+    # the GPU, rwkv6-3b (RWKV6 "Finch": attention-free, O(1) state a request) whole
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full --mode pallas --batch 4 --max-seq 512
     # the CPU, smoke size, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke --mode lut --calibrate 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --bw 1 --ba 3 --plan plan.json --decode chunked --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --prepared-ckpt /tmp/lo/ckpt --request-log /tmp/lo/serve.jsonl --device cpu

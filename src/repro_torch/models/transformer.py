@@ -1,10 +1,12 @@
 """Transformer assembly over stacked units (port of
-``repro.models.transformer`` for ``"D"``, ``"L"``, ``"G"``, ``"F"``, ``"M"``
-and ``"S"`` segments: attention + FFN, with a sliding window on ``"L"``; on
-a MoE config a ``"D"`` unit's FFN is the MoE block and an ``"F"`` unit keeps
-a dense FFN; ``"M"`` is a Mamba2 block (:mod:`repro_torch.models.ssm`) and
-``"S"`` a Mamba2 block followed by zamba2's *shared* attention + FFN block,
-whose parameters appear once in the tree, at ``params["shared_attn"]``).
+``repro.models.transformer`` for ``"D"``, ``"L"``, ``"G"``, ``"F"``, ``"M"``,
+``"S"`` and ``"R"`` segments: attention + FFN, with a sliding window on
+``"L"``; on a MoE config a ``"D"`` unit's FFN is the MoE block and an ``"F"``
+unit keeps a dense FFN; ``"M"`` is a Mamba2 block
+(:mod:`repro_torch.models.ssm`) and ``"S"`` a Mamba2 block followed by
+zamba2's *shared* attention + FFN block, whose parameters appear once in the
+tree, at ``params["shared_attn"]``; ``"R"`` is an RWKV6 time mix + channel
+mix (:mod:`repro_torch.models.rwkv`)).
 
 Every architecture is a sequence of *segments*; each segment is a stack of
 identical *units* whose parameters are stacked along a leading
@@ -15,10 +17,10 @@ Caches follow the same segmentation (``[n_units, B, Smax, Hkv, hd]``) and
 are updated in place.
 
 Decoders of ``"D"``, ``"L"``, ``"G"`` and ``"F"`` units are ported, with GQA
-or MLA attention (``cfg.attn_kind``) and dense or MoE FFNs, and zamba2's
-hybrid of ``"M"`` and ``"S"`` units; other unit kinds (RWKV, enc-dec,
-frontends) raise ``NotImplementedError`` until the slice of the other model
-families (ROADMAP).
+or MLA attention (``cfg.attn_kind``) and dense or MoE FFNs, zamba2's hybrid
+of ``"M"`` and ``"S"`` units and RWKV6's attention-free ``"R"`` units; other
+unit kinds (enc-dec, frontends) raise ``NotImplementedError`` until the
+slice of the other model families (ROADMAP).
 
 Inside a unit, a norm that follows a residual add reads the unrounded f32
 sum, while the residual stream itself is stored in ``x.dtype``: the
@@ -35,7 +37,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import tree
-from repro_torch.models import attention, ffn, layers, moe, ssm
+from repro_torch.models import attention, ffn, layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear, norm
 
@@ -57,7 +59,7 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     return [("D", cfg.n_layers)]
 
 
-PORTED_UNITS = frozenset({"D", "L", "G", "F", "M", "S"})
+PORTED_UNITS = frozenset({"D", "L", "G", "F", "M", "S", "R"})
 RECURRENT_UNITS = frozenset({"M", "S", "R"})
 
 
@@ -81,11 +83,13 @@ def unported_for_plans(cfg: ModelConfig) -> Optional[str]:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
     kinds = unit_kinds(cfg)
-    if not kinds <= PORTED_UNITS or cfg.attn_kind not in ("gqa", "mla"):
+    attn_ok = cfg.attn_kind in ("gqa", "mla") or (cfg.attn_kind == "none" and kinds == {"R"})
+    if not kinds <= PORTED_UNITS or not attn_ok:
         raise NotImplementedError(
             f"{cfg.name}: units {sorted(kinds)}, attn_kind={cfg.attn_kind!r} are not "
             f"ported yet (only decoders of {sorted(PORTED_UNITS)} units with GQA or MLA "
-            f"attention); they wait for the other model families (ROADMAP)"
+            f"attention, or of \"R\" units alone without it); they wait for the other "
+            f"model families (ROADMAP)"
         )
     if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
         raise NotImplementedError(f"{cfg.name}: frontends / enc-dec are not ported yet")
@@ -101,6 +105,10 @@ def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device) -> d
     nrm = layers.rmsnorm_init if cfg.norm_kind == "rmsnorm" else layers.layernorm_init
     if ch in ("M", "S"):
         return {"norm": nrm(d, device), "ssm": ssm.ssm_init(cfg, gen, device)}
+    if ch == "R":
+        return {"tm_norm": nrm(d, device), "time_mix": rwkv.rwkv_time_init(cfg, gen, device),
+                "cm_norm": nrm(d, device),
+                "channel_mix": rwkv.rwkv_channel_init(cfg, gen, device)}
     p = {"attn_norm": nrm(d, device), "ffn_norm": nrm(d, device)}
     if cfg.attn_kind == "mla":
         p["attn"] = attention.mla_init(cfg, gen, device)
@@ -174,7 +182,11 @@ def _sublayer_cache(cfg: ModelConfig, ch: str, n_units: int, batch: int, max_seq
     ``max_seq`` positions (neither flag applies to it).  An ``"M"`` cache is
     the Mamba2 state (:func:`repro_torch.models.ssm.init_ssm_state`); an
     ``"S"`` cache is that state and the shared attention's plain K/V cache,
-    ``{"mamba": ..., "attn": {"k", "v"}}``, as in the reference."""
+    ``{"mamba": ..., "attn": {"k", "v"}}``, as in the reference.  An ``"R"``
+    cache is the RWKV6 state in the cache dtype
+    (:func:`repro_torch.models.rwkv.init_rwkv_state`), whatever ``max_seq``."""
+    if ch == "R":
+        return rwkv.init_rwkv_state(cfg, batch, dtype, lead=(n_units,), device=device)
     if ch in ("M", "S"):
         state = ssm.init_ssm_state(cfg, batch, lead=(n_units,), device=device)
         if ch == "M":
@@ -241,7 +253,8 @@ class RunState:
 
 def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
     """One sublayer: attention + FFN (or MoE), or a Mamba2 block (``"M"``),
-    followed on ``"S"`` by the shared attention + FFN block.  ``x_sum`` is
+    followed on ``"S"`` by the shared attention + FFN block, or an RWKV6
+    time mix + channel mix (``"R"``).  ``x_sum`` is
     the f32 sum that ``x`` was rounded from (``None`` at the start of a
     unit); returns the new ``x``, its f32 sum and the cache.  A MoE block's
     aux loss is added to ``rs.aux``."""
@@ -249,6 +262,14 @@ def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cach
     nk, eps = cfg.norm_kind, cfg.norm_eps
     if ch in ("M", "S"):
         return _apply_mamba(rs, ch, p, x, x_sum, cache)
+    if ch == "R":
+        h = norm(p["tm_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
+        y, _ = rwkv.rwkv_time_mix(p["time_mix"], h, cfg, cache)
+        x, x_sum = _residual(x, y)
+        h = norm(p["cm_norm"], x_sum, nk, eps).to(x.dtype)
+        y, _ = rwkv.rwkv_channel_mix(p["channel_mix"], h, cfg, cache)
+        x, x_sum = _residual(x, y)
+        return x, x_sum, cache
     h = norm(p["attn_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
     if cfg.attn_kind == "mla":
         a, new_cache = attention.mla_attention(
