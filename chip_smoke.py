@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
-``--phase obs``, ``--phase deepseek``, ``--phase zamba2`` or ``--phase rwkv`` runs one
+``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv`` or
+``--phase whisper`` runs one
 phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
@@ -65,6 +66,16 @@ entry points at published full widths:
   torch as the reference's XLA; then a 4-layer W1A3 ``lut`` serve (scan ==
   loop == chunked) and a 2-layer f32 prefill against the CPU and against a
   prefill followed by decode steps;
+
+* whisper-large-v3 whole (phase 20): 32 encoder + 32 decoder layers at
+  published widths, W4A4 ``pallas`` prepared, bf16 — the transcription
+  path: ``Model.prefill(prefix_embeds=)`` over 4 x 1500 frames (the encoder:
+  ``flash_attention`` with ``causal=False`` and ``lut_dequant_gemm`` at
+  6000 rows, all on the tensor cores), then 64 greedy decode steps over the
+  cross cache; ``ServeEngine`` text only; f32 frames on the CUDA-core
+  routes and a 2 + 2-layer f32 prefill against the CPU; a 4 + 4-layer
+  W1A3 ``lut`` copy calibrated with frames; the kernels at whisper's
+  shapes;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
@@ -747,10 +758,11 @@ def phase_stream_kernel(torch, dev):
         f"compose modes) equal bit for bit")
 
 
-def phase_stream_times(torch, dev, cfg, card, smi, *, shapes=None, label="phase 6"):
+def phase_stream_times(torch, dev, cfg, card, smi, *, shapes=None, label="phase 6",
+                       bs=(4, 4 * 128)):
     """Times at the lut serve path's shapes (``shapes``, ``{name: (K, F)}``;
     default: one layer's seven projections of ``cfg``) at W1A3 p=4, decode
-    (N = 4) and prefill (N = 4 x 128).  The
+    (N = 4) and prefill (N = 4 x 128; ``bs`` sets both).  The
     canonicalize kernel on the quantizer's codes (a transposed view, as on the
     path) beside the plain chain; lut_stream_gemm on its route (the int8
     tensor cores, the composed operand as given) and on the CUDA cores, both
@@ -787,7 +799,7 @@ def phase_stream_times(torch, dev, cfg, card, smi, *, shapes=None, label="phase 
         onehot = torch.zeros((m, g, r), dtype=torch.float32, device=dev)
         onehot.scatter_(2, wpk[:, :, None].long(), 1.0)
         onehot = onehot.reshape(m, g * r)                                    # [M, G*R]
-        for b in (4, 4 * 128):
+        for b in bs:
             x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
             acodes, _ = quantize(x.float().T, spec.aspec())                 # [K, N] view
             idx = engine.canonicalize_activations(acodes, pack)
@@ -852,7 +864,7 @@ def phase_stream_times(torch, dev, cfg, card, smi, *, shapes=None, label="phase 
             del composed, y_lib, idx, plain_idx
         del wpks, onehot
     torch.cuda.empty_cache()
-    for b in (4, 512):
+    for b in bs:
         picked = [row for row in rows if row["B"] == b]
         t = {key: sum(row[key] for row in picked)
              for key in ("ms", "cuda_core_ms", "plain_ms", "library_ms", "bound_ms",
@@ -866,8 +878,8 @@ def phase_stream_times(torch, dev, cfg, card, smi, *, shapes=None, label="phase 
             f"({t['library_ms'] / t['ms']:.2f}x); canonicalize {t['canon_ms']:.4f} ms "
             f"(bound {t['canon_bound_ms']:.4f} ms), plain chain {t['canon_plain_ms']:.4f} ms "
             f"[{smi}]")
-    log(f"{label}: the lut serve path's shapes (N=4 and 512) equal the plain version and the "
-        "one-hot yardstick bit for bit on both routes")
+    log(f"{label}: the lut serve path's shapes (N={' and '.join(map(str, bs))}) equal the "
+        f"plain version and the one-hot yardstick bit for bit on both routes")
     return rows, worst
 
 
@@ -3412,20 +3424,28 @@ TOL_MLA_CHUNKED = 2e-4        # 17b: chunked vs unchunked latent attention (f32)
 TOL_CPU_DS = 1e-4             # 17d: card vs CPU logits (f32, 2 layers), relative to max |logit|
 
 
-def applied_projections(params):
+def applied_projections(params, *, frames=False):
     """The quantized projections one forward applies, counted from the tree:
     every quantized leaf times its stack, except MLA's absorbed ``W_kup`` /
     ``W_vup`` (decoded, never applied) and the MoE expert stacks (decoded for
     the batched expert GEMMs); a MoE block's shared experts are applied; a
     leaf of zamba2's shared block (``shared_attn``, one copy in the tree) is
     applied once per ``"S"`` sublayer (counted by their stacked Mamba2
-    ``in_proj`` leaves).  Returns ``(count, {leaf path: (count, K, F)})``."""
+    ``in_proj`` leaves).  On an encoder-decoder tree a forward without
+    frames (``ServeEngine``'s, a decode step) applies neither the encoder's
+    leaves nor the cross blocks' ``wk`` / ``wv`` (the cross keys and values
+    come from the cache); a forward over frames (``frames=True``: a prefill
+    or a cache-free forward with ``prefix_embeds``) applies them too.
+    Returns ``(count, {leaf path: (count, K, F)})``."""
     from repro_torch.tune.plan import quantized_leaf_items
 
     by_path = {}
     for path, leaf in quantized_leaf_items(params):
         parts = path.split("/")
         if parts[-1] in ("w_kup", "w_vup") or ("moe" in parts and "shared" not in parts):
+            continue
+        if not frames and (parts[0] == "encoder" or parts[-2:] in (["cross", "wk"],
+                                                                   ["cross", "wv"])):
             continue
         by_path[path] = (leaf.codes.shape[0] if leaf.codes.ndim == 3 else 1, leaf.k, leaf.f)
     n_shared = sum(n for path, (n, _k, _f) in by_path.items()
@@ -3542,8 +3562,9 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what, labels):
     call; logs it and returns it, or ``None`` when the profiler saw no
     device time.  Each device kernel counts once, in the region of the host
     event that launched it (:func:`region_of`), so the regions, ``kernel``
-    and the rest partition the busy time.  Fails where a region reads 0 or
-    the rest is negative."""
+    and the rest partition the busy time; each region's copy kernels (casts)
+    and the ``flash_attention`` kernel's time are returned beside them.
+    Fails where a region reads 0 or the rest is negative."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3572,15 +3593,20 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what, labels):
         log(f"  {what}: device time by region not measured (the profiler saw no device time)")
         return None
     regions = dict.fromkeys(names, 0.0)
+    copies = dict.fromkeys(names, 0.0)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
         region = region_of(e, names)
         if region is not None:
-            us = sum(k.duration for k in e.kernels if kernel not in k.name)
-            regions[region] += us / 1e3 / iters
+            for k in e.kernels:
+                if kernel not in k.name:
+                    regions[region] += k.duration / 1e3 / iters
+                    if "copy" in k.name.lower():
+                        copies[region] += k.duration / 1e3 / iters
     out = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms, kernel_ms=ours,
-               kernel_launches=ours_n, regions_ms=regions,
+               kernel_launches=ours_n, regions_ms=regions, region_copy_ms=copies,
+               flash_ms=sum(ms for n, ms in by_name.items() if "flash_attention" in n),
                other_ms=busy - ours - sum(regions.values()),
                top=[(name, ms) for ms, name in sorted(((ms, n) for n, ms in by_name.items()),
                                                       reverse=True)[:8]])
@@ -3701,14 +3727,19 @@ def drivers_agree(torch, dev, cfg, n_layers, reqs, what):
 
 
 def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
-                  drivers=("loop",)):
+                  drivers=("loop",), max_seq=None, keep=False):
     """A copy of ``cfg`` cut to ``n_layers``, W1A3 p=4 ``lut``, calibrated and
     prepared, served on ``reqs`` through ``ServeEngine(batch=4,
     max_seq=512)``: every projection a frozen scale, ``want_per`` applied
     projections a forward (when given), ``lut_stream_gemm`` launched on the
     tensor-core route only with one canonicalize launch a projection
     (:func:`check_served` too), and each of ``drivers`` giving the scan
-    driver's tokens (each wave led by a bucket).  Phases 17c, 18b and 19b."""
+    driver's tokens (each wave led by a bucket).  Phases 17c, 18b, 19b and
+    20d.  An encoder-decoder copy is cut to ``n_layers`` encoder layers too
+    and calibrated over seeded bf16 frames as well as the tokens
+    (``calibrate_tree`` with a closure that passes them: ``Model.prepare(
+    calibrate=tokens)`` runs no frames, and the reference raises there);
+    ``keep`` returns the model, its tree and the frames beside the result."""
     from repro_torch.core import LutLinearSpec
     from repro_torch.models import transformer
     from repro_torch.models.model import build_model
@@ -3716,14 +3747,28 @@ def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
     from repro_torch.tune.plan import quantized_leaf_items
     import numpy as np
 
-    lcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    from repro_torch.core.calibrate import calibrate_tree
+
+    lcfg = dataclasses.replace(cfg, n_layers=n_layers, **(
+        dict(encoder_layers=n_layers) if cfg.is_encdec else {}))
+    max_seq = max_seq or DS_MAX_SEQ
     lmodel = build_model(lcfg)
     t0 = time.perf_counter()
     cal = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-    lparams = lmodel.prepare(lmodel.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0,
-                                                   device=dev), calibrate=cal, n_hint=4)
+    lq = lmodel.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0, device=dev)
+    frames = None
+    if lcfg.is_encdec:
+        frames = whisper_frames(torch, dev, lcfg, 2, seed=1, dtype=torch.bfloat16)
+        cal_t = torch.from_numpy(cal).to(dev)
+        lq = calibrate_tree(lambda probed: lmodel.forward(probed, cal_t,
+                                                          prefix_embeds=frames)[0], lq)
+        lparams = lmodel.prepare(lq, n_hint=4)
+    else:
+        lparams = lmodel.prepare(lq, calibrate=cal, n_hint=4)
+    del lq
     torch.cuda.synchronize()
-    lper, lby = applied_projections(lparams)
+    lper, _ = applied_projections(lparams)
+    lby = applied_projections(lparams, frames=True)[1]       # what the calibration applied
     scaled = [leaf for _p, leaf in quantized_leaf_items(lparams) if leaf.ascale is not None]
     check(len(scaled) == len(lby) and lper == (want_per or lper),
           f"{what}: {len(scaled)} of {len(lby)} leaves carry a frozen scale; {lper} applied "
@@ -3731,7 +3776,7 @@ def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
     log(f"{what}: {lcfg.n_layers} layers {transformer.segments(lcfg)}, W1A3 p=4 lut, "
         f"calibrated on {cal.size} tokens and prepared in {time.perf_counter() - t0:.1f} s; "
         f"{lper} applied projections per forward")
-    leng = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode="scan", device=dev)
+    leng = ServeEngine(lmodel, lparams, batch=4, max_seq=max_seq, decode="scan", device=dev)
     leng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
     torch.cuda.synchronize()
     louts, lwall, lrecords, lcounts, lsync = counted_generate(torch, leng, reqs)
@@ -3746,7 +3791,7 @@ def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
     others = {}
     for decode in drivers:
         t0 = time.perf_counter()
-        other = ServeEngine(lmodel, lparams, batch=4, max_seq=DS_MAX_SEQ, decode=decode,
+        other = ServeEngine(lmodel, lparams, batch=4, max_seq=max_seq, decode=decode,
                             device=dev)
         check(other.generate(reqs) == louts,
               f"{what}: decode={decode!r} tokens differ from decode='scan'")
@@ -3768,7 +3813,10 @@ def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
                launches_canon=lcounts["lut_stream_gemm_canon"], per_forward=lper,
                prefills=lprefills, decode_steps=lsteps, host_syncs=leng.host_syncs,
                waves=len(lrecords), wall_s=lwall, tokens_crc32=ldigest, drivers=others)
-    del leng, lparams
+    del leng
+    if keep:
+        return out, lmodel, lparams, frames
+    del lparams
     torch.cuda.empty_cache()
     return out
 
@@ -3786,22 +3834,29 @@ def card_vs_cpu(torch, dev, cfg, n_layers, smi, *, what, seq=CPU_SEQ, tf=CPU_TF,
     (seed 3): one prefill of 2 x ``seq`` tokens on the card against the
     CPU's (the kernels' plain versions), and against a prefill of ``seq -
     tf`` followed by ``tf`` decode steps on the card, each within ``tol`` x
-    max |logit|.  Phases 18c and 19c."""
+    max |logit|.  Phases 18c, 19c and 20c.  An encoder-decoder copy is cut
+    to ``n_layers`` encoder layers too, and each prefill runs over the same
+    seeded f32 frames (the decode steps over the cached cross keys and
+    values)."""
     from repro_torch import tree
     from repro_torch.core import LutLinearSpec
     from repro_torch.models.model import build_model
     import numpy as np
 
-    dcfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    dcfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32", **(
+        dict(encoder_layers=n_layers) if cfg.is_encdec else {}))
     dmodel = build_model(dcfg)
     dparams = dmodel.prepare(dmodel.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
                                                    seed=3, device=dev), n_hint=4)
     dtoks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
     toks_gpu = torch.from_numpy(dtoks).to(dev)
+    fr = {}
+    if dcfg.is_encdec:
+        fr = dict(prefix_embeds=whisper_frames(torch, dev, dcfg, 2, seed=4))
     lg_gpu, _ = dmodel.prefill(dparams, toks_gpu,
-                               dmodel.init_cache(2, seq, torch.float32, device=dev))
+                               dmodel.init_cache(2, seq, torch.float32, device=dev), **fr)
     split = dmodel.init_cache(2, seq, torch.float32, device=dev)
-    dmodel.prefill(dparams, toks_gpu[:, : seq - tf], split)
+    dmodel.prefill(dparams, toks_gpu[:, : seq - tf], split, **fr)
     for t in range(seq - tf, seq):
         lg_split, _ = dmodel.decode_step(dparams, toks_gpu[:, t : t + 1], split, t)
     lg_gpu, lg_split = lg_gpu.cpu(), lg_split.cpu()
@@ -3809,7 +3864,8 @@ def card_vs_cpu(torch, dev, cfg, n_layers, smi, *, what, seq=CPU_SEQ, tf=CPU_TF,
     del dparams, split
     t1 = time.perf_counter()
     lg_cpu, _ = dmodel.prefill(params_cpu, torch.from_numpy(dtoks),
-                               dmodel.init_cache(2, seq, torch.float32, device="cpu"))
+                               dmodel.init_cache(2, seq, torch.float32, device="cpu"),
+                               **{k: v.cpu() for k, v in fr.items()})
     cpu_s = time.perf_counter() - t1
     del params_cpu
     lscale = lg_cpu.abs().max().item()
@@ -3823,7 +3879,8 @@ def card_vs_cpu(torch, dev, cfg, n_layers, smi, *, what, seq=CPU_SEQ, tf=CPU_TF,
           f"{what}: prefill of {seq} vs prefill of {seq - tf} + {tf} decode steps: max err "
           f"{serr:.3e} > {tol} x max|logit| {lscale:.3e}")
     log(f"{what} [{smi}]: {n_layers} layers at full width, f32, one prefill of 2 x {seq} "
-        f"tokens: card (lut_dequant_gemm's CUDA-core route) vs CPU (plain versions, "
+        f"tokens{' over 2 x ' + str(dcfg.frontend_seq) + ' frames' if fr else ''}: card "
+        f"(lut_dequant_gemm's CUDA-core route) vs CPU (plain versions, "
         f"{cpu_s:.1f} s): max err {lerr:.3e} = {lerr / lscale:.3e} x max|logit|; a prefill of "
         f"{seq - tf} + {tf} decode steps on the card: {serr:.3e} = {serr / lscale:.3e} x "
         f"max|logit|")
@@ -4439,13 +4496,419 @@ def phase_rwkv(torch, dev, smi):
     return out
 
 
+WHISPER = "whisper-large-v3"
+WH_MAX_SEQ = 448              # 20a / 20b / 20d: whisper's published decoder context (the caches)
+WH_PROMPT = 4                 # 20a: the prompt prefilled with the frames
+WH_DECODE = 64                # 20a: greedy decode steps after it
+WH_CUT_LAYERS = 2             # 20c: 2 encoder + 2 decoder layers
+WH_LUT_LAYERS = 4             # 20d: 4 + 4 layers
+
+
+def whisper_frames(torch, dev, cfg, batch, *, seed=0, dtype=None):
+    """Stub frontend embeddings ``[batch, frontend_seq, frontend_dim]`` from
+    ``numpy.random.default_rng(seed)``: f32 (the reference's own input
+    dtype) or ``dtype``, on ``dev``."""
+    import numpy as np
+
+    f = np.random.default_rng(seed).standard_normal(
+        (batch, cfg.frontend_seq, cfg.frontend_dim), dtype=np.float32)
+    t = torch.from_numpy(f).to(dev)
+    return t if dtype is None else t.to(dtype)
+
+
+def whisper_regions():
+    """Phase 20's profiler region: the decoder's cross attention
+    (``attention.cross_attention``: the f32 ``_attend`` over the cross keys
+    and values, with their f32 copies; its ``wq`` / ``wo`` are
+    ``lut_dequant_gemm`` launches).  The encoder is profiled alone."""
+    from repro_torch.models import attention
+
+    return ((attention, "cross_attention", "cross attention"),)
+
+
+def encdec_cache_bytes(cfg, batch, max_seq, elem_bytes=2):
+    """``(cross, self)`` K/V bytes of the decoder's caches from the shapes:
+    ``ck`` / ``cv`` ``[B, frontend_seq, Hkv, hd]`` and ``k`` / ``v`` ``[B,
+    max_seq, Hkv, hd]`` a layer."""
+    per = 2 * batch * cfg.n_kv_heads * cfg.hd * elem_bytes * cfg.n_layers
+    return per * cfg.frontend_seq, per * max_seq
+
+
+def whisper_flash(torch, dev, cfg, card, smi):
+    """flash_attention at the encoder's shape (B = 4, S = T = frontend_seq,
+    all heads, no mask: ``causal=False``), bf16 (the tensor cores) and f32
+    (the CUDA cores), against its plain version (phase 9's tolerances and,
+    in bf16, its row check), timed beside the bound, the plain version and
+    ``scaled_dot_product_attention(is_causal=False)``, which computes the
+    same function."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    b, s, h, hd = 4, cfg.frontend_seq, cfg.n_heads, cfg.hd
+    kw = dict(causal=False)
+    rows, worst = [], 0.0
+    for dtype, want_route in ((torch.bfloat16, "tc"), (torch.float32, "cuda_core")):
+        q, k, v = flash_inputs(torch, dev, gen, b, s, s, h, cfg.n_kv_heads, hd, dtype)
+        route = fa.route(dtype, hd)
+        check(route == want_route, f"phase 20e: flash {dtype} hd {hd} routed to {route}")
+        before = fa.launches_tc
+        got = fa.flash_attention(q, k, v, **flash_kw(kw))
+        check((fa.launches_tc - before) == (route == "tc"), f"phase 20e: flash {dtype} route count")
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), **flash_kw(kw))
+        err, scale = flash_err(torch, got, want32.to(dtype))
+        tol = TOL_FLASH_BF16 * scale if dtype == torch.bfloat16 else TOL_FLASH_F32 * max(scale, 1.0)
+        check(got.shape == q.shape and got.dtype == dtype and err <= tol,
+              f"phase 20e: flash {dtype} at the encoder's shape: max err {err:.3e} > {tol:.3e}")
+        row = flash_row_err(got, want32) if dtype == torch.bfloat16 else None
+        check(row is None or row <= TOL_FLASH_BF16_ROW,
+              f"phase 20e: flash bf16 row error {row} > {TOL_FLASH_BF16_ROW}")
+        worst = max(worst, err)
+        del got, want32
+        kern = time_ms(torch, lambda i: fa.flash_attention(q, k, v, **flash_kw(kw)), 5)
+        plain = time_ms(torch, lambda i: ref.flash_attention_ref(q, k, v, **flash_kw(kw)), 2)
+        lib_name, lib_fn = library_fn(torch, q, k, v, kw)
+        lerr, lscale = flash_err(torch, lib_fn(), ref.flash_attention_ref(q, k, v, **flash_kw(kw)))
+        check(lerr <= (TOL_FLASH_BF16 if dtype == torch.bfloat16 else TOL_FLASH_F32) *
+              max(lscale, 1.0), f"phase 20e: {lib_name} != plain ({dtype}): {lerr:.3e}")
+        lib = time_ms(torch, lambda i: lib_fn(), 10)
+        elem = 2 if dtype == torch.bfloat16 else 4
+        bnd, by = flash_bound_s(b, s, s, h, cfg.n_kv_heads, hd, kw, elem, card)
+        tflops = flash_ops(b, s, s, h, hd, kw) / (kern * 1e-3) / 1e12
+        rows.append(dict(shape="whisper encoder", dtype=str(dtype).split(".")[-1], B=b, S=s, T=s,
+                         H=h, Hkv=cfg.n_kv_heads, hd=hd, causal=False, route=route, ms=kern,
+                         tflops=tflops, bound_fraction=bnd * 1e3 / kern, plain_ms=plain,
+                         bound_ms=bnd * 1e3, bound_by=by, library=lib_name, library_ms=lib,
+                         library_max_abs_err=lerr, max_abs_err=err, row_err=row))
+        log(f"  flash_attention, the encoder's shape B={b} S=T={s} H={h} hd={hd} causal=False "
+            f"{rows[-1]['dtype']}: kernel ({route}) {kern:.3f} ms = {tflops:.1f} TFLOP/s, "
+            f"{bnd * 1e3 / kern:.3f} of its bound {bnd * 1e3:.4f} ms ({by}); plain {plain:.3f} "
+            f"ms, {lib_name} {lib:.3f} ms; max err vs plain {err:.3e}"
+            + ("" if row is None else f", row err {row:.3e}") + f" [{smi}]")
+        del q, k, v, lib_fn
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_whisper(torch, dev, smi):
+    """Phase 20: whisper-large-v3 (32 encoder + 32 decoder layers, d_model
+    1280, 20 heads of 64, d_ff 5120, vocab 51872; the stub frontend's
+    1500 frames of 1280) at its published widths, the encoder-decoder path.
+
+    20a, the transcription path: W4A4 ``pallas`` prepared, bf16,
+    ``attn_impl="flash"``, bf16 caches at ``max_seq`` 448, B = 4: a
+    4-token prompt prefilled with bf16 frames ``[4, 1500, 1280]``
+    (``Model.prefill(prefix_embeds=)``), then 64 greedy ``decode_step``s.
+    Launches: the prefill 192 (encoder) + 320 (decoder) ``lut_dequant_gemm``
+    and 32 ``flash_attention`` (non-causal), all on the tensor cores; each
+    step 256 ``lut_dequant_gemm`` and no flash; no ``lut_stream_gemm``.  The
+    cross caches' bytes equal the count from the shapes.  ``encode`` alone,
+    the prefill and the decode step on CUDA events; busy, idle and the
+    shares of the encoder attention, the encoder GEMMs and the cross
+    attention from the profiler; tok/s; peak memory; build + prepare.  20b:
+    the same tree through ``ServeEngine(batch=4, max_seq=448)`` on phase
+    17's requests, text only as the reference serves (a zero cross cache:
+    the encoder and the cross ``wk`` / ``wv`` never run): exact token
+    counts, one host sync a wave and no other synchronizing call, 256
+    ``lut_dequant_gemm`` launches a forward on the tensor cores, counted
+    from the tree by path, no flash.  20c, f32 frames (the reference's own
+    input dtype) on a 2 + 2-layer copy: the encoder's launches and the cross
+    ``wk`` / ``wv`` that read its f32 output take both kernels' CUDA-core
+    routes, the bf16 decoder the tensor cores (bf16 frames: every launch on
+    the tensor cores); then in f32 the card against the CPU (the plain
+    versions) for a prefill with frames, and a prefill of S tokens against
+    one of S - 8 and 8 decode steps, each within 1e-4 x max |logit|.  20d:
+    W1A3 ``lut`` p=4 on a 4 + 4-layer copy, calibrated with frames and
+    prepared: ``lut_stream_gemm`` and canonicalize launches per route
+    through ``ServeEngine`` (scan == loop == chunked) and on the
+    transcription path.  20e: the 3 distinct applied shapes at B = 4 and 4
+    x 1500 through phases 2 and 6's sweeps, and ``flash_attention`` at the
+    encoder's shape in bf16 and f32 beside its bound and
+    ``scaled_dot_product_attention``."""
+    from repro_torch import hw, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune.plan import quantized_leaf_items
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(what):
+        laps[what] = time.perf_counter() - t_phase - sum(laps.values())
+
+    cfg = dataclasses.replace(get_config(WHISPER), attn_impl="flash")
+    out = {"laps_s": laps}
+    want_frames = 6 * cfg.encoder_layers + 10 * cfg.n_layers
+    want_step = 8 * cfg.n_layers
+
+    # --- 20a: the transcription path, all 32 + 32 layers ---------------------
+    model = build_model(cfg)
+    before_gc, base = held_before_build(torch, dev, "phase 20a")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
+                                                device=dev), n_hint=4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    code_bytes = sum(leaf.codes.numel() for _p, leaf in quantized_leaf_items(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.tensors(params))
+    per_frames, by_path = applied_projections(params, frames=True)
+    per_step, _ = applied_projections(params)
+    shapes = projection_shapes(params)
+    check(per_frames == want_frames and per_step == want_step,
+          f"phase 20a: {per_frames} applied projections a forward with frames (want "
+          f"{want_frames}), {per_step} without (want {want_step})")
+    log(f"phase 20a: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} x "
+        f"{cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers {cfg.encoder_layers} + "
+        f"{cfg.n_layers} {transformer.segments(cfg)}, frames {cfg.frontend_seq} x "
+        f"{cfg.frontend_dim}, W4A4 pallas, bf16, attn_impl=flash, built + prepared in "
+        f"{build_s:.1f} s; codes {code_bytes:,} B, parameters {param_bytes:,} B, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the card; {per_frames} applied "
+        f"projections a forward with frames, {per_step} without "
+        f"({', '.join(f'{p.split('/', 1)[-1]} x{n}' for p, (n, _k, _f) in by_path.items())})")
+    frames = whisper_frames(torch, dev, cfg, 4, seed=0, dtype=torch.bfloat16)
+    caches = model.init_cache(4, WH_MAX_SEQ, torch.bfloat16, device=dev)
+    units = [seg["s0_C"] for seg in caches]
+    cross_b = sum(u[k].numel() * u[k].element_size() for u in units for k in ("ck", "cv"))
+    self_b = sum(u[k].numel() * u[k].element_size() for u in units for k in ("k", "v"))
+    want_cross, want_self = encdec_cache_bytes(cfg, 4, WH_MAX_SEQ)
+    check(cross_b == want_cross and self_b == want_self,
+          f"phase 20a: cross caches {cross_b:,} B, self {self_b:,} B; from the shapes "
+          f"{want_cross:,} / {want_self:,} B")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, WH_PROMPT)).astype(np.int32)).to(dev)
+    reset_launches()
+    (lg, _), first_prefill_ms = once_ms(
+        torch, lambda: model.prefill(params, toks, caches, prefix_embeds=frames))
+    pc = read_launches()
+    check(pc["lut_dequant_gemm"] == want_frames and pc["lut_dequant_gemm_tc"] == want_frames
+          and pc["flash_attention"] == cfg.encoder_layers
+          and pc["flash_attention_tc"] == cfg.encoder_layers
+          and pc["lut_stream_gemm"] == 0 and pc["lut_stream_gemm_canon"] == 0,
+          f"phase 20a: the prefill with frames launched {pc}; want {want_frames} "
+          f"lut_dequant_gemm and {cfg.encoder_layers} flash_attention, all on the tensor cores")
+    check(bool(torch.isfinite(lg).all()) and lg.shape == (4, 1, cfg.vocab_size),
+          f"phase 20a: prefill logits {tuple(lg.shape)} or not finite")
+    check(all(bool(u[k].any()) for u in units for k in ("ck", "cv")),
+          "phase 20a: a cross cache is still zero after the prefill with frames")
+    tok = lg[:, -1:].argmax(-1).to(torch.int32)
+    gen_toks = [tok]
+    reset_launches()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(WH_DECODE):
+        lg, _ = model.decode_step(params, tok, caches, WH_PROMPT + i)
+        tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        gen_toks.append(tok)
+    end.record()
+    torch.cuda.synchronize()
+    dc = read_launches()
+    loop_ms = start.elapsed_time(end)
+    out_toks = torch.cat(gen_toks, dim=1).cpu()
+    check(dc["lut_dequant_gemm"] == want_step * WH_DECODE
+          and dc["lut_dequant_gemm_tc"] == want_step * WH_DECODE
+          and dc["flash_attention"] == 0 and dc["lut_stream_gemm"] == 0,
+          f"phase 20a: {WH_DECODE} decode steps launched {dc}; want {want_step} "
+          f"lut_dequant_gemm a step on the tensor cores and no flash")
+    check(bool(torch.isfinite(lg).all()) and bool(((out_toks >= 0) & (out_toks < cfg.vocab_size))
+                                                  .all()), "phase 20a: decode logits or tokens")
+    digest = zlib.crc32(json.dumps(out_toks.tolist()).encode())
+    encode_ms = time_ms(torch, lambda i: transformer.encode(params, cfg, frames), 2)
+    prefill = lambda: model.prefill(params, toks, caches, prefix_embeds=frames)  # noqa: E731
+    pos_t = WH_PROMPT + WH_DECODE
+    step = lambda: model.decode_step(params, tok, caches, pos_t)                 # noqa: E731
+    prefill_ms = time_ms(torch, lambda i: prefill(), 2)
+    step_ms = time_ms(torch, lambda i: step(), 5)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    n_tok = 4 * WH_DECODE
+    log(f"phase 20a [{smi}]: prefill of B=4 x {WH_PROMPT} tokens over 4 x {cfg.frontend_seq} "
+        f"bf16 frames: {pc['lut_dequant_gemm']} lut_dequant_gemm launches (tensor cores "
+        f"{pc['lut_dequant_gemm_tc']}), {pc['flash_attention']} flash_attention (causal=False; "
+        f"tensor cores {pc['flash_attention_tc']}); {WH_DECODE} greedy decode steps: "
+        f"{dc['lut_dequant_gemm']} lut_dequant_gemm launches (= {want_step} x {WH_DECODE}, "
+        f"tensor cores {dc['lut_dequant_gemm_tc']}), flash {dc['flash_attention']}; "
+        f"{loop_ms:.1f} ms for the {WH_DECODE} steps ({n_tok / loop_ms * 1e3:.1f} tok/s); "
+        f"encode alone {encode_ms:.2f} ms, prefill {prefill_ms:.2f} ms (first {first_prefill_ms:.2f}), "
+        f"decode step at {pos_t} {step_ms:.2f} ms; caches: cross {cross_b:,} B, self {self_b:,} B "
+        f"(bf16, = the count from the shapes); peak memory {peak_gb:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held before the build; tokens crc32 {digest:08x}")
+    log("phase 20a: where the device time goes (torch.profiler; wall time from the unprofiled "
+        "runs above):")
+    profiles = {}
+    encode = lambda: transformer.encode(params, cfg, frames)                    # noqa: E731
+    for name, fn, iters, ms, labels, what in (
+            ("encode", encode, 1, encode_ms, (), f"encode alone, B=4 x {cfg.frontend_seq} frames"),
+            ("prefill", prefill, 1, prefill_ms, whisper_regions(),
+             f"prefill B=4 x {WH_PROMPT} with frames"),
+            ("decode", step, 3, step_ms, whisper_regions(), f"decode step B=4 at {pos_t}")):
+        prof = region_breakdown(torch, fn, iters, ms, kernel="lut_dequant_gemm", card=smi,
+                                what=what, labels=labels)
+        if prof is not None and name != "encode":
+            parts = {"cross attention (its attend, wq / wo aside)":
+                     prof["regions_ms"]["cross attention"],
+                     "cross attention's f32 copies": prof["region_copy_ms"]["cross attention"]}
+            enc = profiles["encode"]
+            if name == "prefill" and enc is not None:
+                parts = {"encoder attention": enc["flash_ms"], "encoder GEMMs": enc["kernel_ms"],
+                         "encoder rest": enc["busy_ms"] - enc["flash_ms"] - enc["kernel_ms"],
+                         **parts}
+            prof["parts_ms"] = parts
+            prof["shares"] = {k: v / prof["busy_ms"] for k, v in parts.items()}
+            log(f"  {name}: " + ", ".join(f"{k} {v:.3f} ms ({prof['shares'][k]:.3f} of busy)"
+                                          for k, v in parts.items()))
+        profiles[name] = prof
+    out["a"] = dict(
+        launches_prefill=pc, launches_decode=dc, per_forward_frames=per_frames,
+        per_forward=per_step, decode_steps=WH_DECODE, loop_ms=loop_ms,
+        tok_s=n_tok / loop_ms * 1e3, tokens_crc32=digest, encode_ms=encode_ms,
+        prefill_ms=prefill_ms, first_prefill_ms=first_prefill_ms, step_ms=step_ms,
+        peak_gb=peak_gb, held_before_gb=base / 1e9, held_before_gc_gb=before_gc / 1e9,
+        code_bytes=code_bytes, param_bytes=param_bytes, cross_cache_bytes=cross_b,
+        self_cache_bytes=self_b, build_s=build_s, encode_profile=profiles["encode"],
+        prefill_profile=profiles["prefill"], decode_profile=profiles["decode"])
+    del caches, units, prefill, step, encode, frames
+    torch.cuda.empty_cache()
+    lap("20a")
+
+    # --- 20b: the same tree served, text only -------------------------------
+    eng = ServeEngine(model, params, batch=4, max_seq=WH_MAX_SEQ, decode="scan", device=dev)
+    lens, reqs = bucket_led_requests(cfg)
+    eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+    prefills, steps, launches = check_served(cfg, eng, outs, DS_NEW, records, counts,
+                                             sync_warnings, kernel="lut_dequant_gemm",
+                                             what="phase 20b")
+    check(launches == want_step * (prefills + steps),
+          f"phase 20b: {launches} launches, want {want_step} x {prefills + steps}")
+    sdigest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+    n_served = sum(len(o) for o in outs)
+    log(f"phase 20b [{smi}]: ServeEngine(batch=4, max_seq={WH_MAX_SEQ}) served {len(reqs)} "
+        f"requests (prompt lengths {lens.tolist()}; no frames: the reference's Request has "
+        f"none), {n_served} tokens in {wall:.3f} s ({n_served / wall:.1f} tok/s); "
+        f"{len(records)} waves, {prefills} prefills, {steps} decode steps, {eng.host_syncs} host "
+        f"syncs; {launches} lut_dequant_gemm launches (= {per_step} x {prefills + steps}, all on "
+        f"the tensor cores; the encoder's {per_frames - per_step - 2 * cfg.n_layers} leaves and "
+        f"the cross wk / wv never run), flash_attention {counts['flash_attention']}; "
+        f"sync-debug warnings {len(sync_warnings)}; tokens crc32 {sdigest:08x}")
+    out["b"] = dict(launches=launches, launches_tc=counts["lut_dequant_gemm_tc"],
+                    flash_attention_launches=counts["flash_attention"], per_forward=per_step,
+                    prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs,
+                    waves=len(records), wall_s=wall, tokens=n_served, tok_s=n_served / wall,
+                    tokens_crc32=sdigest)
+    del eng, params
+    torch.cuda.empty_cache()
+    lap("20b")
+
+    # --- 20c: f32 frames; the card against the CPU -------------------------
+    ccfg = dataclasses.replace(cfg, n_layers=WH_CUT_LAYERS, encoder_layers=WH_CUT_LAYERS)
+    cmodel = build_model(ccfg)
+    cparams = cmodel.prepare(cmodel.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
+                                                   seed=2, device=dev), n_hint=4)
+    enc_n = 6 * WH_CUT_LAYERS + 2 * WH_CUT_LAYERS     # the encoder's and the cross wk / wv
+    dec_n = 8 * WH_CUT_LAYERS
+    routes = {}
+    for fname, fdt, want_cc in (("f32 frames", torch.float32, enc_n),
+                                ("bf16 frames", torch.bfloat16, 0)):
+        cc = cmodel.init_cache(2, WH_MAX_SEQ, torch.bfloat16, device=dev)
+        fr = whisper_frames(torch, dev, ccfg, 2, seed=2, dtype=fdt)
+        reset_launches()
+        lgc, _ = cmodel.prefill(cparams, toks[:2], cc, prefix_embeds=fr)
+        p_cnt = read_launches()
+        reset_launches()
+        cmodel.decode_step(cparams, lgc[:, -1:].argmax(-1).to(torch.int32), cc, WH_PROMPT)
+        d_cnt = read_launches()
+        fl_cc = p_cnt["flash_attention"] - p_cnt["flash_attention_tc"]
+        check(p_cnt["lut_dequant_gemm"] == enc_n + dec_n
+              and p_cnt["lut_dequant_gemm"] - p_cnt["lut_dequant_gemm_tc"] == want_cc
+              and p_cnt["flash_attention"] == WH_CUT_LAYERS
+              and fl_cc == (WH_CUT_LAYERS if fdt == torch.float32 else 0)
+              and d_cnt["lut_dequant_gemm"] == d_cnt["lut_dequant_gemm_tc"] == dec_n
+              and d_cnt["flash_attention"] == 0,
+              f"phase 20c, {fname}: prefill launches {p_cnt}, decode {d_cnt}; want {want_cc} "
+              f"of {enc_n + dec_n} lut_dequant_gemm and "
+              f"{WH_CUT_LAYERS if fdt == torch.float32 else 0} of {WH_CUT_LAYERS} flash on the "
+              f"CUDA cores, a decode step's {dec_n} on the tensor cores")
+        routes[fname] = dict(prefill=p_cnt, decode=d_cnt)
+        log(f"phase 20c, {fname} (bf16 model, {WH_CUT_LAYERS} + {WH_CUT_LAYERS} layers): a "
+            f"prefill with frames launched lut_dequant_gemm {p_cnt['lut_dequant_gemm']} "
+            f"(CUDA cores {p_cnt['lut_dequant_gemm'] - p_cnt['lut_dequant_gemm_tc']}: the "
+            f"encoder's and the cross wk / wv that read its output; tensor cores "
+            f"{p_cnt['lut_dequant_gemm_tc']}), flash_attention {p_cnt['flash_attention']} (CUDA "
+            f"cores {fl_cc}); a decode step lut_dequant_gemm {d_cnt['lut_dequant_gemm']} (tensor "
+            f"cores {d_cnt['lut_dequant_gemm_tc']})")
+        del cc, fr, lgc
+    del cparams
+    torch.cuda.empty_cache()
+    out["c"] = dict(routes=routes, **card_vs_cpu(torch, dev, cfg, WH_CUT_LAYERS, smi,
+                                                 what="phase 20c"))
+    lap("20c")
+
+    # --- 20d: W1A3 lut, calibrated with frames, 4 + 4 layers ---------------
+    dres, lmodel, lparams, lframes = lut_cut_serve(
+        torch, dev, cfg, WH_LUT_LAYERS, reqs, smi, what="phase 20d", want_per=8 * WH_LUT_LAYERS,
+        drivers=("loop", "chunked"), max_seq=WH_MAX_SEQ, keep=True)
+    lc = lmodel.init_cache(2, WH_MAX_SEQ, torch.bfloat16, device=dev)
+    reset_launches()
+    llg, _ = lmodel.prefill(lparams, toks[:2], lc, prefix_embeds=lframes)
+    lp = read_launches()
+    reset_launches()
+    llg2, _ = lmodel.decode_step(lparams, llg[:, -1:].argmax(-1).to(torch.int32), lc, WH_PROMPT)
+    ld = read_launches()
+    lwant_p, lwant_d = 16 * WH_LUT_LAYERS, 8 * WH_LUT_LAYERS
+    for what, cnt, want_n, want_fl in (("prefill with frames", lp, lwant_p, WH_LUT_LAYERS),
+                                       ("decode step", ld, lwant_d, 0)):
+        check(cnt["lut_stream_gemm"] == cnt["lut_stream_gemm_tc"] == want_n
+              and cnt["lut_stream_gemm_canon"] == want_n and cnt["lut_stream_gemm_lookup"] == 0
+              and cnt["lut_dequant_gemm"] == 0 and cnt["flash_attention"] == want_fl
+              and cnt["flash_attention_tc"] == want_fl,
+              f"phase 20d, the transcription path's {what}: launches {cnt}; want {want_n} "
+              f"lut_stream_gemm on the tensor cores, as many canonicalizations, {want_fl} flash")
+    check(bool(torch.isfinite(llg).all() and torch.isfinite(llg2).all()),
+          "phase 20d: transcription-path logits not finite")
+    log(f"phase 20d: the transcription path on the {WH_LUT_LAYERS} + {WH_LUT_LAYERS}-layer W1A3 "
+        f"tree: a prefill with 2 x {cfg.frontend_seq} bf16 frames launched lut_stream_gemm "
+        f"{lp['lut_stream_gemm']} (tensor cores {lp['lut_stream_gemm_tc']}, lookup "
+        f"{lp['lut_stream_gemm_lookup']}), canonicalize {lp['lut_stream_gemm_canon']}, "
+        f"flash_attention {lp['flash_attention']} (tensor cores {lp['flash_attention_tc']}); a "
+        f"decode step lut_stream_gemm {ld['lut_stream_gemm']} (tensor cores "
+        f"{ld['lut_stream_gemm_tc']}), canonicalize {ld['lut_stream_gemm_canon']}")
+    out["d"] = dict(serve=dres, transcription_prefill=lp, transcription_decode=ld)
+    del lparams, lc, lframes, llg, llg2
+    torch.cuda.empty_cache()
+    lap("20d")
+
+    # --- 20e: the kernels at whisper's shapes ------------------------------
+    rows_b = 4 * cfg.frontend_seq
+    log(f"phase 20e: {cfg.name}'s {len(shapes)} distinct applied projection shapes (K, F) "
+        f"{shapes}, B = 4 and 4 x {cfg.frontend_seq} (the encoder's rows), bf16 x [{smi}]:")
+    rows, rel, abs_err = phase_kernel_times(torch, dev, cfg, hw.H100_SXM, bs=(4, rows_b),
+                                            iters=(10, 3, 3), label="phase 20e", shapes=shapes)
+    srows, sabs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi, shapes=shapes,
+                                     label="phase 20e", bs=(4, rows_b))
+    frows, fabs = whisper_flash(torch, dev, cfg, hw.H100_SXM, smi)
+    out["e"] = dict(shapes=shapes, rows_b=rows_b, dequant_rows=rows, dequant_rel=rel,
+                    dequant_abs=abs_err, stream_rows=srows, stream_abs=sabs, flash_rows=frows,
+                    flash_abs=fabs)
+    lap("20e")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20: {out['seconds']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + ")")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
-                                        "deepseek", "zamba2", "rwkv"),
+                                        "deepseek", "zamba2", "rwkv", "whisper"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18 or "
-                         "19)")
+                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19 "
+                         "or 20)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -4507,7 +4970,8 @@ def main(argv=None) -> int:
                  "obs": lambda: phase_obs(torch, dev, cfg, smi),
                  "deepseek": lambda: phase_deepseek(torch, dev, smi),
                  "zamba2": lambda: phase_zamba2(torch, dev, smi),
-                 "rwkv": lambda: phase_rwkv(torch, dev, smi)}
+                 "rwkv": lambda: phase_rwkv(torch, dev, smi),
+                 "whisper": lambda: phase_whisper(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -4571,12 +5035,15 @@ def main(argv=None) -> int:
         lap("18 zamba2")
         rwkv = alone["rwkv"]()
         lap("19 rwkv")
+        whisper = alone["whisper"]()
+        lap("20 whisper")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
-                        rwkv["d"]["dequant_rel"])
+                        rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"])
         worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"], zamba2["d"]["dequant_abs"],
-                        rwkv["d"]["dequant_abs"])
+                        rwkv["d"]["dequant_abs"], whisper["e"]["dequant_abs"])
         stream_abs = max(stream_abs, deepseek["e"]["stream_abs"], zamba2["d"]["stream_abs"],
-                         rwkv["d"]["stream_abs"])
+                         rwkv["d"]["stream_abs"], whisper["e"]["stream_abs"])
+        flash_abs = max(flash_abs, whisper["e"]["flash_abs"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4624,6 +5091,12 @@ def main(argv=None) -> int:
     def rw_at(what):
         return (f"phase 19d: rwkv6-3b's distinct applied projection shapes, once each "
                 f"({', '.join(rwkv['d']['shapes'])}), {what} (device time)")
+
+    def wh_at(what):
+        return (f"phase 20e: whisper-large-v3's distinct applied projection shapes, once each "
+                f"({', '.join(whisper['e']['shapes'])}), {what} (device time)")
+
+    wh_rows = whisper["e"]["rows_b"]
 
     def canon_times(rs, b, at):
         return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
@@ -4696,6 +5169,20 @@ def main(argv=None) -> int:
             "decode": times(rwkv["d"]["dequant_rows"], 4, rw_at("B=4, W4, bf16 x")),
             "prefill": times(rwkv["d"]["dequant_rows"], 4 * DS_PROMPT,
                              rw_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
+        "whisper": {
+            "at": f"phase 20a: whisper-large-v3, all 32 + 32 layers, W4A4 pallas, bf16, "
+                  f"attn_impl=flash, bf16 caches at max_seq {WH_MAX_SEQ}: a {WH_PROMPT}-token "
+                  f"prefill over 4 x 1500 bf16 frames, then {WH_DECODE} greedy decode steps "
+                  f"(CUDA events; profiles from torch.profiler); 20b ServeEngine(batch=4, "
+                  f"max_seq={WH_MAX_SEQ}) text only; 20c card vs CPU at 2 + 2 layers f32",
+            "launches": whisper["a"]["launches_prefill"]["lut_dequant_gemm"]
+            + whisper["a"]["launches_decode"]["lut_dequant_gemm"],
+            **whisper["a"], "serve": whisper["b"], "routes_f32_frames": whisper["c"]["routes"],
+            "card_vs_cpu_rel_err": whisper["c"]["rel_err"],
+            "prefill_vs_decode_rel_err": whisper["c"]["prefill_vs_decode_rel_err"],
+            "decode": times(whisper["e"]["dequant_rows"], 4, wh_at("B=4, W4, bf16 x")),
+            "prefill": times(whisper["e"]["dequant_rows"], wh_rows,
+                             wh_at(f"B={wh_rows} (the encoder's 4 x 1500 rows), W4, bf16 x"))},
         "ok": True,
     }, {
         "name": "lut_stream_gemm",
@@ -4741,6 +5228,16 @@ def main(argv=None) -> int:
             "decode": stream_times(rwkv["d"]["stream_rows"], 4, rw_at("N=4, W1A3 p=4")),
             "prefill": stream_times(rwkv["d"]["stream_rows"], 4 * DS_PROMPT,
                                     rw_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
+        "whisper": {
+            "at": f"phase 20d: whisper-large-v3 at full width, depth cut to {WH_LUT_LAYERS} + "
+                  f"{WH_LUT_LAYERS} layers, W1A3 p=4 lut calibrated with frames + prepared, "
+                  f"phase 20b's requests, and its transcription path",
+            **whisper["d"]["serve"],
+            "transcription_prefill": whisper["d"]["transcription_prefill"],
+            "transcription_decode": whisper["d"]["transcription_decode"],
+            "decode": stream_times(whisper["e"]["stream_rows"], 4, wh_at("N=4, W1A3 p=4")),
+            "prefill": stream_times(whisper["e"]["stream_rows"], wh_rows,
+                                    wh_at(f"N={wh_rows}, W1A3 p=4"))},
         "planned_serve": {
             "at": "phase 13: stablelm-12b W1A3 lut served through ServeEngine(plan=) on phase "
                   "8's requests; launches by route from the counters, times on the host clock",
@@ -4813,6 +5310,11 @@ def main(argv=None) -> int:
             "decode": canon_times(rwkv["d"]["stream_rows"], 4, rw_at("N=4, W1A3 p=4")),
             "prefill": canon_times(rwkv["d"]["stream_rows"], 4 * DS_PROMPT,
                                    rw_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
+        "whisper": {
+            "launches": whisper["d"]["serve"]["launches_canon"],
+            "decode": canon_times(whisper["e"]["stream_rows"], 4, wh_at("N=4, W1A3 p=4")),
+            "prefill": canon_times(whisper["e"]["stream_rows"], wh_rows,
+                                   wh_at(f"N={wh_rows}, W1A3 p=4"))},
         "ok": True,
     }, {
         "name": "flash_attention",
@@ -4828,12 +5330,25 @@ def main(argv=None) -> int:
         "forward": fwd,
         "rwkv": {"launches": rwkv["a"]["flash_attention_launches"],
                  "at": "phase 19a: rwkv6-3b has no attention (asserted: no launch)"},
+        "whisper": {
+            "at": f"phase 20a: whisper-large-v3's encoder, causal=False, B=4, S=T=1500, 20 heads "
+                  f"of 64: launches in the prefill with frames (bf16: the tensor cores) and in "
+                  f"{WH_DECODE} decode steps (none); 20e the kernel at that shape, bf16 and f32, "
+                  f"beside scaled_dot_product_attention(is_causal=False)",
+            "launches": whisper["a"]["launches_prefill"]["flash_attention"],
+            "launches_tc": whisper["a"]["launches_prefill"]["flash_attention_tc"],
+            "launches_decode": whisper["a"]["launches_decode"]["flash_attention"],
+            "encoder_ms_in_prefill": (whisper["a"]["prefill_profile"] or {}).get("flash_ms"),
+            **{k: whisper["e"]["flash_rows"][0][k] for k in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")},
+            "shapes": whisper["e"]["flash_rows"]},
         "ok": True,
     }]}
     print(json.dumps({"phase": "obs", "card": smi, "result": obs}, default=str))
     print(json.dumps({"phase": "deepseek", "card": smi, "result": deepseek}, default=str))
     print(json.dumps({"phase": "zamba2", "card": smi, "result": zamba2}, default=str))
     print(json.dumps({"phase": "rwkv", "card": smi, "result": rwkv}, default=str))
+    print(json.dumps({"phase": "whisper", "card": smi, "result": whisper}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -93,9 +93,12 @@ def flash_attention(
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Online-softmax attention.  q [B,S,H,hd], k/v [B,T,Hkv,hd] -> [B,S,H,hd]
-    in ``q.dtype``, computed in f32."""
+    in ``q.dtype``, computed in f32.  On the card an input whose head dim is
+    strided (the ``lut`` mode's projections return a transposed view) is
+    copied to a contiguous layout first: the kernels read rows of ``hd``."""
     _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cuda":
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
         return _fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)

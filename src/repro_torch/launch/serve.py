@@ -28,12 +28,17 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --full --mode pallas --batch 4 --max-seq 512
     # the GPU, rwkv6-3b (RWKV6 "Finch": attention-free, O(1) state a request) whole
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full --mode pallas --batch 4 --max-seq 512
+    # the GPU, whisper-large-v3 (encoder-decoder) whole, text only as the
+    # reference's launcher serves it: no frames, so the decoder's cross
+    # attention reads a zero cross cache and the encoder does not run
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --full --mode pallas --batch 4 --max-seq 448
     # the CPU, smoke size, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --mode pallas --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --smoke --mode pallas --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --bw 1 --ba 3 --plan plan.json --decode chunked --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode lut --calibrate 32 --prepared-ckpt /tmp/lo/ckpt --request-log /tmp/lo/serve.jsonl --device cpu
@@ -191,6 +196,11 @@ def main(argv=None):
         if refused:
             raise SystemExit(f"{cfg.name}: plans, prepared checkpoints and live ops of "
                              f"{refused} are not ported yet (ROADMAP Queue 1)")
+    if args.calibrate is not None and cfg.is_encdec:
+        raise SystemExit(f"{cfg.name}: --calibrate runs a forward over tokens alone, and an "
+                         f"encoder-decoder forward without frames has no cross keys and values "
+                         f"(the reference raises there too; ROADMAP Queue 3): calibrate with "
+                         f"calibrate_tree and a closure that passes prefix_embeds")
     if args.profile != "baseline":
         cfg = apply_perf_profile(cfg, args.profile)
         print(f"perf profile: {args.profile}")

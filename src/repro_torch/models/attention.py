@@ -16,9 +16,10 @@ prefill, ``attn_impl="flash"`` on the no-cache branch (the
 "v", "v_s"}``: codes and per-row scales) and ``attend_bf16`` (bf16 Q/K/V and
 probabilities, f32 scores and sums).  MLA (:func:`mla_attention`): the
 absorbed formulation, the latent cache, pad masking, the chunked long
-prefill and ``attend_bf16``.  The attention itself is plain torch ops, as it
-is plain XLA in the reference.  Cross attention (the enc-dec family) is not
-ported yet and raises ``NotImplementedError``.
+prefill and ``attend_bf16``.  Cross attention (:func:`cross_attention`,
+:func:`cross_kv`): the decoder's queries over the encoder's keys and values,
+cached in ``ck`` / ``cv`` at the encoder's length.  The attention itself is
+plain torch ops, as it is plain XLA in the reference.
 """
 
 from __future__ import annotations
@@ -265,13 +266,6 @@ def _ring_update(cache_arr: torch.Tensor, new: torch.Tensor, global_start, tail:
     return cache_arr
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: the other model families); the port "
-        f"runs GQA and MLA attention"
-    )
-
-
 def gqa_attention(
     p: dict,
     x: torch.Tensor,
@@ -369,9 +363,35 @@ def gqa_attention(
     return y, new_cache
 
 
-def cross_attention(*args, **kwargs):
-    """Enc-dec cross attention (``repro.models.attention.cross_attention``)."""
-    raise _unported("cross attention")
+# ---------------------------------------------------------------------------
+# Cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(
+    p: dict,
+    x: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    enc_k: torch.Tensor,                     # [B, T, Hkv, hd] (from the encoder output)
+    enc_v: torch.Tensor,
+) -> torch.Tensor:
+    """The decoder's queries over the encoder's keys and values: every key
+    visible, no softcap, the f32 ``_attend`` (the reference's too, whatever
+    ``attend_bf16`` says), output in ``x.dtype``."""
+    b, s, _ = x.shape
+    q = _split_heads(linear(p["wq"], x), cfg.n_heads)
+    m = torch.ones((1, 1, s, enc_k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _attend(q, enc_k, enc_v, mask=m, softcap_val=None)
+    return linear(p["wo"], out.reshape(b, s, -1))
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor, *, cfg: ModelConfig):
+    """The cross keys and values ``[B, T, Hkv, hd]`` of the encoder output, in
+    its dtype (``wk`` and ``wv`` of the cross block)."""
+    k = _split_heads(linear(p["wk"], enc_out), cfg.n_kv_heads)
+    v = _split_heads(linear(p["wv"], enc_out), cfg.n_kv_heads)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Shared primitive layers: norms, RoPE, activations, linears (port of
-``repro.models.layers``).
+"""Shared primitive layers: norms, RoPE, sinusoidal positions, activations,
+linears (port of ``repro.models.layers``).
 
 A "linear" parameter is a dense dict ``{"w": [K,F], ("b": [F])}``, a
 :class:`repro_torch.core.QuantizedLinear` or a
@@ -14,6 +14,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import PreparedLinear, QuantizedLinear, apply_linear, dequantize_weights
@@ -137,3 +138,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal absolute positions (rope_kind="none": whisper's encoder and decoder)
+# ---------------------------------------------------------------------------
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute embeddings ``[seq, d]`` f32: the
+    reference's table, built the same way in numpy float64 and rounded once
+    to f32, so the two are equal bit for bit."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
+
+
+def sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings at dynamic positions ``[B, S] -> [B, S, d]`` f32
+    (the decoder of a rope-less model, at any decode offset), with the
+    angles of the reference as it runs, under ``jit``: XLA turns the
+    exponent ``2 * dim / d`` into ``dim * f32(2 / d)`` and takes a correctly
+    rounded f32 ``pow`` (here: in f64, rounded once), where torch's true
+    quotient and f32 ``pow`` are each an ulp off on a few percent of the
+    ``d / 2`` frequencies, which moves a late position's angle by an ulp of
+    the angle.  The f32 angles' ``sin`` and ``cos`` are taken in f64 and
+    rounded once: within an ulp of XLA's own (ROADMAP Queue 3), and the
+    same bits on every call (torch's f32 ``sin`` / ``cos`` on the CPU gave
+    other bits on a few first calls in a process)."""
+    f64 = torch.float64
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)[None, None, :]
+    freq = torch.pow(10000.0, (dim * float(np.float32(2.0 / d))).to(f64)).to(torch.float32)
+    ang = (positions[..., None].to(f64) / freq.to(f64)).to(torch.float32).to(f64)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(torch.float32)

@@ -175,7 +175,8 @@ class Model:
 
     def init_quantized(self, spec: LutLinearSpec, seed: int = 0, *, device="cuda") -> dict:
         """:meth:`init` + :meth:`quantize`, one unit at a time: each unit (and
-        zamba2's shared block, drawn once beside them) is drawn in f32,
+        zamba2's shared block, drawn once beside them, and each encoder unit
+        of an enc-dec model) is drawn in f32,
         quantized, and only then stacked, so a full-width model never holds
         its f32 projection weights at once."""
         return self.init(seed, device=device,
@@ -189,17 +190,22 @@ class Model:
         """Full-sequence forward: ``(logits [B, S, V] f32, caches)``, or with
         ``return_hidden`` the final-normed hidden states ``[B, S, D]`` (no
         LM head).  Without caches, attention runs ``cfg.attn_impl``:
-        ``"flash"`` is the ``flash_attention`` kernel on the card."""
+        ``"flash"`` is the ``flash_attention`` kernel on the card.  ``kw``
+        goes to :func:`repro_torch.models.transformer.forward`
+        (``prefix_embeds=`` the frames of an enc-dec model, ``caches``,
+        ``pos``, ``pad_len``, ``last_token_only``)."""
         return transformer.forward(params, self.cfg, tokens, return_hidden=return_hidden, **kw)
 
-    def prefill(self, params, tokens, caches, *, pad_len=None):
+    def prefill(self, params, tokens, caches, *, prefix_embeds=None, pad_len=None):
         """Fill caches for positions [0, S) in place; returns (last-pos logits
         [B,1,V], caches).  ``pad_len [B]`` marks per-row left-padding: padded
         positions become attention don't-cares and logical positions shift,
         so a left-padded prompt prefills output-identically to the unpadded
-        one."""
+        one.  On an enc-dec model ``prefix_embeds`` are the frames: the
+        encoder runs over them and the cross caches ``ck`` / ``cv`` are
+        filled for the decode steps that follow."""
         return transformer.forward(
-            params, self.cfg, tokens, caches=caches, pos=0,
+            params, self.cfg, tokens, caches=caches, pos=0, prefix_embeds=prefix_embeds,
             last_token_only=True, pad_len=pad_len,
         )
 

@@ -1,12 +1,15 @@
 """Transformer assembly over stacked units (port of
 ``repro.models.transformer`` for ``"D"``, ``"L"``, ``"G"``, ``"F"``, ``"M"``,
-``"S"`` and ``"R"`` segments: attention + FFN, with a sliding window on
-``"L"``; on a MoE config a ``"D"`` unit's FFN is the MoE block and an ``"F"``
-unit keeps a dense FFN; ``"M"`` is a Mamba2 block
+``"S"``, ``"R"``, ``"C"`` and ``"E"`` units: attention + FFN, with a sliding
+window on ``"L"``; on a MoE config a ``"D"`` unit's FFN is the MoE block and
+an ``"F"`` unit keeps a dense FFN; ``"M"`` is a Mamba2 block
 (:mod:`repro_torch.models.ssm`) and ``"S"`` a Mamba2 block followed by
 zamba2's *shared* attention + FFN block, whose parameters appear once in the
 tree, at ``params["shared_attn"]``; ``"R"`` is an RWKV6 time mix + channel
-mix (:mod:`repro_torch.models.rwkv`)).
+mix (:mod:`repro_torch.models.rwkv`); ``"C"`` is an enc-dec decoder unit
+(causal self attention, cross attention over the encoder output, FFN) and
+``"E"`` a bidirectional encoder unit, stacked at ``params["encoder"]`` and
+run by :func:`encode` over the stub frontend's frames).
 
 Every architecture is a sequence of *segments*; each segment is a stack of
 identical *units* whose parameters are stacked along a leading
@@ -18,9 +21,11 @@ are updated in place.
 
 Decoders of ``"D"``, ``"L"``, ``"G"`` and ``"F"`` units are ported, with GQA
 or MLA attention (``cfg.attn_kind``) and dense or MoE FFNs, zamba2's hybrid
-of ``"M"`` and ``"S"`` units and RWKV6's attention-free ``"R"`` units; other
-unit kinds (enc-dec, frontends) raise ``NotImplementedError`` until the
-slice of the other model families (ROADMAP).
+of ``"M"`` and ``"S"`` units, RWKV6's attention-free ``"R"`` units and
+whisper's encoder-decoder (``prefix_embeds`` through the encoder, sinusoidal
+positions for ``rope_kind="none"``); a frontend without an encoder (the VLM
+branch: patch embeddings prepended to the tokens) raises
+``NotImplementedError`` until its slice (ROADMAP Queue 1).
 
 Inside a unit, a norm that follows a residual add reads the unrounded f32
 sum, while the residual stream itself is stored in ``x.dtype``: the
@@ -59,7 +64,7 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     return [("D", cfg.n_layers)]
 
 
-PORTED_UNITS = frozenset({"D", "L", "G", "F", "M", "S", "R"})
+PORTED_UNITS = frozenset({"D", "L", "G", "F", "M", "S", "R", "C", "E"})
 RECURRENT_UNITS = frozenset({"M", "S", "R"})
 
 
@@ -70,13 +75,18 @@ def unit_kinds(cfg: ModelConfig) -> set[str]:
 def unported_for_plans(cfg: ModelConfig) -> Optional[str]:
     """What keeps a model from the autotuner, prepared checkpoints and live
     ops (``None`` where nothing does): MoE and MLA trees (expert stacks and
-    ``W_kup`` / ``W_vup`` are decoded, not applied) and recurrent trees (a
+    ``W_kup`` / ``W_vup`` are decoded, not applied), recurrent trees (a
     shared leaf is applied once per ``"S"`` unit, and the pads pass through
-    the state, so a replay is not the reference's identity); ROADMAP Queue 1."""
+    the state, so a replay is not the reference's identity) and
+    encoder-decoder trees (``ServeEngine`` passes no frames: the encoder and
+    the cross ``wk`` / ``wv`` leaves are never applied, so a plan would price
+    leaves that do not run); ROADMAP Queue 1."""
     if cfg.moe is not None or cfg.attn_kind == "mla":
         return "an MoE or MLA tree"
     if unit_kinds(cfg) & RECURRENT_UNITS:
         return "a tree with recurrent units"
+    if cfg.is_encdec:
+        return "an encoder-decoder tree"
     return None
 
 
@@ -91,8 +101,12 @@ def check_supported(cfg: ModelConfig) -> None:
             f"attention, or of \"R\" units alone without it); they wait for the other "
             f"model families (ROADMAP)"
         )
-    if cfg.frontend is not None or cfg.is_encdec or cfg.rope_kind == "none":
-        raise NotImplementedError(f"{cfg.name}: frontends / enc-dec are not ported yet")
+    if cfg.frontend is not None and not cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: a {cfg.frontend} frontend without an encoder (prefix_embeds "
+            f"projected and prepended to the tokens) is not ported yet (ROADMAP Queue 1 "
+            f"item 2)"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +123,11 @@ def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device) -> d
         return {"tm_norm": nrm(d, device), "time_mix": rwkv.rwkv_time_init(cfg, gen, device),
                 "cm_norm": nrm(d, device),
                 "channel_mix": rwkv.rwkv_channel_init(cfg, gen, device)}
-    p = {"attn_norm": nrm(d, device), "ffn_norm": nrm(d, device)}
+    if ch == "C":
+        return {"attn_norm": nrm(d, device), "attn": attention.gqa_init(cfg, gen, device),
+                "cross_norm": nrm(d, device), "cross": attention.gqa_init(cfg, gen, device),
+                "ffn_norm": nrm(d, device), "ffn": ffn.ffn_init(cfg, gen, device=device)}
+    p = {"attn_norm": nrm(d, device), "ffn_norm": nrm(d, device)}   # "E" units too
     if cfg.attn_kind == "mla":
         p["attn"] = attention.mla_init(cfg, gen, device)
     else:
@@ -135,8 +153,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
 
     ``unit_fn`` maps each unit's tree before the units are stacked, and
     zamba2's shared attention + FFN block (``params["shared_attn"]``, drawn
-    once beside the units) — e.g. quantizing it — so a full-width model
-    never holds all its f32 weights at once.  Dict keys come in sorted
+    once beside the units) and each encoder unit of an enc-dec model
+    (stacked at ``params["encoder"]``, beside ``enc_final_norm`` and the stub
+    frontend's dense ``frontend_proj``) — e.g. quantizing it — so a
+    full-width model never holds all its f32 weights at once.  Dict keys come in sorted
     order, as in the reference's trees (:func:`repro_torch.tree.sort_keys`)."""
     check_supported(cfg)
     unit_fn = unit_fn or (lambda u: u)
@@ -164,6 +184,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
             "ffn_norm": layers.rmsnorm_init(cfg.d_model, device),
             "ffn": ffn.ffn_init(cfg, gen, device=device),
         })
+    if cfg.is_encdec:
+        enc = [unit_fn(unit_init(cfg, "E", gen, device)) for _ in range(cfg.encoder_layers)]
+        params["encoder"] = tree.stack(enc)
+        del enc
+        params["enc_final_norm"] = (
+            layers.rmsnorm_init(cfg.d_model, device)
+            if cfg.norm_kind == "rmsnorm"
+            else layers.layernorm_init(cfg.d_model, device)
+        )
+    if cfg.frontend is not None:
+        params["frontend_proj"] = dense_init(gen, cfg.frontend_dim, cfg.d_model, device=device)
     return tree.sort_keys(params)
 
 
@@ -184,7 +215,19 @@ def _sublayer_cache(cfg: ModelConfig, ch: str, n_units: int, batch: int, max_seq
     ``"S"`` cache is that state and the shared attention's plain K/V cache,
     ``{"mamba": ..., "attn": {"k", "v"}}``, as in the reference.  An ``"R"``
     cache is the RWKV6 state in the cache dtype
-    (:func:`repro_torch.models.rwkv.init_rwkv_state`), whatever ``max_seq``."""
+    (:func:`repro_torch.models.rwkv.init_rwkv_state`), whatever ``max_seq``.
+    A ``"C"`` cache is the self-attention K/V over ``max_seq`` and the cross
+    K/V ``ck`` / ``cv`` over the encoder's ``frontend_seq`` frames (neither
+    flag applies to it); an ``"E"`` unit has none."""
+    if ch == "E":
+        return None
+    if ch == "C":
+        lead = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        enc = (n_units, batch, cfg.frontend_seq, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(lead, dtype=dtype, device=device),
+                "v": torch.zeros(lead, dtype=dtype, device=device),
+                "ck": torch.zeros(enc, dtype=dtype, device=device),
+                "cv": torch.zeros(enc, dtype=dtype, device=device)}
     if ch == "R":
         return rwkv.init_rwkv_state(cfg, batch, dtype, lead=(n_units,), device=device)
     if ch in ("M", "S"):
@@ -249,12 +292,14 @@ class RunState:
     aux: Optional[torch.Tensor] = None      # MoE load-balance loss, summed over
                                             # the MoE layers of the pass (f32)
     shared_attn: Optional[dict] = None      # zamba2's shared block parameters
+    enc_out: Optional[torch.Tensor] = None  # the encoder output [B, T, D] (enc-dec)
 
 
 def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
     """One sublayer: attention + FFN (or MoE), or a Mamba2 block (``"M"``),
     followed on ``"S"`` by the shared attention + FFN block, or an RWKV6
-    time mix + channel mix (``"R"``).  ``x_sum`` is
+    time mix + channel mix (``"R"``), or an enc-dec unit (``"C"``, ``"E"``:
+    :func:`_apply_encdec`).  ``x_sum`` is
     the f32 sum that ``x`` was rounded from (``None`` at the start of a
     unit); returns the new ``x``, its f32 sum and the cache.  A MoE block's
     aux loss is added to ``rs.aux``."""
@@ -262,6 +307,8 @@ def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cach
     nk, eps = cfg.norm_kind, cfg.norm_eps
     if ch in ("M", "S"):
         return _apply_mamba(rs, ch, p, x, x_sum, cache)
+    if ch in ("C", "E"):
+        return _apply_encdec(rs, ch, p, x, x_sum, cache)
     if ch == "R":
         h = norm(p["tm_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
         y, _ = rwkv.rwkv_time_mix(p["time_mix"], h, cfg, cache)
@@ -315,6 +362,53 @@ def _apply_mamba(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
     return x, x_sum, cache
 
 
+def _apply_encdec(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
+    """An ``"E"`` sublayer (bidirectional self attention without a cache,
+    FFN) or a ``"C"`` one: causal self attention over ``k`` / ``v``, cross
+    attention over the encoder output's keys and values, FFN.
+
+    With frames (``rs.enc_out``) a ``"C"`` unit computes the cross K/V from
+    the encoder output in its dtype and, with a cache, writes them into
+    ``ck`` / ``cv`` in place — rounded to the cache's dtype *before* the
+    cross attention reads them, as the reference casts them; without a cache
+    they are used unrounded.  Without frames it reads the cached ``ck`` /
+    ``cv``; without frames or a cache there is nothing to attend to, and it
+    raises ``TypeError`` where the reference does (``cache["ck"]`` of
+    ``None``)."""
+    cfg = rs.cfg
+    nk, eps = cfg.norm_kind, cfg.norm_eps
+    h = norm(p["attn_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
+    if ch == "E":
+        a, _ = attention.gqa_attention(p["attn"], h, cfg=cfg, positions=rs.positions,
+                                       causal=False)
+        x, x_sum = _residual(x, a)
+    else:
+        self_cache = {"k": cache["k"], "v": cache["v"]} if cache is not None else None
+        a, _ = attention.gqa_attention(
+            p["attn"], h, cfg=cfg, positions=rs.positions, cache=self_cache, pos=rs.pos,
+            pad_len=rs.pad_len,
+        )
+        x, x_sum = _residual(x, a)
+        h = norm(p["cross_norm"], x_sum, nk, eps).to(x.dtype)
+        if rs.enc_out is not None:
+            ck, cv = attention.cross_kv(p["cross"], rs.enc_out, cfg=cfg)
+            if cache is not None:
+                ck, cv = cache["ck"].copy_(ck), cache["cv"].copy_(cv)
+        elif cache is None:
+            raise TypeError(
+                f"{cfg.name}: a forward without frames (prefix_embeds) and without a cache "
+                f"has no cross keys and values; the reference raises here too ('NoneType' "
+                f"object is not subscriptable at cache['ck'])"
+            )
+        else:
+            ck, cv = cache["ck"], cache["cv"]
+        x, x_sum = _residual(x, attention.cross_attention(p["cross"], h, cfg=cfg,
+                                                          enc_k=ck, enc_v=cv))
+    h = norm(p["ffn_norm"], x_sum, nk, eps).to(x.dtype)
+    x, x_sum = _residual(x, ffn.ffn_apply(p["ffn"], h, cfg))
+    return x, x_sum, cache
+
+
 def _residual(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``x + y`` in ``x.dtype`` (the residual stream) and the f32 sum it is
     rounded from (what the next norm in the unit reads)."""
@@ -344,6 +438,24 @@ def run_segments(rs: RunState, seg_params: list, x: torch.Tensor,
     return x, caches
 
 
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over the stub frontend's frames ``[B, T,
+    frontend_dim]``: ``frontend_proj``, the sinusoidal table, the ``"E"``
+    units (bidirectional, no cache; ``attn_impl="flash"`` is the
+    ``flash_attention`` kernel with ``causal=False``) and
+    ``enc_final_norm``.  As in the reference, the frames are not cast: the
+    encoder runs in their dtype, whatever ``cfg.dtype`` says."""
+    x = linear(params["frontend_proj"], frames)
+    b, t = x.shape[:2]
+    x = x + layers.sinusoidal_positions(t, cfg.d_model, device=x.device)[None].to(x.dtype)
+    rs = RunState(cfg=cfg, positions=torch.arange(t, device=x.device)[None].expand(b, t),
+                  pos=None)
+    enc = params["encoder"]
+    for u in range(cfg.encoder_layers):
+        x = unit_apply(rs, "E", tree.index(enc, u), x, None)
+    return norm(params["enc_final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -351,6 +463,7 @@ def forward(
     *,
     caches: Optional[list] = None,
     pos=None,                               # cache write offset: int or [B] tensor
+    prefix_embeds: Optional[torch.Tensor] = None,  # [B, T, frontend_dim] stub frontend
     last_token_only: bool = False,          # head over the final position only
     pad_len: Optional[torch.Tensor] = None, # [B] left-pad lengths; pad positions
                                             # become attention don't-cares and
@@ -359,10 +472,20 @@ def forward(
 ) -> tuple[torch.Tensor, Optional[list]]:
     """Returns ``(logits [B, S', V] f32, caches)``, or with ``return_hidden``
     the final-normed hidden states ``[B, S, D]`` in the model's dtype in
-    place of the logits."""
+    place of the logits.  On an enc-dec model ``prefix_embeds`` are the
+    frames :func:`encode` runs over; the decoder's cross attention reads its
+    output (and a cache keeps its keys and values for the decode steps)."""
     b, s = tokens.shape
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = params["embed"][tokens.long()].to(dtype)
+    enc_out = None
+    if prefix_embeds is not None and cfg.is_encdec:
+        enc_out = encode(params, cfg, prefix_embeds)
+    elif prefix_embeds is not None and cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: prefix_embeds prepended to the tokens (a frontend without an "
+            f"encoder) are not ported yet (ROADMAP Queue 1 item 2)"
+        )
     ar = torch.arange(s, device=x.device)[None].expand(b, s)
     if pos is None:
         positions = ar
@@ -375,8 +498,11 @@ def forward(
         # logical position i; RoPE and the causal mask use logical
         # positions, cache writes keep buffer offsets (``pos``).
         positions = positions - pad_len[:, None]
+    if cfg.rope_kind == "none":
+        # Absolute sinusoidal positions for rope-less decoders (whisper).
+        x = x + layers.sinusoid_at(positions, cfg.d_model).to(x.dtype)
     rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len,
-                  shared_attn=params.get("shared_attn"))
+                  shared_attn=params.get("shared_attn"), enc_out=enc_out)
     x, caches = run_segments(rs, params["segments"], x, caches)
     x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if return_hidden:

@@ -190,8 +190,13 @@ def test_gqa_attention_cached_branches_match_reference(branch):
 
 
 def test_unported_attention_kinds_raise():
-    with pytest.raises(NotImplementedError, match="cross attention is not ported"):
-        tattn.cross_attention()
+    """Cross attention is ported (tests/test_torch_whisper.py); a config
+    without attention is refused unless every unit is an RWKV "R" unit."""
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), attn_kind="none")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        transformer.check_supported(cfg)
 
 
 def test_quant_rows_equal_to_jitted_reference_at_served_shape():

@@ -195,7 +195,8 @@ def test_cuda_flash_attention_matches_plain_version():
                      ((1, 200, 4, 1, 160), None, {}),
                      ((2, 70, 4, 2, 16), 90, dict(causal=False, window=30))]
     cases += [((1, 130, 4, 2, 128), None, dict(window=64, softcap=30.0)),
-              ((2, 70, 4, 2, 128), 90, dict(causal=False, window=30))]
+              ((2, 70, 4, 2, 128), 90, dict(causal=False, window=30)),
+              ((4, 1500, 20, 20, 64), None, dict(causal=False))]   # whisper's encoder
     for shape, t, kw in cases:
         q, k, v = _qkv(shape, t, (shape, t, sorted(kw.items())))
         for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
@@ -212,6 +213,23 @@ def test_cuda_flash_attention_matches_plain_version():
                 want32 = tref.flash_attention_ref(tq.float(), tk.float(), tv.float(), **_kw(kw))
                 row = _row_err(got, want32)
                 assert row <= TOL_BF16_ROW, (shape, kw, row)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_takes_a_strided_head_dim():
+    """The ``lut`` mode's projections return a transposed view, so q, k and v
+    reach the kernel with a strided head dim: the entry point lays them out
+    first and gives the contiguous inputs' bits, on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v = _qkv((2, 96, 4, 2, 64), None, "strided")
+    for dt in (torch.float32, torch.bfloat16):
+        tq, tk, tv = (torch.from_numpy(a).to(dev, dt) for a in (q, k, v))
+        strided = [t.transpose(0, 3).contiguous().transpose(0, 3) for t in (tq, tk, tv)]
+        assert all(t.stride(3) != 1 for t in strided)
+        got = tops.flash_attention(*strided, causal=False)
+        assert torch.equal(got, tops.flash_attention(tq, tk, tv, causal=False)), dt
 
 
 @pytest.mark.cuda

@@ -96,9 +96,17 @@ def test_left_padded_prompt_matches_unpadded(pair):
 
 
 def test_unported_families_raise():
-    for arch in ("whisper-large-v3", "internvl2-1b"):
+    for arch in ("internvl2-1b",):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11|not ported"):
             transformer.check_supported(get_config(arch, smoke=True))
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+def test_whisper_passes_check_supported(smoke):
+    """The encoder-decoder path is ported (tests/test_torch_whisper.py)."""
+    cfg = get_config("whisper-large-v3", smoke=smoke)
+    transformer.check_supported(cfg)
+    assert cfg.is_encdec and cfg.frontend == "audio" and cfg.rope_kind == "none"
 
 
 def test_init_quantized_builds_stacked_leaves():
