@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
-``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv`` or
-``--phase whisper`` runs one
+``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
+``--phase whisper`` or ``--phase vlm_train`` runs one
 phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
@@ -77,14 +77,28 @@ entry points at published full widths:
   W1A3 ``lut`` copy calibrated with frames; the kernels at whisper's
   shapes;
 
+* internvl2-1b whole (phase 21): all 24 layers at published widths, the
+  stub vision frontend's 256 patches of 1024 projected and prepended to the
+  tokens, W4A4 ``pallas`` prepared, bf16, ``attn_impl="flash"`` — a
+  cache-free forward over 4 x (256 + 128) positions (``flash_attention`` at
+  head dim 64, causal, and ``lut_dequant_gemm``, all on the tensor cores),
+  ``Model.prefill(prefix_embeds=)`` and 64 greedy decode steps,
+  ``ServeEngine`` text only; a 2-layer f32 copy against the CPU and against
+  its own forward, a 4-layer W1A3 ``lut`` copy, the kernels at its shapes;
+  then **training** at full width (``repro_torch.train``: f32 parameters,
+  bf16 compute, each unit checkpointed, the chunked head, AdamW) for 10
+  steps under ``run_supervised`` with a failure at step 6, against a clean
+  run of the same steps;
+
 the serve paths with continuous batching; and the int-LUT model again under
-the capacity-budgeted autotuner (``repro_torch.tune``): ``ServeEngine(plan=)``
-with per-layer packing degrees from analytic plans at 16 and 4 GiB and a plan
-measured on the card, so ``lut_stream_gemm`` runs on two of its routes
-(the int8 tensor cores at p <= 5; at p = 6-8, R = 64-256, the lookup route,
+the capacity-budgeted autotuner (``repro_torch.tune``, phase 13, at 10 of
+stablelm-12b's 40 layers): ``ServeEngine(plan=)`` with per-layer packing
+degrees from analytic plans at 16 and 1 GiB and a plan measured on the card,
+so ``lut_stream_gemm`` runs on two of its routes (the int8 tensor cores at p
+<= 5; at p = 6-8, R = 64-256, the lookup route,
 ``lut_stream_lookup_sm90.cu``, the composed LUT slices streamed through
 shared memory), and the fixed-chunk driver (``decode="chunked"``); every
-planned serve gives phase 8's tokens.  Last, phase 8's model under live
+planned serve gives the tokens of the same tree served without a plan.  Last, phase 8's model under live
 operations (phase 15, at 10 of its 40 layers; ``repro_torch.ckpt``, ``serve.ops``, ``ft``): a
 prepared checkpoint saved and restored onto the card, a ``LiveServer`` whose
 factory restores it, killed at three waves, with its durable request log
@@ -1376,34 +1390,41 @@ def phase_serve(torch, dev, cfg, smi, *, phase, spec, kernel, max_prompt, max_ne
 # ---------------------------------------------------------------------------
 
 # The analytic plans of stablelm-12b's seven stacked W1A3 lut projections at
-# n_hint 4 (the reference planner's, tests/test_torch_tune.py): budget GiB ->
+# n_hint 4 over LIVE_LAYERS = 10 units (the reference planner's; at 40 units the
+# same choices come at 16 and 4 GiB, tests/test_torch_tune.py): budget GiB ->
 # ({projection: (p, prepared)}, total_bytes, table_bytes).  At p <= 5 a pack
 # takes lut_stream_gemm's tensor-core route (R <= 32), at p = 6-8 its lookup
-# route (R = 64-256); w_down at 4 GiB is served raw at p = 1 (R = 2, the
-# tensor cores).  Per serve of phase 8's requests (40 layers x 32 calls),
-# tensor-core / lookup / CUDA-core launches are 6400 / 2560 / 0 at 16 GiB and
-# 2560 / 6400 / 0 at 4 GiB (ROUTES_WANT).
+# route (R = 64-256); w_down at 1 GiB is served raw at p = 1 (R = 2, the
+# tensor cores).  Phase 13 plans LIVE_LAYERS units, not 40: planning, preparing
+# and serving scale with the depth, and each check holds at any depth.
 PLANS_WANT = {
     16: ({"wq": (5, True), "wk": (5, True), "wv": (5, True), "wo": (5, True),
-          "w_down": (5, True), "w_up": (7, True), "w_gate": (7, True)}, 7_601_487_360, 1_113_600),
-    4: ({"wq": (8, True), "wk": (5, True), "wv": (6, True), "wo": (8, True),
-         "w_up": (8, True), "w_gate": (8, True), "w_down": (1, False)}, 4_276_499_986, 12_154_386),
+          "w_down": (5, True), "w_up": (7, True), "w_gate": (7, True)}, 1_901_207_040, 1_113_600),
+    1: ({"wq": (8, True), "wk": (5, True), "wv": (7, True), "wo": (8, True),
+         "w_up": (8, True), "w_gate": (8, True), "w_down": (1, False)}, 1_072_922_898, 13_082_898),
 }
 
 
-ROUTES_WANT = {16: (6400, 2560, 0), 4: (2560, 6400, 0)}
+# Projections a unit puts on lut_stream_gemm's (tensor-core, lookup, CUDA-core)
+# routes under each plan: the launches of a serve are these x units x calls.
+ROUTES_WANT = {16: (5, 2, 0), 1: (2, 5, 0)}
 
 
 def check_plan_choices(plan, what):
     """A 16 GiB analytic plan over stablelm-12b at a cut depth: each
-    projection's (p, prepared) is phase 13's at 40 layers (the bytes scale
-    with the depth; ``verify_capacity`` checks them on the prepared tree)."""
+    projection's (p, prepared) is phase 13's (the same at 10 and 40 layers;
+    the bytes scale with the depth, and ``verify_capacity`` checks them on
+    the prepared tree)."""
     check({p.rsplit("/", 1)[-1]: (lp.p, lp.prepared) for p, lp in plan.layers.items()}
           == PLANS_WANT[16][0], f"{what}: the 16 GiB analytic plan's choices differ from "
                                 f"phase 13's")
 
 
-def check_route_counts(what, out, want):
+def check_route_counts(what, out, per_unit, n_units):
+    """lut_stream_gemm's launches by route in one planned serve: ``per_unit``
+    (a unit's projections on each route) x units x (prefills + decode steps)."""
+    calls = n_units * (out["prefills"] + out["decode_steps"])
+    want = tuple(n * calls for n in per_unit)
     got = (out["launches_tc"], out["launches_lookup"], out["launches_cuda_core"])
     check(got == want, f"{what}: lut_stream_gemm launches (tensor cores, lookup, CUDA cores) "
                        f"{got} != {want}")
@@ -1472,7 +1493,7 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
     torch.cuda.synchronize()
     outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
     digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
-    check(outs == want, f"{what}: tokens (crc32 {digest:08x}) differ from phase 8's")
+    check(outs == want, f"{what}: tokens (crc32 {digest:08x}) differ from the unplanned serve's")
     if decode == "scan":
         check(eng.host_syncs == len(records), f"{what}: host_syncs {eng.host_syncs} != "
                                               f"waves {len(records)}")
@@ -1531,7 +1552,7 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
             f"{what}: decode step B=4", device_time_by_kernel(torch, step, 2),
             out["step_ms"], kernel="lut_stream_gemm", card=smi)
         del caches
-    log(f"phase 13: {what}: tokens (crc32 {digest:08x}) equal phase 8's; {n_tok} tokens in "
+    log(f"phase 13: {what}: tokens (crc32 {digest:08x}) equal the unplanned serve's; {n_tok} tokens in "
         f"{wall:.3f} s ({out['tok_s']:.1f} tok/s end to end, prefill included"
         + (f"; prefill {out['prefill_wall_s']:.3f} s + decode {out['decode_wall_s']:.3f} s "
            f"wall over {len(records)} waves" if decode == "scan" else "")
@@ -1546,23 +1567,27 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
     return out
 
 
-def phase_planned_serve(torch, dev, cfg, smi, lserve):
-    """Phase 13: stablelm-12b at full width (40 layers, seed 0, bf16, W1A3
-    lut), calibrated on phase 8's 2 x 16 batch, served through
-    ``ServeEngine(plan=)`` on phase 8's 8 requests: the analytic plans at 16
-    and 4 GiB, a plan measured on the card at 16 GiB, and the 16 GiB plan
-    under ``decode="chunked"``; every serve's tokens equal phase 8's."""
+def phase_planned_serve(torch, dev, cfg, smi):
+    """Phase 13: stablelm-12b at full width (LIVE_LAYERS = 10 of its 40
+    layers: planning, preparing and serving scale with the depth, and the
+    script must stay in its time limit; seed 0, bf16, W1A3 lut), calibrated
+    on phase 8's 2 x 16 batch, served through ``ServeEngine(plan=)`` on phase
+    8's 8 requests: the analytic plans at 16 and 1 GiB (1 GiB at 10 layers
+    is 4 GiB at 40: both plans put projections on two routes), a plan
+    measured on the card at 16 GiB, and the 16 GiB plan under
+    ``decode="chunked"``; every serve's tokens equal those of the same tree
+    served without a plan (each leaf prepared at p = 4)."""
     import numpy as np
 
     from repro_torch.core import LutLinearSpec
     from repro_torch.core.calibrate import calibrate_tree
-    from repro_torch.models.model import build_model
+    from repro_torch.models.model import build_model, prepare_params
+    from repro_torch.serve.serving import ServeEngine
     from repro_torch.tune import Measurer, plan_model, space
     from repro_torch.tune.measure import measure_key
     from repro_torch.tune.plan import quantized_leaf_items
 
-    if cfg.n_layers != N_LAYERS:
-        cfg = dataclasses.replace(cfg, n_layers=N_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=LIVE_LAYERS)
     model = build_model(cfg)
     spec = LutLinearSpec(mode="lut", **LUT_SPEC)
     t0 = time.perf_counter()
@@ -1574,7 +1599,14 @@ def phase_planned_serve(torch, dev, cfg, smi, lserve):
     log(f"phase 13 [{smi}]: {cfg.name} {cfg.n_layers} layers, W1A3 lut raw tree built and "
         f"calibrated on {cal.size} tokens in {time.perf_counter() - t0:.1f} s")
     _lens, reqs = serve_requests(cfg, 64, 16)
-    want = lserve["outs"]
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, prepare_params(calibrated, n_hint=4), batch=4, max_seq=256,
+                      decode="scan", device=dev)
+    want = eng.generate(reqs)
+    del eng
+    log(f"phase 13: the unplanned serve (every leaf prepared at p = 4) in "
+        f"{time.perf_counter() - t0:.1f} s: tokens crc32 "
+        f"{zlib.crc32(json.dumps([list(map(int, o)) for o in want]).encode()):08x}")
     results = {}
     plans = {}
     for gib, (layers_want, total_want, tables_want) in PLANS_WANT.items():
@@ -1595,7 +1627,7 @@ def phase_planned_serve(torch, dev, cfg, smi, lserve):
                                              **serve_plan(torch, dev, model, calibrated, plan, reqs,
                                                           want, smi, what=f"{gib} GiB analytic plan"))
         check_route_counts(f"{gib} GiB analytic plan", results[f"analytic_{gib}GiB"],
-                           ROUTES_WANT[gib])
+                           ROUTES_WANT[gib], cfg.n_layers)
         plans[gib] = plan
 
     # A plan measured on the card: each candidate's eager apply_linear on
@@ -1615,10 +1647,10 @@ def phase_planned_serve(torch, dev, cfg, smi, lserve):
     table_leaf = next(path for path, _ in quantized_leaf_items(raw) if path.endswith("w_up"))
     q = dict(quantized_leaf_items(raw))[table_leaf]
     f, k = int(q.codes.shape[-2]), q.k
-    log(f"phase 13: candidates of {table_leaf} (F={f}, K={k}, x{N_LAYERS}), measured at N=128 "
+    log(f"phase 13: candidates of {table_leaf} (F={f}, K={k}, x{cfg.n_layers}), measured at N=128 "
         f"[{smi}]:")
     table = []
-    for c in space.layer_candidates(f, k, n_hint=4, base_spec=q.spec, stack=N_LAYERS,
+    for c in space.layer_candidates(f, k, n_hint=4, base_spec=q.spec, stack=cfg.n_layers,
                                     servable_only=True):
         us = meas.cache[measure_key(f, k, 128, q.spec, c)]
         table.append(dict(p=c.p, prepared=c.prepared, wcanon=c.wcanon,
@@ -1642,7 +1674,7 @@ def phase_planned_serve(torch, dev, cfg, smi, lserve):
                                           smi, what="16 GiB analytic plan, decode=chunked",
                                           decode="chunked")
     check_route_counts("16 GiB analytic plan, decode=chunked", results["chunked_16GiB"],
-                       ROUTES_WANT[16])
+                       ROUTES_WANT[16], cfg.n_layers)
     log(f"phase 13 [{smi}]: 16 GiB plan end to end: chunked "
         f"{results['chunked_16GiB']['tok_s']:.1f} tok/s, scan "
         f"{results['analytic_16GiB']['tok_s']:.1f} tok/s (tokens equal)")
@@ -3834,10 +3866,13 @@ def card_vs_cpu(torch, dev, cfg, n_layers, smi, *, what, seq=CPU_SEQ, tf=CPU_TF,
     (seed 3): one prefill of 2 x ``seq`` tokens on the card against the
     CPU's (the kernels' plain versions), and against a prefill of ``seq -
     tf`` followed by ``tf`` decode steps on the card, each within ``tol`` x
-    max |logit|.  Phases 18c, 19c and 20c.  An encoder-decoder copy is cut
-    to ``n_layers`` encoder layers too, and each prefill runs over the same
-    seeded f32 frames (the decode steps over the cached cross keys and
-    values)."""
+    max |logit|.  Phases 18c, 19c, 20c and 21b.  An encoder-decoder copy is
+    cut to ``n_layers`` encoder layers too, and each prefill runs over the
+    same seeded f32 frames (the decode steps over the cached cross keys and
+    values); a VLM's prefills run over seeded f32 patches prepended to the
+    tokens (the decode steps at offsets from P + S), and the last decode
+    step is also held against the cache-free forward over patches and
+    tokens."""
     from repro_torch import tree
     from repro_torch.core import LutLinearSpec
     from repro_torch.models.model import build_model
@@ -3850,21 +3885,26 @@ def card_vs_cpu(torch, dev, cfg, n_layers, smi, *, what, seq=CPU_SEQ, tf=CPU_TF,
                                                    seed=3, device=dev), n_hint=4)
     dtoks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
     toks_gpu = torch.from_numpy(dtoks).to(dev)
-    fr = {}
-    if dcfg.is_encdec:
+    fr, extra = {}, 0
+    if dcfg.frontend is not None:     # an enc-dec model's frames, or a VLM's patches
         fr = dict(prefix_embeds=whisper_frames(torch, dev, dcfg, 2, seed=4))
+        extra = 0 if dcfg.is_encdec else dcfg.frontend_seq
     lg_gpu, _ = dmodel.prefill(dparams, toks_gpu,
-                               dmodel.init_cache(2, seq, torch.float32, device=dev), **fr)
-    split = dmodel.init_cache(2, seq, torch.float32, device=dev)
+                               dmodel.init_cache(2, seq + extra, torch.float32, device=dev), **fr)
+    split = dmodel.init_cache(2, seq + extra, torch.float32, device=dev)
     dmodel.prefill(dparams, toks_gpu[:, : seq - tf], split, **fr)
     for t in range(seq - tf, seq):
-        lg_split, _ = dmodel.decode_step(dparams, toks_gpu[:, t : t + 1], split, t)
+        lg_split, _ = dmodel.decode_step(dparams, toks_gpu[:, t : t + 1], split, t + extra)
+    ferr = None
+    if extra:   # a VLM: the prefill + decode steps against the cache-free forward too
+        lg_fwd, _ = dmodel.forward(dparams, toks_gpu, last_token_only=True, **fr)
+        ferr = (lg_split - lg_fwd).abs().max().item()
     lg_gpu, lg_split = lg_gpu.cpu(), lg_split.cpu()
     params_cpu = tree.tree_map(lambda t: t.cpu(), dparams)
     del dparams, split
     t1 = time.perf_counter()
     lg_cpu, _ = dmodel.prefill(params_cpu, torch.from_numpy(dtoks),
-                               dmodel.init_cache(2, seq, torch.float32, device="cpu"),
+                               dmodel.init_cache(2, seq + extra, torch.float32, device="cpu"),
                                **{k: v.cpu() for k, v in fr.items()})
     cpu_s = time.perf_counter() - t1
     del params_cpu
@@ -3878,13 +3918,21 @@ def card_vs_cpu(torch, dev, cfg, n_layers, smi, *, what, seq=CPU_SEQ, tf=CPU_TF,
     check(serr <= tol * lscale,
           f"{what}: prefill of {seq} vs prefill of {seq - tf} + {tf} decode steps: max err "
           f"{serr:.3e} > {tol} x max|logit| {lscale:.3e}")
+    check(ferr is None or ferr <= tol * lscale,
+          f"{what}: prefill + decode steps vs the cache-free forward: max err {ferr} > {tol} x "
+          f"max|logit| {lscale:.3e}")
     log(f"{what} [{smi}]: {n_layers} layers at full width, f32, one prefill of 2 x {seq} "
-        f"tokens{' over 2 x ' + str(dcfg.frontend_seq) + ' frames' if fr else ''}: card "
+        f"tokens{' over 2 x ' + str(dcfg.frontend_seq) + (' frames' if dcfg.is_encdec else ' patches') if fr else ''}: card "
         f"(lut_dequant_gemm's CUDA-core route) vs CPU (plain versions, "
         f"{cpu_s:.1f} s): max err {lerr:.3e} = {lerr / lscale:.3e} x max|logit|; a prefill of "
         f"{seq - tf} + {tf} decode steps on the card: {serr:.3e} = {serr / lscale:.3e} x "
-        f"max|logit|")
-    return dict(rel_err=lerr / lscale, prefill_vs_decode_rel_err=serr / lscale, cpu_s=cpu_s)
+        f"max|logit|" + ("" if ferr is None else f"; against the cache-free forward over the "
+                         f"{extra} patches + {seq} tokens: {ferr:.3e} = {ferr / lscale:.3e} x "
+                         f"max|logit|"))
+    out = dict(rel_err=lerr / lscale, prefill_vs_decode_rel_err=serr / lscale, cpu_s=cpu_s)
+    if ferr is not None:
+        out["decode_vs_forward_rel_err"] = ferr / lscale
+    return out
 
 
 def phase_deepseek(torch, dev, smi):
@@ -4534,35 +4582,38 @@ def encdec_cache_bytes(cfg, batch, max_seq, elem_bytes=2):
     return per * cfg.frontend_seq, per * max_seq
 
 
-def whisper_flash(torch, dev, cfg, card, smi):
+def whisper_flash(torch, dev, cfg, card, smi, *, s=None, causal=False, f32=True,
+                  what="phase 20e", shape="the encoder's shape"):
     """flash_attention at the encoder's shape (B = 4, S = T = frontend_seq,
     all heads, no mask: ``causal=False``), bf16 (the tensor cores) and f32
     (the CUDA cores), against its plain version (phase 9's tolerances and,
     in bf16, its row check), timed beside the bound, the plain version and
     ``scaled_dot_product_attention(is_causal=False)``, which computes the
-    same function."""
+    same function.  ``s``, ``causal`` and ``f32=False`` (bf16 alone) set
+    another shape: phase 21d's, a VLM's 256 + 128 positions, causal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev).manual_seed(20)
-    b, s, h, hd = 4, cfg.frontend_seq, cfg.n_heads, cfg.hd
-    kw = dict(causal=False)
+    b, h, hd = 4, cfg.n_heads, cfg.hd
+    s = s or cfg.frontend_seq
+    kw = dict(causal=causal)
     rows, worst = [], 0.0
-    for dtype, want_route in ((torch.bfloat16, "tc"), (torch.float32, "cuda_core")):
+    for dtype, want_route in ((torch.bfloat16, "tc"), (torch.float32, "cuda_core"))[:1 + f32]:
         q, k, v = flash_inputs(torch, dev, gen, b, s, s, h, cfg.n_kv_heads, hd, dtype)
         route = fa.route(dtype, hd)
-        check(route == want_route, f"phase 20e: flash {dtype} hd {hd} routed to {route}")
+        check(route == want_route, f"{what}: flash {dtype} hd {hd} routed to {route}")
         before = fa.launches_tc
         got = fa.flash_attention(q, k, v, **flash_kw(kw))
-        check((fa.launches_tc - before) == (route == "tc"), f"phase 20e: flash {dtype} route count")
+        check((fa.launches_tc - before) == (route == "tc"), f"{what}: flash {dtype} route count")
         want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), **flash_kw(kw))
         err, scale = flash_err(torch, got, want32.to(dtype))
         tol = TOL_FLASH_BF16 * scale if dtype == torch.bfloat16 else TOL_FLASH_F32 * max(scale, 1.0)
         check(got.shape == q.shape and got.dtype == dtype and err <= tol,
-              f"phase 20e: flash {dtype} at the encoder's shape: max err {err:.3e} > {tol:.3e}")
+              f"{what}: flash {dtype} at {shape}: max err {err:.3e} > {tol:.3e}")
         row = flash_row_err(got, want32) if dtype == torch.bfloat16 else None
         check(row is None or row <= TOL_FLASH_BF16_ROW,
-              f"phase 20e: flash bf16 row error {row} > {TOL_FLASH_BF16_ROW}")
+              f"{what}: flash bf16 row error {row} > {TOL_FLASH_BF16_ROW}")
         worst = max(worst, err)
         del got, want32
         kern = time_ms(torch, lambda i: fa.flash_attention(q, k, v, **flash_kw(kw)), 5)
@@ -4570,17 +4621,17 @@ def whisper_flash(torch, dev, cfg, card, smi):
         lib_name, lib_fn = library_fn(torch, q, k, v, kw)
         lerr, lscale = flash_err(torch, lib_fn(), ref.flash_attention_ref(q, k, v, **flash_kw(kw)))
         check(lerr <= (TOL_FLASH_BF16 if dtype == torch.bfloat16 else TOL_FLASH_F32) *
-              max(lscale, 1.0), f"phase 20e: {lib_name} != plain ({dtype}): {lerr:.3e}")
+              max(lscale, 1.0), f"{what}: {lib_name} != plain ({dtype}): {lerr:.3e}")
         lib = time_ms(torch, lambda i: lib_fn(), 10)
         elem = 2 if dtype == torch.bfloat16 else 4
         bnd, by = flash_bound_s(b, s, s, h, cfg.n_kv_heads, hd, kw, elem, card)
         tflops = flash_ops(b, s, s, h, hd, kw) / (kern * 1e-3) / 1e12
-        rows.append(dict(shape="whisper encoder", dtype=str(dtype).split(".")[-1], B=b, S=s, T=s,
-                         H=h, Hkv=cfg.n_kv_heads, hd=hd, causal=False, route=route, ms=kern,
+        rows.append(dict(shape=shape, dtype=str(dtype).split(".")[-1], B=b, S=s, T=s,
+                         H=h, Hkv=cfg.n_kv_heads, hd=hd, causal=causal, route=route, ms=kern,
                          tflops=tflops, bound_fraction=bnd * 1e3 / kern, plain_ms=plain,
                          bound_ms=bnd * 1e3, bound_by=by, library=lib_name, library_ms=lib,
                          library_max_abs_err=lerr, max_abs_err=err, row_err=row))
-        log(f"  flash_attention, the encoder's shape B={b} S=T={s} H={h} hd={hd} causal=False "
+        log(f"  flash_attention, {shape} B={b} S=T={s} H={h} hd={hd} causal={causal} "
             f"{rows[-1]['dtype']}: kernel ({route}) {kern:.3f} ms = {tflops:.1f} TFLOP/s, "
             f"{bnd * 1e3 / kern:.3f} of its bound {bnd * 1e3:.4f} ms ({by}); plain {plain:.3f} "
             f"ms, {lib_name} {lib:.3f} ms; max err vs plain {err:.3e}"
@@ -4902,13 +4953,459 @@ def phase_whisper(torch, dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: internvl2-1b whole (the stub vision frontend) served, and trained
+# at full width (repro_torch.train, repro_torch.data, run_supervised)
+# ---------------------------------------------------------------------------
+
+VLM = "internvl2-1b"
+VL_TEXT = 128                 # 21a: the cache-free forward's tokens after the 256 patches
+VL_PROMPT = 32                # 21a: the prefill's tokens after the patches
+VL_DECODE = 64                # 21a: greedy decode steps after it
+VL_MAX_SEQ = 512              # 21a: the caches (256 + 32 + 64 positions used)
+VL_CUT_LAYERS = 2             # 21b: the f32 copy, card vs CPU
+VL_LUT_LAYERS = 4             # 21c: the W1A3 copy
+VL_TRAIN_BATCH = 4            # 21e: B, text tokens a row (after 256 patches), steps, and the
+VL_TRAIN_SEQ = 512            # supervisor's checkpoint period and injected failure
+VL_TRAIN_STEPS = 10
+VL_CKPT_EVERY = 4
+VL_FAIL_AT = 6
+VL_TRAIN_LR = 5e-4            # 21e: AdamW, warmed up over 3 steps, on the learnable stream
+VL_TRAIN_WARMUP = 3           # (PatternLM): a 10-step run whose loss must fall
+TOL_RESTART = 1e-6            # 21e: the reference's restart tolerance (tests/test_fault_tolerance.py)
+
+
+def train_bound_ms(params, cfg, b, s, card):
+    """The least time of one training step on the card: the operations of
+    forward + backward at the bf16 peak (6 x the multiply-adds' 2 FLOPs'
+    worth: the units' matrices over all B x (P + S) positions, the LM head
+    over the B x S text positions, ``frontend_proj`` over the B x P patches,
+    and the causal attention's two products over its visible pairs, x 3 for
+    the backward), no recomputation counted.  Returns ``(ms, flops)``."""
+    p = cfg.frontend_seq
+    length = p + s
+    from repro_torch import tree
+
+    n_seg = sum(t.numel() for t in tree.tensors(params["segments"]) if t.ndim == 3)
+    head = params["lm_head"]["w"] if "lm_head" in params else params["embed"]
+    flops = 6 * (n_seg * b * length + head.numel() * b * s
+                 + params["frontend_proj"]["w"].numel() * b * p)
+    pairs = length * (length + 1) // 2
+    flops += 3 * 4 * cfg.hd * pairs * cfg.n_heads * b * cfg.n_layers
+    return flops / card.peak_flops_bf16 * 1e3, flops
+
+
+def timed_ckpt():
+    """Wrap ``repro_torch.ckpt.checkpoint``'s ``save`` and ``restore`` (what
+    ``run_supervised`` calls) to record each call's seconds and bytes;
+    returns ``(records, undo)``."""
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    records = {"save": [], "restore": []}
+    save, restore = ckpt.save, ckpt.restore
+
+    def nbytes(state):
+        return sum(t.numel() * t.element_size()
+                   for t in tree.tensors(state.params) + tree.tensors(state.opt)
+                   + [state.step])
+
+    def timed_save(base, step, state):
+        t0 = time.perf_counter()
+        out = save(base, step, state)
+        records["save"].append((time.perf_counter() - t0, nbytes(state)))
+        return out
+
+    def timed_restore(*a, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        torch.cuda.synchronize()
+        records["restore"].append((time.perf_counter() - t0, nbytes(out)))
+        return out
+
+    ckpt.save, ckpt.restore = timed_save, timed_restore
+
+    def undo():
+        ckpt.save, ckpt.restore = save, restore
+
+    return records, undo
+
+
+def phase_vlm_train(torch, dev, smi):
+    """Phase 21: internvl2-1b (24 layers, d_model 896, 14 / 2 heads of 64,
+    d_ff 4864, vocab 151664; the stub vision frontend's 256 patches of 1024,
+    projected by the dense ``frontend_proj`` and prepended to the tokens) at
+    its published widths.
+
+    21a, served: W4A4 ``pallas`` prepared, bf16, ``attn_impl="flash"``.  A
+    cache-free forward over 4 x (256 + 128) positions: 168
+    ``lut_dequant_gemm`` (7 a layer) and 24 ``flash_attention`` (head dim
+    64, causal, over 384 positions) launches, all on the tensor cores;
+    ``Model.prefill(prefix_embeds=)`` over 4 x (256 + 32) (the caches'
+    first 288 positions), then 64 greedy decode steps at offsets from 288
+    (168 ``lut_dequant_gemm`` a step, no flash: the cached attention);
+    ``ServeEngine`` text only, as the reference serves (its ``Request``
+    carries no patches): 8 requests of 16-128 tokens, 32 new each, one host
+    sync a wave.  21b: a 2-layer f32 copy, card against CPU, prefill against
+    prefill + decode steps and against the cache-free forward, within 1e-4 x
+    max |logit|.  21c: a W1A3 p=4 copy cut to 4 layers, calibrated, served
+    (``lut_canon`` and ``lut_stream_gemm`` on the tensor cores; scan ==
+    loop == chunked).  21d: the applied shapes through phases 2 and 6's
+    sweeps at B = 4 and 4 x 384, and ``flash_attention`` at the forward's
+    shape against its plain version and ``scaled_dot_product_attention``.
+
+    21e, trained: f32 parameters, bf16 compute, ``attn_impl="xla"`` (the
+    kernels have no backward), each unit checkpointed, the chunked head
+    (vocab 151664, 512 text positions: two chunks of 256), AdamW; B = 4
+    rows of 256 patches + 512 tokens from the learnable counter-based stream.
+    10 steps under ``run_supervised`` saving every 4 steps with a failure
+    injected at step 6 (restored from step 4), beside a clean run of the same
+    10 steps: the loss finite and falling, the parameters moved, the steps
+    after the restart and the final state equal to the clean run's within
+    the reference's rtol 1e-6, no kernel launched, and a ``"flash"`` config
+    refusing to train.  Step time on CUDA events, tokens/s, the share of the
+    bound (:func:`train_bound_ms`), the optimizer's time, the checkpoint's
+    save and restore seconds and GB/s, peak memory."""
+    import numpy as np
+
+    from repro_torch import hw
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(what):
+        laps[what] = time.perf_counter() - t_phase - sum(laps.values())
+
+    cfg = dataclasses.replace(get_config(VLM), attn_impl="flash")
+    P = cfg.frontend_seq
+    out = {"laps_s": laps}
+    want_fwd = 7 * cfg.n_layers
+
+    # --- 21a: served, all 24 layers ------------------------------------------
+    model = build_model(cfg)
+    before_gc, base = held_before_build(torch, dev, "phase 21a")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.prepare(model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0,
+                                                device=dev), n_hint=4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    per_fwd, by_path = applied_projections(params)
+    shapes = projection_shapes(params)
+    check(per_fwd == want_fwd and isinstance(params["frontend_proj"], dict),
+          f"phase 21a: {per_fwd} applied projections a forward (want {want_fwd}); "
+          f"frontend_proj must stay dense")
+    log(f"phase 21a: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} x "
+        f"{cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers {transformer.segments(cfg)}, "
+        f"patches {P} x {cfg.frontend_dim}, W4A4 pallas, bf16, attn_impl=flash, built + "
+        f"prepared in {build_s:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the "
+        f"card; {per_fwd} applied projections a forward")
+    patches = whisper_frames(torch, dev, cfg, 4, seed=0)        # f32: cast by the model
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, VL_TEXT)).astype(np.int32)).to(dev)
+    reset_launches()
+    (flg, _), first_fwd_ms = once_ms(
+        torch, lambda: model.forward(params, toks, prefix_embeds=patches))
+    fc = read_launches()
+    check(fc["lut_dequant_gemm"] == fc["lut_dequant_gemm_tc"] == want_fwd
+          and fc["flash_attention"] == fc["flash_attention_tc"] == cfg.n_layers
+          and fc["lut_stream_gemm"] == 0,
+          f"phase 21a: the forward with patches launched {fc}; want {want_fwd} lut_dequant_gemm "
+          f"and {cfg.n_layers} flash_attention, all on the tensor cores")
+    check(flg.shape == (4, P + VL_TEXT, cfg.vocab_size) and bool(torch.isfinite(flg).all()),
+          f"phase 21a: forward logits {tuple(flg.shape)} or not finite")
+    del flg
+    fwd = lambda: model.forward(params, toks, prefix_embeds=patches,          # noqa: E731
+                                last_token_only=True)
+    fwd_ms = time_ms(torch, lambda i: fwd(), 3)
+    caches = model.init_cache(4, VL_MAX_SEQ, torch.bfloat16, device=dev)
+    ptoks = toks[:, :VL_PROMPT]
+    reset_launches()
+    (lg, _), first_prefill_ms = once_ms(
+        torch, lambda: model.prefill(params, ptoks, caches, prefix_embeds=patches))
+    pc = read_launches()
+    k0 = caches[0]["s0_D"]["k"]
+    check(pc["lut_dequant_gemm"] == pc["lut_dequant_gemm_tc"] == want_fwd
+          and pc["flash_attention"] == 0 and lg.shape == (4, 1, cfg.vocab_size)
+          and bool(k0[:, :, P + VL_PROMPT - 1].any()) and not bool(k0[:, :, P + VL_PROMPT:].any()),
+          f"phase 21a: the prefill with patches launched {pc} (want {want_fwd} lut_dequant_gemm on "
+          f"the tensor cores, no flash: the cached attention) or filled other than {P} + "
+          f"{VL_PROMPT} positions")
+    tok = lg[:, -1:].argmax(-1).to(torch.int32)
+    gen_toks = [tok]
+    reset_launches()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(VL_DECODE):
+        lg, _ = model.decode_step(params, tok, caches, P + VL_PROMPT + i)
+        tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        gen_toks.append(tok)
+    end.record()
+    torch.cuda.synchronize()
+    dc = read_launches()
+    loop_ms = start.elapsed_time(end)
+    out_toks = torch.cat(gen_toks, dim=1).cpu()
+    check(dc["lut_dequant_gemm"] == dc["lut_dequant_gemm_tc"] == want_fwd * VL_DECODE
+          and dc["flash_attention"] == 0 and dc["lut_stream_gemm"] == 0
+          and bool(torch.isfinite(lg).all())
+          and bool(((out_toks >= 0) & (out_toks < cfg.vocab_size)).all()),
+          f"phase 21a: {VL_DECODE} decode steps launched {dc}; want {want_fwd} lut_dequant_gemm a "
+          f"step on the tensor cores, no flash; finite logits")
+    digest = zlib.crc32(json.dumps(out_toks.tolist()).encode())
+    pos_t = P + VL_PROMPT + VL_DECODE
+    prefill = lambda: model.prefill(params, ptoks, caches, prefix_embeds=patches)  # noqa: E731
+    step = lambda: model.decode_step(params, tok, caches, pos_t)                   # noqa: E731
+    prefill_ms = time_ms(torch, lambda i: prefill(), 3)
+    step_ms = time_ms(torch, lambda i: step(), 5)
+    log(f"phase 21a [{smi}]: the cache-free forward over 4 x ({P} patches + {VL_TEXT} tokens): "
+        f"{fc['lut_dequant_gemm']} lut_dequant_gemm launches (tensor cores "
+        f"{fc['lut_dequant_gemm_tc']}), {fc['flash_attention']} flash_attention (hd {cfg.hd}, "
+        f"causal, tensor cores {fc['flash_attention_tc']}); {fwd_ms:.2f} ms (first "
+        f"{first_fwd_ms:.2f}, last-position head); prefill of 4 x ({P} + {VL_PROMPT}) "
+        f"{prefill_ms:.2f} ms (first {first_prefill_ms:.2f}); {VL_DECODE} greedy decode steps at "
+        f"offsets from {P + VL_PROMPT}: {dc['lut_dequant_gemm']} lut_dequant_gemm launches (= "
+        f"{want_fwd} x {VL_DECODE}), {loop_ms:.1f} ms ({4 * VL_DECODE / loop_ms * 1e3:.1f} "
+        f"tok/s), a step at {pos_t} {step_ms:.2f} ms; tokens crc32 {digest:08x}")
+    fprof = region_breakdown(torch, fwd, 1, fwd_ms, kernel="lut_dequant_gemm", card=smi,
+                             what=f"the forward over 4 x ({P} + {VL_TEXT})", labels=())
+    out["a"] = dict(launches_forward=fc, launches_prefill=pc, launches_decode=dc,
+                    per_forward=per_fwd, forward_ms=fwd_ms, first_forward_ms=first_fwd_ms,
+                    prefill_ms=prefill_ms, first_prefill_ms=first_prefill_ms, step_ms=step_ms,
+                    decode_steps=VL_DECODE, loop_ms=loop_ms, tok_s=4 * VL_DECODE / loop_ms * 1e3,
+                    tokens_crc32=digest, build_s=build_s, forward_profile=fprof,
+                    held_before_gb=base / 1e9, held_before_gc_gb=before_gc / 1e9)
+    del caches, prefill, step, fwd, k0, lg
+    torch.cuda.empty_cache()
+    eng = ServeEngine(model, params, batch=4, max_seq=VL_MAX_SEQ, decode="scan", device=dev)
+    lens, reqs = bucket_led_requests(cfg)
+    eng.generate([type(reqs[0])(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+    prefills, steps, launches = check_served(cfg, eng, outs, DS_NEW, records, counts,
+                                             sync_warnings, kernel="lut_dequant_gemm",
+                                             what="phase 21a serve")
+    check(launches == want_fwd * (prefills + steps) and eng.host_syncs == len(records),
+          f"phase 21a serve: {launches} launches, {eng.host_syncs} host syncs over "
+          f"{len(records)} waves")
+    sdigest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+    n_served = sum(len(o) for o in outs)
+    log(f"phase 21a [{smi}]: ServeEngine(batch=4, max_seq={VL_MAX_SEQ}) served {len(reqs)} "
+        f"requests text only (prompt lengths {lens.tolist()}), {n_served} tokens in {wall:.3f} s "
+        f"({n_served / wall:.1f} tok/s); {len(records)} waves, {prefills} prefills, {steps} "
+        f"decode steps, {eng.host_syncs} host syncs (one a wave); {launches} lut_dequant_gemm "
+        f"launches (= {per_fwd} x {prefills + steps}, all on the tensor cores); sync-debug "
+        f"warnings {len(sync_warnings)}; tokens crc32 {sdigest:08x}")
+    out["a"]["serve"] = dict(launches=launches, launches_tc=counts["lut_dequant_gemm_tc"],
+                             prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs,
+                             waves=len(records), wall_s=wall, tokens=n_served,
+                             tok_s=n_served / wall, tokens_crc32=sdigest)
+    del eng, params, patches
+    torch.cuda.empty_cache()
+    lap("21a")
+
+    # --- 21b: a 2-layer f32 copy against the CPU and against its forward -----
+    out["b"] = card_vs_cpu(torch, dev, cfg, VL_CUT_LAYERS, smi, what="phase 21b")
+    lap("21b")
+
+    # --- 21c: W1A3 lut at 4 layers ------------------------------------------
+    out["c"] = lut_cut_serve(torch, dev, cfg, VL_LUT_LAYERS, reqs, smi, what="phase 21c",
+                             want_per=7 * VL_LUT_LAYERS, drivers=("loop", "chunked"),
+                             max_seq=VL_MAX_SEQ)
+    lap("21c")
+
+    # --- 21d: the kernels at internvl2-1b's shapes -------------------------
+    rows_b = 4 * (P + VL_TEXT)
+    log(f"phase 21d: {cfg.name}'s {len(shapes)} distinct applied projection shapes (K, F) "
+        f"{shapes}, B = 4 and 4 x ({P} + {VL_TEXT}), bf16 x [{smi}]:")
+    rows, rel, abs_err = phase_kernel_times(torch, dev, cfg, hw.H100_SXM, bs=(4, rows_b),
+                                            iters=(10, 3, 3), label="phase 21d", shapes=shapes)
+    srows, sabs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi, shapes=shapes,
+                                     label="phase 21d", bs=(4, rows_b))
+    frows, fabs = whisper_flash(torch, dev, cfg, hw.H100_SXM, smi, s=P + VL_TEXT, causal=True,
+                                f32=False, what="phase 21d",
+                                shape=f"the VLM forward's shape ({P} patches + {VL_TEXT} tokens)")
+    out["d"] = dict(shapes=shapes, rows_b=rows_b, dequant_rows=rows, dequant_rel=rel,
+                    dequant_abs=abs_err, stream_rows=srows, stream_abs=sabs, flash_rows=frows,
+                    flash_abs=fabs)
+    lap("21d")
+
+    # --- 21e: training at full width -----------------------------------------
+    out["e"] = vlm_train(torch, dev, smi)
+    lap("21e")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 21: {out['seconds']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + ")")
+    return out
+
+
+def vlm_train(torch, dev, smi):
+    """Phase 21e (see :func:`phase_vlm_train`)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import hw, tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PatternLM, to_device
+    from repro_torch.ft import supervisor as sup
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cfg = get_config(VLM)
+    check(cfg.attn_impl == "xla" and cfg.dtype == "bfloat16", f"phase 21e: {cfg.name} config")
+    model = build_model(cfg)
+    P, B, S = cfg.frontend_seq, VL_TRAIN_BATCH, VL_TRAIN_SEQ
+    data = PatternLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                prefix_seq=P, prefix_dim=cfg.frontend_dim))
+    ocfg = opt.AdamWConfig(lr=VL_TRAIN_LR, warmup_steps=VL_TRAIN_WARMUP)
+    step_fn = ts.make_train_step(model, ocfg, remat=True)
+    batch_at = lambda i: to_device(data.batch_at(i), dev)                     # noqa: E731
+    init = lambda d: ts.init_train_state(model, 0, device=d)                   # noqa: E731
+    root = ROOT / "build" / "vlm_train"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # The clean run: the train step in a plain loop, each step on CUDA events.
+    t0 = time.perf_counter()
+    state = init(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    first_params = state.params
+    n_params = sum(t.numel() for t in tree.tensors(state.params))
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree.tensors(state.params) + tree.tensors(state.opt)) + 4
+    reset_launches()
+    clean_losses, step_ms = {}, []
+    for i in range(VL_TRAIN_STEPS):
+        batch = batch_at(i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        clean_losses[i + 1] = float(m["loss"])
+    launched = read_launches()
+    check(all(n == 0 for n in launched.values()),
+          f"phase 21e: training launched a kernel: {launched} (it runs plain torch autograd)")
+    clean = state
+    losses = [clean_losses[i] for i in range(1, VL_TRAIN_STEPS + 1)]
+    moved = max(float((a - b).abs().max()) for a, b in zip(tree.tensors(first_params),
+                                                             tree.tensors(clean.params)))
+    del first_params
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and np.mean(losses[-3:]) < np.mean(losses[:3]) and moved > 0,
+          f"phase 21e: losses {losses} must be finite and fall; parameters moved by {moved}")
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+
+    # The optimizer alone, on one step's gradients.
+    (_l, _x), grads = ts.value_and_grad(ts.make_loss_fn(model, remat=True), clean.params,
+                                        batch_at(VL_TRAIN_STEPS))
+    opt_ms = time_ms(torch, lambda i: opt.apply_updates(clean.params, grads, clean.opt, ocfg), 3)
+    del grads
+
+    # The supervised run: saved every 4 steps, killed at step 6, restored from step 4.
+    records, undo = timed_ckpt()
+    sup_losses = {}
+    try:
+        t0 = time.perf_counter()
+        faulty, restarts = sup.run_supervised(
+            cfg=sup.SupervisorConfig(ckpt_dir=str(root / "ckpt"), ckpt_every=VL_CKPT_EVERY),
+            init_state_fn=init, train_step_fn=step_fn, batch_at=batch_at,
+            n_steps=VL_TRAIN_STEPS,
+            injector=sup.FailureInjector(fail_at_steps=(VL_FAIL_AT,)),
+            on_metrics=lambda s, m: sup_losses.__setitem__(s, float(m["loss"])), device=dev)
+        torch.cuda.synchronize()
+        sup_s = time.perf_counter() - t0
+    finally:
+        undo()
+    restored_at = (VL_FAIL_AT // VL_CKPT_EVERY) * VL_CKPT_EVERY
+    check(restarts == 1 and len(records["restore"]) == 1 and len(records["save"]) == 3
+          and int(faulty.step) == VL_TRAIN_STEPS,
+          f"phase 21e: {restarts} restarts, {len(records['save'])} saves, "
+          f"{len(records['restore'])} restores, step {int(faulty.step)}")
+    after = range(restored_at + 1, VL_TRAIN_STEPS + 1)
+    loss_rel = max(abs(sup_losses[s] - clean_losses[s]) / abs(clean_losses[s]) for s in after)
+    worst, bit_equal = 0.0, True
+    for a, b in zip(tree.tensors(faulty.params) + tree.tensors(faulty.opt),
+                    tree.tensors(clean.params) + tree.tensors(clean.opt)):
+        if not torch.equal(a, b):
+            bit_equal = False
+            d = ((a.float() - b.float()).abs() - TOL_RESTART * b.float().abs()).max().item()
+            worst = max(worst, d)
+    check(loss_rel <= TOL_RESTART and worst <= TOL_RESTART,
+          f"phase 21e: after the restart the losses differ from the clean run's by {loss_rel:.3e} "
+          f"(relative) and the state by {worst:.3e} beyond rtol {TOL_RESTART}, atol "
+          f"{TOL_RESTART}")
+    del faulty
+    torch.cuda.empty_cache()
+
+    # The kernels have no backward: a "flash" config refuses to train.
+    fmodel = build_model(dataclasses.replace(cfg, attn_impl="flash"))
+    try:
+        ts.make_train_step(fmodel, ocfg, remat=True)(clean, batch_at(0))
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "no backward" in refused,
+          f"phase 21e: training under attn_impl='flash' did not refuse: {refused}")
+    del clean
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    bound_ms, flops = train_bound_ms(model.init(0, device="meta"), cfg, B, S, hw.H100_SXM)
+    steady = float(np.mean(step_ms[1:]))
+    save_s = [s for s, _n in records["save"]]
+    restore_s, restore_b = records["restore"][0]
+    res = dict(
+        batch=B, text_seq=S, patches=P, steps=VL_TRAIN_STEPS, params=n_params,
+        state_bytes=state_bytes, init_s=init_s, losses=losses, moved=moved,
+        step_ms=step_ms, steady_step_ms=steady, first_step_ms=step_ms[0],
+        text_tok_s=B * S / steady * 1e3, positions_s=B * (P + S) / steady * 1e3,
+        bound_ms=bound_ms, bound_by="operations", flops=flops, bound_fraction=bound_ms / steady,
+        achieved_tflops=flops / (steady * 1e-3) / 1e12, optimizer_ms=opt_ms, peak_gb=peak_gb,
+        held_before_gb=held / 1e9, save_s=save_s, save_gb_s=[n / s / 1e9 for s, n in
+                                                             records["save"]],
+        restore_s=restore_s, restore_gb_s=restore_b / restore_s / 1e9, supervised_s=sup_s,
+        restarts=restarts, restored_at=restored_at, restart_loss_rel_err=loss_rel,
+        restart_state_excess=worst, restart_bit_equal=bit_equal, flash_refused=(refused or "")[:200])
+    log(f"phase 21e [{smi}]: {cfg.name} trained at full width ({n_params:,} f32 parameters, "
+        f"bf16 compute, each unit checkpointed, chunked head, AdamW; B={B} x ({P} patches + "
+        f"{S} tokens)): losses {[round(x, 4) for x in losses]}; step {steady:.1f} ms (first "
+        f"{step_ms[0]:.1f}) = {B * S / steady * 1e3:.0f} text tok/s, "
+        f"{B * (P + S) / steady * 1e3:.0f} positions/s, {flops / (steady * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s, {bound_ms / steady:.3f} of the bound {bound_ms:.2f} ms (6 N tokens + "
+        f"attention at the bf16 peak); optimizer {opt_ms:.2f} ms; peak memory {peak_gb:.2f} GB "
+        f"above the {held / 1e9:.2f} GB held before; state {state_bytes / 1e9:.2f} GB saved in "
+        f"{', '.join(f'{s:.2f}' for s in save_s)} s "
+        f"({', '.join(f'{g:.2f}' for g in res['save_gb_s'])} GB/s), restored in "
+        f"{restore_s:.2f} s ({res['restore_gb_s']:.2f} GB/s, the file cache warm); the run "
+        f"killed at step {VL_FAIL_AT} and restored from step {restored_at} ({sup_s:.1f} s "
+        f"supervised): losses after the restart within {loss_rel:.3e} of the clean run's, the "
+        f"final state {'bit-equal' if bit_equal else f'within rtol {TOL_RESTART} (excess {worst:.3e})'}"
+        f"; no kernel launched; attn_impl='flash' refuses: {(refused or '')[:80]!r}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
-                                        "deepseek", "zamba2", "rwkv", "whisper"),
+                                        "deepseek", "zamba2", "rwkv", "whisper", "vlm_train"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19 "
-                         "or 20)")
+                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
+                         "20 or 21)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -4971,7 +5468,8 @@ def main(argv=None) -> int:
                  "deepseek": lambda: phase_deepseek(torch, dev, smi),
                  "zamba2": lambda: phase_zamba2(torch, dev, smi),
                  "rwkv": lambda: phase_rwkv(torch, dev, smi),
-                 "whisper": lambda: phase_whisper(torch, dev, smi)}
+                 "whisper": lambda: phase_whisper(torch, dev, smi),
+                 "vlm_train": lambda: phase_vlm_train(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -5008,7 +5506,7 @@ def main(argv=None) -> int:
                              kernel="lut_stream_gemm", max_prompt=64, max_new=16,
                              calibrate=True, iters=(2, 5))
         lap("8 lut serve")
-        planned = phase_planned_serve(torch, dev, cfg, smi, lserve)
+        planned = phase_planned_serve(torch, dev, cfg, smi)
         lap("13 planned serve")
         worst_rel, worst_abs = phase_kernel(torch, dev)
         lap("2 kernel sweep")
@@ -5037,13 +5535,18 @@ def main(argv=None) -> int:
         lap("19 rwkv")
         whisper = alone["whisper"]()
         lap("20 whisper")
+        vlm = alone["vlm_train"]()
+        lap("21 vlm + training")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
-                        rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"])
+                        rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"],
+                        vlm["d"]["dequant_rel"])
         worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"], zamba2["d"]["dequant_abs"],
-                        rwkv["d"]["dequant_abs"], whisper["e"]["dequant_abs"])
+                        rwkv["d"]["dequant_abs"], whisper["e"]["dequant_abs"],
+                        vlm["d"]["dequant_abs"])
         stream_abs = max(stream_abs, deepseek["e"]["stream_abs"], zamba2["d"]["stream_abs"],
-                         rwkv["d"]["stream_abs"], whisper["e"]["stream_abs"])
-        flash_abs = max(flash_abs, whisper["e"]["flash_abs"])
+                         rwkv["d"]["stream_abs"], whisper["e"]["stream_abs"],
+                         vlm["d"]["stream_abs"])
+        flash_abs = max(flash_abs, whisper["e"]["flash_abs"], vlm["d"]["flash_abs"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5097,6 +5600,12 @@ def main(argv=None) -> int:
                 f"({', '.join(whisper['e']['shapes'])}), {what} (device time)")
 
     wh_rows = whisper["e"]["rows_b"]
+
+    def vl_at(what):
+        return (f"phase 21d: internvl2-1b's distinct applied projection shapes, once each "
+                f"({', '.join(vlm['d']['shapes'])}), {what} (device time)")
+
+    vl_rows = vlm["d"]["rows_b"]
 
     def canon_times(rs, b, at):
         return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
@@ -5183,6 +5692,24 @@ def main(argv=None) -> int:
             "decode": times(whisper["e"]["dequant_rows"], 4, wh_at("B=4, W4, bf16 x")),
             "prefill": times(whisper["e"]["dequant_rows"], wh_rows,
                              wh_at(f"B={wh_rows} (the encoder's 4 x 1500 rows), W4, bf16 x"))},
+        "vlm": {
+            "at": f"phase 21a: internvl2-1b, all 24 layers, W4A4 pallas, bf16, attn_impl=flash: "
+                  f"the cache-free forward over 4 x (256 patches + {VL_TEXT} tokens), a prefill "
+                  f"of 4 x (256 + {VL_PROMPT}) and {VL_DECODE} greedy decode steps (CUDA events), "
+                  f"ServeEngine(batch=4, max_seq={VL_MAX_SEQ}) text only; 21b card vs CPU at "
+                  f"2 layers f32",
+            "launches": vlm["a"]["launches_forward"]["lut_dequant_gemm"]
+            + vlm["a"]["launches_prefill"]["lut_dequant_gemm"]
+            + vlm["a"]["launches_decode"]["lut_dequant_gemm"],
+            **{k: vlm["a"][k] for k in ("launches_forward", "launches_prefill", "launches_decode",
+                                        "forward_ms", "prefill_ms", "step_ms", "tok_s",
+                                        "serve")},
+            "card_vs_cpu_rel_err": vlm["b"]["rel_err"],
+            "prefill_vs_decode_rel_err": vlm["b"]["prefill_vs_decode_rel_err"],
+            "decode_vs_forward_rel_err": vlm["b"]["decode_vs_forward_rel_err"],
+            "decode": times(vlm["d"]["dequant_rows"], 4, vl_at("B=4, W4, bf16 x")),
+            "prefill": times(vlm["d"]["dequant_rows"], vl_rows,
+                             vl_at(f"B={vl_rows} (the forward's 4 x 384 rows), W4, bf16 x"))},
         "ok": True,
     }, {
         "name": "lut_stream_gemm",
@@ -5238,6 +5765,13 @@ def main(argv=None) -> int:
             "decode": stream_times(whisper["e"]["stream_rows"], 4, wh_at("N=4, W1A3 p=4")),
             "prefill": stream_times(whisper["e"]["stream_rows"], wh_rows,
                                     wh_at(f"N={wh_rows}, W1A3 p=4"))},
+        "vlm": {
+            "at": f"phase 21c: internvl2-1b at full width, depth cut to {VL_LUT_LAYERS} layers, "
+                  f"W1A3 p=4 lut calibrated + prepared, phase 21a's requests",
+            **vlm["c"],
+            "decode": stream_times(vlm["d"]["stream_rows"], 4, vl_at("N=4, W1A3 p=4")),
+            "prefill": stream_times(vlm["d"]["stream_rows"], vl_rows,
+                                    vl_at(f"N={vl_rows}, W1A3 p=4"))},
         "planned_serve": {
             "at": "phase 13: stablelm-12b W1A3 lut served through ServeEngine(plan=) on phase "
                   "8's requests; launches by route from the counters, times on the host clock",
@@ -5315,6 +5849,11 @@ def main(argv=None) -> int:
             "decode": canon_times(whisper["e"]["stream_rows"], 4, wh_at("N=4, W1A3 p=4")),
             "prefill": canon_times(whisper["e"]["stream_rows"], wh_rows,
                                    wh_at(f"N={wh_rows}, W1A3 p=4"))},
+        "vlm": {
+            "launches": vlm["c"]["launches_canon"],
+            "decode": canon_times(vlm["d"]["stream_rows"], 4, vl_at("N=4, W1A3 p=4")),
+            "prefill": canon_times(vlm["d"]["stream_rows"], vl_rows,
+                                   vl_at(f"N={vl_rows}, W1A3 p=4"))},
         "ok": True,
     }, {
         "name": "flash_attention",
@@ -5342,6 +5881,16 @@ def main(argv=None) -> int:
             **{k: whisper["e"]["flash_rows"][0][k] for k in
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")},
             "shapes": whisper["e"]["flash_rows"]},
+        "vlm": {
+            "at": f"phase 21a: internvl2-1b's cache-free forward, causal, B=4, S=T=256+{VL_TEXT}, "
+                  f"14 / 2 heads of 64 (bf16: the tensor cores); 21d the kernel at that shape "
+                  f"beside scaled_dot_product_attention(is_causal=True); none in training "
+                  f"(attn_impl=xla: the kernel has no backward)",
+            "launches": vlm["a"]["launches_forward"]["flash_attention"],
+            "launches_tc": vlm["a"]["launches_forward"]["flash_attention_tc"],
+            **{k: vlm["d"]["flash_rows"][0][k] for k in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")},
+            "shapes": vlm["d"]["flash_rows"]},
         "ok": True,
     }]}
     print(json.dumps({"phase": "obs", "card": smi, "result": obs}, default=str))
@@ -5349,6 +5898,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "zamba2", "card": smi, "result": zamba2}, default=str))
     print(json.dumps({"phase": "rwkv", "card": smi, "result": rwkv}, default=str))
     print(json.dumps({"phase": "whisper", "card": smi, "result": whisper}, default=str))
+    print(json.dumps({"phase": "vlm_train", "card": smi, "result": vlm}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -160,9 +160,11 @@ _is_node = trees._is_node
 
 def _data_fields(node) -> list:
     """A dataclass node's array-carrying fields in declaration order (the
-    reference registers the same ones as data, the rest as static)."""
+    reference registers the same ones as data, the rest as static): arrays,
+    dataclass nodes, and dicts (a training state's parameter and optimizer
+    trees)."""
     return [f.name for f in dataclasses.fields(node)
-            if isinstance(getattr(node, f.name), (torch.Tensor, np.ndarray))
+            if isinstance(getattr(node, f.name), (torch.Tensor, np.ndarray, dict))
             or _is_node(getattr(node, f.name))]
 
 

@@ -7,7 +7,9 @@ with quantized leaves still the reference's ``QuantizedLinear`` /
 tree with the same keys and stacked shapes.  The quantized leaves are
 recognised by their fields (``codes``, ``scale``, ``bias``, ``spec``, ``k``,
 ``ascale``; ``wcodes`` and ``p`` mark a prepared one), so nothing of the
-reference is imported and no JAX is needed.
+reference is imported and no JAX is needed.  :func:`train_state_from_numpy`
+carries a reference training state (parameters, AdamW moments, steps) over
+the same way, so both packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -67,3 +69,19 @@ def params_from_numpy(tree, *, device="cuda"):
         return _tensor(node, dev)
 
     return walk(tree)
+
+
+def train_state_from_numpy(state, *, device="cuda"):
+    """Reference ``TrainState`` (numpy leaves: ``params``, ``opt`` with
+    ``mu`` / ``nu`` / ``step``, ``step``) -> the port's
+    :class:`repro_torch.train.train_step.TrainState` on ``device``."""
+    from repro_torch.train.train_step import TrainState
+
+    dev = devices.resolve(device)
+    return TrainState(
+        params=params_from_numpy(state.params, device=dev),
+        opt={"mu": params_from_numpy(state.opt["mu"], device=dev),
+             "nu": params_from_numpy(state.opt["nu"], device=dev),
+             "step": _tensor(state.opt["step"], dev)},
+        step=_tensor(state.step, dev),
+    )

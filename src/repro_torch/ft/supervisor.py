@@ -1,4 +1,4 @@
-"""Fault-tolerant supervision: the restart discipline of the port's serving
+"""Fault-tolerant supervision: the restart discipline of the port's training and serving
 (counterpart of ``repro.ft.supervisor``).
 
 * **generic supervision** — :func:`supervise` runs any restartable body under
@@ -12,13 +12,17 @@
   the continuous-batching serve loop in :func:`supervise`; a killed engine
   replays its in-flight slots from the durable request log (token-identical
   recovery, see ``serve/ops.py``).
+* **checkpoint/restart training** — :func:`run_supervised`: the training loop
+  is a pure function of (TrainState, step); on any retryable failure the
+  supervisor restores the latest committed checkpoint and resumes.  The
+  synthetic data pipeline is counter-based, so a resumed run replays the
+  exact same batches.  Restores are validated against the structure
+  ``init_state_fn`` builds on the ``meta`` device (the reference's
+  ``jax.eval_shape``): a checkpoint directory from a different config fails
+  loudly.
 * **failure injection** — :class:`FailureInjector` raises at configured serve
   *waves* (mid-decode, between two admission waves' host syncs), train
   *steps*, or whenever a *poison* request emits.
-
-Not yet ported: ``SupervisorConfig`` / ``run_supervised`` (checkpoint/restart
-training), which restore the training state through ``jax.eval_shape``; they
-come with the training slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -28,7 +32,10 @@ import random
 import time
 from typing import Callable, Optional
 
-from repro_torch import timing
+import torch
+
+from repro_torch import devices, timing
+from repro_torch.ckpt import checkpoint as ckpt
 
 
 class InjectedFailure(RuntimeError):
@@ -170,3 +177,57 @@ def supervise(
             # the garbage collector runs.
             first_failure = None
             return result, restarts
+
+
+@dataclasses.dataclass
+class SupervisorConfig:
+    ckpt_dir: str
+    ckpt_every: int = 10
+    max_restarts: int = 8
+
+
+def run_supervised(
+    *,
+    cfg: SupervisorConfig,
+    init_state_fn: Callable[[torch.device], object],
+    train_step_fn: Callable,              # (state, batch) -> (state, metrics)
+    batch_at: Callable[[int], object],    # counter-based data access
+    n_steps: int,
+    injector: Optional[FailureInjector] = None,
+    on_metrics: Optional[Callable[[int, dict], None]] = None,
+    policy: Optional[RestartPolicy] = None,
+    device="cuda",
+):
+    """Run ``n_steps`` with checkpoint/restart; returns (state, restarts).
+
+    ``init_state_fn(device)`` builds the initial state on ``device``; on the
+    ``meta`` device it gives the structure (shapes and dtypes, no data) that
+    every restore is validated against and unflattened into, so a
+    mismatched tree raises instead of silently mis-unflattening.  The state
+    is saved every ``cfg.ckpt_every`` steps and after the last.  ``policy``
+    defaults to retrying :class:`InjectedFailure` only, ``cfg.max_restarts``
+    times."""
+    policy = policy or RestartPolicy(max_restarts=cfg.max_restarts)
+    dev = devices.resolve(device)
+
+    def body(_attempt: int):
+        latest = ckpt.latest_step(cfg.ckpt_dir)
+        if latest is None:
+            state = init_state_fn(dev)
+            step = 0
+        else:
+            like = init_state_fn(torch.device("meta"))
+            state = ckpt.restore(cfg.ckpt_dir, latest, like, device=dev, validate=True)
+            step = latest
+        while step < n_steps:
+            if injector is not None:
+                injector.maybe_fail(step)
+            state, metrics = train_step_fn(state, batch_at(step))
+            step += 1
+            if on_metrics is not None:
+                on_metrics(step, metrics)
+            if step % cfg.ckpt_every == 0 or step == n_steps:
+                ckpt.save(cfg.ckpt_dir, step, state)
+        return state
+
+    return supervise(body, policy=policy)

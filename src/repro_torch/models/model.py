@@ -168,9 +168,11 @@ class Model:
 
     def init(self, seed: int = 0, *, device="cuda", unit_fn=None) -> dict:
         """Random f32 parameters from ``torch.Generator(device).manual_seed(seed)``
-        (see :func:`repro_torch.models.transformer.init_params`)."""
+        (see :func:`repro_torch.models.transformer.init_params`).  On the
+        ``meta`` device only the shapes and dtypes are made (the structure a
+        checkpoint is restored into)."""
         dev = devices.resolve(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
         return transformer.init_params(self.cfg, gen, device=dev, unit_fn=unit_fn)
 
     def init_quantized(self, spec: LutLinearSpec, seed: int = 0, *, device="cuda") -> dict:
@@ -192,8 +194,10 @@ class Model:
         LM head).  Without caches, attention runs ``cfg.attn_impl``:
         ``"flash"`` is the ``flash_attention`` kernel on the card.  ``kw``
         goes to :func:`repro_torch.models.transformer.forward`
-        (``prefix_embeds=`` the frames of an enc-dec model, ``caches``,
-        ``pos``, ``pad_len``, ``last_token_only``)."""
+        (``prefix_embeds=`` the frames of an enc-dec model or the patches of
+        a VLM, ``caches``, ``pos``, ``pad_len``, ``last_token_only``,
+        ``remat``, and ``return_aux=True`` for the MoE aux loss as a third
+        element)."""
         return transformer.forward(params, self.cfg, tokens, return_hidden=return_hidden, **kw)
 
     def prefill(self, params, tokens, caches, *, prefix_embeds=None, pad_len=None):
@@ -203,7 +207,9 @@ class Model:
         so a left-padded prompt prefills output-identically to the unpadded
         one.  On an enc-dec model ``prefix_embeds`` are the frames: the
         encoder runs over them and the cross caches ``ck`` / ``cv`` are
-        filled for the decode steps that follow."""
+        filled for the decode steps that follow.  On a VLM they are the
+        ``P`` patches, prepended to the tokens: the prefill fills ``P + S``
+        cache positions, and the next decode offset is ``P + S``."""
         return transformer.forward(
             params, self.cfg, tokens, caches=caches, pos=0, prefix_embeds=prefix_embeds,
             last_token_only=True, pad_len=pad_len,

@@ -21,11 +21,18 @@ are updated in place.
 
 Decoders of ``"D"``, ``"L"``, ``"G"`` and ``"F"`` units are ported, with GQA
 or MLA attention (``cfg.attn_kind``) and dense or MoE FFNs, zamba2's hybrid
-of ``"M"`` and ``"S"`` units, RWKV6's attention-free ``"R"`` units and
+of ``"M"`` and ``"S"`` units, RWKV6's attention-free ``"R"`` units,
 whisper's encoder-decoder (``prefix_embeds`` through the encoder, sinusoidal
-positions for ``rope_kind="none"``); a frontend without an encoder (the VLM
-branch: patch embeddings prepended to the tokens) raises
-``NotImplementedError`` until its slice (ROADMAP Queue 1).
+positions for ``rope_kind="none"``) and the VLM branch of a frontend without
+an encoder (internvl2: ``prefix_embeds`` are patch embeddings, cast to the
+model's dtype, projected by ``frontend_proj`` and prepended to the tokens).
+
+``forward(remat=True)`` checkpoints each unit of a cache-free forward under
+autograd (``torch.utils.checkpoint``; the reference's ``jax.checkpoint``
+around its scan body): backward recomputes a unit's activations from its
+input instead of keeping them.  ``forward(return_aux=True)`` also returns
+the MoE load-balance loss summed over the pass, as the reference's third
+output.
 
 Inside a unit, a norm that follows a residual add reads the unrounded f32
 sum, while the residual stream itself is stored in ``x.dtype``: the
@@ -91,7 +98,9 @@ def unported_for_plans(cfg: ModelConfig) -> Optional[str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
+    """Raise for what the port does not run: units outside
+    :data:`PORTED_UNITS`, or a config without attention whose units are not
+    all ``"R"``."""
     kinds = unit_kinds(cfg)
     attn_ok = cfg.attn_kind in ("gqa", "mla") or (cfg.attn_kind == "none" and kinds == {"R"})
     if not kinds <= PORTED_UNITS or not attn_ok:
@@ -100,12 +109,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"ported yet (only decoders of {sorted(PORTED_UNITS)} units with GQA or MLA "
             f"attention, or of \"R\" units alone without it); they wait for the other "
             f"model families (ROADMAP)"
-        )
-    if cfg.frontend is not None and not cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: a {cfg.frontend} frontend without an encoder (prefix_embeds "
-            f"projected and prepended to the tokens) is not ported yet (ROADMAP Queue 1 "
-            f"item 2)"
         )
 
 
@@ -425,16 +428,43 @@ def unit_apply(rs: RunState, pattern: str, unit_p: dict, x: torch.Tensor, unit_c
     return x
 
 
+def _unit_remat(rs: RunState, pattern: str, unit_p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A cache-free unit under ``torch.utils.checkpoint``: its activations
+    are recomputed in backward.  The unit's MoE aux loss is returned by the
+    checkpointed function rather than added to ``rs.aux`` inside it, so the
+    recomputation in backward leaves ``rs`` as the forward left it."""
+    from torch.utils.checkpoint import checkpoint
+
+    def body(x_in):
+        outer, rs.aux = rs.aux, None
+        try:
+            return unit_apply(rs, pattern, unit_p, x_in, None), rs.aux
+        finally:
+            rs.aux = outer
+
+    x, aux = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+    if aux is not None:
+        rs.aux = aux if rs.aux is None else rs.aux + aux
+    return x
+
+
 def run_segments(rs: RunState, seg_params: list, x: torch.Tensor,
-                 caches: Optional[list]):
+                 caches: Optional[list], *, remat: bool = False):
     """Loop over every unit of every segment; returns ``(x, caches)`` — the
-    caches are the ones passed in, updated in place."""
+    caches are the ones passed in, updated in place.  A stack's units are
+    taken with one ``unbind`` a leaf (:func:`repro_torch.tree.unstack`), so
+    the gradient of a stacked leaf is one stack of the units' gradients.
+    ``remat`` checkpoints each unit of a cache-free pass under autograd."""
+    remat = remat and caches is None and torch.is_grad_enabled()
     for si, (pattern, n_units) in enumerate(segments(rs.cfg)):
-        p_stack = seg_params[si]
+        units = tree.unstack(seg_params[si], n_units)
         c_stack = caches[si] if caches is not None else None
         for u in range(n_units):
+            if remat:
+                x = _unit_remat(rs, pattern, units[u], x)
+                continue
             unit_c = tree.index(c_stack, u) if c_stack is not None else None
-            x = unit_apply(rs, pattern, tree.index(p_stack, u), x, unit_c)
+            x = unit_apply(rs, pattern, units[u], x, unit_c)
     return x, caches
 
 
@@ -463,18 +493,31 @@ def forward(
     *,
     caches: Optional[list] = None,
     pos=None,                               # cache write offset: int or [B] tensor
-    prefix_embeds: Optional[torch.Tensor] = None,  # [B, T, frontend_dim] stub frontend
+    prefix_embeds: Optional[torch.Tensor] = None,  # [B, P, frontend_dim] stub frontend
     last_token_only: bool = False,          # head over the final position only
     pad_len: Optional[torch.Tensor] = None, # [B] left-pad lengths; pad positions
                                             # become attention don't-cares and
                                             # logical positions shift by -pad_len
     return_hidden: bool = False,            # skip the LM head
-) -> tuple[torch.Tensor, Optional[list]]:
+    remat: bool = False,                    # checkpoint each unit (training)
+    return_aux: bool = False,               # also return the MoE aux loss
+):
     """Returns ``(logits [B, S', V] f32, caches)``, or with ``return_hidden``
-    the final-normed hidden states ``[B, S, D]`` in the model's dtype in
-    place of the logits.  On an enc-dec model ``prefix_embeds`` are the
-    frames :func:`encode` runs over; the decoder's cross attention reads its
-    output (and a cache keeps its keys and values for the decode steps)."""
+    the final-normed hidden states ``[B, S', D]`` in the model's dtype in
+    place of the logits; with ``return_aux`` a third element, the MoE
+    load-balance loss summed over the pass (f32, 0 without MoE layers), as
+    the reference returns ``(out, caches, aux)``.
+
+    On an enc-dec model ``prefix_embeds`` are the frames :func:`encode` runs
+    over; the decoder's cross attention reads its output (and a cache keeps
+    its keys and values for the decode steps).  On a model with a frontend
+    and no encoder (the VLM) they are ``P`` patch embeddings: cast to the
+    model's dtype, projected by ``frontend_proj`` and prepended to the
+    embedded tokens, so positions, cache writes and the logits run over ``P
+    + S``.  As in the reference, ``pad_len`` then counts from the first
+    patch: a left-padded prompt's first ``pad_len`` *buffer* positions
+    (patches, not the pad tokens) become the don't-cares, and the logical
+    positions shift the patches too."""
     b, s = tokens.shape
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = params["embed"][tokens.long()].to(dtype)
@@ -482,10 +525,9 @@ def forward(
     if prefix_embeds is not None and cfg.is_encdec:
         enc_out = encode(params, cfg, prefix_embeds)
     elif prefix_embeds is not None and cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix_embeds prepended to the tokens (a frontend without an "
-            f"encoder) are not ported yet (ROADMAP Queue 1 item 2)"
-        )
+        pe = linear(params["frontend_proj"], prefix_embeds.to(x.dtype))
+        x = torch.cat([pe, x], dim=1)
+        s = x.shape[1]
     ar = torch.arange(s, device=x.device)[None].expand(b, s)
     if pos is None:
         positions = ar
@@ -503,13 +545,17 @@ def forward(
         x = x + layers.sinusoid_at(positions, cfg.d_model).to(x.dtype)
     rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len,
                   shared_attn=params.get("shared_attn"), enc_out=enc_out)
-    x, caches = run_segments(rs, params["segments"], x, caches)
+    x, caches = run_segments(rs, params["segments"], x, caches, remat=remat)
     x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    if return_hidden:
+    if not return_hidden:
+        if last_token_only:
+            x = x[:, -1:, :]
+        x = lm_head(params, cfg, x)
+    if not return_aux:
         return x, caches
-    if last_token_only:
-        x = x[:, -1:, :]
-    return lm_head(params, cfg, x), caches
+    aux = rs.aux if rs.aux is not None else torch.zeros((), dtype=torch.float32,
+                                                        device=x.device)
+    return x, caches, aux
 
 
 def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,32 @@ def index(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` units of a stacked tree, each leaf split by one ``unbind``
+    (views, as :func:`index` gives): under autograd the gradient of a
+    stacked leaf is then one stack of its units' gradients, not ``n``
+    full-size scatters added up.  A dataclass node's static fields are
+    shared by its units."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    if _is_node(tree):
+        names = [f.name for f in dataclasses.fields(tree)
+                 if isinstance(getattr(tree, f.name), torch.Tensor)
+                 or _is_node(getattr(tree, f.name))]
+        if not names:
+            return [tree] * n
+        parts = {name: unstack(getattr(tree, name), n) for name in names}
+        return [dataclasses.replace(tree, **{k: v[i] for k, v in parts.items()})
+                for i in range(n)]
+    return [tree] * n
+
+
 def sort_keys(tree):
     """The tree with every dict's keys in sorted order, recursively: the order
     jax's tree operations give every reference tree, so both packages walk a

@@ -96,9 +96,14 @@ def test_left_padded_prompt_matches_unpadded(pair):
 
 
 def test_unported_families_raise():
+    """Every config of the repo is ported (internvl2-1b's VLM branch was the
+    last, tests/test_torch_vlm.py); a unit kind outside ``PORTED_UNITS``
+    still raises."""
     for arch in ("internvl2-1b",):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11|not ported"):
-            transformer.check_supported(get_config(arch, smoke=True))
+        transformer.check_supported(get_config(arch, smoke=True))
+    cfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), layer_pattern="DX")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        transformer.check_supported(cfg)
 
 
 @pytest.mark.parametrize("smoke", [True, False])

@@ -539,24 +539,33 @@ def test_init_quantized_quantizes_the_encoder_and_keeps_the_frontend_dense():
 
 
 def test_check_supported_admits_whisper_and_refuses_a_frontend_without_encoder():
+    """whisper's frontend feeds an encoder; a frontend without one (the VLM
+    branch, internvl2-1b) was refused until its slice and is admitted now
+    (tests/test_torch_vlm.py holds it to the reference)."""
     transformer.check_supported(get_config(ARCH, smoke=True))
     transformer.check_supported(get_config(ARCH))
     assert transformer.segments(get_config(ARCH)) == [("C", 32)]
     assert transformer.unported_for_plans(get_config(ARCH)) == "an encoder-decoder tree"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        transformer.check_supported(get_config("internvl2-1b", smoke=True))
+    vlm = get_config("internvl2-1b", smoke=True)
+    assert vlm.frontend == "vision" and not vlm.is_encdec
+    transformer.check_supported(vlm)
 
 
 def test_prefix_embeds_prepended_to_the_tokens_raise():
-    """The VLM branch (internvl2-1b's patches prepended to the tokens) is the
-    next slice: the port's forward refuses it, over the reference's tree."""
+    """The VLM branch (internvl2-1b's patches prepended to the tokens), once
+    refused, runs now: over the reference's tree the logits cover the
+    patches' positions and the tokens', and a decoder-only forward without
+    patches still runs the tokens alone (parity: tests/test_torch_vlm.py)."""
     jcfg = jget_config("internvl2-1b", smoke=True)
     tp = params_from_numpy(_np(jmodel.build_model(jcfg).init(jax.random.PRNGKey(0))),
                            device="cpu")
     tm = tmodel.build_model(get_config("internvl2-1b", smoke=True))
     patches = torch.zeros((B, jcfg.frontend_seq, jcfg.frontend_dim))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tm.forward(tp, torch.zeros((B, 4), dtype=torch.int32), prefix_embeds=patches)
+    toks = torch.zeros((B, 4), dtype=torch.int32)
+    lg, _ = tm.forward(tp, toks, prefix_embeds=patches)
+    assert lg.shape == (B, jcfg.frontend_seq + 4, jcfg.vocab_size)
+    assert bool(torch.isfinite(lg).all())
+    assert tm.forward(tp, toks)[0].shape == (B, 4, jcfg.vocab_size)
 
 
 @pytest.mark.parametrize("argv,what", [
