@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
 ``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
-``--phase whisper`` or ``--phase vlm_train`` runs one
+``--phase whisper``, ``--phase vlm_train`` or ``--phase dist`` runs one
 phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
@@ -89,6 +89,14 @@ entry points at published full widths:
   bf16 compute, each unit checkpointed, the chunked head, AdamW) for 10
   steps under ``run_supervised`` with a failure at step 6, against a clean
   run of the same steps;
+
+* the distribution layer (phase 22, ``repro_torch.dist``): an NCCL world of
+  one rank serving stablelm-12b (10 layers, W1A3 lut) through
+  ``ServeEngine(ctx=)`` with the tokens of the same tree served without a
+  ctx; every rank's shard of stablelm-12b's 7 projections at tp 2 / 4 / 8
+  through its kernels (lut bit-equal, pallas within 1e-4 of the unsharded
+  layer); one deepseek-v2-lite-16b MoE layer under expert parallelism at tp
+  4; ``compressed_psum`` and ``pipeline_apply`` over NCCL;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``, phase 13, at 10 of
@@ -5399,13 +5407,322 @@ def vlm_train(torch, dev, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the distribution layer (repro_torch.dist): sharded serving
+# ---------------------------------------------------------------------------
+
+DIST_TPS = (2, 4, 8)          # 22b: the TP sizes each projection is cut for
+DIST_BS = (4, 4 * 128)        # 22b: rows a call (decode, prefill)
+DIST_ITERS = 10               # 22b: timed calls a shard (device time)
+DIST_NEW = 16                 # 22a: new tokens a request
+DIST_EP_TP = 4                # 22c: the TP size of the expert-parallel layer
+DIST_EP_ROWS = (4, 32)        # 22c: B x S tokens through the MoE layer
+TOL_DIST_EP = 1e-5            # 22c: the ranks' outputs summed vs the unsharded layer (f32),
+                              # relative to max |y|: each token's expert outputs added in
+                              # another association
+
+
+def dist_at(dist_r, mode):
+    """Phase 22b's numbers of one mode for the kernels line: per TP size and
+    N, the 7 projections' unsharded device ms and their slowest shards'."""
+    rows = [r for r in dist_r["b"]["rows"] if r["mode"] == mode]
+    return {"at": f"phase 22b: stablelm-12b's 7 projections cut over tp {DIST_TPS} (each "
+                  f"rank's shard, W1A3 p=4 lut or W4A4 pallas, bf16 x, prepared), device time, "
+                  f"warm L2 (lut: apply_linear, the quantizer + lut_canon + lut_stream_gemm; "
+                  f"pallas: the lut_dequant_gemm kernel), the 7 projections summed: full_ms / "
+                  f"full_bound_ms the unsharded layer, max_shard_ms the slowest shard of each "
+                  f"projection, bound_ms a shard's bound",
+            **{f"tp{tp}_n{b}": {
+                key: sum(r[key] for r in rows if (r["tp"], r["B"]) == (tp, b))
+                for key in ("full_ms", "full_bound_ms", "max_shard_ms", "bound_ms")}
+               for tp in DIST_TPS for b in DIST_BS},
+            "max_rel_err": max(r["rel_err"] for r in rows)}
+
+
+def phase_dist(torch, dev, smi):
+    """Phase 22: the distribution layer on the card (one H100, so one rank:
+    the multi-rank semantics are the CPU tests' 4-rank gloo worlds).
+
+    22a: an NCCL world of 1 (``init_process_group("nccl", store=HashStore())``,
+    ``init_device_mesh("cuda", (1, 1), ("data", "model"))``): stablelm-12b
+    at published widths cut to :data:`LIVE_LAYERS` layers, W1A3 p=4 lut
+    calibrated, cut with ``shard_tree`` (world 1: every leaf whole),
+    prepared, and served by ``ServeEngine(ctx=)``: 8 requests of 16-64
+    tokens, 16 new each; the tokens equal the same tree served without a
+    ctx in this run, the kernel launches equal the applied projections x
+    (prefills + steps), one host sync a wave (``set_sync_debug_mode``: the
+    wave's token matrix all-gathered over dp by NCCL before it, no other
+    synchronizing call).  22d in the same world, on CUDA tensors:
+    ``compressed_psum`` within ``scale / 2`` of its input, ``pipeline_apply``
+    with one stage equal to ``stage_fn``.  The group is destroyed at the end.
+
+    22b: every rank's shard at full width, at tp 2, 4 and 8 (cut in this
+    process with ``shard_tree(coords=)``): stablelm-12b's 7 applied
+    projections in W1A3 p=4 ``lut`` and W4A4 ``pallas`` (bf16 x), each shard
+    prepared and run through its kernels at N = 4 and 4 x 128, the outputs
+    concatenated in rank order: ``lut`` bit-equal to the unsharded layer,
+    ``pallas`` within 1e-4 x max |y| (the kernel's f32 output: its K slices
+    follow F, and a bf16 rounding of two f32 sums an ulp apart is 2^-8 of
+    the value); each shard's route and device ms beside the unsharded
+    layer's.
+
+    22c: one MoE layer of deepseek-v2-lite-16b (64 experts top-6, 2 shared,
+    published widths, W4A4 experts, f32) under expert parallelism at tp 4:
+    each rank's 16 local experts (its ``shard_tree`` cut) dispatched and
+    summed in rank order, against the unsharded layer at dropless capacity
+    (``capacity_factor`` 64), within 1e-5 x max |y|; each rank's expert
+    dequant device ms."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist as rd
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.core.calibrate import calibrate_tree
+    from repro_torch.dist.runtime import rows_of
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.models.model import build_model, prepare_params
+    from repro_torch.serve.serving import ServeEngine
+
+    held_before_build(torch, dev, "phase 22")
+    out = {}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        ctx = rd.ShardCtx(mesh)
+        cfg = dataclasses.replace(get_config("stablelm-12b"), n_layers=LIVE_LAYERS)
+        model = build_model(cfg)
+        raw = model.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0, device=dev)
+        cal = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+                               ).to(dev)
+        with torch.no_grad():
+            raw = calibrate_tree(lambda probed: model.forward(probed, cal)[0], raw)
+        local = prepare_params(rd.shard_tree(raw, rd.param_specs(cfg, raw, ctx), ctx), n_hint=4)
+        del raw
+        check(rows_of(4, ctx) == slice(0, 4) and ctx.dp_group() is not None,
+              "22a: a (1, 1) mesh holds every row and has a dp group")
+        _lens, reqs = serve_requests(cfg, 64, DIST_NEW)
+        served = {}
+        for name, c in (("ctx", ctx), ("plain", None)):
+            eng = ServeEngine(model, local, batch=4, max_seq=256, ctx=c, device=dev)
+            eng.generate([dataclasses.replace(reqs[0], max_new_tokens=2)])      # warmup
+            torch.cuda.synchronize()
+            outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+            prefills, steps, launches = check_served(
+                cfg, eng, outs, DIST_NEW, records, counts, sync_warnings,
+                kernel="lut_stream_gemm", what=f"phase 22a ({name})")
+            check(counts["lut_stream_gemm_tc"] == launches == counts["lut_stream_gemm_canon"],
+                  f"22a ({name}): lut_stream_gemm {counts}: every GEMM on the tensor cores, "
+                  f"one canonicalize a projection")
+            n_tok = sum(len(o) for o in outs)
+            served[name] = dict(outs=outs, launches=launches, prefills=prefills,
+                                decode_steps=steps, host_syncs=eng.host_syncs,
+                                waves=len(records), wall_s=wall, tok_s=n_tok / wall,
+                                tokens_crc32=zlib.crc32(json.dumps(outs).encode()))
+            del eng
+        check(served["ctx"]["outs"] == served["plain"]["outs"],
+              "22a: ServeEngine(ctx=) tokens differ from the same tree served without a ctx")
+        out["a"] = {k: {kk: v for kk, v in s.items() if kk != "outs"} for k, s in served.items()}
+        log(f"phase 22a [{smi}]: NCCL world of 1, mesh (data 1, model 1); stablelm-12b "
+            f"{LIVE_LAYERS} layers W1A3 p=4 lut calibrated, cut by shard_tree and prepared; "
+            f"ServeEngine(ctx=) == ServeEngine() tokens (crc32 "
+            f"{served['ctx']['tokens_crc32']:08x}); with ctx {served['ctx']['launches']} "
+            f"lut_stream_gemm launches ({served['ctx']['prefills']} prefills + "
+            f"{served['ctx']['decode_steps']} steps), {served['ctx']['host_syncs']} host syncs = "
+            f"waves, {served['ctx']['tok_s']:.1f} tok/s (without: {served['plain']['tok_s']:.1f})")
+        del local
+
+        # 22d: the collectives at world 1 over NCCL, on the card.
+        gen = torch.Generator(device=dev).manual_seed(22)
+        v = torch.randn((4096,), generator=gen, device=dev) * 3.0
+        got = rd.compressed_psum(v.clone(), group=ctx.dp_group())
+        scale = v.abs().max() / 127.0
+        psum_err = (got - v).abs().max().item()
+        # One f32 rounding of code x scale beside the code's own rounding.
+        check(psum_err <= scale.item() / 2 + v.abs().max().item() * 2.0**-23,
+              f"22d: compressed_psum {psum_err:.3e} from its input, more than scale / 2 "
+              f"{scale.item() / 2:.3e}")
+        stage = make_stage_mesh(1)
+        ws = torch.randn((1, 256, 256), generator=gen, device=dev) * 0.06
+        xs = torch.randn((6, 8, 256), generator=gen, device=dev)
+        stage_fn = lambda w, x: torch.tanh(x @ w)  # noqa: E731
+        check(torch.equal(rd.pipeline_apply(stage_fn, ws, xs, stage),
+                          torch.stack([stage_fn(ws[0], x) for x in xs])),
+              "22d: pipeline_apply with one stage != stage_fn")
+        out["d"] = dict(psum_abs_err=psum_err, psum_half_scale=scale.item() / 2)
+        log(f"phase 22d: compressed_psum over NCCL (world 1) {psum_err:.3e} from its input "
+            f"(scale / 2 = {scale.item() / 2:.3e}); pipeline_apply, one stage == stage_fn")
+    finally:
+        dist.destroy_process_group()
+    out["a_d_s"] = time.perf_counter() - t0
+    out["b"] = dist_shards(torch, dev, smi)
+    out["c"] = dist_expert_parallel(torch, dev, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 22: passed in {out['seconds']:.1f} s")
+    return out
+
+
+def dist_shards(torch, dev, smi):
+    """22b (:func:`phase_dist`): returns the rows, one per (mode, projection,
+    tp, N) — the unsharded layer's device ms, each shard's, and the route."""
+    from repro_torch import dist as rd
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec, apply_linear, quantize_linear
+    from repro_torch.core.prepared import prepare_linear
+    from repro_torch.kernels import lut_dequant_gemm as dq
+    from repro_torch.kernels import lut_stream_gemm as ss
+    from repro_torch.kernels import ops
+
+    cfg = get_config("stablelm-12b")
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def run(leaf, x):
+        """The projection as the path runs it: lut through ``apply_linear``
+        (quantizer, lut_canon, lut_stream_gemm; integer exact, so its bf16
+        output is bit-comparable), pallas through its kernel's f32 output."""
+        if leaf.spec.mode == "lut":
+            return apply_linear(leaf, x)
+        return ops.lut_dequant_gemm(x, leaf.codes, leaf.scale, bw=leaf.spec.bw, k=leaf.k,
+                                    grid_kind=leaf.spec.w_kind)
+
+    specs = {"lut": LutLinearSpec(mode="lut", **LUT_SPEC),
+             "pallas": LutLinearSpec(bw=4, ba=4, mode="pallas")}
+    rows, worst_rel = [], 0.0
+    for mode, spec in specs.items():
+        for name, (k, f) in layer_shapes(cfg).items():
+            w = torch.randn((k, f), generator=gen, device=dev)
+            q = quantize_linear(w, spec)
+            del w
+            full = prepare_linear(q, n_hint=4)
+            xs = {b: torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+                  for b in DIST_BS}
+            want = {b: run(full, x) for b, x in xs.items()}
+            full_ms = {b: device_ms(torch, lambda i, x=x: run(full, x), DIST_ITERS)
+                       for b, x in xs.items()}
+            for tp in DIST_TPS:
+                ctx = rd.ShardCtx(rd.AxisMesh((1, tp), ("data", "model")))
+                sp = rd.param_specs(cfg, {name: q}, ctx)
+                shards = [prepare_linear(rd.shard_tree({name: q}, sp, ctx,
+                                                       coords={"data": 0, "model": r})[name],
+                                         n_hint=4) for r in range(tp)]
+                check(all(s.f == f // tp for s in shards), f"22b {name}: {f} rows over tp {tp}")
+                for b, x in xs.items():
+                    before = (ss.launches_tc, dq.launches_tc)
+                    got = torch.cat([run(s, x) for s in shards], dim=-1)
+                    tc = (ss.launches_tc - before[0], dq.launches_tc - before[1])
+                    check(tc == ((tp, 0) if mode == "lut" else (0, tp)),
+                          f"22b {mode} {name} tp {tp} N={b}: tensor-core launches {tc}")
+                    if mode == "lut":
+                        check(torch.equal(got, want[b]),
+                              f"22b lut {name} tp {tp} N={b}: shards != the unsharded layer")
+                        rel = 0.0
+                    else:
+                        rel = ((got.float() - want[b].float()).abs().max()
+                               / want[b].float().abs().max()).item()
+                        check(rel <= TOL_REL, f"22b pallas {name} tp {tp} N={b}: rel err "
+                                              f"{rel:.3e} > {TOL_REL}")
+                    worst_rel = max(worst_rel, rel)
+                    ms = [device_ms(torch, lambda i, s=s, x=x: run(s, x), DIST_ITERS)
+                          for s in shards]
+                    rows.append(dict(mode=mode, proj=name, K=k, F=f, tp=tp, B=b,
+                                     route="tc", full_ms=full_ms[b], shard_ms=ms,
+                                     max_shard_ms=max(ms), rel_err=rel,
+                                     bound_ms=dist_bound_ms(spec, b, k, f // tp),
+                                     full_bound_ms=dist_bound_ms(spec, b, k, f)))
+            del q, full
+    for mode in specs:
+        for tp in DIST_TPS:
+            for b in DIST_BS:
+                rs = [r for r in rows if (r["mode"], r["tp"], r["B"]) == (mode, tp, b)]
+                full = sum(r["full_ms"] for r in rs)
+                slow = sum(r["max_shard_ms"] for r in rs)
+                bound = sum(r["bound_ms"] for r in rs)
+                log(f"phase 22b [{smi}]: {mode} tp {tp} N={b}: the 7 projections' unsharded "
+                    f"{full:.4f} ms (bound {sum(r['full_bound_ms'] for r in rs):.4f}), slowest "
+                    f"shard each {slow:.4f} ms (bound {bound:.4f}; {full / slow:.2f}x faster a "
+                    f"rank; all on the tensor cores): "
+                    + ", ".join(f"{r['proj']} {r['full_ms']:.4f} -> "
+                                f"{'/'.join(f'{m:.4f}' for m in r['shard_ms'])}" for r in rs))
+    log(f"phase 22b: lut shards bit-equal to the unsharded layer, pallas within "
+        f"{worst_rel:.3e} x max |y| (tol {TOL_REL}), at tp {DIST_TPS}, N {DIST_BS}")
+    return dict(rows=rows, worst_rel=worst_rel)
+
+
+def dist_bound_ms(spec, b, k, f):
+    """The least time of one projection of ``f`` output rows as 22b times
+    it: pallas, the kernel (:func:`bound_s`, bf16 x); lut, the
+    canonicalization and the tensor-core GEMM (:func:`canon_bound_s` +
+    :func:`stream_tc_bound_s`; the activation quantizer's few bytes aside)."""
+    from repro_torch import hw
+
+    card = hw.H100_SXM
+    if spec.mode == "pallas":
+        return bound_s(b, k, f, spec.bw, 2, card)[0] * 1e3
+    g, r = -(-k // spec.p), 2 ** (spec.bw * spec.p)
+    return (canon_bound_s(k, b, g, r, card)[0] + stream_tc_bound_s(f, g, b, r, card)[0]) * 1e3
+
+
+def dist_expert_parallel(torch, dev, smi):
+    """22c (:func:`phase_dist`)."""
+    from repro_torch import dist as rd
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import moe
+    from repro_torch.models.model import maybe_dequant, quantize_model
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+    e = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(24)
+    p = quantize_model({"moe": moe.moe_init(cfg, gen, device=dev)}, cfg,
+                       LutLinearSpec(bw=4, ba=4, mode="pallas"))
+    x = torch.randn(DIST_EP_ROWS + (cfg.d_model,), generator=gen, device=dev)
+    with torch.no_grad():
+        want, _ = moe.moe_apply(p["moe"], x, cfg)
+        xt = x.reshape(-1, cfg.d_model)
+        gates, eidx, _aux = moe._route(xt, p["moe"]["router"]["w"], cfg)
+        ctx = rd.ShardCtx(rd.AxisMesh((1, DIST_EP_TP), ("data", "model")))
+        sp = rd.param_specs(cfg, p, ctx)
+        el = e.n_experts // DIST_EP_TP
+        y, ranks = None, []
+        for r in range(DIST_EP_TP):
+            local = rd.shard_tree(p, sp, ctx, coords={"data": 0, "model": r})["moe"]
+            check(local["w_gate"].codes.shape[0] == el, f"22c: rank {r} holds "
+                  f"{local['w_gate'].codes.shape[0]} experts, want {el}")
+            experts = [maybe_dequant(local[n], x.dtype) for n in ("w_gate", "w_up", "w_down")]
+            part = moe._dispatch_compute(xt, gates, eidx, *experts, e_first=r * el,
+                                         e_total=e.n_experts, capacity_factor=e.capacity_factor,
+                                         act_kind=cfg.ffn_act)
+            y = part if y is None else y + part
+            ranks.append(device_ms(torch, lambda i, lc=local: [
+                maybe_dequant(lc[n], x.dtype) for n in ("w_gate", "w_up", "w_down")], 5))
+            del local, experts
+        from repro_torch.models import ffn
+
+        y = (y + ffn.ffn_apply(p["moe"]["shared"], x, cfg).reshape(y.shape)).reshape(want.shape)
+        full_ms = device_ms(torch, lambda i: [maybe_dequant(p["moe"][n], x.dtype)
+                                              for n in ("w_gate", "w_up", "w_down")], 5)
+    rel = ((y - want).abs().max() / want.abs().max()).item()
+    check(rel <= TOL_DIST_EP, f"22c: EP at tp {DIST_EP_TP} {rel:.3e} from the unsharded layer")
+    log(f"phase 22c [{smi}]: deepseek-v2-lite-16b MoE layer ({e.n_experts} experts top-"
+        f"{e.top_k}, W4A4, f32, {DIST_EP_ROWS[0]} x {DIST_EP_ROWS[1]} tokens, dropless) under "
+        f"EP at tp {DIST_EP_TP}: the ranks' outputs summed {rel:.3e} x max |y| from the "
+        f"unsharded layer (tol {TOL_DIST_EP}); expert dequant a rank "
+        f"{', '.join(f'{m:.3f}' for m in ranks)} ms, unsharded {full_ms:.3f} ms (device time)")
+    return dict(rel_err=rel, rank_dequant_ms=ranks, full_dequant_ms=full_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
-                                        "deepseek", "zamba2", "rwkv", "whisper", "vlm_train"),
+                                        "deepseek", "zamba2", "rwkv", "whisper", "vlm_train",
+                                        "dist"),
                     help="after the build, run this phase alone and print its result as one "
                          "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
-                         "20 or 21)")
+                         "20, 21 or 22)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -5469,7 +5786,8 @@ def main(argv=None) -> int:
                  "zamba2": lambda: phase_zamba2(torch, dev, smi),
                  "rwkv": lambda: phase_rwkv(torch, dev, smi),
                  "whisper": lambda: phase_whisper(torch, dev, smi),
-                 "vlm_train": lambda: phase_vlm_train(torch, dev, smi)}
+                 "vlm_train": lambda: phase_vlm_train(torch, dev, smi),
+                 "dist": lambda: phase_dist(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -5537,6 +5855,8 @@ def main(argv=None) -> int:
         lap("20 whisper")
         vlm = alone["vlm_train"]()
         lap("21 vlm + training")
+        dist_r = alone["dist"]()
+        lap("22 dist")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
                         rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"],
                         vlm["d"]["dequant_rel"])
@@ -5710,6 +6030,7 @@ def main(argv=None) -> int:
             "decode": times(vlm["d"]["dequant_rows"], 4, vl_at("B=4, W4, bf16 x")),
             "prefill": times(vlm["d"]["dequant_rows"], vl_rows,
                              vl_at(f"B={vl_rows} (the forward's 4 x 384 rows), W4, bf16 x"))},
+        "dist": dist_at(dist_r, "pallas"),
         "ok": True,
     }, {
         "name": "lut_stream_gemm",
@@ -5791,6 +6112,8 @@ def main(argv=None) -> int:
             "stage_s": live["c"]["stage_s"], "flip_wave": live["c"]["flip_wave"],
             "step_with_stage_ms": live["c"]["step_with_stage_ms"],
             "step_quiet_ms": live["c"]["step_quiet_ms"], "chaos": live["d"]},
+        "dist": {**dist_at(dist_r, "lut"), "serve_ctx": dist_r["a"]["ctx"],
+                 "serve_plain": dist_r["a"]["plain"]},
         "ok": True,
     }, {
         "name": "lut_stream_gemm_lookup",
@@ -5899,6 +6222,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "rwkv", "card": smi, "result": rwkv}, default=str))
     print(json.dumps({"phase": "whisper", "card": smi, "result": whisper}, default=str))
     print(json.dumps({"phase": "vlm_train", "card": smi, "result": vlm}, default=str))
+    print(json.dumps({"phase": "dist", "card": smi, "result": dist_r}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

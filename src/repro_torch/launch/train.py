@@ -12,7 +12,8 @@ the state is saved every ``--ckpt-every`` steps, and a failure injected at a
 VLM config (internvl2-1b) draws its stub frontend's patch embeddings with
 each batch; their positions are dropped before the loss.  One process, one
 device: ``--mesh single|multi`` (the reference's FSDP / tensor-parallel
-meshes) raises until the distribution item of ROADMAP Queue 1.
+meshes) raises until sharded training lands (ROADMAP Queue 1, "Sharded
+training"; the sharded forward and serving are ported: ``repro_torch.dist``).
 
 Examples:
     # the CPU, smoke size, one injected failure
@@ -56,8 +57,8 @@ def main(argv=None):
     if args.mesh != "none":
         raise SystemExit(
             f"--mesh {args.mesh}: sharded training (the reference's production mesh, FSDP + "
-            f"tensor parallel) is not ported; it waits for the distribution item of ROADMAP "
-            f"Queue 1"
+            f"tensor parallel) is not ported; it is the next distribution item of "
+            f"ROADMAP Queue 1, 'Sharded training'"
         )
     dev = devices.resolve(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import PreparedLinear, QuantizedLinear
 from repro_torch.core.calibrate import unwrap
+from repro_torch.dist.runtime import ShardedLinear
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -406,8 +407,12 @@ def _dense_weight(p) -> torch.Tensor:
     as ``maybe_dequant`` decodes one, so a prepared layer equals its raw
     layer bit for bit; the reference's ``_dense_weight`` decodes only a
     ``QuantizedLinear`` and raises on a ``PreparedLinear`` (ROADMAP, reference
-    caveats)."""
+    caveats).  Inside a sharded call a
+    :class:`repro_torch.dist.runtime.ShardedLinear` gives its whole matrix:
+    the local shard decoded, then all-gathered."""
     p = unwrap(p)   # absorbed matrices never consume an activation scale
+    if isinstance(p, ShardedLinear):
+        return p.dense_weight(layers.decode_weight)
     if isinstance(p, (QuantizedLinear, PreparedLinear)):
         return layers.decode_weight(p)
     return p["w"]
@@ -461,8 +466,8 @@ def mla_attention(
     keys and values are never expanded per head.  A prefill longer than
     :data:`CHUNK_THRESHOLD` tokens and a multiple of :data:`CHUNK_SIZE` runs
     in query chunks of that size.  The reference's head-sharding hint
-    (``ctx``) places heads on a mesh axis; with no mesh it changes nothing,
-    and it is not taken."""
+    (``ctx``) places heads on a mesh axis; it is not taken: inside a sharded
+    call every TP rank attends over all heads (:mod:`repro_torch.dist.runtime`)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads

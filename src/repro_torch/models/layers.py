@@ -4,8 +4,9 @@ linears (port of ``repro.models.layers``).
 A "linear" parameter is a dense dict ``{"w": [K,F], ("b": [F])}``, a
 :class:`repro_torch.core.QuantizedLinear` or a
 :class:`repro_torch.core.PreparedLinear` (or, during one calibration
-forward, a :class:`repro_torch.core.calibrate.CalibrationProbe`);
-:func:`linear` dispatches.
+forward, a :class:`repro_torch.core.calibrate.CalibrationProbe`, and inside
+a sharded call a :class:`repro_torch.dist.runtime.ShardedLinear`, a local
+shard with its collectives); :func:`linear` dispatches.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from repro_torch.core import PreparedLinear, QuantizedLinear, apply_linear, dequantize_weights
 from repro_torch.core.calibrate import CalibrationProbe, probe_apply
 from repro_torch.core.quantize import device_grid
+from repro_torch.dist.runtime import ShardedLinear
 
 
 def dense_init(gen: torch.Generator, k: int, f: int, *, bias: bool = False,
@@ -37,6 +39,8 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
         return apply_linear(p, x)
     if isinstance(p, CalibrationProbe):   # one-shot scale-capture forward
         return probe_apply(p, x)
+    if isinstance(p, ShardedLinear):      # a local shard inside a sharded call
+        return p.apply(x, linear)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)

@@ -196,11 +196,13 @@ class Model:
         goes to :func:`repro_torch.models.transformer.forward`
         (``prefix_embeds=`` the frames of an enc-dec model or the patches of
         a VLM, ``caches``, ``pos``, ``pad_len``, ``last_token_only``,
-        ``remat``, and ``return_aux=True`` for the MoE aux loss as a third
-        element)."""
+        ``remat``, ``return_aux=True`` for the MoE aux loss as a third
+        element, and ``ctx=`` a :class:`repro_torch.dist.ShardCtx`: with a
+        mesh, this rank's part of a sharded forward over its local shards
+        and its dp rows)."""
         return transformer.forward(params, self.cfg, tokens, return_hidden=return_hidden, **kw)
 
-    def prefill(self, params, tokens, caches, *, prefix_embeds=None, pad_len=None):
+    def prefill(self, params, tokens, caches, *, prefix_embeds=None, ctx=None, pad_len=None):
         """Fill caches for positions [0, S) in place; returns (last-pos logits
         [B,1,V], caches).  ``pad_len [B]`` marks per-row left-padding: padded
         positions become attention don't-cares and logical positions shift,
@@ -209,18 +211,20 @@ class Model:
         encoder runs over them and the cross caches ``ck`` / ``cv`` are
         filled for the decode steps that follow.  On a VLM they are the
         ``P`` patches, prepended to the tokens: the prefill fills ``P + S``
-        cache positions, and the next decode offset is ``P + S``."""
+        cache positions, and the next decode offset is ``P + S``.  ``ctx``:
+        as in :meth:`forward` (every argument the rank's dp rows)."""
         return transformer.forward(
             params, self.cfg, tokens, caches=caches, pos=0, prefix_embeds=prefix_embeds,
-            last_token_only=True, pad_len=pad_len,
+            last_token_only=True, pad_len=pad_len, ctx=ctx,
         )
 
-    def decode_step(self, params, token, caches, pos, *, pad_len=None):
+    def decode_step(self, params, token, caches, pos, *, ctx=None, pad_len=None):
         """One token per sequence: token [B, 1]; ``pos`` is the cache write
         offset — an int, or a ``[B]`` tensor of per-slot offsets (continuous
-        batching).  Caches are updated in place."""
+        batching).  Caches are updated in place.  ``ctx``: as in
+        :meth:`forward`."""
         return transformer.forward(
-            params, self.cfg, token, caches=caches, pos=pos, pad_len=pad_len,
+            params, self.cfg, token, caches=caches, pos=pos, pad_len=pad_len, ctx=ctx,
         )
 
     def quantize(self, params, spec: LutLinearSpec):

@@ -23,8 +23,23 @@ same bits on the card:
 
 The expert GEMMs and the dequantization of the expert stacks are plain
 torch ops, as they are plain XLA ops in the reference (no Pallas kernel
-computes them).  The reference's expert-parallel ``shard_map`` branch is not
-ported: a ``ctx`` with a mesh raises.
+computes them).
+
+Under a ``ctx`` with a mesh (a sharded call, :mod:`repro_torch.dist.runtime`;
+the tokens are the rank's dp rows, replicated over the TP axis):
+
+* **expert parallelism** (``E % tp == 0``, ``tp > 1``), the reference's
+  ``shard_map`` branch: each TP rank holds experts ``[rank * E/tp, (rank +
+  1) * E/tp)`` (the expert stacks stay E-sharded), dispatches its dp-local
+  tokens to them with the capacity of the dp-local token count, and an
+  all-reduce SUM over TP adds the ranks' outputs;
+* **replicated experts** (``tp == 1`` or ``E % tp != 0``): the reference
+  routes and counts the capacity over the *global* token count under GSPMD,
+  so the tokens are all-gathered over dp first and each rank keeps its rows
+  of the result.
+
+The aux loss is the mean over the global batch in both (over dp, its sums
+are all-reduced).
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ import math
 
 import torch
 
+from repro_torch.dist import runtime
 from repro_torch.models import ffn, layers
 from repro_torch.models.config import ModelConfig
 
@@ -59,19 +75,27 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     return p
 
 
-def _route(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
+def _route(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, dp_group=None):
     """``(gates [T, k] in xt.dtype, expert ids [T, k] int32, aux loss)``: the
     f32 router's softmax, its top-k (ties to the lower id), the gates
-    renormalised over the k, and the Switch load-balance loss."""
+    renormalised over the k, and the Switch load-balance loss — over the
+    whole dp batch where ``dp_group`` is given (``xt`` its rank's rows)."""
     e = cfg.moe
     logits = xt.to(torch.float32) @ router_w                  # [T, E]
     probs = torch.softmax(logits, dim=-1)
     gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = gates[:, : e.top_k], eidx[:, : e.top_k]
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
-    dense_frac = probs.mean(dim=0)
     experts = torch.arange(e.n_experts, device=xt.device)
-    hard_frac = (eidx[:, :1] == experts).to(torch.float32).mean(dim=0)
+    hard = (eidx[:, :1] == experts).to(torch.float32)
+    if dp_group is None:
+        dense_frac, hard_frac = probs.mean(dim=0), hard.mean(dim=0)
+    else:
+        import torch.distributed as dist
+
+        sums = torch.stack([probs.sum(dim=0), hard.sum(dim=0)])
+        dist.all_reduce(sums, group=dp_group)
+        dense_frac, hard_frac = sums / (xt.shape[0] * dist.get_world_size(dp_group))
     aux = e.n_experts * torch.sum(dense_frac * hard_frac)
     return gates.to(xt.dtype), eidx.to(torch.int32), aux
 
@@ -80,25 +104,32 @@ def _dispatch_compute(
     xt: torch.Tensor,            # [T, d] tokens
     gates: torch.Tensor,         # [T, k] combine weights (normalised)
     eidx: torch.Tensor,          # [T, k] expert ids
-    w_gate: torch.Tensor,        # [E, d, f]
+    w_gate: torch.Tensor,        # [El, d, f] local experts
     w_up: torch.Tensor,
-    w_down: torch.Tensor,        # [E, f, d]
+    w_down: torch.Tensor,        # [El, f, d]
     *,
     capacity_factor: float,
     act_kind: str,
+    e_first: int = 0,            # first global id of the local expert range
+    e_total: int | None = None,  # all experts (default: the local ones)
 ) -> torch.Tensor:
-    """Capacity-slot dispatch over all experts; returns ``[T, d]``."""
+    """Capacity-slot dispatch over the local expert range ``[e_first,
+    e_first + El)``; returns ``[T, d]`` (zero rows where a token's experts
+    are all elsewhere).  The capacity counts ``e_total`` experts, as the
+    reference's per-shard capacity does."""
     t, k = gates.shape
     n_e, d = w_gate.shape[0], xt.shape[1]
-    cap = max(int((t * k / n_e) * capacity_factor), 4)
+    cap = max(int((t * k / (e_total or n_e)) * capacity_factor), 4)
     dev = xt.device
-    slot_e = eidx.reshape(-1).long()                                    # [T*k]
+    local_e = eidx.reshape(-1).long() - e_first                         # [T*k]
+    is_local = (local_e >= 0) & (local_e < n_e)
+    slot_e = torch.where(is_local, local_e, 0)
     slot_tok = torch.arange(t * k, device=dev) // k
     # Position of each slot within its expert, in slot order (token-major):
     # a running count along the innermost dim, where the scan is fast.
-    hit = (torch.arange(n_e, device=dev)[:, None] == slot_e).to(torch.int32)   # [E, T*k]
+    hit = (torch.arange(n_e, device=dev)[:, None] == local_e).to(torch.int32)   # [El, T*k]
     slot_pos = (torch.cumsum(hit, dim=1) - 1).gather(0, slot_e[None])[0]
-    keep = slot_pos < cap
+    keep = is_local & (slot_pos < cap)
     # Flat [E * cap] buffer index of each kept slot; a dropped slot writes to
     # the dump entry E * cap, which is cut off below.
     flat = torch.where(keep, slot_e * cap + slot_pos, n_e * cap)
@@ -128,25 +159,41 @@ def _dispatch_compute(
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None):
-    """Returns ``(y [B, S, d] in x.dtype, aux loss)``.  ``ctx`` is ``None`` or a
-    context without a mesh: the expert-parallel branch is not ported."""
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            "expert parallelism (the reference's shard_map over the TP/EP axis) is not "
-            "ported: it waits for the distribution item of ROADMAP Queue 1"
-        )
+    """Returns ``(y [B, S, d] in x.dtype, aux loss)``.  ``ctx`` with a mesh runs
+    the sharded branches (module docstring): ``x`` is the rank's dp rows and
+    the expert stacks are the rank's shard of them."""
     from repro_torch.models.model import maybe_dequant
 
     e = cfg.moe
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    gates, eidx, aux = _route(xt, p["router"]["w"], cfg)
-    y = _dispatch_compute(
-        xt, gates, eidx,
-        maybe_dequant(p["w_gate"], x.dtype), maybe_dequant(p["w_up"], x.dtype),
-        maybe_dequant(p["w_down"], x.dtype),
-        capacity_factor=e.capacity_factor, act_kind=cfg.ffn_act,
-    )
+    experts = [maybe_dequant(p[n], x.dtype) for n in ("w_gate", "w_up", "w_down")]
+    kw = dict(capacity_factor=e.capacity_factor, act_kind=cfg.ffn_act, e_total=e.n_experts)
+    sharded = runtime.active(ctx)
+    if sharded and torch.is_grad_enabled() and x.requires_grad:
+        runtime.refuse_training("the MoE block")
+    tp = ctx.tp_size() if sharded else 1
+    ep = tp > 1 and e.n_experts % tp == 0
+    tp_group = ctx.tp_group() if ep else None
+    dp_group = ctx.dp_group() if sharded and ctx.dp_size() > 1 else None
+    if ep:
+        el = e.n_experts // tp
+        if experts[0].shape[0] != el:
+            raise ValueError(
+                f"expert parallelism over {tp} ranks takes {el} local experts a stack; got "
+                f"{experts[0].shape[0]} (cut the tree with shard_tree(param_specs(...)))"
+            )
+        gates, eidx, aux = _route(xt, p["router"]["w"], cfg, dp_group)
+        y = _dispatch_compute(xt, gates, eidx, *experts, e_first=ctx.tp_rank() * el, **kw)
+        runtime.all_reduce(y, tp_group)
+    else:
+        if experts[0].shape[0] != e.n_experts:
+            raise ValueError(f"replicated experts: {experts[0].shape[0]} of {e.n_experts}")
+        x_all = xt if dp_group is None else runtime.gather(xt, 0, dp_group)
+        gates, eidx, aux = _route(x_all, p["router"]["w"], cfg)
+        y = _dispatch_compute(x_all, gates, eidx, *experts, **kw)
+        if dp_group is not None:
+            y = y[runtime.rows_of(y.shape[0], ctx)]
     if "shared" in p:
         y = y + ffn.ffn_apply(p["shared"], x, cfg).reshape(b * s, d)
     return y.reshape(b, s, d), aux

@@ -27,6 +27,12 @@ positions for ``rope_kind="none"``) and the VLM branch of a frontend without
 an encoder (internvl2: ``prefix_embeds`` are patch embeddings, cast to the
 model's dtype, projected by ``frontend_proj`` and prepended to the tokens).
 
+``forward(ctx=)`` with a mesh runs one rank's part of a sharded forward
+over its local shards (:mod:`repro_torch.dist.runtime`: the tokens, caches
+and ``prefix_embeds`` are the rank's dp rows; the embedding, the head and
+each unit's leaves are bound to the sharded rules; the collectives are
+explicit).
+
 ``forward(remat=True)`` checkpoints each unit of a cache-free forward under
 autograd (``torch.utils.checkpoint``; the reference's ``jax.checkpoint``
 around its scan body): backward recomputes a unit's activations from its
@@ -49,6 +55,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.dist import runtime
 from repro_torch.models import attention, ffn, layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear, norm
@@ -296,6 +303,8 @@ class RunState:
                                             # the MoE layers of the pass (f32)
     shared_attn: Optional[dict] = None      # zamba2's shared block parameters
     enc_out: Optional[torch.Tensor] = None  # the encoder output [B, T, D] (enc-dec)
+    ctx: object = None                      # ShardCtx (a sharded call where it has a mesh)
+    run: object = None                      # its repro_torch.dist.runtime.ShardedRun
 
 
 def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
@@ -334,7 +343,7 @@ def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cach
     x, x_sum = _residual(x, a)
     h = norm(p["ffn_norm"], x_sum, nk, eps).to(x.dtype)
     if "moe" in p:
-        f, aux = moe.moe_apply(p["moe"], h, cfg)
+        f, aux = moe.moe_apply(p["moe"], h, cfg, rs.ctx)
         rs.aux = aux if rs.aux is None else rs.aux + aux
     else:
         f = ffn.ffn_apply(p["ffn"], h, cfg)
@@ -454,36 +463,48 @@ def run_segments(rs: RunState, seg_params: list, x: torch.Tensor,
     caches are the ones passed in, updated in place.  A stack's units are
     taken with one ``unbind`` a leaf (:func:`repro_torch.tree.unstack`), so
     the gradient of a stacked leaf is one stack of the units' gradients.
-    ``remat`` checkpoints each unit of a cache-free pass under autograd."""
+    ``remat`` checkpoints each unit of a cache-free pass under autograd.  In
+    a sharded call each unit's leaves are bound as the unit runs."""
     remat = remat and caches is None and torch.is_grad_enabled()
     for si, (pattern, n_units) in enumerate(segments(rs.cfg)):
-        units = tree.unstack(seg_params[si], n_units)
+        units = _units(rs, seg_params[si], n_units, rs.run and rs.run.specs["segments"][si])
         c_stack = caches[si] if caches is not None else None
-        for u in range(n_units):
+        for u, unit in enumerate(units):
             if remat:
-                x = _unit_remat(rs, pattern, units[u], x)
+                x = _unit_remat(rs, pattern, unit, x)
                 continue
             unit_c = tree.index(c_stack, u) if c_stack is not None else None
-            x = unit_apply(rs, pattern, units[u], x, unit_c)
+            x = unit_apply(rs, pattern, unit, x, unit_c)
     return x, caches
 
 
-def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def _units(rs: RunState, stacked, n_units: int, spec):
+    """A stack's units: ``unbind`` views, or in a sharded call the bound
+    units (:meth:`repro_torch.dist.runtime.ShardedRun.units`)."""
+    if rs.run is None:
+        return tree.unstack(stacked, n_units)
+    return rs.run.units(stacked, spec, n_units)
+
+
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor, ctx=None) -> torch.Tensor:
     """Whisper-style encoder over the stub frontend's frames ``[B, T,
     frontend_dim]``: ``frontend_proj``, the sinusoidal table, the ``"E"``
     units (bidirectional, no cache; ``attn_impl="flash"`` is the
     ``flash_attention`` kernel with ``causal=False``) and
     ``enc_final_norm``.  As in the reference, the frames are not cast: the
-    encoder runs in their dtype, whatever ``cfg.dtype`` says."""
-    x = linear(params["frontend_proj"], frames)
+    encoder runs in their dtype, whatever ``cfg.dtype`` says.  ``ctx`` with a
+    mesh: the rank's part of a sharded call (``frames`` its dp rows)."""
+    run = runtime.ShardedRun(cfg, params, ctx) if runtime.active(ctx) else None
+    top = (lambda key: run.top(params, key)) if run else params.get
+    x = linear(top("frontend_proj"), frames)
     b, t = x.shape[:2]
     x = x + layers.sinusoidal_positions(t, cfg.d_model, device=x.device)[None].to(x.dtype)
     rs = RunState(cfg=cfg, positions=torch.arange(t, device=x.device)[None].expand(b, t),
-                  pos=None)
-    enc = params["encoder"]
-    for u in range(cfg.encoder_layers):
-        x = unit_apply(rs, "E", tree.index(enc, u), x, None)
-    return norm(params["enc_final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+                  pos=None, ctx=ctx, run=run)
+    for unit in _units(rs, params["encoder"], cfg.encoder_layers,
+                       run and run.specs["encoder"]):
+        x = unit_apply(rs, "E", unit, x, None)
+    return norm(top("enc_final_norm"), x, cfg.norm_kind, cfg.norm_eps)
 
 
 def forward(
@@ -501,6 +522,7 @@ def forward(
     return_hidden: bool = False,            # skip the LM head
     remat: bool = False,                    # checkpoint each unit (training)
     return_aux: bool = False,               # also return the MoE aux loss
+    ctx=None,                               # ShardCtx: a sharded call where it has a mesh
 ):
     """Returns ``(logits [B, S', V] f32, caches)``, or with ``return_hidden``
     the final-normed hidden states ``[B, S', D]`` in the model's dtype in
@@ -517,15 +539,23 @@ def forward(
     + S``.  As in the reference, ``pad_len`` then counts from the first
     patch: a left-padded prompt's first ``pad_len`` *buffer* positions
     (patches, not the pad tokens) become the don't-cares, and the logical
-    positions shift the patches too."""
+    positions shift the patches too.
+
+    With ``ctx`` (a :class:`repro_torch.dist.ShardCtx` with a mesh) this is
+    one rank's part of a sharded forward: ``params`` its local shards (cut by
+    :func:`repro_torch.dist.shard_tree`), ``tokens``, ``caches``, ``pos``,
+    ``pad_len`` and ``prefix_embeds`` its dp rows; the outputs are its rows,
+    full width (:mod:`repro_torch.dist.runtime`)."""
     b, s = tokens.shape
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    x = params["embed"][tokens.long()].to(dtype)
+    run = runtime.ShardedRun(cfg, params, ctx) if runtime.active(ctx) else None
+    top = (lambda key: run.top(params, key)) if run else params.get
+    x = (run.embed(params["embed"], tokens) if run else params["embed"][tokens.long()]).to(dtype)
     enc_out = None
     if prefix_embeds is not None and cfg.is_encdec:
-        enc_out = encode(params, cfg, prefix_embeds)
+        enc_out = encode(params, cfg, prefix_embeds, ctx=ctx)
     elif prefix_embeds is not None and cfg.frontend is not None:
-        pe = linear(params["frontend_proj"], prefix_embeds.to(x.dtype))
+        pe = linear(top("frontend_proj"), prefix_embeds.to(x.dtype))
         x = torch.cat([pe, x], dim=1)
         s = x.shape[1]
     ar = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -544,13 +574,13 @@ def forward(
         # Absolute sinusoidal positions for rope-less decoders (whisper).
         x = x + layers.sinusoid_at(positions, cfg.d_model).to(x.dtype)
     rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len,
-                  shared_attn=params.get("shared_attn"), enc_out=enc_out)
+                  shared_attn=top("shared_attn"), enc_out=enc_out, ctx=ctx, run=run)
     x, caches = run_segments(rs, params["segments"], x, caches, remat=remat)
-    x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    x = norm(top("final_norm"), x, cfg.norm_kind, cfg.norm_eps)
     if not return_hidden:
         if last_token_only:
             x = x[:, -1:, :]
-        x = lm_head(params, cfg, x)
+        x = lm_head(params, cfg, x, run)
     if not return_aux:
         return x, caches
     aux = rs.aux if rs.aux is not None else torch.zeros((), dtype=torch.float32,
@@ -558,9 +588,12 @@ def forward(
     return x, caches, aux
 
 
-def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor, run=None) -> torch.Tensor:
+    """The f32 logits (softcapped); ``run``: a sharded call's
+    :class:`repro_torch.dist.runtime.ShardedRun`."""
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+        logits = run.tied_head(x, params["embed"]) if run else \
+            torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
     else:
-        logits = linear(params["lm_head"], x)
+        logits = linear(run.top(params, "lm_head") if run else params["lm_head"], x)
     return layers.softcap(logits.to(torch.float32), cfg.final_logit_softcap)

@@ -63,6 +63,15 @@ continuous driver, one per token in the loop.
 
 KV caches are preallocated once per call and updated **in place** (the
 reference donates its buffers); the admission merge builds new tensors.
+
+**Sharded serving** (``ServeEngine(ctx=)``, a :class:`repro_torch.dist.ShardCtx`
+with a mesh; ``params`` this rank's local shards, prepared on the rank):
+every rank runs the same scheduler on the same requests, and holds the
+caches, tokens, write positions and pad lengths of its dp rows of the slots
+(``batch`` must divide over dp).  The model runs the sharded forward on them
+(:mod:`repro_torch.dist.runtime`), and the token matrix a wave (chunk, loop
+step) returns is all-gathered over dp before its one host sync, so every
+rank's scheduler sees every slot's tokens.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch import devices, timing, tree
+from repro_torch.dist import runtime
 from repro_torch.models.model import Model
 
 
@@ -170,6 +180,7 @@ class ServeEngine:
         prompt_bucket: int = 8,
         plan=None,
         obs=None,
+        ctx=None,
         device="cuda",
     ):
         if decode not in ("scan", "chunked", "loop"):
@@ -182,6 +193,16 @@ class ServeEngine:
                 f"params live on {devices.tree_device(params)}, engine on {self.device}"
             )
         self.model = model
+        self.ctx = ctx
+        self._sharded = runtime.active(ctx)
+        if self._sharded and plan is not None:
+            raise NotImplementedError(
+                "a plan over sharded leaves is not ported: plan fingerprints hash the global "
+                "codes shapes (ROADMAP Queue 1, plans)"
+            )
+        self._rows = runtime.rows_of(batch, ctx)     # this rank's dp rows of the slots
+        self._local = self._rows.stop - self._rows.start
+        self._dp_group = ctx.dp_group() if self._sharded else None
         if plan is not None:
             # Autotuned serving: ``params`` is the raw quantized tree (a
             # prepared tree is frozen to one config and apply_plan refuses it).
@@ -210,11 +231,19 @@ class ServeEngine:
         self.host_syncs += 1
         return x.cpu().numpy()
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return devices.upload(a, self.device)
+    def _upload_rows(self, a: np.ndarray) -> torch.Tensor:
+        """This rank's dp rows of a per-slot host array, on the device."""
+        return devices.upload(np.ascontiguousarray(a[self._rows]), self.device)
+
+    def _all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a per-slot device tensor: this rank's rows
+        all-gathered over dp in a sharded engine (no host sync)."""
+        if self._dp_group is None:
+            return x
+        return runtime.gather(x, 0, self._dp_group)
 
     def _new_cache(self):
-        return self.model.init_cache(self.batch, self.max_seq, dtype=torch.float32,
+        return self.model.init_cache(self._local, self.max_seq, dtype=torch.float32,
                                      device=self.device)
 
     def _check_fits(self, plen: int, max_new: int) -> None:
@@ -379,16 +408,18 @@ class ServeEngine:
     # --- shared helpers ---------------------------------------------------
 
     def _prefill(self, toks: np.ndarray, npad: np.ndarray):
-        """Prefill a fresh zero cache; returns (greedy first token [B,1],
-        caches).  Prefill must see a zero cache, not a previous occupant's."""
+        """Prefill a fresh zero cache with this rank's rows of the slots'
+        prompts; returns (greedy first token [rows, 1], caches).  Prefill must
+        see a zero cache, not a previous occupant's."""
         lg, fresh = self.model.prefill(
-            self.params, self._upload(toks), self._new_cache(),
-            pad_len=self._upload(npad),
+            self.params, self._upload_rows(toks), self._new_cache(),
+            pad_len=self._upload_rows(npad), ctx=self.ctx,
         )
         return torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32), fresh
 
     def _step(self, token, caches, pos, pad):
-        lg, caches = self.model.decode_step(self.params, token, caches, pos, pad_len=pad)
+        lg, caches = self.model.decode_step(self.params, token, caches, pos, pad_len=pad,
+                                            ctx=self.ctx)
         return torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32), caches
 
     def _wave_bucket(self, reqs: list[Request]) -> int:
@@ -415,8 +446,8 @@ class ServeEngine:
         pos, out [B, max_seq])``.  ``out[:, 0]`` is the wave-start token,
         columns ``1..steps`` this wave's tokens, inactive slots -1.  Write
         positions advance only where ``active``.  Nothing here waits for the
-        device."""
-        b = self.batch
+        device.  Every tensor here holds this rank's rows."""
+        b = self._local
         out = torch.full((b, self.max_seq), -1, dtype=torch.int32, device=self.device)
         out[:, 0] = torch.where(active, token[:, 0], -1)
         act = active.to(torch.int32)
@@ -432,9 +463,10 @@ class ServeEngine:
         outs: list[list[int]] = [[] for _ in requests]
         queue = [i for i, r in enumerate(requests) if r.max_new_tokens > 0]
         caches = self._new_cache()
-        token = torch.zeros((b, 1), dtype=torch.int32, device=self.device)
-        pos = torch.zeros((b,), dtype=torch.int32, device=self.device)
-        pad = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        rows = self._local         # the device state holds this rank's rows of the slots
+        token = torch.zeros((rows, 1), dtype=torch.int32, device=self.device)
+        pos = torch.zeros((rows,), dtype=torch.int32, device=self.device)
+        pad = torch.zeros((rows,), dtype=torch.int32, device=self.device)
         slot_req: list[int | None] = [None] * b   # request idx per slot
         slot_rem = [0] * b                        # decode steps still owed
         qi = 0
@@ -473,9 +505,9 @@ class ServeEngine:
                 tok0, fresh = self._prefill(toks, npad)
                 caches, (token, pos, pad) = admit_merge(
                     caches, fresh, (token, pos, pad),
-                    (tok0, torch.full((b,), plen_b, dtype=torch.int32, device=self.device),
-                     self._upload(npad)),
-                    self._upload(amask),
+                    (tok0, torch.full((rows,), plen_b, dtype=torch.int32, device=self.device),
+                     self._upload_rows(npad)),
+                    self._upload_rows(amask),
                 )
                 del fresh
                 self.admissions.extend((slot_req[s], s) for s in admitted)
@@ -485,10 +517,10 @@ class ServeEngine:
             )
             t_decode = timing.clock()
             token, caches, pos, out_dev = self._decode_wave(
-                token, caches, pos, pad, self._upload(active), steps
+                token, caches, pos, pad, self._upload_rows(active), steps
             )
             t_fetch = timing.clock()
-            mat = self._fetch(out_dev[:, : 1 + steps])     # the wave's one sync
+            mat = self._fetch(self._all_rows(out_dev[:, : 1 + steps]))   # the wave's one sync
             t_sync = timing.clock()
             emitted: list[tuple[int, int, list[int]]] = []
             for s in range(b):
@@ -553,15 +585,15 @@ class ServeEngine:
         self.bucket_counts[plen_b] = self.bucket_counts.get(plen_b, 0) + 1
         toks, pad = self._pad_prompts(chunk, plen_b)
         token, caches = self._prefill(toks, pad)
-        pad_dev = self._upload(pad)
+        pad_dev = self._upload_rows(pad)
         t_decode = timing.clock()
-        ys = torch.empty((self.batch, length), dtype=torch.int32, device=self.device)
+        ys = torch.empty((self._local, length), dtype=torch.int32, device=self.device)
         ys[:, 0] = token[:, 0]
         for t in range(length - 1):
             token, caches = self._step(token, caches, plen_b + t, pad_dev)
             ys[:, t + 1] = token[:, 0]
         t_fetch = timing.clock()
-        mat = self._fetch(ys)            # the chunk's single device->host sync
+        mat = self._fetch(self._all_rows(ys))   # the chunk's single device->host sync
         t_sync = timing.clock()
         outs = [[int(t) for t in mat[i, : chunk[i].max_new_tokens]]
                 for i in range(len(chunk))]
@@ -598,18 +630,18 @@ class ServeEngine:
         self.bucket_counts[plen] = self.bucket_counts.get(plen, 0) + 1
         toks, pad = self._pad_prompts(chunk, plen)
         token, caches = self._prefill(toks, pad)
-        pad_dev = self._upload(pad)
+        pad_dev = self._upload_rows(pad)
         max_new = max(r.max_new_tokens for r in chunk)
         outs: list[list[int]] = [[] for _ in chunk]
         if max_new == 0:
             return outs
-        tok_h = self._fetch(token)                  # one sync per decoded step
+        tok_h = self._fetch(self._all_rows(token))  # one sync per decoded step
         for i, r in enumerate(chunk):
             if r.max_new_tokens > 0:
                 outs[i].append(int(tok_h[i, 0]))
         for t in range(max_new - 1):
             token, caches = self._step(token, caches, plen + t, pad_dev)
-            tok_h = self._fetch(token)
+            tok_h = self._fetch(self._all_rows(token))
             for i, r in enumerate(chunk):
                 if len(outs[i]) < r.max_new_tokens:
                     outs[i].append(int(tok_h[i, 0]))

@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import devices, tree
+from repro_torch.dist import runtime
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
@@ -175,7 +176,4 @@ def make_train_step(
 
 def _refuse_ctx(ctx) -> None:
     if ctx is not None:
-        raise NotImplementedError(
-            "a sharding context (the reference's ShardCtx: FSDP / tensor-parallel training) "
-            "is not ported: it waits for the distribution item of ROADMAP Queue 1"
-        )
+        runtime.refuse_training("training (make_train_step / make_loss_fn with a ShardCtx)")

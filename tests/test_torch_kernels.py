@@ -727,7 +727,9 @@ def test_port_imports_no_jax_and_no_reference():
                     "repro_torch.serve.ops", "repro_torch.ft.supervisor",
                     "repro_torch.ft.chaos", "repro_torch.launch.serve",
                     "repro_torch.obs.trace", "repro_torch.obs.metrics",
-                    "repro_torch.obs.export"}
+                    "repro_torch.obs.export", "repro_torch.dist.sharding",
+                    "repro_torch.dist.collectives", "repro_torch.dist.pipeline",
+                    "repro_torch.dist.runtime", "repro_torch.launch.mesh"}
         assert live_ops <= set(sys.modules), sorted(live_ops - set(sys.modules))
         from repro_torch.kernels import build
         assert not build._loaded            # importing built / loaded nothing

@@ -32,6 +32,7 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import LutLinearSpec, PreparedLinear, QuantizedLinear  # noqa: E402
+from repro_torch.dist import AxisMesh, ShardCtx  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -140,11 +141,14 @@ def test_moe_layer_is_deterministic_and_refuses_a_mesh():
     b, _ = tmoe.moe_apply(tp, x, tcfg)
     assert torch.equal(a, b)
 
-    class Ctx:
-        mesh = object()
-
+    # Under a mesh the sharded branches run (tests/test_torch_sharded.py);
+    # what a mesh still refuses is training through them, and execution on a
+    # mesh without process groups.
+    ctx = ShardCtx(AxisMesh((1, 2), ("data", "model")))
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        tmoe.moe_apply(tp, x, tcfg, Ctx())
+        tmoe.moe_apply(tp, x.clone().requires_grad_(), tcfg, ctx)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tmoe.moe_apply(tp, x, tcfg, ctx)
 
 
 # ---------------------------------------------------------------------------
