@@ -7,14 +7,15 @@ Run from the repository root on a machine with one CUDA card:
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
 ``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
-``--phase whisper``, ``--phase vlm_train`` or ``--phase dist`` runs one
+``--phase whisper``, ``--phase vlm_train``, ``--phase dist`` or ``--phase dist_train`` runs one
 phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
 entry points at published full widths:
 
-* stablelm-12b served in W4A4, ``mode="pallas"``, prepared — the
+* stablelm-12b (20 of its 40 layers) served in W4A4,
+  ``mode="pallas"``, prepared — the
   ``lut_dequant_gemm`` kernel (bf16 activations on an int grid, so every
   launch takes its tensor-core route, ``lut_dequant_gemm_sm90.cu``);
 * stablelm-12b served in W1A3 p=4, ``mode="lut"``, calibrated and prepared —
@@ -38,10 +39,11 @@ entry points at published full widths:
   8192-slot caches), every projection on ``lut_dequant_gemm``'s tensor-core
   route; first one f32 "LG" unit at full width holds the ring against the
   full cache, the decode against the cache-free forward and the profile
-  against the baseline, and last the 26-layer bf16 profile's teacher-forced
-  decode is held against the cache-free f32 forward (phase 14);
+  against the baseline, and last the bf16 profile's teacher-forced
+  decode is held against the cache-free f32 forward (phase 14; 14b at 12 of
+  the 26 layers);
 
-* deepseek-v2-lite-16b whole (phase 17): all 27 layers at published widths
+* deepseek-v2-lite-16b (phase 17): 14 of its 27 layers at published widths
   (multi-head latent attention with its compressed latent cache; 64 routed
   experts top-6 + 2 shared, the published capacity factor; a dense first
   layer), W4A4 ``pallas`` prepared, bf16, served through ``ServeEngine`` —
@@ -50,10 +52,9 @@ entry points at published full widths:
   then the chunked 4608-token MLA prefill, a 4-layer W1A3 ``lut`` serve and
   a 2-layer f32 prefill against the CPU (logits and expert ids);
 
-* zamba2-7b whole (phase 18): all 81 layers at published widths (Mamba2
-  SSD mixers, and one shared attention + FFN block applied by 13 of them),
-  W4A4 ``pallas`` prepared, bf16, served through ``ServeEngine`` — 253
-  applied projections a forward on ``lut_dequant_gemm``'s tensor-core
+* zamba2-7b (phase 18): 27 of its 81 layers at published widths (Mamba2 SSD mixers, and one shared attention + FFN block
+  applied by 4 of them), W4A4 ``pallas`` prepared, bf16, served through
+  ``ServeEngine`` — 82 applied projections a forward on ``lut_dequant_gemm``'s tensor-core
   route, the recurrence in plain torch as the reference's XLA; then a
   6-layer W1A3 ``lut`` serve and a 6-layer f32 prefill against the CPU and
   against a prefill followed by decode steps;
@@ -97,6 +98,15 @@ entry points at published full widths:
   through its kernels (lut bit-equal, pallas within 1e-4 of the unsharded
   layer); one deepseek-v2-lite-16b MoE layer under expert parallelism at tp
   4; ``compressed_psum`` and ``pipeline_apply`` over NCCL;
+
+* sharded training (phase 23, ``make_train_step(ctx=)``, ``ckpt.save`` /
+  ``restore(shardings=)``): internvl2-1b at full width trained on a
+  ``(1, 1)`` mesh of an NCCL world of one rank, bit-equal to the plain
+  step, its sharded save byte-equal to the plain save and restored
+  bit-equal; then a gloo world of two ranks sharing the card, chatglm3-6b
+  at published widths cut to 2 layers, f32: an FSDP + TP step on ``(1, 2)``
+  and on ``(2, 1)``, every gradient shard held to the local step's, and a
+  save from ``(1, 2)`` restored on ``(2, 1)``;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``, phase 13, at 10 of
@@ -144,7 +154,8 @@ import warnings
 import zlib
 
 ROOT = pathlib.Path(__file__).resolve().parent
-N_LAYERS = 40                 # serve depth of phases 3 and 8 (stablelm-12b has 40)
+N_LAYERS = 20                 # serve depth of phases 3 and 8 (stablelm-12b has 40; cut to 20
+                              # to keep the script in its time limit)
 TOL_REL = 1e-4                # kernel vs plain: f32 sums in another order, K <= 13824
 TOL_CPU = 1e-3                # card vs CPU logits, relative to max |logit|
 TOL_CPU_LUT = 2e-2            # the same for the int-LUT model: 3-bit activation
@@ -190,7 +201,9 @@ GEMMA_DECODE = 160            #      decode step 96 of these teacher-forced step
 GEMMA_REQUESTS = 8            # 14b: requests of 3072-4096 prompt tokens (one bucket: 4096)
 GEMMA_NEW = 64                # 14b: new tokens a request
 GEMMA_BUCKET = 4096           # 14b: the requests' prefill bucket (4 x 4096 rows a prefill)
-GEMMA_TF_PREFIX = 4032        # 14b: teacher-forced prefill of the 26-layer bf16 profile; the
+GEMMA_SERVE_LAYERS = 12       # 14b: gemma2-2b's depth (of 26: 6 "LG" units), to keep
+                              # the script in its time limit (each check holds at any depth)
+GEMMA_TF_PREFIX = 4032        # 14b: teacher-forced prefill of the cut bf16 profile; the
 GEMMA_TF_DECODE = 96          #      ring wraps at decode step 64 of these steps
 TOL_RING = 3e-3               # 14a: ring vs full-cache decode logits, rtol = atol: the
                               # reference's own (tests/test_perf_features.py:35)
@@ -2311,7 +2324,7 @@ def phase_gemma2_semantics(torch, dev, cfg_full):
 
 
 def phase_gemma2_decode_vs_forward(torch, dev, cfg):
-    """14b's answers: all 26 layers of gemma2-2b in bf16 under the serve
+    """14b's answers: gemma2-2b (``cfg``'s depth) in bf16 under the serve
     profile (ring, int8 and bf16-operand attention), W4A4 pallas prepared,
     B = 2: a GEMMA_TF_PREFIX-token prefill and GEMMA_TF_DECODE teacher-forced
     decode steps (the local rings wrap at step 4096 - GEMMA_TF_PREFIX), held
@@ -2373,7 +2386,8 @@ def phase_gemma2_decode_vs_forward(torch, dev, cfg):
 
 def phase_gemma2_serve(torch, dev, smi):
     """Phase 14: gemma2-2b serving.  14a (:func:`phase_gemma2_semantics`),
-    then 14b: all 26 layers at published widths, seed-0 weights, W4A4 pallas
+    then 14b: :data:`GEMMA_SERVE_LAYERS` of its 26 layers at published widths,
+    seed-0 weights, W4A4 pallas
     prepared, bf16, under ``apply_perf_profile(cfg, "serve")`` through
     ``ServeEngine(batch=4, max_seq=8192)``: GEMMA_REQUESTS requests of
     3072-4096 prompt tokens, GEMMA_NEW new tokens each (the longest wrap the
@@ -2392,7 +2406,7 @@ def phase_gemma2_serve(torch, dev, smi):
         served[name] = phase_serve(
             torch, dev, c, smi, phase=f"14b {name}", spec=LutLinearSpec(bw=4, ba=4, mode="pallas"),
             kernel="lut_dequant_gemm", max_prompt=GEMMA_BUCKET, max_new=GEMMA_NEW,
-            min_prompt=3072, n_layers=None, max_seq=GEMMA_SERVE_SEQ,
+            min_prompt=3072, n_layers=GEMMA_SERVE_LAYERS, max_seq=GEMMA_SERVE_SEQ,
             timing=(GEMMA_BUCKET, GEMMA_BUCKET + GEMMA_NEW // 2),
             chunked=name == "serve profile", iters=(2, 10))
     prof, base = served["serve profile"], served["baseline"]
@@ -2406,7 +2420,8 @@ def phase_gemma2_serve(torch, dev, smi):
         f"GB; tokens equal at {agree:.3f} of positions")
     for r in (prof, base):
         r.pop("outs")
-    answers = phase_gemma2_decode_vs_forward(torch, dev, cfg)
+    answers = phase_gemma2_decode_vs_forward(
+        torch, dev, dataclasses.replace(cfg, n_layers=GEMMA_SERVE_LAYERS))
     return dict(semantics=sem, serve_profile=prof, baseline=base, token_agreement=agree,
                 answers=answers)
 
@@ -3459,6 +3474,8 @@ DS_NEW = 32                   # new tokens a request
 DS_PROMPT = 128               # the longest prompt, and the timed prefill's length
 DS_CHUNKED_SEQ = 4608         # 17b: one row through MLA's chunked branch (> 4096, % 512 == 0)
 DS_LUT_LAYERS = 4             # 17c: depth cut to 1 "F" + 3 "D" units
+DS_SERVE_LAYERS = 14          # 17: depth (of 27: 1 "F" + 13 "D"), to keep the script
+                              # in its time limit (each check holds at any depth)
 TOL_MLA_CHUNKED = 2e-4        # 17b: chunked vs unchunked latent attention (f32), relative to
                               # max |y|: the same per-row sums, in other GEMM shapes
 TOL_CPU_DS = 1e-4             # 17d: card vs CPU logits (f32, 2 layers), relative to max |logit|
@@ -3947,7 +3964,8 @@ def phase_deepseek(torch, dev, smi):
     """Phase 17: deepseek-v2-lite-16b (MLA attention, 64 routed + 2 shared
     experts top-6, a dense first layer) at its published widths.
 
-    17a: all 27 layers, W4A4 ``pallas`` prepared, bf16, served through
+    17a: :data:`DS_SERVE_LAYERS` of its 27 layers, W4A4 ``pallas`` prepared,
+    bf16, served through
     ``ServeEngine(batch=4, max_seq=512)`` (the published capacity factor):
     exact token counts, one host sync a wave and no other synchronizing
     call, ``lut_dequant_gemm`` launched (applied projections per forward,
@@ -3979,10 +3997,10 @@ def phase_deepseek(torch, dev, smi):
     import numpy as np
 
     t_phase = time.perf_counter()
-    cfg = get_config(DEEPSEEK)
+    cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=DS_SERVE_LAYERS)
     out = {}
 
-    # --- 17a: all 27 layers, W4A4 pallas, bf16, served -----------------------
+    # --- 17a: DS_SERVE_LAYERS layers, W4A4 pallas, bf16, served --------------
     model = build_model(cfg)
     before_gc, base = held_before_build(torch, dev, "phase 17a")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4168,6 +4186,8 @@ def phase_deepseek(torch, dev, smi):
 
 ZAMBA = "zamba2-7b"
 ZB_LUT_LAYERS = 6             # 18b / 18c: depth cut to one "MMMMMS" unit
+ZB_SERVE_LAYERS = 27          # 18: depth (of 81: 4 "MMMMMS" units + "MMM"), to keep
+                              # the script in its time limit (each check holds at any depth)
 ZB_PROFILED = 32              # 18a: the profiled prefill's length (B = 4): torch.profiler parses
                               # about 4 host events a recurrence step and layer, ~0.5 M at 128
 
@@ -4198,11 +4218,12 @@ def phase_zamba2(torch, dev, smi):
     attention + FFN block, 32/32 heads of 112, d_ff 14336, applied by each of
     the 13 "S" sublayers) at its published widths.
 
-    18a: all 81 layers, W4A4 ``pallas`` prepared, bf16, served through
+    18a: :data:`ZB_SERVE_LAYERS` of its 81 layers (4 "MMMMMS" units + "MMM"),
+    W4A4 ``pallas`` prepared, bf16, served through
     ``ServeEngine(batch=4, max_seq=512)`` on phase 17's requests (each wave
     led by a 128-token prompt): exact token counts, one host sync a wave and
-    no other synchronizing call, ``lut_dequant_gemm`` launched 81 x 2 + 13 x
-    7 = 253 times a forward (the shared block per application), all on the
+    no other synchronizing call, ``lut_dequant_gemm`` launched 27 x 2 + 4 x 7
+    = 82 times a forward (the shared block per application), all on the
     tensor cores; ``decode="loop"`` and ``"chunked"`` give scan's tokens on a
     copy cut to 6 layers (:func:`drivers_agree`);
     build time, bytes, the decode step and the 4 x 128 prefill on CUDA
@@ -4235,11 +4256,11 @@ def phase_zamba2(torch, dev, smi):
     def lap(what):
         laps[what] = time.perf_counter() - t_phase - sum(laps.values())
 
-    cfg = get_config(ZAMBA)
+    cfg = dataclasses.replace(get_config(ZAMBA), n_layers=ZB_SERVE_LAYERS)
     out = {"laps_s": laps}
     want_per, n_s = zamba2_applied(cfg)
 
-    # --- 18a: all 81 layers, W4A4 pallas, bf16, served -----------------------
+    # --- 18a: ZB_SERVE_LAYERS layers, W4A4 pallas, bf16, served --------------
     model = build_model(cfg)
     before_gc, base = held_before_build(torch, dev, "phase 18a")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5018,9 +5039,9 @@ def timed_ckpt():
                    for t in tree.tensors(state.params) + tree.tensors(state.opt)
                    + [state.step])
 
-    def timed_save(base, step, state):
+    def timed_save(base, step, state, **kw):
         t0 = time.perf_counter()
-        out = save(base, step, state)
+        out = save(base, step, state, **kw)
         records["save"].append((time.perf_counter() - t0, nbytes(state)))
         return out
 
@@ -5715,14 +5736,396 @@ def dist_expert_parallel(torch, dev, smi):
     return dict(rel_err=rel, rank_dequant_ms=ranks, full_dequant_ms=full_ms)
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: sharded training (repro_torch.dist + repro_torch.train)
+# ---------------------------------------------------------------------------
+
+DT_STEPS = 3                  # 23a: steps with the ctx and without, from one seed
+DT_ARCH = "chatglm3-6b"       # 23b: published widths, cut to DT_LAYERS layers, f32
+DT_LAYERS = 2                 #      (~0.94 G parameters: both ranks' states < 60 GB)
+DT_B, DT_S = 2, 256           # 23b: rows and tokens a row of the step's batch
+DT_MESHES = ((1, 2), (2, 1))  # 23b: (data, model) meshes of the world of 2
+TOL_DT_GRAD = 1e-5            # 23b: a rank's gradient shards vs the local step's, x the
+                              # leaf's max |g| (f32 sums over dp and TP partials in another
+                              # order; the CPU worlds measure 1.2e-6 .. 3.7e-5, the last
+                              # rwkv6's time_mix/u, an ill-conditioned sum)
+DT_TIMEOUT_S = 300            # 23b: the two ranks' join (the ranks take ~70 s)
+
+
+def phase_dist_train(torch, dev, smi):
+    """Phase 23: sharded training on the card (one H100).
+
+    23a: an NCCL world of 1 (a ``(data 1, model 1)`` mesh, as 22a builds
+    it): internvl2-1b at full width with phase 21e's batch (B = 4 x (256
+    patches + 512 tokens), f32 parameters, bf16 compute, each unit
+    checkpointed), :data:`DT_STEPS` steps of ``make_train_step(ctx=)``
+    bit-equal to as many without a ctx in this run, no kernel launched; the
+    stepped state saved with ``save(shardings=)``, its files byte-equal to a
+    plain ``save`` of it, and ``restore(shardings=)`` bit-equal to it; step
+    ms on CUDA events both ways, save / restore GB/s on the host clock (the
+    file cache warm), peak memory.
+
+    23b: a world of 2 sharing the one card: two spawned processes, the gloo
+    backend, every tensor on ``cuda:0`` (gloo takes CUDA tensors for
+    all_gather, all_reduce SUM / MAX, reduce_scatter and barrier: the
+    collectives of this path).  chatglm3-6b at published widths cut to
+    :data:`DT_LAYERS` layers, f32: one FSDP + TP step on ``(data 1, model
+    2)`` and one on ``(data 2, model 1)``, every rank's gradient shards held
+    to the same slices of the local step's gradient on the global batch
+    (each rank computes it on the card) within :data:`TOL_DT_GRAD` x the
+    leaf's max |g|; then the state
+    saved from ``(1, 2)`` and restored on ``(2, 1)``, bit-equal to its
+    ``(2, 1)`` shards."""
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = dist_train_one(torch, dev, smi)
+    out["b"] = dist_train_two(torch, dev, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 23: passed in {out['seconds']:.1f} s")
+    return out
+
+
+def same_bytes(a, b, chunk=1 << 26) -> bool:
+    """Whether two files hold the same bytes (read in 64 MB chunks:
+    ``filecmp``'s 8 KB reads took 27 s for two 7.57 GB checkpoints)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def dist_train_one(torch, dev, smi):
+    """23a (:func:`phase_dist_train`)."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist as rd
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PatternLM, to_device
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    held_before_build(torch, dev, "phase 23")
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "dist_train"
+    shutil.rmtree(root, ignore_errors=True)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        ctx = rd.ShardCtx(mesh, fsdp=True)
+        cfg = get_config(VLM)
+        model = build_model(cfg)
+        P, B, S = cfg.frontend_seq, VL_TRAIN_BATCH, VL_TRAIN_SEQ
+        data = PatternLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                    prefix_seq=P, prefix_dim=cfg.frontend_dim))
+        ocfg = opt.AdamWConfig(lr=VL_TRAIN_LR, warmup_steps=VL_TRAIN_WARMUP)
+        shardings = rd.to_shardings(ts.train_state_specs(cfg, ctx), mesh)
+        steps = {"ctx": ts.make_train_step(model, ocfg, ctx=ctx, remat=True),
+                 "plain": ts.make_train_step(model, ocfg, remat=True)}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        states = {"plain": ts.init_train_state(model, 0, device=dev)}
+        states["ctx"] = ckpt.place(ts.init_train_state(model, 0, device=dev), shardings)
+        losses = {name: [] for name in steps}
+        step_ms = {name: [] for name in steps}
+        reset_launches()
+        for i in range(DT_STEPS):      # the two runs' steps in turns, each first in turn
+            batch = to_device(data.batch_at(i), dev)
+            for name in (("plain", "ctx") if i % 2 else ("ctx", "plain")):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                states[name], m = steps[name](states[name], batch)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms[name].append(start.elapsed_time(end))
+                losses[name].append(float(m["loss"]))
+        launched = read_launches()
+        check(all(n == 0 for n in launched.values()),
+              f"23a: training launched a kernel: {launched}")
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        grad_norm = float(m["grad_norm"])
+        a = states.pop("ctx")
+        leaves = lambda st: ckpt._flatten(st, [])                                # noqa: E731
+        check(losses["ctx"] == losses["plain"]
+              and all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(leaves(a), leaves(states["plain"]))),
+              f"23a: {DT_STEPS} steps of make_train_step(ctx=) on a (1, 1) mesh differ from "
+              f"the steps without a ctx: losses {losses['ctx']} vs {losses['plain']}")
+        del states
+        steps_s = time.perf_counter() - t0
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves(a))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ckpt.save(str(root / "sharded"), DT_STEPS, a, shardings=shardings)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ckpt.save(str(root / "plain"), DT_STEPS, a)
+        plain_save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        step_dir = f"step_{DT_STEPS:09d}"
+        names = sorted(os.listdir(root / "plain" / step_dir))
+        check(names == sorted(os.listdir(root / "sharded" / step_dir))
+              and all(same_bytes(root / "plain" / step_dir / n, root / "sharded" / step_dir / n)
+                      for n in names),
+              "23a: the sharded save's files differ from the plain save's")
+        compare_s = time.perf_counter() - t1
+        like = ts.init_train_state(model, 0, device="meta")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = ckpt.restore(str(root / "sharded"), DT_STEPS, like, shardings=shardings,
+                            device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(all(x.dtype == y.dtype and torch.equal(x, y)
+                  for x, y in zip(leaves(back), leaves(a))),
+              "23a: restore(shardings=) differs from the saved state")
+        del a, back
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res = dict(
+        arch=VLM, batch=B, text_seq=S, patches=P, steps=DT_STEPS,
+        losses=losses["ctx"], grad_norm=grad_norm,
+        step_ms_ctx=step_ms["ctx"], step_ms_plain=step_ms["plain"],
+        steady_ms_ctx=float(np.mean(step_ms["ctx"][1:])),
+        steady_ms_plain=float(np.mean(step_ms["plain"][1:])),
+        peak_gb=peak_gb, steps_s=steps_s, state_bytes=n_bytes, save_s=save_s,
+        save_gb_s=n_bytes / save_s / 1e9, compare_s=compare_s, plain_save_s=plain_save_s, plain_save_gb_s=n_bytes / plain_save_s / 1e9,
+        restore_s=restore_s, restore_gb_s=n_bytes / restore_s / 1e9,
+        seconds=time.perf_counter() - t0)
+    log(f"phase 23a [{smi}]: NCCL world of 1, mesh (data 1, model 1), FSDP on; {VLM} at full "
+        f"width trained {DT_STEPS} steps (B={B} x ({P} + {S}), f32 parameters, bf16 compute): "
+        f"make_train_step(ctx=) bit-equal to the plain step (losses {res['losses']}), no "
+        f"kernel launched; step {res['steady_ms_ctx']:.1f} ms with the ctx, "
+        f"{res['steady_ms_plain']:.1f} without (first {res['step_ms_ctx'][0]:.1f} / "
+        f"{res['step_ms_plain'][0]:.1f}; the steps in turns); peak {peak_gb:.2f} GB with both "
+        f"states held ({steps_s:.1f} s to here); the sharded save of {n_bytes / 1e9:.2f} GB "
+        f"byte-equal to the plain save, {save_s:.2f} s ({res['save_gb_s']:.2f} GB/s; plain "
+        f"{plain_save_s:.2f} s; the files compared in {compare_s:.2f} s); restore(shardings=) bit-equal, {restore_s:.2f} s "
+        f"({res['restore_gb_s']:.2f} GB/s, the file cache warm); {res['seconds']:.1f} s")
+    return res
+
+
+def dist_train_two(torch, dev, smi, *, device="cuda", smoke=False):
+    """23b (:func:`phase_dist_train`): spawns the two ranks
+    (:func:`dist_train_rank`) and reads their results; every process it
+    starts is joined or stopped.  ``device`` / ``smoke`` are for a CPU
+    rehearsal of the control flow (``"cpu"``, smoke widths)."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "dist_train2"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    src = sys.path[0]
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=dist_train_rank, args=(r, src, str(root), device, smoke))
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(DT_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = root / f"rank{r}.pkl"
+        results.append(pickle.loads(path.read_bytes()) if path.exists() else
+                       {"error": f"rank {r} wrote nothing (exit code {p.exitcode})"})
+    shutil.rmtree(root, ignore_errors=True)
+    errors = [res["error"] for res in results if "error" in res]
+    check(not errors, f"23b: {errors}")
+    r0 = results[0]
+    for key, mesh in zip(("a", "b"), DT_MESHES):
+        worst = max(res[key]["grad_rel"] for res in results)
+        check(worst <= TOL_DT_GRAD, f"23b {mesh}: a gradient shard {worst:.3e} x its leaf's max "
+                                    f"|g| from the local step's (tol {TOL_DT_GRAD}; "
+                                    f"{r0[key]['grad_path']})")
+    check(all(res["restored_equal"] for res in results),
+          "23b: the (1, 2) save restored on (2, 1) differs from the (2, 1) shards")
+    res = dict(ranks=results, seconds=time.perf_counter() - t0)
+    log(f"phase 23b [{smi}]: a gloo world of 2 on one card, {DT_ARCH} at published widths, "
+        f"{DT_LAYERS} layers, f32, B={DT_B} x {DT_S}: the local step's gradient "
+        f"{r0['local_ms']:.1f} ms (rank 0; its first call in the process "
+        f"{r0['local_ms_runs'][0]:.1f}); " + "; ".join(
+            f"{mesh}: grads within {max(x[k]['grad_rel'] for x in results):.3e} x leaf max of "
+            f"the local step ({r0[k]['grad_path']}), loss {r0[k]['loss']:.6f} (local "
+            f"{r0['local_loss']:.6f}), grads {r0[k]['grads_ms']:.1f} ms + update "
+            f"{r0[k]['update_ms']:.1f} ms, peak {max(x[k]['peak_gb'] for x in results):.2f} GB "
+            f"a rank" for k, mesh in zip(("a", "b"), DT_MESHES))
+        + f"; the initial state saved from (1, 2) ({r0['state_bytes'] / 1e9:.2f} GB, "
+          f"{r0['save_s']:.2f} s) and restored on (2, 1) ({max(x['restore_s'] for x in results):.2f}"
+          f" s), bit-equal to its (2, 1) shards; {res['seconds']:.1f} s with the processes' "
+          f"start; rank 0's seconds by stage "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["laps"].items()))
+    return res
+
+
+def dist_train_rank(rank, src, root, device, smoke):
+    """One rank of 23b: writes ``<root>/rank<r>.pkl`` (its numbers, or the
+    traceback, which fails the phase in the parent)."""
+    import pickle
+    import traceback
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    res = {}
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"), 2),
+                                rank=rank, world_size=2)
+        try:
+            res = dist_train_shared(torch, torch.device(device, 0) if device == "cuda"
+                                    else torch.device(device), rank, root, smoke)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:                   # reported: the parent fails the phase
+        res = {"error": f"rank {rank}: {traceback.format_exc()}"}
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def dist_train_shared(torch, dev, rank, root, smoke):
+    """23b's body on one rank (:func:`phase_dist_train`)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist as rd
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.dist.runtime import ShardedRun, rows_of
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak(reset=False):
+        if not cuda:
+            return 0.0
+        if reset:
+            torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.max_memory_allocated(dev) / 1e9
+
+    cfg = dataclasses.replace(get_config(DT_ARCH, smoke=smoke), n_layers=DT_LAYERS,
+                              dtype="float32")
+    model = build_model(cfg)
+    ocfg = opt.AdamWConfig(lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (DT_B, DT_S + 1), generator=gen,
+                                     device=dev)}
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(what):
+        sync()
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+
+    whole = ts.init_train_state(model, 0, device=dev)
+    lap("init")
+    out = {"laps": laps}
+    # The local step's gradient on the global batch, on each rank (twice: the
+    # first call in a process loads its kernels, ~9 s, the two ranks together).
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        (loss0, _x), g0 = ts.make_grads_fn(model, remat=True)(whole.params, batch)
+        sync()
+        out.setdefault("local_ms_runs", []).append((time.perf_counter() - t0) * 1e3)
+    out.update(local_ms=out["local_ms_runs"][-1], local_loss=float(loss0))
+    lap("local")
+    meshes = [init_device_mesh(dev.type, shape, mesh_dim_names=("data", "model"))
+              for shape in DT_MESHES]
+    ctxs = [rd.ShardCtx(m, fsdp=True) for m in meshes]
+    specs = [ts.train_state_specs(cfg, c) for c in ctxs]
+    shards = [rd.shard_tree(whole, sp, c) for sp, c in zip(specs, ctxs)]
+    del whole
+    lap("meshes")
+    for key, ctx, sp, local in zip(("a", "b"), ctxs, specs, shards):
+        peak(reset=True)
+        lbatch = {k: v[rows_of(DT_B, ctx)] for k, v in batch.items()}
+        sync()
+        t0 = time.perf_counter()
+        (loss, _x), grads = ts.make_grads_fn(model, ctx=ctx, remat=True)(local.params, lbatch)
+        sync()
+        t1 = time.perf_counter()
+        new_p, _o, m = opt.apply_updates(local.params, grads, local.opt, ocfg,
+                                         run=ShardedRun(cfg, local.params, ctx))
+        sync()
+        t2 = time.perf_counter()
+        del new_p, _o
+        worst, where = 0.0, ""
+        for i, (g, want, whole_g) in enumerate(zip(
+                ckpt._flatten(grads, []), ckpt._flatten(rd.shard_tree(g0, sp.params, ctx), []),
+                ckpt._flatten(g0, []))):
+            err = float((g - want).abs().max()) / max(float(whole_g.abs().max()), 1e-30)
+            if err > worst:
+                worst, where = err, i
+        del grads
+        lap(f"{key} step + compare")
+        out[key] = dict(loss=float(loss), grad_norm=float(m["grad_norm"]),
+                        grads_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3, peak_gb=peak(),
+                        grad_rel=worst, grad_path=f"leaf {where}")
+    del g0
+    # The initial state saved from (1, 2), restored on (2, 1).
+    like = ts.init_train_state(model, 0, device="meta")
+    sync()
+    t0 = time.perf_counter()
+    ckpt.save(os.path.join(root, "ckpt"), 0, shards[0],
+              shardings=rd.to_shardings(specs[0], ctxs[0].mesh))
+    out["save_s"] = time.perf_counter() - t0
+    lap("save")
+    out["state_bytes"] = sum(t.numel() * t.element_size() for t in ckpt._flatten(like, []))
+    t0 = time.perf_counter()
+    back = ckpt.restore(os.path.join(root, "ckpt"), 0, like, device=dev,
+                        shardings=rd.to_shardings(specs[1], ctxs[1].mesh))
+    sync()
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored_equal"] = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+                                zip(ckpt._flatten(back, []), ckpt._flatten(shards[1], [])))
+    lap("restore")
+    dist.barrier()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
                                         "deepseek", "zamba2", "rwkv", "whisper", "vlm_train",
-                                        "dist"),
+                                        "dist", "dist_train"),
                     help="after the build, run this phase alone and print its result as one "
                          "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
-                         "20, 21 or 22)")
+                         "20, 21, 22 or 23)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -5787,7 +6190,8 @@ def main(argv=None) -> int:
                  "rwkv": lambda: phase_rwkv(torch, dev, smi),
                  "whisper": lambda: phase_whisper(torch, dev, smi),
                  "vlm_train": lambda: phase_vlm_train(torch, dev, smi),
-                 "dist": lambda: phase_dist(torch, dev, smi)}
+                 "dist": lambda: phase_dist(torch, dev, smi),
+                 "dist_train": lambda: phase_dist_train(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -5857,6 +6261,8 @@ def main(argv=None) -> int:
         lap("21 vlm + training")
         dist_r = alone["dist"]()
         lap("22 dist")
+        dist_train = alone["dist_train"]()
+        lap("23 dist train")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
                         rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"],
                         vlm["d"]["dequant_rel"])
@@ -5955,7 +6361,8 @@ def main(argv=None) -> int:
             "launches_tc": fwd["lut_dequant_gemm_launches_tc"],
             "ms_in_forward": fwd["lut_dequant_gemm_profiled_ms"]},
         "gemma2_serve": {
-            "at": f"phase 14b: gemma2-2b, 26 layers, W4A4 pallas, bf16, ServeEngine(batch=4, "
+            "at": f"phase 14b: gemma2-2b, {GEMMA_SERVE_LAYERS} layers, W4A4 pallas, bf16, "
+                  f"ServeEngine(batch=4, "
                   f"max_seq={GEMMA_SERVE_SEQ}), {GEMMA_REQUESTS} requests of 3072-4096 prompt "
                   f"tokens, {GEMMA_NEW} new each; prefill_ms at 4 x 4096 and step_ms on CUDA "
                   f"events, busy from torch.profiler, the rest on the host clock",
@@ -5969,7 +6376,8 @@ def main(argv=None) -> int:
             "semantics": gserve["semantics"], "answers": gserve["answers"]},
         "card_vs_cpu_rel_err": cpu_rel,
         "deepseek": {
-            "at": f"phase 17a: deepseek-v2-lite-16b, all 27 layers, W4A4 pallas, bf16, "
+            "at": f"phase 17a: deepseek-v2-lite-16b, {DS_SERVE_LAYERS} layers, W4A4 pallas, "
+                  f"bf16, "
                   f"ServeEngine(batch=4, max_seq={DS_MAX_SEQ}), 8 requests of 16-{DS_PROMPT} "
                   f"prompt tokens, {DS_NEW} new each; prefill_ms at 4 x {DS_PROMPT} and step_ms "
                   f"on CUDA events, profiles from torch.profiler, the rest on the host clock",
@@ -5979,7 +6387,7 @@ def main(argv=None) -> int:
             "prefill": times(deepseek["e"]["dequant_rows"], 4 * DS_PROMPT,
                              ds_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
         "zamba2": {
-            "at": f"phase 18a: zamba2-7b, all 81 layers, W4A4 pallas, bf16, "
+            "at": f"phase 18a: zamba2-7b, {ZB_SERVE_LAYERS} layers, W4A4 pallas, bf16, "
                   f"ServeEngine(batch=4, max_seq={DS_MAX_SEQ}), 8 requests of 16-{DS_PROMPT} "
                   f"prompt tokens, {DS_NEW} new each; prefill_ms at 4 x {DS_PROMPT} and step_ms "
                   f"on CUDA events, profiles from torch.profiler, the rest on the host clock",
@@ -6223,6 +6631,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "whisper", "card": smi, "result": whisper}, default=str))
     print(json.dumps({"phase": "vlm_train", "card": smi, "result": vlm}, default=str))
     print(json.dumps({"phase": "dist", "card": smi, "result": dist_r}, default=str))
+    print(json.dumps({"phase": "dist_train", "card": smi, "result": dist_train}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,9 +22,11 @@ the other's checkpoints.  Two differences:
 
 * the generic manifest's ``"treedef"`` is jax's ``PyTreeDef`` repr in the
   reference.  The port writes the same notation for dicts, lists, tuples,
-  ``None`` and leaves, but a dataclass node (``QuantizedLinear``, ...) as
-  ``Name(field=..., ...)``, not jax's ``CustomNode(...)``; no restore reads
-  the string (the ``like`` structure is the truth).
+  ``None``, leaves and a dataclass node whose every field is data (a
+  ``TrainState``: ``CustomNode(TrainState[()], [...])``), but a node with
+  static fields (``QuantizedLinear``, ...) as ``Name(field=..., ...)``, not
+  jax's ``CustomNode(...)`` with its static values; no restore reads the
+  string (the ``like`` structure is the truth).
 * bf16 leaves.  ``np.save`` of the reference's ``ml_dtypes.bfloat16`` array
   writes the two-byte payload with descr ``'<V2'`` and the manifest says
   ``"bfloat16"``; ``np.load`` gives that back as ``V2``, which ``jnp.asarray``
@@ -45,6 +47,14 @@ and their copies on the device the tree is restored to.
 
 Leaves restore onto ``device`` (default ``"cuda"``, which raises without a
 card); ``onehot`` leaves stay host numpy arrays, as in the reference.
+
+**Sharded trees** (each rank holds its shards, ``shardings=`` the tree's
+:func:`repro_torch.dist.to_shardings`): :func:`save` all-gathers every leaf
+to its global shape and global rank 0 writes exactly the files of the whole
+tree, so the checkpoint does not depend on the mesh; :func:`restore` reads
+each whole leaf and cuts this rank's shard for *its* placements.  Any mesh,
+or none, restores any save: the elastic re-mesh of the reference's
+``restore(shardings=)``.
 """
 
 from __future__ import annotations
@@ -143,10 +153,17 @@ def _read_leaf(path: str, meta: dict) -> np.ndarray:
     return arr
 
 
-def _to_device(arr: np.ndarray, name: str, device: torch.device) -> torch.Tensor:
+def _to_device(arr: np.ndarray, name: str, device: torch.device, placements=None
+               ) -> torch.Tensor:
+    """The payload as a tensor on ``device``; with ``placements``, only this
+    rank's shard of it (cut on the host)."""
     t = torch.from_numpy(arr)
     if name == "bfloat16":
         t = t.view(torch.bfloat16)
+    if placements is not None:
+        from repro_torch.dist.sharding import shard_leaf
+
+        t = shard_leaf(t, placements)
     return t.to(device)
 
 
@@ -185,6 +202,37 @@ def _flatten(tree, out: list) -> list:
     return out
 
 
+def _placements(tree, shardings) -> list:
+    """Each leaf's placements from the ``shardings`` tree, in :func:`_flatten`'s
+    order (the walk follows ``tree``'s structure)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _placements(tree[k], shardings[k])]
+    if isinstance(tree, (list, tuple)):
+        return [p for v, s in zip(tree, shardings) for p in _placements(v, s)]
+    if _is_node(tree):
+        return [p for n in _data_fields(tree)
+                for p in _placements(getattr(tree, n), getattr(shardings, n))]
+    return [] if tree is None else [shardings]
+
+
+def place(tree, shardings):
+    """This rank's shard of every leaf of a whole ``tree`` under ``shardings``
+    (the port's ``jax.device_put(tree, shardings)``)."""
+    from repro_torch.dist.sharding import shard_leaf
+
+    return _unflatten(tree, iter([shard_leaf(t, p) for t, p in
+                                  zip(_flatten(tree, []), _placements(tree, shardings))]))
+
+
+def _whole_leaves(tree, shardings):
+    """The whole leaves behind this rank's shards, one at a time (each
+    all-gathered over the axes that shard it: every rank takes part)."""
+    from repro_torch.dist.sharding import whole_leaf
+
+    for t, p in zip(_flatten(tree, []), _placements(tree, shardings)):
+        yield whole_leaf(t, p)
+
+
 def _unflatten(like, leaves):
     """``like``'s structure with its leaves taken in order from the iterator
     ``leaves``."""
@@ -212,8 +260,12 @@ def _treedef_str(tree) -> str:
         if isinstance(t, tuple):
             return "(" + ", ".join(walk(v) for v in t) + ("," if len(t) == 1 else "") + ")"
         if _is_node(t):
+            names = _data_fields(t)
+            if len(names) == len(dataclasses.fields(t)):      # jax's register_dataclass
+                return (f"CustomNode({type(t).__name__}[()], ["
+                        + ", ".join(walk(getattr(t, n)) for n in names) + "])")
             return (f"{type(t).__name__}("
-                    + ", ".join(f"{n}={walk(getattr(t, n))}" for n in _data_fields(t)) + ")")
+                    + ", ".join(f"{n}={walk(getattr(t, n))}" for n in names) + ")")
         return "None" if t is None else "*"
 
     return f"PyTreeDef({walk(tree)})"
@@ -236,15 +288,36 @@ def _staging(d: str) -> str:
     return tmp
 
 
-def save(base: str, step: int, tree: Any) -> str:
-    """Synchronous checkpoint write; returns the step directory."""
+def save(base: str, step: int, tree: Any, *, shardings: Any = None) -> str:
+    """Synchronous checkpoint write; returns the step directory.
+
+    ``shardings`` (the tree's :func:`repro_torch.dist.to_shardings`): ``tree``
+    holds this rank's shards.  Every rank of the default process group
+    calls it; each leaf is all-gathered to its global shape, global rank 0
+    writes the files of the whole tree, and a barrier follows, so every rank
+    returns once the step is committed."""
+    if shardings is None:
+        return _write_step(base, step, tree, _flatten(tree, []))
+    import torch.distributed as dist
+
+    d = _write_step(base, step, tree, _whole_leaves(tree, shardings),
+                    write=dist.get_rank() == 0)
+    dist.barrier()
+    return d
+
+
+def _write_step(base: str, step: int, tree: Any, leaves, *, write: bool = True) -> str:
+    """Write ``leaves`` (an iterable, consumed whether or not this process
+    ``write``s) and the manifest of ``tree``'s structure as step ``step``."""
     d = _step_dir(base, step)
-    tmp = _staging(d)
-    leaves = _flatten(tree, [])
+    tmp = _staging(d) if write else None
     manifest = {"step": step, "treedef": _treedef_str(tree), "leaves": []}
     for i, leaf in enumerate(leaves):
-        _write_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), leaf)
+        if write:
+            _write_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), leaf)
         manifest["leaves"].append({"shape": list(np.shape(leaf)), "dtype": dtype_name(leaf)})
+    if not write:
+        return d
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     return _commit(tmp, d)
@@ -292,11 +365,17 @@ def _validate_manifest(d: str, like_leaves: list) -> None:
         raise ValueError(f"checkpoint {d} does not match the requested structure: {shown}")
 
 
-def restore(base: str, step: int, like: Any, *, device="cuda", validate: bool = True) -> Any:
+def restore(base: str, step: int, like: Any, *, shardings: Any = None, device="cuda",
+            validate: bool = True) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors, for
     example on the ``meta`` device: only shapes and dtypes are read), every
     leaf a tensor on ``device``.  ``validate`` (default) checks the stored
-    manifest's leaf count/shapes/dtypes against ``like`` first."""
+    manifest's leaf count/shapes/dtypes against ``like`` first.
+
+    ``shardings`` (:func:`repro_torch.dist.to_shardings` of the tree's specs
+    on this run's mesh): ``like`` is the *global* structure, and each rank
+    gets its shard of every whole leaf it reads — the elastic re-shard:
+    whatever mesh saved the step, and none."""
     dev = devices.resolve(device)
     d = _step_dir(base, step)
     if not os.path.exists(os.path.join(d, _COMMIT)):
@@ -308,7 +387,9 @@ def restore(base: str, step: int, like: Any, *, device="cuda", validate: bool = 
     if len(metas) != len(like_leaves):
         raise ValueError(f"checkpoint {d} has {len(metas)} leaves, the structure "
                          f"{len(like_leaves)}")
-    out = [_to_device(_read_leaf(os.path.join(d, f"leaf_{i:05d}.npy"), meta), meta["dtype"], dev)
+    places = [None] * len(metas) if shardings is None else _placements(like, shardings)
+    out = [_to_device(_read_leaf(os.path.join(d, f"leaf_{i:05d}.npy"), meta), meta["dtype"], dev,
+                      places[i])
            for i, meta in enumerate(metas)]
     return _unflatten(like, iter(out))
 
@@ -320,6 +401,12 @@ class AsyncCheckpointer:
     caller's thread; the files are written on a background thread.  A
     failure there (disk full, permissions) is captured and re-raised on the
     *next* ``save()`` / ``wait()`` call.
+
+    ``save(shardings=)`` (a sharded tree, as :func:`save` takes it): every
+    rank gathers the whole leaves on its own thread, only global rank 0
+    keeps the host copy and writes it in the background, and the next
+    ``save()`` / ``wait()`` of every rank ends in a barrier, so no rank reads
+    the step before it is committed.
     """
 
     def __init__(self, base: str, keep_last: int = 3):
@@ -327,10 +414,20 @@ class AsyncCheckpointer:
         self.keep_last = keep_last
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False
 
-    def save(self, step: int, tree: Any):
+    def save(self, step: int, tree: Any, *, shardings: Any = None):
         self.wait()
-        host_tree = trees.tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+        if shardings is None:
+            host_tree = trees.tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+        else:
+            import torch.distributed as dist
+
+            leaves = [t.detach().to("cpu", copy=True) for t in _whole_leaves(tree, shardings)]
+            self._barrier = True
+            if dist.get_rank() != 0:
+                return
+            host_tree = _unflatten(tree, iter(leaves))
         self._thread = threading.Thread(target=self._write, args=(step, host_tree), daemon=True)
         self._thread.start()
 
@@ -353,6 +450,11 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(f"background checkpoint write to {self.base} failed") from err

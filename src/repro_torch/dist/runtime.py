@@ -31,8 +31,47 @@ layout is fixed by the rules below).
   :func:`repro_torch.models.moe.moe_apply`.
 
 A failed collective raises; nothing falls back, and nothing is silently
-replicated.  ``seq_shard`` execution and training under a mesh raise
-``NotImplementedError`` (ROADMAP Queue 1).
+replicated.  ``seq_shard`` execution raises ``NotImplementedError`` (ROADMAP
+Queue 1).
+
+**Training** runs the same forward under autograd; each collective is an
+``autograd.Function`` whose backward follows from the layout: the loss is
+*replicated over TP* (every TP rank computes it from the same full-width
+activations) and *split over dp* (each rank's rows).
+
+* **Normalization.**  Each rank's whole loss — its dp-local xent mean and the
+  aux term, which the routing fractions' all-reduce already makes global —
+  is divided by the dp size, so the sum over dp ranks is the global loss and
+  every dp-side backward is a plain SUM: the reported loss is all-reduced SUM
+  over dp, and after backward the gradient of every leaf replicated over dp
+  is all-reduced SUM over dp (:meth:`ShardedRun.reduce_grads`).
+* **A TP gather of an output** (a linear's column shards, the tied head's
+  logits, :meth:`ShardedLinear.dense_weight`): the upstream gradient is the
+  same on every TP rank, so the backward is this rank's slice of it
+  (:func:`gather_out`).
+* **A TP-replicated tensor entering a rank-local computation whose result is
+  combined over TP** (``x`` before a column-parallel matmul, before the
+  narrow of a row-parallel one or before the tied head's local logits;
+  ``xt`` and the gates before the local experts under EP) gets only a partial
+  gradient on each rank: identity forward, all-reduce SUM over TP backward
+  (Megatron's "f", :func:`copy_in`).
+* **A forward all-reduce SUM over TP** (row-parallel, the vocab-parallel
+  embedding, EP's ``y``): identity backward (:func:`reduce_out`).
+* **A dp gather of a weight** (FSDP: :meth:`ShardedRun.gather_dp`,
+  :meth:`ShardedRun.stack`, the embedding table) or of an activation (the MoE
+  block's replicated-experts branch): reduce-scatter SUM over dp backward
+  (:func:`gather_shards`).  The MoE routing fractions' forward all-reduce
+  over dp has an all-reduce SUM backward (:func:`all_reduce_both`).
+* **The gradient norm** counts each element once: local sums of squares in
+  groups of leaves sharded on the same axes, each group all-reduced over
+  those axes (:meth:`ShardedRun.norm_groups`).
+* **Checkpointed units** (``remat=True``) run their forward collectives
+  again in backward.  Every rank runs the same program, so the order agrees;
+  no rank-dependent branch may start a collective.
+
+With these the sharded step's gradient on each rank equals the same slice of
+the unsharded step's gradient on the global batch, up to the order of the
+sums.
 """
 
 from __future__ import annotations
@@ -52,7 +91,7 @@ _INT_LUT_MODES = ("lut", "stream")
 
 def gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """All-gather ``t`` over ``group``, concatenated along ``dim`` in group-rank
-    order."""
+    order (no autograd: the sharded training rules are the Functions below)."""
     import torch.distributed as dist
 
     n = dist.get_world_size(group)
@@ -70,17 +109,84 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return t
 
 
+def _slice_of(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    k = g.shape[dim] // n
+    return g.narrow(dim, dist.get_rank(group) * k, k).contiguous()
+
+
+def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    parts = [c.contiguous() for c in g.chunk(dist.get_world_size(group), dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; backward: this rank's slice of the gradient, or
+    with ``scatter`` the gradient reduce-scattered SUM."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, scatter):
+        ctx.dim, ctx.group, ctx.scatter = dim, group, scatter
+        return gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = _reduce_scatter if ctx.scatter else _slice_of
+        return back(g, ctx.dim, ctx.group), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """All-reduce SUM in the forward (``fwd``) or not (identity), and of the
+    gradient in the backward (``bwd``) or not."""
+
+    @staticmethod
+    def forward(ctx, t, group, fwd, bwd):
+        ctx.group, ctx.bwd = group, bwd
+        return all_reduce(t.clone(), group) if fwd else t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce(g.clone(), ctx.group) if ctx.bwd else g), None, None, None
+
+
+def gather_out(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather over TP of a result every TP rank then uses alike; backward:
+    this rank's slice of the gradient."""
+    return _Gather.apply(t, dim, group, False)
+
+
+def gather_shards(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather over dp of a dp-sharded weight or activation; backward:
+    reduce-scatter SUM over dp."""
+    return _Gather.apply(t, dim, group, True)
+
+
+def copy_in(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; backward all-reduce SUM over ``group`` (a TP-replicated
+    input of a rank-local computation that is combined over TP)."""
+    return t if group is None else _AllReduce.apply(t, group, False, True)
+
+
+def reduce_out(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce SUM over TP of the ranks' partial results; identity backward."""
+    return t if group is None else _AllReduce.apply(t, group, True, False)
+
+
+def all_reduce_both(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce SUM forward and backward (a dp-global statistic of a loss term
+    replicated over dp: the MoE routing fractions)."""
+    return t if group is None else _AllReduce.apply(t, group, True, True)
+
+
 def active(ctx) -> bool:
     """True where ``ctx`` asks for a sharded run (a mesh is attached)."""
     return ctx is not None and ctx.mesh is not None
-
-
-def refuse_training(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} under a mesh needs autograd through the collectives: sharded training "
-        f"(make_train_step(ctx=) with the FSDP reduce-scatter) is the next distribution item "
-        f"of ROADMAP Queue 1, 'Sharded training'"
-    )
 
 
 @dataclasses.dataclass
@@ -106,20 +212,21 @@ class ShardedLinear:
         if self.in_tp:
             w = inner["w"]
             k = w.shape[-2]
-            y = x.narrow(-1, run.tp_rank * k, k) @ w.to(x.dtype)
-            all_reduce(y, run.tp_group)
+            x = copy_in(x, run.tp_group).narrow(-1, run.tp_rank * k, k)
+            y = reduce_out(x @ w.to(x.dtype), run.tp_group)
             return y + inner["b"].to(y.dtype) if "b" in inner else y
-        y = linear(inner, x)
-        return gather(y, -1, run.tp_group) if self.out_tp else y
+        if not self.out_tp:
+            return linear(inner, x)
+        return gather_out(linear(inner, copy_in(x, run.tp_group)), -1, run.tp_group)
 
     def dense_weight(self, decode) -> torch.Tensor:
         """The whole dense ``[..., K, F]`` weight (``decode`` turns a quantized
         leaf into its local one): the local shard all-gathered."""
         w = self.inner["w"] if isinstance(self.inner, dict) else decode(self.inner)
         if self.out_tp:
-            w = gather(w, -1, self.run.tp_group)
+            w = gather_out(w, -1, self.run.tp_group)
         if self.in_tp:
-            w = gather(w, -2, self.run.tp_group)
+            w = gather_out(w, -2, self.run.tp_group)
         return w
 
 
@@ -135,8 +242,6 @@ class ShardedRun:
                 "context-parallel attention) is not ported: ROADMAP Queue 1, 'seq_shard "
                 "execution'; its specs are (cache_specs)"
             )
-        if torch.is_grad_enabled() and any(t.requires_grad for t in tree.tensors(params)):
-            refuse_training("a forward with parameters that require grad")
         self.cfg, self.ctx = cfg, ctx
         self.specs = param_specs(cfg, global_like(cfg, params), ctx)
         self.tp_size, self.dp_size = ctx.tp_size(), ctx.dp_size()
@@ -153,7 +258,7 @@ class ShardedRun:
         all-gathered."""
         for d, entry in enumerate(spec):
             if entry is not None and entry == self._dp and (dims is None or d in dims):
-                t = gather(t, d, self.dp_group)
+                t = gather_shards(t, d, self.dp_group)
         return t
 
     def bind(self, node, spec, name: str = "", under_moe: bool = False):
@@ -225,16 +330,16 @@ class ShardedRun:
         local = ids - self.tp_rank * rows
         mine = (local >= 0) & (local < rows)
         x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0.0)
-        return all_reduce(x, self.tp_group)
+        return reduce_out(x, self.tp_group)
 
     def tied_head(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         """``x @ embed^T`` over the local vocab rows, all-gathered."""
         spec = self.specs["embed"]
         table = self.gather_dp(table, spec)
-        logits = torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
         if self._tp is None or spec[0] != self._tp:
-            return logits
-        return gather(logits, -1, self.tp_group)
+            return torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
+        logits = torch.einsum("bsd,vd->bsv", copy_in(x, self.tp_group), table.to(x.dtype))
+        return gather_out(logits, -1, self.tp_group)
 
     def global_ascale(self, q, x: torch.Tensor) -> torch.Tensor:
         """The dynamic activation scale over the whole dp batch: this rank's
@@ -244,6 +349,43 @@ class ShardedRun:
         all_reduce(amax, self.dp_group, op="max")
         _, scale = quantize_activation(amax.reshape(1, 1), q.spec.aspec())
         return scale
+
+
+    # --- training: after backward -----------------------------------------
+
+    def sum_dp(self, t: torch.Tensor) -> torch.Tensor:
+        """A rank's share of a loss (or any detached value) summed over dp."""
+        return t if self.dp_group is None else all_reduce(t.detach().clone(), self.dp_group)
+
+    def reduce_grads(self, grads):
+        """The gradient tree after backward: every leaf replicated over dp
+        all-reduced SUM over dp (a dp-sharded leaf's gradient was
+        reduce-scattered by its gather's backward)."""
+        if self.dp_group is None:
+            return grads
+        return tree.tree_map(
+            lambda g, spec: g if self._dp in spec else all_reduce(g, self.dp_group),
+            grads, self.specs)
+
+    def norm_groups(self, grads) -> torch.Tensor:
+        """The global sum of squares of a gradient tree of local shards: each
+        group of leaves sharded on the same axes summed locally, then
+        all-reduced over those axes, so a replicated element counts once."""
+        groups: dict = {}
+
+        def add(g, spec):
+            axes = tuple(a for a in (self._dp, self._tp) if a is not None and a in spec)
+            groups.setdefault(axes, []).append(torch.sum(torch.square(g.to(torch.float32))))
+            return g
+
+        tree.tree_map(add, grads, self.specs)
+        total = []
+        for axes, sums in groups.items():          # the same order on every rank
+            s = torch.sum(torch.stack(sums))
+            for a in axes:
+                all_reduce(s, self.dp_group if a == self._dp else self.tp_group)
+            total.append(s)
+        return torch.sum(torch.stack(total))
 
 
 def _map_pairs(fn, node, spec):

@@ -24,7 +24,9 @@ Every rule replicates a dim that the mesh-axis size does not divide.
 The port keeps two things of its own.  A spec leaf is a :class:`PSpec` (one
 entry per dim: an axis name, a tuple of names, or ``None``), the stand-in for
 ``jax.sharding.PartitionSpec``; :func:`to_shardings` turns it into DTensor
-placements.  And a quantized leaf's frozen activation scale ``ascale`` gets a
+placements that carry their mesh (:class:`Placements`, the stand-in for
+``NamedSharding``: what ``ckpt.save`` / ``restore(shardings=)`` gather and
+cut a leaf with, :func:`whole_leaf` / :func:`shard_leaf`).  And a quantized leaf's frozen activation scale ``ascale`` gets a
 replicated spec, where the reference leaves the array itself in the spec
 tree (its ``dataclasses.replace`` touches only codes, scale and bias): a
 scalar is replicated either way.
@@ -383,6 +385,10 @@ def _map_specs(fn, tree, specs):
             for f in ("codes", "scale", "bias", "ascale")})
     if isinstance(tree, PreparedLinear):
         raise TypeError("shard_tree takes the raw quantized tree: prepare each rank's shard")
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):     # a TrainState
+        return dataclasses.replace(tree, **{
+            f.name: _map_specs(fn, getattr(tree, f.name), getattr(specs, f.name))
+            for f in dataclasses.fields(tree)})
     return tree
 
 
@@ -398,6 +404,9 @@ def _spec_leaves(specs, fn):
     if isinstance(specs, QuantizedLinear):
         return dataclasses.replace(specs, **{
             f: _spec_leaves(getattr(specs, f), fn) for f in ("codes", "scale", "bias", "ascale")})
+    if dataclasses.is_dataclass(specs) and not isinstance(specs, type):   # a TrainState
+        return dataclasses.replace(specs, **{
+            f.name: _spec_leaves(getattr(specs, f.name), fn) for f in dataclasses.fields(specs)})
     return specs
 
 
@@ -405,12 +414,57 @@ def _axes_of(entry) -> tuple:
     return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
 
 
+class Placements(tuple):
+    """One leaf's DTensor placements, one per mesh axis, and the ``mesh``
+    they refer to: the port's ``NamedSharding`` (a tuple, equal to the bare
+    placements)."""
+
+    def __new__(cls, placements, mesh):
+        out = super().__new__(cls, placements)
+        out.mesh = mesh
+        return out
+
+
+def _spec_of(placements: Placements) -> PSpec:
+    """The :class:`PSpec` behind a leaf's placements (its rank: the highest
+    sharded dim + 1; trailing replicated dims need no entry)."""
+    names = tuple(mesh_axes(placements.mesh))
+    dims: dict = {}
+    for a, pl in zip(names, placements):
+        if pl.is_shard():
+            dims.setdefault(pl.dim, []).append(a)
+    n = max(dims, default=-1) + 1
+    return PSpec(*(None if d not in dims else dims[d][0] if len(dims[d]) == 1
+                   else tuple(dims[d]) for d in range(n)))
+
+
+def shard_leaf(t: torch.Tensor, placements: Placements) -> torch.Tensor:
+    """This rank's shard of a whole leaf ``t`` under ``placements``
+    (:func:`shard_tree`'s rule)."""
+    mesh = placements.mesh
+    return _cut(t, _spec_of(placements), mesh_axes(mesh),
+                dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())))
+
+
+def whole_leaf(t: torch.Tensor, placements: Placements) -> torch.Tensor:
+    """The whole leaf behind this rank's shard ``t``: all-gathered over every
+    axis that shards it, the minor axis first (no autograd)."""
+    from repro_torch.dist.runtime import gather
+
+    mesh = placements.mesh
+    for a, pl in reversed(list(zip(mesh.mesh_dim_names, placements))):
+        if pl.is_shard():
+            t = gather(t, pl.dim, mesh.get_group(a))
+    return t
+
+
 def to_shardings(specs: Any, mesh) -> Any:
     """Every :class:`PSpec` of ``specs`` as DTensor placements: a tuple with
     one placement per mesh axis, ``Shard(d)`` where the axis shards dim
     ``d`` and ``Replicate()`` elsewhere (a dim on several axes is split over
     them in the mesh's axis order, major first, as a tuple entry's first
-    axis is major)."""
+    axis is major).  Each is a :class:`Placements` that carries ``mesh``
+    (what ``ckpt.save`` / ``restore(shardings=)`` gather and cut with)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(mesh_axes(mesh))
@@ -424,7 +478,8 @@ def to_shardings(specs: Any, mesh) -> Any:
             axes = _axes_of(entry)
             if list(axes) != sorted(axes, key=names.index):
                 raise ValueError(f"spec {spec}: axes {axes} are not in the mesh's order {names}")
-        return tuple(Shard(where[a]) if a in where else Replicate() for a in names)
+        return Placements(tuple(Shard(where[a]) if a in where else Replicate() for a in names),
+                          mesh)
 
     return _spec_leaves(specs, conv)
 
@@ -443,22 +498,23 @@ def shard_tree(tree: Any, specs: Any, ctx: ShardCtx, coords: Optional[dict] = No
     for a, i in coords.items():
         if a in sizes and not 0 <= i < sizes[a]:
             raise ValueError(f"coordinate {a}={i} outside the mesh's {sizes[a]}")
+    return _map_specs(lambda t, spec: _cut(t, spec, sizes, coords), tree, specs)
 
-    def cut(t: torch.Tensor, spec: PSpec):
-        if len(spec) > t.ndim:
-            raise ValueError(f"spec {spec} has more entries than the leaf {tuple(t.shape)}")
-        for d, entry in enumerate(spec):
-            axes = _axes_of(entry)
-            if not axes:
-                continue
-            n = math.prod(sizes.get(a, 1) for a in axes)
-            if t.shape[d] % n:
-                raise ValueError(f"dim {d} of {tuple(t.shape)} does not divide into {n} ({spec})")
-            step = t.shape[d] // n
-            t = t.narrow(d, _row_major(coords, sizes, axes) * step, step)
-        return t.contiguous()
 
-    return _map_specs(cut, tree, specs)
+def _cut(t: torch.Tensor, spec: PSpec, sizes: dict, coords: dict) -> torch.Tensor:
+    """The shard of ``t`` at ``coords`` under ``spec`` (a contiguous copy)."""
+    if len(spec) > t.ndim:
+        raise ValueError(f"spec {spec} has more entries than the leaf {tuple(t.shape)}")
+    for d, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        if not axes:
+            continue
+        n = math.prod(sizes.get(a, 1) for a in axes)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not divide into {n} ({spec})")
+        step = t.shape[d] // n
+        t = t.narrow(d, _row_major(coords, sizes, axes) * step, step)
+    return t.contiguous()
 
 
 @functools.lru_cache(maxsize=8)

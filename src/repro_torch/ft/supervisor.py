@@ -194,6 +194,7 @@ def run_supervised(
     batch_at: Callable[[int], object],    # counter-based data access
     n_steps: int,
     injector: Optional[FailureInjector] = None,
+    state_shardings=None,
     on_metrics: Optional[Callable[[int, dict], None]] = None,
     policy: Optional[RestartPolicy] = None,
     device="cuda",
@@ -206,7 +207,14 @@ def run_supervised(
     mismatched tree raises instead of silently mis-unflattening.  The state
     is saved every ``cfg.ckpt_every`` steps and after the last.  ``policy``
     defaults to retrying :class:`InjectedFailure` only, ``cfg.max_restarts``
-    times."""
+    times.
+
+    ``state_shardings`` (the state's :func:`repro_torch.dist.to_shardings`,
+    as in the reference): a sharded run, every rank calling this.  The state
+    is the rank's shards: ``init_state_fn`` builds the whole state and each
+    rank keeps its shard of it (:func:`repro_torch.ckpt.checkpoint.place`),
+    saves gather it (:func:`~repro_torch.ckpt.checkpoint.save`) and restores
+    cut it from the whole leaves, on whatever mesh the shardings name."""
     policy = policy or RestartPolicy(max_restarts=cfg.max_restarts)
     dev = devices.resolve(device)
 
@@ -214,10 +222,13 @@ def run_supervised(
         latest = ckpt.latest_step(cfg.ckpt_dir)
         if latest is None:
             state = init_state_fn(dev)
+            if state_shardings is not None:
+                state = ckpt.place(state, state_shardings)
             step = 0
         else:
             like = init_state_fn(torch.device("meta"))
-            state = ckpt.restore(cfg.ckpt_dir, latest, like, device=dev, validate=True)
+            state = ckpt.restore(cfg.ckpt_dir, latest, like, shardings=state_shardings,
+                                 device=dev, validate=True)
             step = latest
         while step < n_steps:
             if injector is not None:
@@ -227,7 +238,7 @@ def run_supervised(
             if on_metrics is not None:
                 on_metrics(step, metrics)
             if step % cfg.ckpt_every == 0 or step == n_steps:
-                ckpt.save(cfg.ckpt_dir, step, state)
+                ckpt.save(cfg.ckpt_dir, step, state, shardings=state_shardings)
         return state
 
     return supervise(body, policy=policy)

@@ -39,7 +39,12 @@ the tokens are the rank's dp rows, replicated over the TP axis):
   of the result.
 
 The aux loss is the mean over the global batch in both (over dp, its sums
-are all-reduced).
+are all-reduced).  Under autograd the collectives are the sharded training
+rules of :mod:`repro_torch.dist.runtime`: under EP the tokens and the gates
+enter the local experts through ``copy_in`` (their gradients are partial on
+each TP rank) and ``y``'s all-reduce has an identity backward; the replicated
+branch's dp gather of the tokens has a reduce-scatter backward; the routing
+fractions' all-reduce has an all-reduce backward.
 """
 
 from __future__ import annotations
@@ -93,8 +98,8 @@ def _route(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, dp_group=
     else:
         import torch.distributed as dist
 
-        sums = torch.stack([probs.sum(dim=0), hard.sum(dim=0)])
-        dist.all_reduce(sums, group=dp_group)
+        sums = runtime.all_reduce_both(torch.stack([probs.sum(dim=0), hard.sum(dim=0)]),
+                                       dp_group)
         dense_frac, hard_frac = sums / (xt.shape[0] * dist.get_world_size(dp_group))
     aux = e.n_experts * torch.sum(dense_frac * hard_frac)
     return gates.to(xt.dtype), eidx.to(torch.int32), aux
@@ -170,8 +175,6 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None):
     experts = [maybe_dequant(p[n], x.dtype) for n in ("w_gate", "w_up", "w_down")]
     kw = dict(capacity_factor=e.capacity_factor, act_kind=cfg.ffn_act, e_total=e.n_experts)
     sharded = runtime.active(ctx)
-    if sharded and torch.is_grad_enabled() and x.requires_grad:
-        runtime.refuse_training("the MoE block")
     tp = ctx.tp_size() if sharded else 1
     ep = tp > 1 and e.n_experts % tp == 0
     tp_group = ctx.tp_group() if ep else None
@@ -184,12 +187,13 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None):
                 f"{experts[0].shape[0]} (cut the tree with shard_tree(param_specs(...)))"
             )
         gates, eidx, aux = _route(xt, p["router"]["w"], cfg, dp_group)
-        y = _dispatch_compute(xt, gates, eidx, *experts, e_first=ctx.tp_rank() * el, **kw)
-        runtime.all_reduce(y, tp_group)
+        y = _dispatch_compute(runtime.copy_in(xt, tp_group), runtime.copy_in(gates, tp_group),
+                              eidx, *experts, e_first=ctx.tp_rank() * el, **kw)
+        y = runtime.reduce_out(y, tp_group)
     else:
         if experts[0].shape[0] != e.n_experts:
             raise ValueError(f"replicated experts: {experts[0].shape[0]} of {e.n_experts}")
-        x_all = xt if dp_group is None else runtime.gather(xt, 0, dp_group)
+        x_all = xt if dp_group is None else runtime.gather_shards(xt, 0, dp_group)
         gates, eidx, aux = _route(x_all, p["router"]["w"], cfg)
         y = _dispatch_compute(x_all, gates, eidx, *experts, **kw)
         if dp_group is not None:

@@ -56,19 +56,27 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, run=None) -> torch.Tensor:
+    """The f32 norm of every gradient leaf; with ``run`` (a sharded step's
+    :class:`~repro_torch.dist.runtime.ShardedRun`, ``grads`` the rank's
+    shards) the global norm of the whole gradient."""
+    if run is not None:
+        return torch.sqrt(run.norm_groups(grads))
     sums = [torch.sum(torch.square(x.to(torch.float32))) for x in _leaves(grads)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
+def apply_updates(params, grads, state: dict, cfg: AdamWConfig, *, run=None):
     """Returns ``(new_params, new_state, metrics)``; nothing is updated in
     place.  A Python number divided by a tensor is written as ``torch.div``
     of two f32 tensors: ``number / tensor`` is a reciprocal and a product in
-    torch, one rounding more than the reference's division."""
+    torch, one rounding more than the reference's division.  ``run``: the
+    trees are a rank's shards (:func:`global_norm`); every other step is
+    elementwise, and weight decay on ``ndim >= 2`` holds for a shard as for
+    its leaf."""
     step = state["step"] + 1
     dev = step.device
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, run)
     scale = torch.clamp(torch.div(_f32(cfg.clip_norm, dev), gnorm + 1e-9), max=1.0)
     lr = _schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -7,11 +7,14 @@ spawns (torch and repro_torch only: no JAX in the ranks).
 its own shards from the same seeded full tree (``shard_tree``) and also runs
 the unsharded path in-process, so a sharded result is held against the
 port's own unsharded one on the same inputs; the reference's expert-parallel
-outputs come from ``<out>/ref_ep.pkl``, written by a JAX child first.
+outputs, its chatglm3-6b smoke step and its ``ckpt.save`` of the stepped
+train state on a ``(2, 2)`` mesh come from ``<out>/ref_ep.pkl`` and
+``<out>/ref_ckpt``, written by a JAX child first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -33,6 +36,23 @@ FORWARD_CASES = {
     "stablelm-12b/lut/pod": ("stablelm-12b", "lut", False, "pdm", False),
 }
 SERVE_DRIVERS = ("scan", "loop", "chunked")
+TRAIN_CASES = {
+    # name: (arch, accum_steps); FSDP + TP on (data 2, model 2), f32
+    "chatglm3-6b": ("chatglm3-6b", 1),              # the reference's case
+    "chatglm3-6b/accum2": ("chatglm3-6b", 2),
+    "gemma2-2b": ("gemma2-2b", 1),                  # tied vocab-parallel head
+    "deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 1),   # EP, MLA, aux loss (dropless)
+    "internvl2-1b": ("internvl2-1b", 1),            # prefix_embeds dp-local
+    "rwkv6-3b": ("rwkv6-3b", 1),                    # a recurrent family
+}
+ELASTIC_MESHES = ("dm", "d4", "m4")                 # (2, 2), (4, 1), (1, 4)
+REF_STEP = 5                                        # the step the reference saved
+TOL_GRAD = 1e-5       # a rank's gradient shards vs the unsharded step's, x the leaf's max |g|
+SPREAD = 2.0          # ... or x the unsharded step's own move under TP's reordering where
+                      # that is larger (rwkv6-3b's time_mix/u: ~3.5e-5); two reorderings
+                      # (dp's and TP's) against the one measured
+LAUNCH_ARGV = ["--arch", "chatglm3-6b", "--steps", "4", "--batch", "4", "--seq", "16",
+               "--lr", "1e-3", "--ckpt-every", "2", "--device", "cpu"]
 
 
 def _spec(mode):
@@ -218,7 +238,8 @@ def serve_case(driver, meshes):
 
 
 def refusals_case(meshes):
-    """What a mesh still refuses: training, and seq_shard execution."""
+    """What a mesh still refuses: seq_shard execution, in a forward and in a
+    train step; a train step without it runs."""
     import torch
 
     from repro_torch import dist as rd
@@ -229,9 +250,15 @@ def refusals_case(meshes):
     cfg = _cfg("gemma2-2b")
     model = Model(cfg)
     ctx = rd.ShardCtx(meshes["dm"])
+    state = ts.init_train_state(model, 0, device="cpu")
+    batch = {"tokens": torch.zeros((2, 5), dtype=torch.long)}
     msgs = {}
     for what, fn in (
-        ("train_step", lambda: ts.make_train_step(model, opt.AdamWConfig(), ctx=ctx)),
+        ("train_step", lambda: ts.make_train_step(model, opt.AdamWConfig(), ctx=ctx)(
+            rd.shard_tree(state, ts.train_state_specs(cfg, ctx), ctx), batch)),
+        ("seq_shard_step", lambda: ts.make_train_step(
+            model, opt.AdamWConfig(), ctx=dataclasses.replace(ctx, seq_shard=True))(
+            state, batch)),
         ("seq_shard", lambda: model.forward(
             model.init(0, device="cpu"), torch.zeros((2, 4), dtype=torch.long),
             ctx=dataclasses.replace(ctx, seq_shard=True))),
@@ -242,6 +269,216 @@ def refusals_case(meshes):
         except NotImplementedError as e:
             msgs[what] = str(e)
     return msgs
+
+
+def _ref_state(ref: dict, key: str):
+    """The reference's train state ``ref[key]`` (a dict of numpy trees) as the
+    port's ``TrainState`` on the CPU."""
+    import types
+
+    from repro_torch.convert import train_state_from_numpy
+
+    return train_state_from_numpy(types.SimpleNamespace(**ref[key]), device="cpu")
+
+
+def _paths(t, prefix=""):
+    """``(path, leaf)`` of every tensor leaf, dict keys sorted."""
+    if isinstance(t, dict):
+        for k in sorted(t):
+            yield from _paths(t[k], f"{prefix}/{k}")
+    elif isinstance(t, (list, tuple)):
+        for i, v in enumerate(t):
+            yield from _paths(v, f"{prefix}/{i}")
+    elif t is not None:
+        yield prefix, t
+
+
+def _grad_err(got, want_slice, want_whole):
+    """Worst leaf of ``max |got - want_slice| / max |want_whole leaf|`` (the
+    rank's gradient shards against the same slices of a whole gradient),
+    with its path."""
+    worst = (0.0, "")
+    for (path, a), (_p, b), (_q, w) in zip(_paths(got), _paths(want_slice), _paths(want_whole)):
+        assert a.shape == b.shape, (path, a.shape, b.shape)
+        err = float((a - b).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, (err, path))
+    return worst
+
+
+@contextlib.contextmanager
+def split_k_sums():
+    """Every dense matmul of the models sums its K in two halves, as a
+    row-parallel layer over tp 2 does: the unsharded step under this is
+    the unsharded step's own rounding spread under TP's reordering."""
+    import torch
+
+    from repro_torch.models import attention, ffn, layers, rwkv, ssm, transformer
+
+    plain = layers.linear
+
+    def split(p, x):
+        if not (isinstance(p, dict) and isinstance(p.get("w"), torch.Tensor)):
+            return plain(p, x)
+        w, k = p["w"].to(x.dtype), p["w"].shape[-2] // 2
+        y = x[..., :k] @ w[..., :k, :] + x[..., k:] @ w[..., k:, :]
+        return y + p["b"].to(y.dtype) if "b" in p else y
+
+    mods = (layers, attention, ffn, rwkv, ssm, transformer)
+    for m in mods:
+        m.linear = split
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.linear = plain
+
+
+def _grad_bound(got, want_slice, want_whole, spread_slice):
+    """Worst leaf of the sharded gradient's error over its bound: ``TOL_GRAD x
+    max |want_whole leaf|``, or where the unsharded gradient itself moves
+    more under TP's reordering of its sums (``spread_slice``: the same
+    slice of it under :func:`split_k_sums`), ``SPREAD x`` that move.
+    Returns ``(error / bound, path, error / leaf max, spread / leaf max)``."""
+    worst = (0.0, "", 0.0, 0.0)
+    for (path, a), (_p, b), (_q, w), (_r, c) in zip(_paths(got), _paths(want_slice),
+                                                    _paths(want_whole), _paths(spread_slice)):
+        scale = max(float(w.abs().max()), 1e-30)
+        err, spread = float((a - b).abs().max()) / scale, float((c - b).abs().max()) / scale
+        worst = max(worst, (err / max(TOL_GRAD, SPREAD * spread), path, err, spread))
+    return worst
+
+
+def train_case(name, meshes, ref):
+    """One sharded train step against the port's unsharded step on the global
+    batch: gradients (``make_grads_fn``), ``loss``, ``grad_norm`` and the
+    parameters after the step (``make_train_step``); chatglm3-6b starts from
+    the reference's state and batch and is also held to the reference's step."""
+    import torch
+
+    from repro_torch import dist as rd
+    from repro_torch import tree
+    from repro_torch.models.model import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    arch, accum = TRAIN_CASES[name]
+    cfg = _cfg(arch)
+    model = Model(cfg)
+    if arch == "chatglm3-6b":
+        state = _ref_state(ref, "state")
+        batch = {"tokens": torch.from_numpy(ref["tokens"])}
+    else:
+        state = ts.init_train_state(model, 0, device="cpu")
+        rng = np.random.default_rng(5)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 13)))}
+        if cfg.frontend is not None:
+            batch["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+                (4, cfg.frontend_seq, cfg.frontend_dim)).astype(np.float32))
+    ctx = rd.ShardCtx(meshes["dm"], fsdp=True)
+    sspec = ts.train_state_specs(cfg, ctx)
+    local = rd.shard_tree(state, sspec, ctx)
+    rows = rd.runtime.rows_of(4, ctx)
+    lbatch = {k: v[rows] for k, v in batch.items()}
+    ocfg = opt.AdamWConfig(lr=1e-3)
+    kw = dict(remat=True, accum_steps=accum)
+    (_l0, _x0), g0 = ts.make_grads_fn(model, **kw)(state.params, batch)
+    with split_k_sums():
+        (_l2, _x2), g_split = ts.make_grads_fn(model, **kw)(state.params, batch)
+    (_l1, _x1), g1 = ts.make_grads_fn(model, ctx=ctx, **kw)(local.params, lbatch)
+    want, wm = ts.make_train_step(model, ocfg, **kw)(state, batch)
+    got, gm = ts.make_train_step(model, ocfg, ctx=ctx, **kw)(local, lbatch)
+    cut = lambda t: rd.shard_tree(t, sspec.params, ctx)         # noqa: E731
+    ratio, grad_path, grad_rel, spread = _grad_bound(g1, cut(g0), g0, cut(g_split))
+    out = {"grad_ratio": ratio, "grad_path": grad_path, "grad_rel": grad_rel,
+           "grad_spread": spread, "grad_rel_max": _grad_err(g1, cut(g0), g0),
+           "sharded": any(a.shape != b.shape for a, b in
+                          zip(tree.tensors(local.params), tree.tensors(state.params))),
+           "loss_rel": abs(float(gm["loss"]) - float(wm["loss"])) / abs(float(wm["loss"])),
+           "grad_norm_rel": abs(float(gm["grad_norm"]) - float(wm["grad_norm"]))
+           / float(wm["grad_norm"]),
+           "param_abs": max(float((a - b).abs().max()) for a, b in
+                            zip(tree.tensors(got.params), tree.tensors(cut(want.params)))),
+           "loss": float(gm["loss"]), "step": int(got.step)}
+    if name == "chatglm3-6b":
+        from repro_torch.convert import params_from_numpy
+
+        rg = params_from_numpy(ref["grads"], device="cpu")
+        out["ref_grad_rel"], out["ref_grad_path"] = _grad_err(g1, cut(rg), rg)
+        out["ref_loss_abs"] = abs(float(gm["loss"]) - ref["loss"])
+        out["ref_param_abs"] = max(
+            float((a - b).abs().max()) for a, b in
+            zip(tree.tensors(got.params), tree.tensors(cut(_ref_state(ref, "new").params))))
+    return out
+
+
+def elastic_case(out_dir, meshes, ref):
+    """The reference's save of its stepped chatglm3-6b train state (on its
+    (2, 2) mesh), restored by the port on three meshes; then the port's
+    sharded save of the same state from (2, 2)."""
+    import torch
+
+    from repro_torch import dist as rd
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.models.model import Model
+    from repro_torch.train import train_step as ts
+
+    cfg = _cfg("chatglm3-6b")
+    saved = _ref_state(ref, "new")
+    like = ts.init_train_state(Model(cfg), 0, device="meta")
+    out = {}
+    for name in ELASTIC_MESHES:
+        ctx = rd.ShardCtx(meshes[name], fsdp=True)
+        sspec = ts.train_state_specs(cfg, ctx)
+        got = ckpt.restore(os.path.join(out_dir, "ref_ckpt"), REF_STEP, like, device="cpu",
+                           shardings=rd.to_shardings(sspec, ctx.mesh))
+        want = rd.shard_tree(saved, sspec, ctx)
+        pairs = list(zip(ckpt._flatten(got, []), ckpt._flatten(want, [])))
+        out[name] = {"equal": all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+                     "leaves": len(pairs),
+                     "sharded": sum(a.numel() < w.numel() for (a, _b), w in
+                                    zip(pairs, ckpt._flatten(saved, [])))}
+    ctx = rd.ShardCtx(meshes["dm"], fsdp=True)
+    sspec = ts.train_state_specs(cfg, ctx)
+    local, shardings = rd.shard_tree(saved, sspec, ctx), rd.to_shardings(sspec, ctx.mesh)
+    ckpt.save(os.path.join(out_dir, "port_ckpt"), REF_STEP, local, shardings=shardings)
+    writer = ckpt.AsyncCheckpointer(os.path.join(out_dir, "port_async"))
+    writer.save(REF_STEP, local, shardings=shardings)
+    writer.wait()
+    return out
+
+
+def launch_case(out_dir, meshes):
+    """``launch/train.py``'s sharded body on (2, 2): 4 steps with a failure at
+    step 2 against a clean sharded run and the unsharded launcher (f32);
+    ``--mesh single`` in this world of 4."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import dist as rd
+    from repro_torch import tree
+    from repro_torch.launch import train as lt
+
+    lt.get_config = lambda arch, smoke: _cfg(arch)            # f32, as every case here
+    ctx = rd.ShardCtx(meshes["dm"], fsdp=True)
+    runs = {}
+    for name, extra, c in (("faulty", ["--fail-at", "2"], ctx), ("clean", [], ctx),
+                           ("plain", [], None)):
+        d = os.path.join(out_dir, f"launch_{name}" + (f"{dist.get_rank()}" if c is None else ""))
+        runs[name] = lt.train(lt.parse(LAUNCH_ARGV + extra + ["--ckpt-dir", d]), c)
+    (faulty, f_restarts, f_losses), (clean, _r, c_losses), (_p, _r2, p_losses) = \
+        runs["faulty"], runs["clean"], runs["plain"]
+    try:
+        lt.main(["--mesh", "single", "--device", "cpu"])
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    return {"restarts": f_restarts, "step": int(faulty.step),
+            "bit_equal": all(torch.equal(a, b) for a, b in
+                             zip(tree.tensors(faulty.params) + tree.tensors(faulty.opt),
+                                 tree.tensors(clean.params) + tree.tensors(clean.opt))),
+            "losses": c_losses, "faulty_losses": f_losses, "plain_losses": p_losses,
+            "loss_abs": max(abs(a - b) for a, b in zip(c_losses, p_losses)),
+            "refusal": refusal}
 
 
 def rank_main(rank: int, out_dir: str) -> None:
@@ -257,7 +494,11 @@ def rank_main(rank: int, out_dir: str) -> None:
                                 rank=rank, world_size=WORLD)
         meshes = {"dm": init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model")),
                   "pdm": init_device_mesh("cpu", (2, 1, 2),
-                                          mesh_dim_names=("pod", "data", "model"))}
+                                          mesh_dim_names=("pod", "data", "model")),
+                  "d4": init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model")),
+                  "m4": init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))}
+        with open(os.path.join(out_dir, "ref_ep.pkl"), "rb") as f:
+            ref = pickle.load(f)["train"]
         res["forward"] = {name: forward_case(name, meshes) for name in FORWARD_CASES}
         res["global_amax"] = global_amax_case(meshes)
         res["ep"] = ep_case(out_dir, meshes)
@@ -265,6 +506,9 @@ def rank_main(rank: int, out_dir: str) -> None:
         res["psum"] = psum_case()
         res["serve"] = {d: serve_case(d, meshes) for d in SERVE_DRIVERS}
         res["refusals"] = refusals_case(meshes)
+        res["train"] = {name: train_case(name, meshes, ref) for name in TRAIN_CASES}
+        res["elastic"] = elastic_case(out_dir, meshes, ref)
+        res["launch"] = launch_case(out_dir, meshes)
         dist.destroy_process_group()
     except Exception:                       # the test reads the traceback
         res["error"] = traceback.format_exc()

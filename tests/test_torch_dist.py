@@ -533,8 +533,8 @@ def test_pipeline_apply_one_stage_and_its_refusals(gloo1):
 def test_sharded_call_on_a_one_rank_mesh(gloo1):
     """World 1, mesh (1, 1): the sharded forward is the unsharded one bit for
     bit (no collective is needed), ``seq_shard`` execution raises, and a
-    forward with parameters that require grad raises (training under a mesh
-    is queued next)."""
+    forward with parameters that require grad runs: its gradients are the
+    unsharded forward's bit for bit."""
     from torch.distributed.device_mesh import init_device_mesh
 
     cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), dtype="float32")
@@ -553,7 +553,8 @@ def test_sharded_call_on_a_one_rank_mesh(gloo1):
     dense = model.init(device="cpu")
     for t in tree.tensors(dense):
         t.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Sharded training"):
-        model.forward(dense, toks, ctx=ctx)
+    grads = [torch.autograd.grad(model.forward(dense, toks, ctx=c)[0].square().sum(),
+                                 tree.tensors(dense)) for c in (ctx, None)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
     with pytest.raises(TypeError, match="DeviceMesh"):
         ShardCtx(AxisMesh((1, 1), ("data", "model"))).tp_group()

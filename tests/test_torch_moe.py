@@ -141,11 +141,11 @@ def test_moe_layer_is_deterministic_and_refuses_a_mesh():
     b, _ = tmoe.moe_apply(tp, x, tcfg)
     assert torch.equal(a, b)
 
-    # Under a mesh the sharded branches run (tests/test_torch_sharded.py);
-    # what a mesh still refuses is training through them, and execution on a
-    # mesh without process groups.
+    # Under a mesh the sharded branches run, under autograd too
+    # (tests/test_torch_sharded.py); what a mesh refuses is execution without
+    # process groups, with or without grad.
     ctx = ShardCtx(AxisMesh((1, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmoe.moe_apply(tp, x.clone().requires_grad_(), tcfg, ctx)
     with pytest.raises(TypeError, match="DeviceMesh"):
         tmoe.moe_apply(tp, x, tcfg, ctx)

@@ -127,7 +127,8 @@ def test_train_state_checkpoint_round_trip(tmp_path):
 
 def test_launch_train_with_a_failure(tmp_path, capsys):
     """``launch.train --arch internvl2-1b --smoke --steps 20 --device cpu
-    --fail-at 7``: one restart, the loss falls; ``--mesh`` refuses."""
+    --fail-at 7``: one restart, the loss falls; ``--mesh`` without a world
+    of 256 ranks refuses with the mesh's message."""
     from repro_torch.launch import train as ltrain
 
     state, restarts, losses = ltrain.main([
@@ -136,7 +137,7 @@ def test_launch_train_with_a_failure(tmp_path, capsys):
     assert restarts == 1 and len(losses) == 20 + 7 and int(state.step) == 20
     assert np.mean(losses[-5:]) < np.mean(losses[:5])
     assert "1 restarts" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="distribution"):
+    with pytest.raises(RuntimeError, match="need 256 devices for mesh"):
         ltrain.main(["--mesh", "single", "--device", "cpu"])
 
 

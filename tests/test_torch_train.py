@@ -301,6 +301,14 @@ def test_smoke_train_step(arch):
 
 
 def test_sharding_context_refused():
+    """``make_train_step(ctx=)`` builds (sharded training runs on process
+    groups: tests/test_torch_sharded.py); a ctx whose mesh has none refuses
+    when the step runs."""
+    from repro_torch.dist import AxisMesh, ShardCtx
+
     model = tmodel.build_model(get_config("chatglm3-6b", smoke=True))
-    with pytest.raises(NotImplementedError, match="distribution"):
-        ts.make_train_step(model, opt.AdamWConfig(), ctx=object())
+    step = ts.make_train_step(model, opt.AdamWConfig(),
+                              ctx=ShardCtx(AxisMesh((1, 2), ("data", "model"))))
+    state = ts.init_train_state(model, 0, device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        step(state, {"tokens": torch.zeros((2, 5), dtype=torch.long)})
