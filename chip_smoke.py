@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
 ``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
-``--phase whisper``, ``--phase vlm_train``, ``--phase dist`` or ``--phase dist_train`` runs one
+``--phase whisper``, ``--phase vlm_train``, ``--phase dist``, ``--phase dist_train`` or
+``--phase seq_shard`` runs one
 phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
@@ -68,8 +69,8 @@ entry points at published full widths:
   loop == chunked) and a 2-layer f32 prefill against the CPU and against a
   prefill followed by decode steps;
 
-* whisper-large-v3 whole (phase 20): 32 encoder + 32 decoder layers at
-  published widths, W4A4 ``pallas`` prepared, bf16 — the transcription
+* whisper-large-v3 (phase 20): 16 of its 32 encoder and 16 of its 32
+  decoder layers at published widths, W4A4 ``pallas`` prepared, bf16 — the transcription
   path: ``Model.prefill(prefix_embeds=)`` over 4 x 1500 frames (the encoder:
   ``flash_attention`` with ``causal=False`` and ``lut_dequant_gemm`` at
   6000 rows, all on the tensor cores), then 64 greedy decode steps over the
@@ -107,6 +108,15 @@ entry points at published full widths:
   at published widths cut to 2 layers, f32: an FSDP + TP step on ``(1, 2)``
   and on ``(2, 1)``, every gradient shard held to the local step's, and a
   save from ``(1, 2)`` restored on ``(2, 1)``;
+
+* ``seq_shard`` (phase 24): zamba2-7b's shared attention at the reference's
+  ``long_500k`` decode shape (524288 positions) split into 2 and 4 sequence
+  shards, their partials combined by the function the collective path
+  combines with, against the unsharded attention; then a gloo world of two
+  ranks sharing the card serving zamba2-7b at published widths (one
+  ``"MMMMMS"`` unit, W4A4 ``pallas``) through ``ServeEngine(ctx=)`` with
+  the caches cut along the sequence (4096 of 8192 positions a rank), held
+  to the same tree run whole;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``, phase 13, at 10 of
@@ -4577,6 +4587,8 @@ WHISPER = "whisper-large-v3"
 WH_MAX_SEQ = 448              # 20a / 20b / 20d: whisper's published decoder context (the caches)
 WH_PROMPT = 4                 # 20a: the prompt prefilled with the frames
 WH_DECODE = 64                # 20a: greedy decode steps after it
+WH_SERVE_LAYERS = 16          # 20a / 20b: 16 encoder + 16 decoder layers (of 32 + 32), to keep
+                              # the script in its time limit (each check holds at any depth)
 WH_CUT_LAYERS = 2             # 20c: 2 encoder + 2 decoder layers
 WH_LUT_LAYERS = 4             # 20d: 4 + 4 layers
 
@@ -4675,13 +4687,15 @@ def phase_whisper(torch, dev, smi):
     1280, 20 heads of 64, d_ff 5120, vocab 51872; the stub frontend's
     1500 frames of 1280) at its published widths, the encoder-decoder path.
 
-    20a, the transcription path: W4A4 ``pallas`` prepared, bf16,
+    20a, the transcription path, at :data:`WH_SERVE_LAYERS` + as many layers
+    (of 32 + 32): W4A4 ``pallas`` prepared, bf16,
     ``attn_impl="flash"``, bf16 caches at ``max_seq`` 448, B = 4: a
     4-token prompt prefilled with bf16 frames ``[4, 1500, 1280]``
     (``Model.prefill(prefix_embeds=)``), then 64 greedy ``decode_step``s.
-    Launches: the prefill 192 (encoder) + 320 (decoder) ``lut_dequant_gemm``
-    and 32 ``flash_attention`` (non-causal), all on the tensor cores; each
-    step 256 ``lut_dequant_gemm`` and no flash; no ``lut_stream_gemm``.  The
+    Launches: the prefill 6 a layer (encoder) + 10 a layer (decoder)
+    ``lut_dequant_gemm`` and one ``flash_attention`` an encoder layer
+    (non-causal), all on the tensor cores; each step 8 ``lut_dequant_gemm`` a
+    decoder layer and no flash; no ``lut_stream_gemm``.  The
     cross caches' bytes equal the count from the shapes.  ``encode`` alone,
     the prefill and the decode step on CUDA events; busy, idle and the
     shares of the encoder attention, the encoder GEMMs and the cross
@@ -4689,9 +4703,9 @@ def phase_whisper(torch, dev, smi):
     the same tree through ``ServeEngine(batch=4, max_seq=448)`` on phase
     17's requests, text only as the reference serves (a zero cross cache:
     the encoder and the cross ``wk`` / ``wv`` never run): exact token
-    counts, one host sync a wave and no other synchronizing call, 256
-    ``lut_dequant_gemm`` launches a forward on the tensor cores, counted
-    from the tree by path, no flash.  20c, f32 frames (the reference's own
+    counts, one host sync a wave and no other synchronizing call, 8
+    ``lut_dequant_gemm`` launches a decoder layer a forward on the tensor
+    cores, counted from the tree by path, no flash.  20c, f32 frames (the reference's own
     input dtype) on a 2 + 2-layer copy: the encoder's launches and the cross
     ``wk`` / ``wv`` that read its f32 output take both kernels' CUDA-core
     routes, the bf16 decoder the tensor cores (bf16 frames: every launch on
@@ -4720,12 +4734,13 @@ def phase_whisper(torch, dev, smi):
     def lap(what):
         laps[what] = time.perf_counter() - t_phase - sum(laps.values())
 
-    cfg = dataclasses.replace(get_config(WHISPER), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(WHISPER), attn_impl="flash", n_layers=WH_SERVE_LAYERS,
+                              encoder_layers=WH_SERVE_LAYERS)
     out = {"laps_s": laps}
     want_frames = 6 * cfg.encoder_layers + 10 * cfg.n_layers
     want_step = 8 * cfg.n_layers
 
-    # --- 20a: the transcription path, all 32 + 32 layers ---------------------
+    # --- 20a: the transcription path, WH_SERVE_LAYERS + WH_SERVE_LAYERS layers --
     model = build_model(cfg)
     before_gc, base = held_before_build(torch, dev, "phase 20a")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6118,14 +6133,413 @@ def dist_train_shared(torch, dev, rank, root, smoke):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: seq_shard — the caches cut along the sequence on the TP axis, and
+# the context-parallel attention over the shards
+# ---------------------------------------------------------------------------
+
+SQ_T = 524288                 # 24a: the reference's long_500k decode shape (B 1, 524288
+                              # positions: src/repro/launch/dryrun.py SHAPES)
+SQ_QPOS = 300000              # 24a: the decode query's position: at tp 4 the last shard,
+                              # [393216, 524288), holds no valid key
+SQ_TPS = (2, 4)               # 24a: the sequence shards
+SQ_ITERS = 3                  # 24a: timed calls (device time)
+TOL_SQ_ATTN = 2e-4            # 24a: the shards combined vs the unsharded attention, x max |y|
+                              # (the f32 attention tolerance: the sums' order changes)
+SQ_ID_T = 8192                # 24a: the replay check's cache (tp 2: 4096 positions a shard)
+SQ_ID_S = 64                  # 24a: its prefill's rows, at positions 4100 .. 4163 - pad
+SQ_MAX = 8192                 # 24b: max_seq: each of the 2 ranks holds 4096 positions
+SQ_LONG = 4100                # 24b: the long prompt (> 4096: keys on both ranks)
+SQ_TF = 8                     # 24b: teacher-forced decode steps after its prefill
+SQ_NEW = 8                    # 24b: new tokens a request
+SQ_SHORT = (40, 24, 56)       # 24b: the short prompts (their keys all on rank 0)
+TOL_SQ_SERVE = 2.0**-6        # 24b: sequence-sharded vs unsharded teacher-forced logits
+                              # (bf16), x max |logit|: see phase_seq_shard
+SQ_TIMEOUT_S = 400            # 24b: the two ranks' join
+
+
+def phase_seq_shard(torch, dev, smi):
+    """Phase 24: ``seq_shard`` on the card (one H100): the caches cut along the
+    sequence on the TP axis, and the context-parallel attention over them.
+
+    24a, one process: zamba2-7b's shared attention at the reference's
+    ``long_500k`` decode shape (B 1, T = :data:`SQ_T`, 32 heads of 112, a
+    bf16 cache from a seed, one f32 decode query at :data:`SQ_QPOS`): the
+    cache split into tp = 2 and 4 shards (views), each shard's partials
+    computed by ``attention._attend_cache_shards`` and combined by
+    ``runtime.combine`` — the function the collective path combines
+    all-gathered partials with — against the unsharded
+    ``_attend_cache_invariant``, within :data:`TOL_SQ_ATTN` x max |y| and
+    finite (at tp 4 the last shard holds no valid key).  Device time of the
+    unsharded call and of each shard's local work (its partials alone), each
+    shard's bytes as a share of the card, peak memory.  Then the replay
+    identity over tp 2 shards (:data:`SQ_ID_T`): a row decoded alone equals
+    the same row among :data:`SQ_ID_S` prefill rows with the same pad, bit
+    for bit (asserted); behind another pad (the keys at other buffer
+    positions, so other shard boundaries) the rows that differ are counted
+    (reported).
+
+    24b, a gloo world of 2 sharing the card (two spawned processes, every
+    tensor on ``cuda:0``, as 23b): zamba2-7b at published widths cut to one
+    ``"MMMMMS"`` unit, W4A4 ``pallas`` prepared, bf16, each rank its
+    ``shard_tree`` cut (a (1, 2) mesh, ``seq_shard=True``), ``max_seq``
+    :data:`SQ_MAX` (4096 positions a rank).  A prefill of :data:`SQ_LONG`
+    tokens (keys on both ranks) and :data:`SQ_TF` teacher-forced decode
+    steps, held to the same tree run whole by rank 0 without a ctx within
+    :data:`TOL_SQ_SERVE` x max |logit|.  Why that bound: the two runs
+    differ in the order of f32 sums (the attention's combine over the
+    shards, the projections' K slices, which follow F) and so in a bf16
+    rounding here and there: an element of the residual stream that moves
+    by one bf16 ulp (2^-8 of itself) moves a logit by about 2^-8 of its
+    share; 2^-6 of the largest logit allows four such ulps at the top.
+    Then ``ServeEngine(ctx=)`` on the long prompt and :data:`SQ_SHORT`
+    (whose keys all sit on rank 0), ``prompt_bucket=1`` (the long prompt's
+    bucket would be 8184 positions of Mamba2 recurrence): exact token
+    counts, one host sync a wave (the engine's count: gloo's own staging of
+    CUDA tensors synchronizes on its threads), and ``lut_dequant_gemm``
+    launched per rank the applied projections x (prefills + steps) times, all
+    on the tensor cores (asserted); whether the tokens equal rank 0's
+    unsharded serve (reported), tok/s and each rank's cache bytes.  The same
+    teacher-forced run on the mesh without ``seq_shard`` (the projections'
+    and the head's shards, the attention replicated) gives the distance that
+    sharding the projections alone makes (reported beside the bound)."""
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = seq_attention(torch, dev, smi)
+    out["b"] = seq_serve_two(torch, dev, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 24: passed in {out['seconds']:.1f} s")
+    return out
+
+
+def seq_attention(torch, dev, smi):
+    """24a (:func:`phase_seq_shard`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.runtime import combine
+    from repro_torch.models import attention
+
+    cfg = get_config(ZAMBA)
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kw = dict(window=None, softcap_val=cfg.attn_logit_softcap, bf16_operands=cfg.attend_bf16)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kc = torch.randn((1, SQ_T, hkv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn((1, SQ_T, hkv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((1, 1, h, hd), generator=gen, device=dev)
+    pos = torch.full((1, 1), SQ_QPOS, device=dev)
+    cache_gb = (kc.numel() + vc.numel()) * kc.element_size() / 1e9
+    y = attention._attend_cache_invariant(q, kc, vc, pos, pad_len=None, **kw)
+    whole_ms = time_ms(torch, lambda i: attention._attend_cache_invariant(
+        q, kc, vc, pos, pad_len=None, **kw), SQ_ITERS)
+    peak_whole = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    check(torch.isfinite(y).all().item(), "24a: the unsharded attention is not finite")
+    ymax = y.abs().max().item()
+    rows = []
+    for tp in SQ_TPS:
+        n = SQ_T // tp
+        ks, vs, los = list(kc.split(n, 1)), list(vc.split(n, 1)), [r * n for r in range(tp)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = attention._attend_cache_shards(q, ks, vs, los, pos, pad_len=None, reduce=combine,
+                                             **kw)
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        err = (got - y).abs().max().item() / ymax
+        check(torch.isfinite(got).all().item() and err <= TOL_SQ_ATTN,
+              f"24a tp {tp}: the combined shards {err:.3e} x max |y| from the unsharded "
+              f"attention (tol {TOL_SQ_ATTN})")
+        shard_ms = [time_ms(torch, lambda i, r=r: attention._attend_cache_shards(
+            q, [ks[r]], [vs[r]], [los[r]], pos, pad_len=None,
+            reduce=lambda parts, op: parts[0], **kw), SQ_ITERS) for r in range(tp)]
+        valid = [max(0, min(SQ_QPOS + 1, lo + n) - lo) for lo in los]
+        rows.append(dict(tp=tp, rel_err=err, shard_ms=shard_ms, max_shard_ms=max(shard_ms),
+                         shard_gb=cache_gb / tp, shard_share=cache_gb / tp / 80.0,
+                         valid_keys=valid, peak_gb=peak))
+        del got
+    layers_gb = cache_gb * 13        # zamba2-7b's 13 "S" sublayers, each its own K / V
+    ident = seq_replay_identity(torch, dev, cfg, kw)
+    res = dict(whole_ms=whole_ms, cache_gb=cache_gb, peak_whole_gb=peak_whole, rows=rows,
+               model_cache_gb=layers_gb, identity=ident)
+    log(f"phase 24a [{smi}]: zamba2-7b's shared attention at the long_500k decode shape (B 1, "
+        f"T {SQ_T}, {h} heads of {hd}, bf16 cache {cache_gb:.2f} GB, f32 query at {SQ_QPOS}): "
+        f"unsharded {whole_ms:.3f} ms (device), peak {peak_whole:.2f} GB; " + "; ".join(
+            f"tp {r['tp']}: combined within {r['rel_err']:.3e} x max |y|, shards "
+            f"{', '.join(f'{m:.3f}' for m in r['shard_ms'])} ms (slowest {r['max_shard_ms']:.3f}"
+            f" = {r['max_shard_ms'] / whole_ms:.3f} of unsharded), {r['shard_gb']:.2f} GB a "
+            f"shard ({100 * r['shard_share']:.2f}% of 80 GB), valid keys {r['valid_keys']}, peak "
+            f"{r['peak_gb']:.2f} GB" for r in rows)
+        + f"; the model's 13 shared-attention caches at this T: {layers_gb:.1f} GB whole, "
+          f"{layers_gb / 2:.1f} / {layers_gb / 4:.1f} GB a rank at tp 2 / 4; replay: a row "
+          f"alone == among {SQ_ID_S} prefill rows with its pad (bit-equal), behind another "
+          f"pad {ident['moved_rows_differ']} of {ident['rows']} rows differ (max "
+          f"{ident['moved_rel']:.3e} x max |y|)")
+    del kc, vc
+    return res
+
+
+def seq_replay_identity(torch, dev, cfg, kw):
+    """24a's replay check over tp 2 shards of a :data:`SQ_ID_T` cache in one
+    process: the last prefill row alone (a decode step) against it among
+    :data:`SQ_ID_S` rows, the same pad (asserted bit-equal); behind another
+    pad, the rows that differ (counted)."""
+    from repro_torch.dist.runtime import combine
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=dev).manual_seed(241)
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, t, n = 2, SQ_ID_T, SQ_ID_T // 2
+    kc = torch.randn((b, t, hkv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn((b, t, hkv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((b, SQ_ID_S, h, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    pad = torch.tensor([0, 37], device=dev)
+    positions = 4100 + torch.arange(SQ_ID_S, device=dev)[None] - pad[:, None]
+
+    def attend(qq, kk, vv, pp, pad_len):
+        return attention._attend_cache_shards(qq, list(kk.split(n, 1)), list(vv.split(n, 1)),
+                                              [0, n], pp, pad_len=pad_len, reduce=combine, **kw)
+
+    together = attend(q, kc, vc, positions, pad)
+    alone = attend(q[:, -1:], kc, vc, positions[:, -1:], pad)
+    check(torch.equal(alone, together[:, -1:]),
+          "24a: a row decoded alone differs from the same row among the prefill's rows "
+          "(the same pad)")
+    pad2 = torch.tensor([5, 0], device=dev)
+    idx = (torch.arange(t, device=dev)[None] - pad2[:, None] + pad[:, None]) % t
+    rows = torch.arange(b, device=dev)[:, None]
+    moved = attend(q, kc[rows, idx], vc[rows, idx], positions, pad2)
+    differ = (moved != together).flatten(2).any(-1)
+    return dict(rows=differ.numel(), moved_rows_differ=int(differ.sum().item()),
+                moved_rel=((moved.float() - together.float()).abs().max()
+                           / together.float().abs().max()).item())
+
+
+def seq_serve_two(torch, dev, smi, *, device="cuda", smoke=False):
+    """24b (:func:`phase_seq_shard`): spawns the two ranks
+    (:func:`seq_serve_rank`) and reads their results; every process it
+    starts is joined or stopped.  ``device`` / ``smoke`` are for a CPU
+    rehearsal of the control flow (``"cpu"``, smoke widths)."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "seq_shard2"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=seq_serve_rank, args=(r, sys.path[0], str(root), device,
+                                                         smoke)) for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(SQ_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = root / f"rank{r}.pkl"
+        results.append(pickle.loads(path.read_bytes()) if path.exists() else
+                       {"error": f"rank {r} wrote nothing (exit code {p.exitcode})"})
+    shutil.rmtree(root, ignore_errors=True)
+    errors = [res["error"] for res in results if "error" in res]
+    check(not errors, f"24b: {errors}")
+    r0 = results[0]
+    check(r0["tf_rel"] <= TOL_SQ_SERVE,
+          f"24b: the sequence-sharded teacher-forced logits {r0['tf_rel']:.3e} x max |logit| "
+          f"from the unsharded run (tol {TOL_SQ_SERVE})")
+    for r, res in enumerate(results):
+        check(res["host_syncs"] == res["waves"],
+              f"24b rank {r}: host_syncs {res['host_syncs']} != waves {res['waves']}")
+        check(res["launches"] == res["want_launches"] == res["launches_tc"],
+              f"24b rank {r}: lut_dequant_gemm launches {res['launches']} (tensor cores "
+              f"{res['launches_tc']}) != {res['per_forward']} x ({res['prefills']} prefills + "
+              f"{res['steps']} steps) = {res['want_launches']}")
+        check(res["other_launches"] == 0, f"24b rank {r}: another kernel launched")
+    check(results[0]["tokens"] == results[1]["tokens"], "24b: the ranks' tokens differ")
+    res = dict(ranks=results, seconds=time.perf_counter() - t0)
+    log(f"phase 24b [{smi}]: a gloo world of 2 on one card, mesh (1, 2), seq_shard; zamba2-7b "
+        f"published widths, one 'MMMMMS' unit, W4A4 pallas, bf16, max_seq {SQ_MAX} (4096 "
+        f"positions a rank): prefill {SQ_LONG} + {SQ_TF} teacher-forced steps within "
+        f"{r0['tf_rel']:.3e} x max |logit| of rank 0's unsharded run (tol {TOL_SQ_SERVE}; the "
+        f"prefill's last row {r0['tf_rel_prefill']:.3e}; the same mesh without seq_shard "
+        f"{r0['tf_rel_tp']:.3e}), the prefill sharded {r0['tf_prefill_ms']:.1f} ms, without "
+        f"seq_shard {r0['tf_prefill_tp_ms']:.1f}, unsharded {r0['tf_prefill_plain_ms']:.1f} "
+        f"(host clock); ServeEngine(ctx=): "
+        f"{r0['n_tokens']} tokens in {r0['wall_s']:.2f} s ({r0['tok_s']:.1f} tok/s; unsharded "
+        f"{r0['plain_tok_s']:.1f}), tokens {'==' if r0['tokens_equal'] else '!='} the unsharded "
+        f"serve's, {r0['host_syncs']} host syncs = waves, {r0['launches']} lut_dequant_gemm "
+        f"launches a rank ({r0['per_forward']} x ({r0['prefills']} + {r0['steps']})), all on "
+        f"the tensor cores; cache bytes a rank: attention K/V "
+        + ", ".join(f"{x['kv_bytes'] / 1e6:.1f} MB" for x in results)
+        + f" (unsharded {r0['plain_kv_bytes'] / 1e6:.1f} MB), Mamba2 state "
+        + ", ".join(f"{x['state_bytes'] / 1e6:.1f} MB" for x in results)
+        + f"; {res['seconds']:.1f} s with the processes' start; rank 0's seconds by stage "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r0["laps"].items()))
+    return res
+
+
+def seq_serve_rank(rank, src, root, device, smoke):
+    """One rank of 24b: writes ``<root>/rank<r>.pkl`` (its numbers, or the
+    traceback, which fails the phase in the parent)."""
+    import pickle
+    import traceback
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    res = {}
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"), 2),
+                                rank=rank, world_size=2)
+        try:
+            res = seq_serve_shared(torch, torch.device(device, 0) if device == "cuda"
+                                   else torch.device(device), rank, smoke)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:                   # reported: the parent fails the phase
+        res = {"error": f"rank {rank}: {traceback.format_exc()}"}
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def seq_serve_shared(torch, dev, rank, smoke):
+    """24b's body on one rank (:func:`phase_seq_shard`)."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist as rd
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.dist import runtime
+    from repro_torch.models.model import build_model, prepare_params
+    from repro_torch.serve.serving import Request, ServeEngine
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(what):
+        sync()
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+
+    cfg = dataclasses.replace(get_config(ZAMBA, smoke=smoke), n_layers=ZB_LUT_LAYERS)
+    model = build_model(cfg)
+    mesh = init_device_mesh(dev.type, (1, 2), mesh_dim_names=("data", "model"))
+    ctx = rd.ShardCtx(mesh, seq_shard=True)
+    raw = model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0, device=dev)
+    local = prepare_params(rd.shard_tree(raw, rd.param_specs(cfg, raw, ctx), ctx), n_hint=4)
+    plain = prepare_params(raw, n_hint=4) if rank == 0 else None
+    del raw
+    out = {"laps": laps}
+    lap("build")
+
+    # Teacher-forced: a prefill of SQ_LONG tokens and SQ_TF steps, sharded and
+    # (rank 0) whole.
+    toks = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (1, SQ_LONG + SQ_TF))).to(dev)
+
+    def teacher_forced(tree_, c):
+        caches = model.init_cache(1, SQ_MAX, device=dev) if c is None else \
+            runtime.local_cache(cfg, 1, SQ_MAX, torch.bfloat16, c, dev)
+        sync()
+        t0 = time.perf_counter()
+        lg, caches = model.prefill(tree_, toks[:, :SQ_LONG], caches, ctx=c, max_seq=SQ_MAX)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        outs = [lg]
+        for t in range(SQ_TF):
+            lg, caches = model.decode_step(tree_, toks[:, SQ_LONG + t : SQ_LONG + t + 1], caches,
+                                           SQ_LONG + t, ctx=c, max_seq=SQ_MAX)
+            outs.append(lg)
+        return torch.cat(outs, 1).float(), ms
+
+    with torch.no_grad():
+        got, out["tf_prefill_ms"] = teacher_forced(local, ctx)
+        lap("teacher-forced sharded")
+        # The same mesh without seq_shard: the projections' and the head's
+        # shards alone, the attention replicated.
+        tp_only, out["tf_prefill_tp_ms"] = teacher_forced(
+            local, dataclasses.replace(ctx, seq_shard=False))
+        lap("teacher-forced tp only")
+        if rank == 0:
+            want, out["tf_prefill_plain_ms"] = teacher_forced(plain, None)
+            scale = want.abs().max()
+            out["tf_rel"] = ((got - want).abs().max() / scale).item()
+            out["tf_rel_prefill"] = ((got[:, 0] - want[:, 0]).abs().max() / scale).item()
+            out["tf_rel_tp"] = ((tp_only - want).abs().max() / scale).item()
+            lap("teacher-forced whole")
+        dist.barrier()
+
+        rng = np.random.default_rng(25)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=SQ_NEW) for n in (SQ_LONG,) + SQ_SHORT]
+        eng = ServeEngine(model, local, batch=2, max_seq=SQ_MAX, prompt_bucket=1, ctx=ctx,
+                          device=dev)
+        kv, state = cache_bytes(eng._new_cache())
+        # No set_sync_debug_mode here: gloo stages every CUDA tensor through
+        # the host with synchronizing copies on its own threads (~1530 a rank
+        # in this serve), so the engine's own count is the check.
+        records = []
+        eng.on_wave = records.append
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        outs = eng.generate(reqs)
+        sync()
+        wall, counts = time.perf_counter() - t0, read_launches()
+        lap("serve sharded")
+        per, _ = applied_projections(local)
+        prefills = sum(1 for r in records if r.admitted)
+        steps = sum(r.steps for r in records)
+        n_tok = sum(len(o) for o in outs)
+        check(all(len(o) == SQ_NEW for o in outs), f"24b rank {rank}: token counts "
+                                                   f"{[len(o) for o in outs]}")
+        out.update(tokens=outs, n_tokens=n_tok, wall_s=wall, tok_s=n_tok / wall,
+                   host_syncs=eng.host_syncs, waves=len(records), prefills=prefills,
+                   steps=steps, per_forward=per,
+                   want_launches=per * (prefills + steps) if cuda else 0,
+                   launches=counts["lut_dequant_gemm"],
+                   launches_tc=counts["lut_dequant_gemm_tc"],
+                   other_launches=sum(n for k, n in counts.items()
+                                      if not k.startswith("lut_dequant_gemm")),
+                   kv_bytes=kv, state_bytes=state)
+        del eng
+        if rank == 0:
+            peng = ServeEngine(model, plain, batch=2, max_seq=SQ_MAX, prompt_bucket=1,
+                               device=dev)
+            out["plain_kv_bytes"] = cache_bytes(peng._new_cache())[0]
+            t0 = time.perf_counter()
+            plain_outs = peng.generate(reqs)
+            sync()
+            out["plain_tok_s"] = sum(len(o) for o in plain_outs) / (time.perf_counter() - t0)
+            out["tokens_equal"] = plain_outs == outs
+            lap("serve whole")
+        dist.barrier()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
                                         "deepseek", "zamba2", "rwkv", "whisper", "vlm_train",
-                                        "dist", "dist_train"),
+                                        "dist", "dist_train", "seq_shard"),
                     help="after the build, run this phase alone and print its result as one "
                          "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
-                         "20, 21, 22 or 23)")
+                         "20, 21, 22, 23 or 24)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -6191,7 +6605,8 @@ def main(argv=None) -> int:
                  "whisper": lambda: phase_whisper(torch, dev, smi),
                  "vlm_train": lambda: phase_vlm_train(torch, dev, smi),
                  "dist": lambda: phase_dist(torch, dev, smi),
-                 "dist_train": lambda: phase_dist_train(torch, dev, smi)}
+                 "dist_train": lambda: phase_dist_train(torch, dev, smi),
+                 "seq_shard": lambda: phase_seq_shard(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -6263,6 +6678,8 @@ def main(argv=None) -> int:
         lap("22 dist")
         dist_train = alone["dist_train"]()
         lap("23 dist train")
+        seq_shard = alone["seq_shard"]()
+        lap("24 seq shard")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
                         rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"],
                         vlm["d"]["dequant_rel"])
@@ -6407,7 +6824,8 @@ def main(argv=None) -> int:
             "prefill": times(rwkv["d"]["dequant_rows"], 4 * DS_PROMPT,
                              rw_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
         "whisper": {
-            "at": f"phase 20a: whisper-large-v3, all 32 + 32 layers, W4A4 pallas, bf16, "
+            "at": f"phase 20a: whisper-large-v3, {WH_SERVE_LAYERS} + {WH_SERVE_LAYERS} layers, "
+                  f"W4A4 pallas, bf16, "
                   f"attn_impl=flash, bf16 caches at max_seq {WH_MAX_SEQ}: a {WH_PROMPT}-token "
                   f"prefill over 4 x 1500 bf16 frames, then {WH_DECODE} greedy decode steps "
                   f"(CUDA events; profiles from torch.profiler); 20b ServeEngine(batch=4, "
@@ -6439,6 +6857,12 @@ def main(argv=None) -> int:
             "prefill": times(vlm["d"]["dequant_rows"], vl_rows,
                              vl_at(f"B={vl_rows} (the forward's 4 x 384 rows), W4, bf16 x"))},
         "dist": dist_at(dist_r, "pallas"),
+        "seq_shard": {
+            "at": f"phase 24b: zamba2-7b at published widths, one 'MMMMMS' unit, W4A4 pallas, "
+                  f"bf16, ServeEngine(ctx=) on a gloo world of 2 sharing the card, mesh (1, 2), "
+                  f"seq_shard, max_seq {SQ_MAX}: each rank's launches (its F-shards)",
+            "launches": [r["launches"] for r in seq_shard["b"]["ranks"]],
+            "launches_tc": [r["launches_tc"] for r in seq_shard["b"]["ranks"]]},
         "ok": True,
     }, {
         "name": "lut_stream_gemm",
@@ -6632,6 +7056,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "vlm_train", "card": smi, "result": vlm}, default=str))
     print(json.dumps({"phase": "dist", "card": smi, "result": dist_r}, default=str))
     print(json.dumps({"phase": "dist_train", "card": smi, "result": dist_train}, default=str))
+    print(json.dumps({"phase": "seq_shard", "card": smi, "result": seq_shard}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,13 +7,21 @@ experts), prepares it, and serves the same requests through
 ``ServeEngine(ctx=)``: the batch's slots split over the ``data`` axis, each
 projection run on the rank's F-shard and all-gathered.  Every rank prints
 the same tokens; with ``--check`` rank 0 also serves the whole tree
-without a ctx and asserts that they are equal.
+without a ctx and asserts that they are equal.  ``--seq-shard`` also cuts the
+caches along the sequence on the ``model`` axis (the long-context layout: a
+cache dim of at least 1024 positions that ``--tp`` divides, so give
+``--max-seq`` 1024 or more), and the attention runs context-parallel over the
+ranks' slices.
 
 Run one process per rank, e.g. on one host:
 
     # 4 ranks on the CPU (gloo), a (data 2, model 2) mesh
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
         examples/serve_sharded_torch.py --device cpu --tp 2 --check
+    # the same with each rank holding half of every cache's 2048 positions
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        examples/serve_sharded_torch.py --device cpu --tp 2 --check \\
+        --seq-shard --max-seq 2048
     # N cards (NCCL), one rank a card
     PYTHONPATH=src torchrun --nproc-per-node N examples/serve_sharded_torch.py --tp 2
 
@@ -43,6 +51,9 @@ ap.add_argument("--full", action="store_true", help="published widths (default: 
 ap.add_argument("--tp", type=int, default=2, help="ranks on the model axis")
 ap.add_argument("--mode", default="lut", choices=["lut", "pallas", "dequant"])
 ap.add_argument("--batch", type=int, default=4)
+ap.add_argument("--max-seq", type=int, default=64, help="cache positions a slot holds")
+ap.add_argument("--seq-shard", action="store_true",
+                help="cut the caches along the sequence on the model axis")
 ap.add_argument("--device", default="cuda")
 ap.add_argument("--check", action="store_true", help="rank 0 also serves unsharded")
 args = ap.parse_args()
@@ -61,7 +72,7 @@ world, rank = dist.get_world_size(), dist.get_rank()
 if world % args.tp:
     raise SystemExit(f"--tp {args.tp} does not divide the world of {world} ranks")
 mesh = init_device_mesh(dev.type, (world // args.tp, args.tp), mesh_dim_names=("data", "model"))
-ctx = rd.ShardCtx(mesh)
+ctx = rd.ShardCtx(mesh, seq_shard=args.seq_shard)
 
 cfg = get_config(args.arch, smoke=not args.full)
 model = build_model(cfg)
@@ -74,13 +85,15 @@ rng = np.random.default_rng(0)
 reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=8)
         for n in rng.integers(4, 24, 2 * args.batch)]
 with torch.no_grad():
-    eng = ServeEngine(model, local, batch=args.batch, max_seq=64, ctx=ctx, device=dev)
+    eng = ServeEngine(model, local, batch=args.batch, max_seq=args.max_seq, ctx=ctx,
+                      device=dev)
     outs = eng.generate(reqs)
-    print(f"rank {rank} of {world} (mesh data {world // args.tp} x model {args.tp}): "
+    print(f"rank {rank} of {world} (mesh data {world // args.tp} x model {args.tp}"
+          f"{', caches cut along the sequence' if args.seq_shard else ''}): "
           f"{eng.host_syncs} host syncs; tokens {outs}", flush=True)
     if args.check and rank == 0:
-        plain = ServeEngine(model, prepare_params(full, n_hint=4), batch=args.batch, max_seq=64,
-                            device=dev).generate(reqs)
+        plain = ServeEngine(model, prepare_params(full, n_hint=4), batch=args.batch,
+                            max_seq=args.max_seq, device=dev).generate(reqs)
         assert plain == outs, "sharded tokens differ from the unsharded serve"
         print("sharded serve == unsharded serve", flush=True)
 dist.destroy_process_group()

@@ -30,9 +30,42 @@ layout is fixed by the rules below).
   all-reduced MAX over dp; the MoE block's rules are in
   :func:`repro_torch.models.moe.moe_apply`.
 
+**Sequence-sharded caches** (``seq_shard=True``): every cache leaf whose
+:func:`~repro_torch.dist.sharding.cache_specs` entry puts dim 2 on the TP
+axis is cut along it (``shard_tree(caches, cache_specs(...))``), and TP rank
+``r`` holds positions ``[r·T/tp, (r+1)·T/tp)`` of it (:class:`SeqShard`).
+Activations stay full width and TP-replicated, as above: the reference's
+sequence hint on the activations (``constrain_acts``) is not followed.
+
+* A sharded call over caches names ``max_seq`` (what the caches were made
+  with): the leaves' global shapes come from ``cfg`` and ``max_seq`` on
+  ``meta``, their specs from ``cache_specs``, and each local leaf's length
+  is checked against them (:meth:`ShardedRun.cache_seq`).  A shape the rule
+  does not shard (T < 1024, or T % tp != 0) runs the replicated branch
+  because its spec says so.
+* **Writes**: a position is written only by the rank that holds it — an
+  int offset's range cut to the rank's slice, a ``[B]`` offset row by row
+  behind a ``torch.where`` (the old value where another rank holds it); no
+  host sync.  A ring slot ``pos % W`` has one owner; the encoder's cross
+  keys and values are cut to the rank's frames.
+* **Attention over the shards** takes the form GSPMD gives the reference's
+  jitted ops: local scores over the rank's keys, masked in *global* buffer
+  positions; the rows' max combined (MAX) over TP; ``exp(s - M)`` and its
+  local sum; the sums combined (SUM); the normalized probabilities (rounded
+  to bf16 under ``attend_bf16``) times the local values; the products
+  combined (SUM).  Each combine is an all-gather over TP and a sum (or max)
+  in rank order (:func:`combine`), so every rank gets the same bits, and a
+  single process that holds every shard combines them with the same
+  function.  A masked score is ``MASK_FILL`` (finite): a rank with no valid
+  key for a row gives ``exp(MASK_FILL - M) = 0``, and a row masked on every
+  rank is uniform over all keys, as unsharded.
+* **RWKV6's token-shift rows** ``x_prev_*`` ``[B, D]``: the rule's "long dim
+  2" is their feature dim; they are all-gathered over TP before use and each
+  rank writes back its slice.  Steps without a cache (a cache-free forward,
+  a train step) run as without ``seq_shard``.
+
 A failed collective raises; nothing falls back, and nothing is silently
-replicated.  ``seq_shard`` execution raises ``NotImplementedError`` (ROADMAP
-Queue 1).
+replicated.
 
 **Training** runs the same forward under autograd; each collective is an
 ``autograd.Function`` whose backward follows from the layout: the loss is
@@ -77,6 +110,7 @@ sums.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -84,7 +118,9 @@ import torch
 from repro_torch import tree
 from repro_torch.core import PreparedLinear, QuantizedLinear
 from repro_torch.core.quantize import quantize_activation
-from repro_torch.dist.sharding import PSpec, ShardCtx, _spec_leaves, global_like, param_specs
+from repro_torch.dist.sharding import (
+    AxisMesh, PSpec, ShardCtx, _spec_leaves, cache_specs, global_like, param_specs,
+)
 
 _INT_LUT_MODES = ("lut", "stream")
 
@@ -107,6 +143,18 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
     dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX, group=group)
     return t
+
+
+def combine(parts: list, op: str) -> torch.Tensor:
+    """The shards' partials ``parts`` (rank order) combined left to right:
+    elementwise max (``op="max"``) or sum — the one reduction of the
+    context-parallel attention, whether the partials came from an
+    all-gather (:meth:`SeqShard.reduce`) or from shards held in one
+    process."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = torch.maximum(out, p) if op == "max" else out + p
+    return out
 
 
 def _slice_of(g: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -230,18 +278,67 @@ class ShardedLinear:
         return w
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """This TP rank's share of a sequence-sharded cache leaf: rank ``rank``
+    of ``size`` on ``group`` holds global positions ``[rank·n, (rank+1)·n)``
+    of a leaf whose local dim (the sequence, or RWKV6's feature dim) has
+    length ``n``."""
+
+    rank: int
+    size: int
+    group: Any = None
+
+    def lo(self, n: int) -> int:
+        """The first global position of a local length ``n``."""
+        return self.rank * n
+
+    def reduce(self, parts: list, op: str) -> torch.Tensor:
+        """This rank's one partial (``parts == [t]``) all-gathered over TP and
+        :func:`combine`-d in rank order."""
+        import torch.distributed as dist
+
+        (t,) = parts
+        t = t.contiguous()
+        every = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(every, t, group=self.group)
+        return combine(every, op)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole leaf behind this rank's slice ``t`` (along ``dim``)."""
+        return gather(t, dim, self.group)
+
+    def narrow(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """This rank's slice of length ``n`` of a whole ``t`` along ``dim``."""
+        return t.narrow(dim, self.lo(n), n)
+
+
+# The cache leaves whose dim 2 the attention and RWKV6 branches can take
+# sharded (the sequence, or x_prev_*'s feature dim); a spec that shards any
+# other leaf is refused.
+_SEQ_LEAVES = frozenset({"k", "v", "k_s", "v_s", "ckv", "krope", "ck", "cv",
+                         "x_prev_t", "x_prev_c"})
+
+
+@functools.lru_cache(maxsize=16)
+def _seq_layout(cfg, max_seq: int, tp_size: int):
+    """Per cache leaf of ``cfg`` at ``max_seq``: ``(global shape, sharded)``
+    under ``cache_specs`` with ``seq_shard`` on a TP axis of ``tp_size``."""
+    from repro_torch.models import transformer
+
+    meta = transformer.init_cache(cfg, 1, max_seq, torch.float32, device="meta")
+    ctx = ShardCtx(AxisMesh((tp_size,), ("model",)), dp_axes=(), seq_shard=True)
+    specs = cache_specs(cfg, meta, ctx)
+    return _map_pairs(lambda a, spec: (tuple(a.shape), len(spec) > 2 and spec[2] is not None),
+                      meta, specs)
+
+
 class ShardedRun:
     """One sharded call's view of a rank's local tree: the specs it was cut
     with (recomputed from ``cfg`` and the local tree, :func:`global_like`),
     the groups, and the binding of each unit's leaves to the rules."""
 
     def __init__(self, cfg, params, ctx: ShardCtx):
-        if ctx.seq_shard:
-            raise NotImplementedError(
-                "seq_shard execution (the sequence dim of the caches on the TP axis, "
-                "context-parallel attention) is not ported: ROADMAP Queue 1, 'seq_shard "
-                "execution'; its specs are (cache_specs)"
-            )
         self.cfg, self.ctx = cfg, ctx
         self.specs = param_specs(cfg, global_like(cfg, params), ctx)
         self.tp_size, self.dp_size = ctx.tp_size(), ctx.dp_size()
@@ -250,6 +347,44 @@ class ShardedRun:
         self.tp_rank = ctx.tp_rank()
         self._tp = ctx.tp_axis if self.tp_size > 1 else None
         self._dp = ctx.dp() if self.dp_size > 1 else None
+        self.seq = SeqShard(self.tp_rank, self.tp_size, self.tp_group) \
+            if ctx.seq_shard and self._tp is not None else None
+
+    # --- sequence-sharded caches -----------------------------------------
+
+    def cache_seq(self, caches, max_seq: Optional[int]):
+        """A tree like ``caches`` (this rank's local cache leaves) with the
+        :class:`SeqShard` of every leaf sharded along dim 2 and ``None``
+        elsewhere; ``None`` without ``seq_shard``.  Each leaf's local shape
+        is checked against the one ``cache_specs`` cuts from the caches of
+        ``cfg`` at ``max_seq``."""
+        if self.seq is None:
+            return None
+        if max_seq is None:
+            raise ValueError(
+                "a seq_shard call over caches needs max_seq= (the length the caches were "
+                "made with): it fixes which leaves cache_specs cut along the sequence"
+            )
+        layout = _seq_layout(self.cfg, max_seq, self.tp_size)
+
+        def leaf(t, entry, name):
+            shape, sharded = entry
+            if len(shape) > 2:
+                want = shape[2] // self.tp_size if sharded else shape[2]
+                if t.ndim != len(shape) or t.shape[2] != want:
+                    raise ValueError(
+                        f"cache leaf {name!r} of local shape {tuple(t.shape)}: cache_specs at "
+                        f"max_seq {max_seq} and tp {self.tp_size} cut dim 2 to {want} "
+                        f"(global {shape})"
+                    )
+            if sharded and name not in _SEQ_LEAVES:
+                raise ValueError(
+                    f"cache leaf {name!r} {shape}: seq_shard cuts its dim 2, which no "
+                    f"branch takes sharded"
+                )
+            return self.seq if sharded else None
+
+        return _map_named(leaf, caches, layout)
 
     # --- leaves -----------------------------------------------------------
 
@@ -401,6 +536,35 @@ def _map_pairs(fn, node, spec):
     if isinstance(node, (QuantizedLinear, PreparedLinear)):
         return node      # quantized leaves are never sharded over dp
     return node
+
+
+def local_cache(cfg, batch: int, max_seq: int, dtype, ctx: ShardCtx, device) -> list:
+    """This rank's zero caches: the shard ``cache_specs`` cuts from the caches
+    of ``batch`` rows and ``max_seq`` positions (its dp rows, and under
+    ``seq_shard`` its slice of the sequence), allocated at the local shape
+    only."""
+    from repro_torch.dist.sharding import _cut, _map_specs, mesh_axes
+    from repro_torch.models import transformer
+
+    meta = transformer.init_cache(cfg, batch, max_seq, dtype, device="meta")
+    sizes, coords = mesh_axes(ctx.mesh), ctx.coords()
+    return _map_specs(lambda t, spec: torch.zeros(_cut(t, spec, sizes, coords).shape,
+                                                  dtype=t.dtype, device=device),
+                      meta, cache_specs(cfg, meta, ctx))
+
+
+def _map_named(fn, node, other, name: str = ""):
+    """``fn(tensor, other leaf, dict key)`` over a tree of tensors and a tree
+    of the same structure."""
+    if isinstance(node, torch.Tensor):
+        return fn(node, other, name)
+    if isinstance(node, dict):
+        return {k: _map_named(fn, v, other[k], k) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        if len(node) != len(other):
+            raise ValueError(f"{len(node)} cache segments for the config's {len(other)}")
+        return [_map_named(fn, v, o, name) for v, o in zip(node, other)]
+    return None
 
 
 def rows_of(n_rows: int, ctx: Optional[ShardCtx]) -> slice:

@@ -199,10 +199,12 @@ class Model:
         ``remat``, ``return_aux=True`` for the MoE aux loss as a third
         element, and ``ctx=`` a :class:`repro_torch.dist.ShardCtx`: with a
         mesh, this rank's part of a sharded forward over its local shards
-        and its dp rows)."""
+        and its dp rows; with ``seq_shard`` and caches, ``max_seq=`` the
+        length they were made with)."""
         return transformer.forward(params, self.cfg, tokens, return_hidden=return_hidden, **kw)
 
-    def prefill(self, params, tokens, caches, *, prefix_embeds=None, ctx=None, pad_len=None):
+    def prefill(self, params, tokens, caches, *, prefix_embeds=None, ctx=None, pad_len=None,
+                max_seq=None):
         """Fill caches for positions [0, S) in place; returns (last-pos logits
         [B,1,V], caches).  ``pad_len [B]`` marks per-row left-padding: padded
         positions become attention don't-cares and logical positions shift,
@@ -211,20 +213,23 @@ class Model:
         encoder runs over them and the cross caches ``ck`` / ``cv`` are
         filled for the decode steps that follow.  On a VLM they are the
         ``P`` patches, prepended to the tokens: the prefill fills ``P + S``
-        cache positions, and the next decode offset is ``P + S``.  ``ctx``:
-        as in :meth:`forward` (every argument the rank's dp rows)."""
+        cache positions, and the next decode offset is ``P + S``.  ``ctx``
+        and ``max_seq``: as in :meth:`forward` (every argument the rank's dp
+        rows; under ``seq_shard`` the caches its slices of the sequence)."""
         return transformer.forward(
             params, self.cfg, tokens, caches=caches, pos=0, prefix_embeds=prefix_embeds,
-            last_token_only=True, pad_len=pad_len, ctx=ctx,
+            last_token_only=True, pad_len=pad_len, ctx=ctx, max_seq=max_seq,
         )
 
-    def decode_step(self, params, token, caches, pos, *, ctx=None, pad_len=None):
+    def decode_step(self, params, token, caches, pos, *, ctx=None, pad_len=None,
+                    max_seq=None):
         """One token per sequence: token [B, 1]; ``pos`` is the cache write
         offset — an int, or a ``[B]`` tensor of per-slot offsets (continuous
-        batching).  Caches are updated in place.  ``ctx``: as in
-        :meth:`forward`."""
+        batching).  Caches are updated in place.  ``ctx`` and ``max_seq``: as
+        in :meth:`forward`."""
         return transformer.forward(
             params, self.cfg, token, caches=caches, pos=pos, pad_len=pad_len, ctx=ctx,
+            max_seq=max_seq,
         )
 
     def quantize(self, params, spec: LutLinearSpec):

@@ -31,6 +31,12 @@ written into its tensors **in place** (the caches of
 the state's dtype as the reference rounds them, and the same dict comes
 back.  ``x_prev_t`` / ``x_prev_c`` hold the last row of each mix's input,
 the normed ``h``, not the residual stream.
+
+Under ``seq_shard`` a ``[B, D]`` row with ``D >= 1024`` is cut along ``D`` on
+the TP axis (``cache_specs`` takes its dim 2 for a sequence): with ``seq``
+(a :class:`repro_torch.dist.runtime.SeqShard`) the mix all-gathers the rank's
+slice before the token shift and writes back only its slice.  The state
+``s`` (``[B, H, P, P]``, H < 1024) is never cut.
 """
 
 from __future__ import annotations
@@ -100,12 +106,22 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *, lead: 
             "x_prev_t": torch.zeros(lead + (batch, cfg.d_model), **kw)}
 
 
-def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]) -> torch.Tensor:
+def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor], seq=None) -> torch.Tensor:
     """``[B, S, D]`` -> the previous token's row (zeros, or the carried
-    ``x_prev``, at t = 0)."""
+    ``x_prev``, at t = 0).  With ``seq`` ``x_prev`` is this rank's slice of
+    the row: all-gathered first."""
+    if x_prev is not None and seq is not None:
+        x_prev = seq.gather(x_prev, -1)
     first = (torch.zeros_like(x[:, :1]) if x_prev is None
              else x_prev[:, None, :].to(x.dtype))
     return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _keep_last(row: torch.Tensor, x: torch.Tensor, seq) -> None:
+    """``row`` (a carried ``x_prev``) set to ``x``'s last row in place — with
+    ``seq`` this rank's slice of it."""
+    last = x[:, -1]
+    row.copy_(last if seq is None else seq.narrow(last, -1, row.shape[-1]))
 
 
 def _step(s: torch.Tensor, r_t, k_t, v_t, w_t, u: torch.Tensor):
@@ -118,23 +134,24 @@ def _step(s: torch.Tensor, r_t, k_t, v_t, w_t, u: torch.Tensor):
 
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                  state: Optional[dict] = None) -> tuple[torch.Tensor, Optional[dict]]:
+                  state: Optional[dict] = None, seq=None) -> tuple[torch.Tensor, Optional[dict]]:
     """``x [B, S, D]`` (the normed input) -> ``(y [B, S, D], state)``;
     ``state`` (see :func:`init_rwkv_state`) is updated in place (``s``,
-    ``x_prev_t``), or ``None``: a zero start, nothing kept."""
-    b, seq, d = x.shape
+    ``x_prev_t``), or ``None``: a zero start, nothing kept.  ``seq``: the
+    shard of a feature-sharded ``x_prev_t``."""
+    b, n_pos, d = x.shape
     n_heads, hd = rwkv_dims(cfg)
     n_lora = cfg.rwkv.mix_lora
-    xp = _token_shift(x, state["x_prev_t"] if state is not None else None)
+    xp = _token_shift(x, state["x_prev_t"] if state is not None else None, seq)
     diff = xp - x
     # ddlerp: a per-target mix coefficient with a small LoRA on x
     base = x + diff * 0.5
-    lora = torch.tanh(base @ p["mix_a"].to(x.dtype)).reshape(b, seq, len(_MIX_KEYS), n_lora)
+    lora = torch.tanh(base @ p["mix_a"].to(x.dtype)).reshape(b, n_pos, len(_MIX_KEYS), n_lora)
     xr, xk, xv, xw, xg = (
         x + diff * (p["mu"][i].to(x.dtype) + lora[:, :, i] @ p["mix_b"][i].to(x.dtype))
         for i in range(len(_MIX_KEYS))
     )
-    heads = (b, seq, n_heads, hd)
+    heads = (b, n_pos, n_heads, hd)
     r = linear(p["wr"], xr).reshape(heads).float()
     k = linear(p["wk"], xk).reshape(heads).float()
     v = linear(p["wv"], xv).reshape(heads).float()
@@ -144,31 +161,32 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     s = (state["s"].float() if state is not None
          else torch.zeros((b, n_heads, hd, hd), dtype=torch.float32, device=x.device))
     outs = []
-    for t in range(seq):
+    for t in range(n_pos):
         s, out_t = _step(s, r[:, t], k[:, t], v[:, t], w[:, t], p["u"])
         outs.append(out_t)
     out = torch.stack(outs, dim=1)                                      # [B, S, H, P]
     # per-head group norm
     mu = out.mean(dim=-1, keepdim=True)
     var = torch.square(out - mu).mean(dim=-1, keepdim=True)
-    out = ((out - mu) * torch.rsqrt(var + 1e-5)).reshape(b, seq, d)
+    out = ((out - mu) * torch.rsqrt(var + 1e-5)).reshape(b, n_pos, d)
     out = out * p["ln_g"] + p["ln_b"]
     y = linear(p["wo"], out.to(x.dtype) * g)
     if state is not None:
         state["s"].copy_(s)
-        state["x_prev_t"].copy_(x[:, -1])
+        _keep_last(state["x_prev_t"], x, seq)
     return y, state
 
 
 def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                     state: Optional[dict] = None) -> tuple[torch.Tensor, Optional[dict]]:
+                     state: Optional[dict] = None, seq=None) -> tuple[torch.Tensor, Optional[dict]]:
     """The channel mix: ``sigmoid(wr(xr)) * wv(relu(wk(xk))^2)`` over
-    token-shifted mixes; ``state["x_prev_c"]`` is updated in place."""
-    xp = _token_shift(x, state["x_prev_c"] if state is not None else None)
+    token-shifted mixes; ``state["x_prev_c"]`` is updated in place (``seq``:
+    as in :func:`rwkv_time_mix`)."""
+    xp = _token_shift(x, state["x_prev_c"] if state is not None else None, seq)
     xk = x + (xp - x) * p["mu_k"].to(x.dtype)
     xr = x + (xp - x) * p["mu_r"].to(x.dtype)
     k = torch.square(torch.relu(linear(p["wk"], xk)))
     y = torch.sigmoid(linear(p["wr"], xr)) * linear(p["wv"], k)
     if state is not None:
-        state["x_prev_c"].copy_(x[:, -1])
+        _keep_last(state["x_prev_c"], x, seq)
     return y, state

@@ -31,7 +31,10 @@ model's dtype, projected by ``frontend_proj`` and prepended to the tokens).
 over its local shards (:mod:`repro_torch.dist.runtime`: the tokens, caches
 and ``prefix_embeds`` are the rank's dp rows; the embedding, the head and
 each unit's leaves are bound to the sharded rules; the collectives are
-explicit).
+explicit).  Under ``seq_shard`` the caches are also cut along the sequence
+on the TP axis: ``forward(max_seq=)`` names the length they were made with,
+and each sublayer gets the :class:`repro_torch.dist.runtime.SeqShard` of its
+sequence-sharded leaves (``seq``) from :meth:`ShardedRun.cache_seq`.
 
 ``forward(remat=True)`` checkpoints each unit of a cache-free forward under
 autograd (``torch.utils.checkpoint``; the reference's ``jax.checkpoint``
@@ -307,38 +310,52 @@ class RunState:
     run: object = None                      # its repro_torch.dist.runtime.ShardedRun
 
 
-def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
+def _seq(seq, *path):
+    """The :class:`repro_torch.dist.runtime.SeqShard` at ``path`` of a
+    sublayer's tree of them (``None`` where nothing is sequence-sharded)."""
+    for key in path:
+        if seq is None:
+            return None
+        seq = seq[key]
+    return seq
+
+
+def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache, seq=None):
     """One sublayer: attention + FFN (or MoE), or a Mamba2 block (``"M"``),
     followed on ``"S"`` by the shared attention + FFN block, or an RWKV6
     time mix + channel mix (``"R"``), or an enc-dec unit (``"C"``, ``"E"``:
     :func:`_apply_encdec`).  ``x_sum`` is
     the f32 sum that ``x`` was rounded from (``None`` at the start of a
     unit); returns the new ``x``, its f32 sum and the cache.  A MoE block's
-    aux loss is added to ``rs.aux``."""
+    aux loss is added to ``rs.aux``.  ``seq`` mirrors ``cache``: the
+    :class:`repro_torch.dist.runtime.SeqShard` of each sequence-sharded
+    leaf, ``None`` elsewhere (or ``None`` outright)."""
     cfg = rs.cfg
     nk, eps = cfg.norm_kind, cfg.norm_eps
     if ch in ("M", "S"):
-        return _apply_mamba(rs, ch, p, x, x_sum, cache)
+        return _apply_mamba(rs, ch, p, x, x_sum, cache, seq)
     if ch in ("C", "E"):
-        return _apply_encdec(rs, ch, p, x, x_sum, cache)
+        return _apply_encdec(rs, ch, p, x, x_sum, cache, seq)
     if ch == "R":
         h = norm(p["tm_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
-        y, _ = rwkv.rwkv_time_mix(p["time_mix"], h, cfg, cache)
+        y, _ = rwkv.rwkv_time_mix(p["time_mix"], h, cfg, cache, seq=_seq(seq, "x_prev_t"))
         x, x_sum = _residual(x, y)
         h = norm(p["cm_norm"], x_sum, nk, eps).to(x.dtype)
-        y, _ = rwkv.rwkv_channel_mix(p["channel_mix"], h, cfg, cache)
+        y, _ = rwkv.rwkv_channel_mix(p["channel_mix"], h, cfg, cache,
+                                     seq=_seq(seq, "x_prev_c"))
         x, x_sum = _residual(x, y)
         return x, x_sum, cache
     h = norm(p["attn_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
     if cfg.attn_kind == "mla":
         a, new_cache = attention.mla_attention(
             p["attn"], h, cfg=cfg, positions=rs.positions, cache=cache,
-            pos=rs.pos, pad_len=rs.pad_len,
+            pos=rs.pos, pad_len=rs.pad_len, seq=_seq(seq, "ckv"),
         )
     else:
         a, new_cache = attention.gqa_attention(
             p["attn"], h, cfg=cfg, positions=rs.positions, cache=cache,
             pos=rs.pos, window=cfg.window if ch == "L" else None, pad_len=rs.pad_len,
+            seq=_seq(seq, "k"),
         )
     x, x_sum = _residual(x, a)
     h = norm(p["ffn_norm"], x_sum, nk, eps).to(x.dtype)
@@ -351,7 +368,7 @@ def _apply_sublayer(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cach
     return x, x_sum, new_cache
 
 
-def _apply_mamba(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
+def _apply_mamba(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache, seq=None):
     """An ``"M"`` sublayer, or an ``"S"`` one: the Mamba2 block, then the
     shared block's attention (no window, its own plain K/V cache) and FFN."""
     cfg = rs.cfg
@@ -367,6 +384,7 @@ def _apply_mamba(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
     a, _ = attention.gqa_attention(
         sp["attn"], h, cfg=cfg, positions=rs.positions,
         cache=cache["attn"] if cache is not None else None, pos=rs.pos, pad_len=rs.pad_len,
+        seq=_seq(seq, "attn", "k"),
     )
     x, x_sum = _residual(x, a)
     h = norm(sp["ffn_norm"], x_sum, nk, eps).to(x.dtype)
@@ -374,7 +392,7 @@ def _apply_mamba(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
     return x, x_sum, cache
 
 
-def _apply_encdec(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache):
+def _apply_encdec(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache, seq=None):
     """An ``"E"`` sublayer (bidirectional self attention without a cache,
     FFN) or a ``"C"`` one: causal self attention over ``k`` / ``v``, cross
     attention over the encoder output's keys and values, FFN.
@@ -386,7 +404,8 @@ def _apply_encdec(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache)
     they are used unrounded.  Without frames it reads the cached ``ck`` /
     ``cv``; without frames or a cache there is nothing to attend to, and it
     raises ``TypeError`` where the reference does (``cache["ck"]`` of
-    ``None``)."""
+    ``None``).  Over sequence-sharded cross caches (``seq``) a rank keeps its
+    frames of the cross K/V and attends over them context-parallel."""
     cfg = rs.cfg
     nk, eps = cfg.norm_kind, cfg.norm_eps
     h = norm(p["attn_norm"], x if x_sum is None else x_sum, nk, eps).to(x.dtype)
@@ -398,12 +417,16 @@ def _apply_encdec(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache)
         self_cache = {"k": cache["k"], "v": cache["v"]} if cache is not None else None
         a, _ = attention.gqa_attention(
             p["attn"], h, cfg=cfg, positions=rs.positions, cache=self_cache, pos=rs.pos,
-            pad_len=rs.pad_len,
+            pad_len=rs.pad_len, seq=_seq(seq, "k"),
         )
         x, x_sum = _residual(x, a)
         h = norm(p["cross_norm"], x_sum, nk, eps).to(x.dtype)
+        cseq = _seq(seq, "ck")
         if rs.enc_out is not None:
             ck, cv = attention.cross_kv(p["cross"], rs.enc_out, cfg=cfg)
+            if cseq is not None:
+                n = cache["ck"].shape[1]
+                ck, cv = cseq.narrow(ck, 1, n), cseq.narrow(cv, 1, n)
             if cache is not None:
                 ck, cv = cache["ck"].copy_(ck), cache["cv"].copy_(cv)
         elif cache is None:
@@ -415,7 +438,7 @@ def _apply_encdec(rs: RunState, ch: str, p: dict, x: torch.Tensor, x_sum, cache)
         else:
             ck, cv = cache["ck"], cache["cv"]
         x, x_sum = _residual(x, attention.cross_attention(p["cross"], h, cfg=cfg,
-                                                          enc_k=ck, enc_v=cv))
+                                                          enc_k=ck, enc_v=cv, seq=cseq))
     h = norm(p["ffn_norm"], x_sum, nk, eps).to(x.dtype)
     x, x_sum = _residual(x, ffn.ffn_apply(p["ffn"], h, cfg))
     return x, x_sum, cache
@@ -428,12 +451,13 @@ def _residual(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     return s.to(x.dtype), s
 
 
-def unit_apply(rs: RunState, pattern: str, unit_p: dict, x: torch.Tensor, unit_cache):
+def unit_apply(rs: RunState, pattern: str, unit_p: dict, x: torch.Tensor, unit_cache,
+               unit_seq=None):
     x_sum = None
     for i, ch in enumerate(pattern):
         key = f"s{i}_{ch}"
         c = unit_cache[key] if unit_cache is not None else None
-        x, x_sum, _ = _apply_sublayer(rs, ch, unit_p[key], x, x_sum, c)
+        x, x_sum, _ = _apply_sublayer(rs, ch, unit_p[key], x, x_sum, c, _seq(unit_seq, key))
     return x
 
 
@@ -458,13 +482,15 @@ def _unit_remat(rs: RunState, pattern: str, unit_p: dict, x: torch.Tensor) -> to
 
 
 def run_segments(rs: RunState, seg_params: list, x: torch.Tensor,
-                 caches: Optional[list], *, remat: bool = False):
+                 caches: Optional[list], *, remat: bool = False, seqs: Optional[list] = None):
     """Loop over every unit of every segment; returns ``(x, caches)`` — the
     caches are the ones passed in, updated in place.  A stack's units are
     taken with one ``unbind`` a leaf (:func:`repro_torch.tree.unstack`), so
     the gradient of a stacked leaf is one stack of the units' gradients.
     ``remat`` checkpoints each unit of a cache-free pass under autograd.  In
-    a sharded call each unit's leaves are bound as the unit runs."""
+    a sharded call each unit's leaves are bound as the unit runs; ``seqs``
+    (:meth:`repro_torch.dist.runtime.ShardedRun.cache_seq`) mirrors
+    ``caches`` with the sequence shards, the same for every unit of a stack."""
     remat = remat and caches is None and torch.is_grad_enabled()
     for si, (pattern, n_units) in enumerate(segments(rs.cfg)):
         units = _units(rs, seg_params[si], n_units, rs.run and rs.run.specs["segments"][si])
@@ -474,7 +500,7 @@ def run_segments(rs: RunState, seg_params: list, x: torch.Tensor,
                 x = _unit_remat(rs, pattern, unit, x)
                 continue
             unit_c = tree.index(c_stack, u) if c_stack is not None else None
-            x = unit_apply(rs, pattern, unit, x, unit_c)
+            x = unit_apply(rs, pattern, unit, x, unit_c, _seq(seqs, si))
     return x, caches
 
 
@@ -523,6 +549,7 @@ def forward(
     remat: bool = False,                    # checkpoint each unit (training)
     return_aux: bool = False,               # also return the MoE aux loss
     ctx=None,                               # ShardCtx: a sharded call where it has a mesh
+    max_seq: Optional[int] = None,          # the caches' length (a seq_shard call needs it)
 ):
     """Returns ``(logits [B, S', V] f32, caches)``, or with ``return_hidden``
     the final-normed hidden states ``[B, S', D]`` in the model's dtype in
@@ -545,7 +572,10 @@ def forward(
     one rank's part of a sharded forward: ``params`` its local shards (cut by
     :func:`repro_torch.dist.shard_tree`), ``tokens``, ``caches``, ``pos``,
     ``pad_len`` and ``prefix_embeds`` its dp rows; the outputs are its rows,
-    full width (:mod:`repro_torch.dist.runtime`)."""
+    full width (:mod:`repro_torch.dist.runtime`).  With ``ctx.seq_shard`` the
+    caches are also its slices of the sequence, cut by ``cache_specs`` from
+    caches of ``max_seq`` positions (required there: it fixes which leaves
+    were cut)."""
     b, s = tokens.shape
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     run = runtime.ShardedRun(cfg, params, ctx) if runtime.active(ctx) else None
@@ -575,7 +605,8 @@ def forward(
         x = x + layers.sinusoid_at(positions, cfg.d_model).to(x.dtype)
     rs = RunState(cfg=cfg, positions=positions, pos=pos, pad_len=pad_len,
                   shared_attn=top("shared_attn"), enc_out=enc_out, ctx=ctx, run=run)
-    x, caches = run_segments(rs, params["segments"], x, caches, remat=remat)
+    seqs = run.cache_seq(caches, max_seq) if run and caches is not None else None
+    x, caches = run_segments(rs, params["segments"], x, caches, remat=remat, seqs=seqs)
     x = norm(top("final_norm"), x, cfg.norm_kind, cfg.norm_eps)
     if not return_hidden:
         if last_token_only:

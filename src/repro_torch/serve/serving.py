@@ -68,10 +68,12 @@ reference donates its buffers); the admission merge builds new tensors.
 with a mesh; ``params`` this rank's local shards, prepared on the rank):
 every rank runs the same scheduler on the same requests, and holds the
 caches, tokens, write positions and pad lengths of its dp rows of the slots
-(``batch`` must divide over dp).  The model runs the sharded forward on them
-(:mod:`repro_torch.dist.runtime`), and the token matrix a wave (chunk, loop
-step) returns is all-gathered over dp before its one host sync, so every
-rank's scheduler sees every slot's tokens.
+(``batch`` must divide over dp).  Its caches are cut by ``cache_specs``: the
+dp rows, and under ``seq_shard`` the rank's slice of the sequence on the TP
+axis (each rank allocates only its shard).  The model runs the sharded
+forward on them (:mod:`repro_torch.dist.runtime`), and the token matrix a
+wave (chunk, loop step) returns is all-gathered over dp before its one host
+sync, so every rank's scheduler sees every slot's tokens.
 """
 
 from __future__ import annotations
@@ -243,6 +245,9 @@ class ServeEngine:
         return runtime.gather(x, 0, self._dp_group)
 
     def _new_cache(self):
+        if self._sharded:
+            return runtime.local_cache(self.model.cfg, self.batch, self.max_seq, torch.float32,
+                                       self.ctx, self.device)
         return self.model.init_cache(self._local, self.max_seq, dtype=torch.float32,
                                      device=self.device)
 
@@ -413,13 +418,13 @@ class ServeEngine:
         see a zero cache, not a previous occupant's."""
         lg, fresh = self.model.prefill(
             self.params, self._upload_rows(toks), self._new_cache(),
-            pad_len=self._upload_rows(npad), ctx=self.ctx,
+            pad_len=self._upload_rows(npad), ctx=self.ctx, max_seq=self.max_seq,
         )
         return torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32), fresh
 
     def _step(self, token, caches, pos, pad):
         lg, caches = self.model.decode_step(self.params, token, caches, pos, pad_len=pad,
-                                            ctx=self.ctx)
+                                            ctx=self.ctx, max_seq=self.max_seq)
         return torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32), caches
 
     def _wave_bucket(self, reqs: list[Request]) -> int:

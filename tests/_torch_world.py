@@ -9,7 +9,11 @@ the unsharded path in-process, so a sharded result is held against the
 port's own unsharded one on the same inputs; the reference's expert-parallel
 outputs, its chatglm3-6b smoke step and its ``ckpt.save`` of the stepped
 train state on a ``(2, 2)`` mesh come from ``<out>/ref_ep.pkl`` and
-``<out>/ref_ckpt``, written by a JAX child first.
+``<out>/ref_ckpt``, written by a JAX child first.  The same child then runs
+the reference's jitted sequence-sharded steps (:data:`SEQ_CASES`) while the
+world runs, on the inputs every rank builds too (:func:`seq_inputs`: the
+port's seeded parameters, numpy-seeded tokens); the test holds the ranks'
+logits to those.
 """
 
 from __future__ import annotations
@@ -51,6 +55,26 @@ TOL_GRAD = 1e-5       # a rank's gradient shards vs the unsharded step's, x the 
 SPREAD = 2.0          # ... or x the unsharded step's own move under TP's reordering where
                       # that is larger (rwkv6-3b's time_mix/u: ~3.5e-5); two reorderings
                       # (dp's and TP's) against the one measured
+SEQ_CASES = {
+    # name: (arch, config overrides, max_seq, prompt length) — f32 smoke
+    # configs whose caches cache_specs cuts along the sequence at tp 4 and 2
+    # (dim 2 >= 1024): each cache branch the port runs sharded
+    "stablelm-12b": ("stablelm-12b", {}, 1024, 600),                      # full K/V
+    "stablelm-12b/int8": ("stablelm-12b", {"kv_cache_int8": True}, 1024, 600),
+    "gemma2-2b/ring": ("gemma2-2b", {"ring_window_cache": True, "window": 1024}, 2048,
+                       1100),                                             # ring + full
+    "deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", {}, 1024, 600),      # MLA latents
+    "zamba2-7b": ("zamba2-7b", {}, 1024, 600),                            # the shared block
+    "whisper-large-v3": ("whisper-large-v3", {"frontend_seq": 1024}, 1024, 600),   # cross
+    "rwkv6-3b": ("rwkv6-3b", {"d_model": 1024, "n_layers": 1}, 64, 40),   # x_prev_* (trap:
+                                                                          # a feature dim)
+}
+SEQ_MESHES = ("m4", "dm")             # (1, 4): tp 4; (2, 2): tp 2 over dp 2
+SEQ_STEPS = 3                         # teacher-forced decode steps after the prefill
+SEQ_PAD = (0, 37)                     # the rows' left pads
+SEQ_SERVE = ((3, 3), (300, 2), (9, 3))   # (prompt, max_new): one prompt over a tp-4
+                                         # shard of 256 positions
+SEQ_SERVE_MESHES = {"scan": ("m4", "dm"), "loop": ("dm",), "chunked": ("m4",)}
 LAUNCH_ARGV = ["--arch", "chatglm3-6b", "--steps", "4", "--batch", "4", "--seq", "16",
                "--lr", "1e-3", "--ckpt-every", "2", "--device", "cpu"]
 
@@ -62,13 +86,43 @@ def _spec(mode):
         LutLinearSpec(bw=4, ba=4, mode=mode)
 
 
-def _cfg(arch):
-    from repro_torch.configs import get_config
+def _cfg(arch, get_config=None, **over):
+    """``arch``'s f32 smoke config (dropless where it has MoE layers), with
+    ``over``; ``get_config`` is the reference's in the JAX child."""
+    if get_config is None:
+        from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32", **over)
     if cfg.moe is not None:    # dropless: the EP capacity counts the dp-local tokens
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
     return cfg
+
+
+def seq_inputs(name) -> dict:
+    """Case ``name``'s inputs, the same in every process: the port's
+    parameters of its config from seed 0 (CPU generator) as a numpy tree,
+    numpy-seeded prompts of the case's length, teacher-forced decode tokens,
+    the pads and, on an enc-dec config, frames."""
+    from repro_torch.models.model import Model
+
+    arch, over, _max_seq, s = SEQ_CASES[name]
+    cfg = _cfg(arch, **over)
+    rng = np.random.default_rng(7)
+    b = len(SEQ_PAD)
+    return {"params": _numpy_tree(Model(cfg).init(0, device="cpu")),
+            "tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+            "steps": rng.integers(0, cfg.vocab_size, (SEQ_STEPS, b, 1)).astype(np.int32),
+            "pad": np.asarray(SEQ_PAD, np.int32),
+            "frames": rng.standard_normal((b, cfg.frontend_seq, cfg.frontend_dim))
+            .astype(np.float32) if cfg.is_encdec else None}
+
+
+def _numpy_tree(t):
+    if isinstance(t, dict):
+        return {k: _numpy_tree(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_numpy_tree(v) for v in t]
+    return t.numpy()
 
 
 def _rel(a, b) -> float:
@@ -237,12 +291,15 @@ def serve_case(driver, meshes):
     return out
 
 
-def refusals_case(meshes):
-    """What a mesh still refuses: seq_shard execution, in a forward and in a
-    train step; a train step without it runs."""
+def seq_shard_steps_case(meshes):
+    """Steps without a cache under ``seq_shard``: a forward and a train step
+    on (2, 2) give what they give without it (nothing is sequence-sharded
+    there), bit for bit; and a call over caches refuses a missing or wrong
+    ``max_seq`` (it fixes which leaves were cut)."""
     import torch
 
     from repro_torch import dist as rd
+    from repro_torch import tree
     from repro_torch.models.model import Model
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
@@ -250,25 +307,113 @@ def refusals_case(meshes):
     cfg = _cfg("gemma2-2b")
     model = Model(cfg)
     ctx = rd.ShardCtx(meshes["dm"])
+    seq = dataclasses.replace(ctx, seq_shard=True)
     state = ts.init_train_state(model, 0, device="cpu")
-    batch = {"tokens": torch.zeros((2, 5), dtype=torch.long)}
+    local = rd.shard_tree(state, ts.train_state_specs(cfg, ctx), ctx)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 5)))
+    steps = [ts.make_train_step(model, opt.AdamWConfig(), ctx=c)(local, {"tokens": toks})
+             for c in (ctx, seq)]
+    whole = model.init(0, device="cpu")
+    params = rd.shard_tree(whole, rd.param_specs(cfg, whole, ctx), ctx)
+    with torch.no_grad():
+        fwd = [model.forward(params, toks, ctx=c)[0] for c in (ctx, seq)]
+    (a, ma), (b, mb) = steps
     msgs = {}
-    for what, fn in (
-        ("train_step", lambda: ts.make_train_step(model, opt.AdamWConfig(), ctx=ctx)(
-            rd.shard_tree(state, ts.train_state_specs(cfg, ctx), ctx), batch)),
-        ("seq_shard_step", lambda: ts.make_train_step(
-            model, opt.AdamWConfig(), ctx=dataclasses.replace(ctx, seq_shard=True))(
-            state, batch)),
-        ("seq_shard", lambda: model.forward(
-            model.init(0, device="cpu"), torch.zeros((2, 4), dtype=torch.long),
-            ctx=dataclasses.replace(ctx, seq_shard=True))),
-    ):
+    caches = rd.shard_tree(model.init_cache(2, 2048, torch.float32, device="cpu"),
+                           rd.cache_specs(cfg, model.init_cache(2, 2048, device="meta"), seq),
+                           seq)
+    for what, max_seq in (("no_max_seq", None), ("other_max_seq", 1024)):
         try:
-            fn()
+            model.prefill(params, toks[rd.runtime.rows_of(2, seq)], caches, ctx=seq,
+                          max_seq=max_seq)
             msgs[what] = None
-        except NotImplementedError as e:
+        except ValueError as e:
             msgs[what] = str(e)
-    return msgs
+    return {"forward_equal": bool(torch.equal(*fwd)),
+            "step_equal": float(ma["loss"]) == float(mb["loss"]) and all(
+                torch.equal(x, y) for x, y in zip(tree.tensors(a.params), tree.tensors(b.params))),
+            **msgs}
+
+
+def seq_case(name, meshes, inp):
+    """A sequence-sharded case: the prefill and ``SEQ_STEPS`` teacher-forced
+    decode steps (``[B]`` write offsets) of the reference's parameters on the
+    rank's shards, on (1, 4) and (2, 2) with ``seq_shard``, and the same
+    calls unsharded on the whole batch; the test holds the logits to each
+    other and to the reference's jitted steps."""
+    import torch
+
+    from repro_torch import dist as rd
+    from repro_torch.convert import params_from_numpy
+    from repro_torch import tree
+    from repro_torch.models.model import Model
+
+    arch, over, max_seq, s = SEQ_CASES[name]
+    cfg = _cfg(arch, **over)
+    model = Model(cfg)
+    params = params_from_numpy(inp["params"], device="cpu")
+    toks, steps, pad = (torch.from_numpy(inp[k]) for k in ("tokens", "steps", "pad"))
+    frames = None if inp["frames"] is None else torch.from_numpy(inp["frames"])
+    b = toks.shape[0]
+
+    def run(tree_, caches, rows, ctx):
+        kw = {} if frames is None else {"prefix_embeds": frames[rows]}
+        lg, caches = model.prefill(tree_, toks[rows], caches, pad_len=pad[rows], ctx=ctx,
+                                   max_seq=max_seq, **kw)
+        out = [lg]
+        for t in range(SEQ_STEPS):
+            pos = torch.full((rows.stop - rows.start,), s + t, dtype=torch.int32)
+            lg, caches = model.decode_step(tree_, steps[t][rows], caches, pos, ctx=ctx,
+                                           pad_len=pad[rows], max_seq=max_seq)
+            out.append(lg)
+        return [o.numpy() for o in out]
+
+    with torch.no_grad():
+        res = {"unsharded": run(params, model.init_cache(b, max_seq, torch.float32,
+                                                         device="cpu"), slice(0, b), None)}
+        for m in SEQ_MESHES:
+            ctx = rd.ShardCtx(meshes[m], seq_shard=True)
+            whole = model.init_cache(b, max_seq, torch.float32, device="cpu")
+            caches = rd.shard_tree(whole, rd.cache_specs(cfg, whole, ctx), ctx)
+            rows = rd.runtime.rows_of(b, ctx)
+            local = rd.shard_tree(params, rd.param_specs(cfg, params, ctx), ctx)
+            res[m] = {"logits": run(local, caches, rows, ctx), "rows": (rows.start, rows.stop),
+                      "cut": sum(a.shape[2] < w.shape[2] for a, w in
+                                 zip(tree.tensors(caches), tree.tensors(whole)) if a.ndim > 2)}
+    return res
+
+
+def seq_serve_case(name, driver, meshes, inp):
+    """``ServeEngine(ctx=)`` with ``seq_shard`` against the unsharded engine on
+    the same requests (:data:`SEQ_SERVE`): the continuous driver on (1, 4)
+    and (2, 2), the loop on (2, 2), the chunked driver on (1, 4)."""
+    import torch
+
+    from repro_torch import dist as rd
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import Model
+    from repro_torch.serve.serving import Request, ServeEngine
+
+    arch, over, max_seq, _s = SEQ_CASES[name]
+    cfg = _cfg(arch, **over)
+    model = Model(cfg)
+    params = params_from_numpy(inp["params"], device="cpu")
+    rng = np.random.default_rng(8)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, min(n, max_seq // 2))
+                    .astype(np.int32), max_new_tokens=m) for n, m in SEQ_SERVE]
+    out = {}
+    for m in (None,) + SEQ_SERVE_MESHES[driver]:
+        ctx = None if m is None else rd.ShardCtx(meshes[m], seq_shard=True)
+        tree_ = params if ctx is None else \
+            rd.shard_tree(params, rd.param_specs(cfg, params, ctx), ctx)
+        eng = ServeEngine(model, tree_, batch=2, max_seq=max_seq, decode=driver, ctx=ctx,
+                          device="cpu")
+        with torch.no_grad():
+            toks = eng.generate(reqs)
+        out[m or "unsharded"] = {"tokens": toks, "admissions": list(eng.admissions),
+                                 "host_syncs": eng.host_syncs,
+                                 "buckets": dict(eng.bucket_counts)}
+    return out
 
 
 def _ref_state(ref: dict, key: str):
@@ -481,6 +626,21 @@ def launch_case(out_dir, meshes):
             "refusal": refusal}
 
 
+def _wait_for_reference(out_dir: str, timeout_s: float = 300.0) -> dict:
+    """The JAX child's ``ref_ep.pkl`` once it is there (written whole, then
+    renamed into place)."""
+    import time
+
+    path = os.path.join(out_dir, "ref_ep.pkl")
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout_s:
+            raise TimeoutError(f"no {path} after {timeout_s} s (the reference child failed?)")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
 def rank_main(rank: int, out_dir: str) -> None:
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     import torch
@@ -497,15 +657,18 @@ def rank_main(rank: int, out_dir: str) -> None:
                                           mesh_dim_names=("pod", "data", "model")),
                   "d4": init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model")),
                   "m4": init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))}
-        with open(os.path.join(out_dir, "ref_ep.pkl"), "rb") as f:
-            ref = pickle.load(f)["train"]
         res["forward"] = {name: forward_case(name, meshes) for name in FORWARD_CASES}
         res["global_amax"] = global_amax_case(meshes)
-        res["ep"] = ep_case(out_dir, meshes)
         res["pipeline"] = pipeline_case()
         res["psum"] = psum_case()
         res["serve"] = {d: serve_case(d, meshes) for d in SERVE_DRIVERS}
-        res["refusals"] = refusals_case(meshes)
+        res["seq_steps"] = seq_shard_steps_case(meshes)
+        seq_in = {name: seq_inputs(name) for name in SEQ_CASES}
+        res["seq"] = {name: seq_case(name, meshes, seq_in[name]) for name in SEQ_CASES}
+        res["seq_serve"] = {(name, d): seq_serve_case(name, d, meshes, seq_in[name])
+                            for name in SEQ_CASES for d in SERVE_DRIVERS}
+        ref = _wait_for_reference(out_dir)["train"]
+        res["ep"] = ep_case(out_dir, meshes)
         res["train"] = {name: train_case(name, meshes, ref) for name in TRAIN_CASES}
         res["elastic"] = elastic_case(out_dir, meshes, ref)
         res["launch"] = launch_case(out_dir, meshes)

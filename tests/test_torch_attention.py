@@ -326,3 +326,115 @@ def test_cache_invariant_attend_is_the_same_function_and_row_invariant(s, window
                                              tpos[:, sl], window=window, softcap_val=softcap,
                                              bf16_operands=bf16, pad_len=pad2)
         assert torch.equal(part, got[:, sl])
+
+
+def _shards(tp: int):
+    from repro_torch.dist.runtime import SeqShard
+
+    return [SeqShard(r, tp) for r in range(tp)]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("start,tail", [(0, 6), (5, 3), (13, 8), ("per_slot", 1),
+                                        ("per_slot_wide", 4)])
+def test_sequence_sharded_ring_update_equals_reference(tp, start, tail):
+    """The ring write over sequence-sharded slots: each rank writes the slots
+    it holds of a ring of ``W = n·tp``; the ranks' slices side by side are the
+    reference's ring bit for bit (int starts that wrap across ranks, per-slot
+    starts)."""
+    rng = np.random.default_rng(tail + tp)
+    b, w, s = 3, 8, 10
+    cache = _normal(rng, (b, w, 2, 4))
+    new = _normal(rng, (b, s, 2, 4))
+    gs = {"per_slot": np.array([0, 7, 21], np.int32),
+          "per_slot_wide": np.array([6, 3, 15], np.int32)}.get(start, start)
+    want = np.asarray(jattn._ring_update(jnp.asarray(cache), jnp.asarray(new),
+                                         jnp.asarray(gs) if isinstance(gs, np.ndarray) else gs,
+                                         tail))
+    tgs = torch.from_numpy(gs) if isinstance(gs, np.ndarray) else gs
+    n = w // tp
+    parts = []
+    for seq in _shards(tp):
+        local = torch.from_numpy(cache[:, seq.lo(n) : seq.lo(n) + n].copy())
+        assert tattn._ring_update(local, torch.from_numpy(new), tgs, tail, seq) is local
+        parts.append(local)
+    np.testing.assert_array_equal(torch.cat(parts, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("pos", [0, 3, 9, "per_slot"])
+def test_sequence_sharded_cache_write_equals_reference(tp, pos):
+    """The cache write over sequence slices: an int offset's range cut to each
+    rank's slice, a per-slot ``[B]`` offset written only where the rank
+    holds it; the slices side by side are the reference's write."""
+    rng = np.random.default_rng(tp)
+    b, t = 3, 16
+    cache = _normal(rng, (b, t, 2, 4))
+    s = 1 if pos == "per_slot" else 6
+    new = _normal(rng, (b, s, 2, 4))
+    p = np.array([2, 7, 15], np.int32) if pos == "per_slot" else pos
+    want = np.asarray(jattn._cache_write(jnp.asarray(cache), jnp.asarray(new),
+                                         jnp.asarray(p) if pos == "per_slot" else p))
+    n = t // tp
+    parts = []
+    for seq in _shards(tp):
+        local = torch.from_numpy(cache[:, seq.lo(n) : seq.lo(n) + n].copy())
+        tattn._cache_write(local, torch.from_numpy(new),
+                           torch.from_numpy(p) if pos == "per_slot" else p, seq)
+        parts.append(local)
+    np.testing.assert_array_equal(torch.cat(parts, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("window,softcap,bf16", [(None, None, False), (9, 30.0, False),
+                                                 (None, 30.0, True)])
+def test_context_parallel_attend_over_shards_matches_reference(tp, window, softcap, bf16):
+    """The full-cache branch over ``tp`` slices of the sequence, combined in one
+    process with the function the collective path combines with
+    (``runtime.combine``): against the reference's ``_attend`` over the whole
+    cache with ``_key_mask``, to the bounds of the unsharded form.  The first
+    rows of each padded row have no valid key anywhere (uniform weights, as
+    unsharded) and the later slices none for most rows: no NaN.  A row's bits
+    are the same alone or among other rows of its call (the same pad); behind
+    another pad (the same keys at other buffer positions, so other slice
+    boundaries) they are held only to the tolerance."""
+    from repro_torch.dist.runtime import combine
+
+    rng = np.random.default_rng(17 + tp + (window or 0))
+    b, t, hkv, rep, hd, s = 3, 160, 2, 2, 16, 70
+    q = _normal(rng, (b, s, hkv * rep, hd), 2.0)
+    kc = _normal(rng, (b, t, hkv, hd), 2.0)
+    vc = _normal(rng, (b, t, hkv, hd))
+    pad = np.array([0, 5, 11], np.int32)
+    positions = (np.arange(s)[None] - pad[:, None]).astype(np.int32)     # pads: logical < 0
+    jm = jattn._key_mask(jnp.arange(t)[None], jnp.asarray(positions)[:, :, None],
+                         jnp.asarray(pad), window)
+    want = np.asarray(jattn._attend(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                    mask=jm[:, None], softcap_val=softcap,
+                                    bf16_operands=bf16))
+    tq, tpos, tpad = torch.from_numpy(q), torch.from_numpy(positions), torch.from_numpy(pad)
+    n = t // tp
+
+    def attend(qq, kk, vv, pp, pad_len):
+        return tattn._attend_cache_shards(
+            qq, list(kk.split(n, 1)), list(vv.split(n, 1)), [r * n for r in range(tp)], pp,
+            window=window, softcap_val=softcap, bf16_operands=bf16, pad_len=pad_len,
+            reduce=combine)
+
+    tk, tv = torch.from_numpy(kc), torch.from_numpy(vc)
+    got = attend(tq, tk, tv, tpos, tpad)
+    assert got.shape == (b, s, hkv * rep, hd) and torch.isfinite(got).all()
+    if bf16:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2.0**-8 * np.abs(vc).max())
+        assert (np.abs(got.numpy() - want) > TOL_BF16 * np.abs(want).max()).mean() < 1e-2
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=TOL_LAYER * np.abs(want).max())
+    for sl in (slice(s - 1, s), slice(0, 20), slice(tattn.INVARIANT_ROWS - 3, s)):
+        assert torch.equal(attend(tq[:, sl], tk, tv, tpos[:, sl], tpad), got[:, sl])
+    pad2 = torch.tensor([3, 0, 2])               # the same keys behind other pads
+    idx = (torch.arange(t)[None] - pad2[:, None] + tpad[:, None]) % t
+    rows = torch.arange(b)[:, None]
+    moved = attend(tq, tk[rows, idx], tv[rows, idx], tpos, pad2)
+    np.testing.assert_allclose(moved.numpy(), got.numpy(), rtol=0,
+                               atol=TOL_LAYER * np.abs(want).max())

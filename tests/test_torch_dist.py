@@ -532,9 +532,10 @@ def test_pipeline_apply_one_stage_and_its_refusals(gloo1):
 
 def test_sharded_call_on_a_one_rank_mesh(gloo1):
     """World 1, mesh (1, 1): the sharded forward is the unsharded one bit for
-    bit (no collective is needed), ``seq_shard`` execution raises, and a
-    forward with parameters that require grad runs: its gradients are the
-    unsharded forward's bit for bit."""
+    bit (no collective is needed), with ``seq_shard`` too (a TP axis of 1
+    cuts no cache: prefill and decode as well), and a forward with
+    parameters that require grad runs: its gradients are the unsharded
+    forward's bit for bit."""
     from torch.distributed.device_mesh import init_device_mesh
 
     cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), dtype="float32")
@@ -548,8 +549,17 @@ def test_sharded_call_on_a_one_rank_mesh(gloo1):
         want, _ = model.forward(params, toks)
         got, _ = model.forward(local, toks, ctx=ctx)
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="seq_shard execution"):
-        model.forward(local, toks, ctx=dataclasses.replace(ctx, seq_shard=True))
+    seq = dataclasses.replace(ctx, seq_shard=True)
+    with torch.no_grad():
+        assert torch.equal(model.forward(local, toks, ctx=seq)[0], want)
+        outs = []
+        for c in (None, seq):
+            caches = model.init_cache(2, 16, torch.float32, device="cpu")
+            tree_ = params if c is None else local
+            lg, caches = model.prefill(tree_, toks, caches, ctx=c, max_seq=16)
+            outs.append((lg, model.decode_step(tree_, toks[:, :1], caches, 8, ctx=c,
+                                               max_seq=16)[0]))
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
     dense = model.init(device="cpu")
     for t in tree.tensors(dense):
         t.requires_grad_(True)

@@ -25,7 +25,13 @@ runs the reference).
 * ``ServeEngine(ctx=)`` under the scan, loop and chunked drivers: tokens,
   admissions and bucket counts equal to the unsharded engine's, one host
   sync a wave on every rank;
-* what a mesh still refuses: training, and ``seq_shard`` execution.
+* ``seq_shard``: the caches of seven cache branches (full, int8, ring,
+  MLA, zamba2's shared block, whisper's cross caches, rwkv6's feature-sharded
+  token-shift rows) cut along dim 2 on (1, 4) and (2, 2): prefill and decode
+  logits against the unsharded port and the reference's jitted steps (the
+  JAX child computes those while the world runs), and ``ServeEngine(ctx=)``
+  on the three drivers against the unsharded engine; cache-free steps under
+  ``seq_shard`` equal those without it.
 """
 
 import dataclasses
@@ -56,6 +62,13 @@ TOL_REF_LOSS = 2e-2           # the sharded step vs the reference's local step: 
 TOL_REF_GRAD = 1e-4           # bounds, and the cross-package gradient bound
                               # (tests/test_torch_train.py)
 TOL_LAUNCH = 1e-5             # the sharded launcher's losses vs the unsharded launcher's
+TOL_SEQ = 1e-4                # sequence-sharded logits vs unsharded / the reference's,
+                              # relative to max |logit| (the reference's f32 bound)
+TOL_SEQ_INT8 = 1e-3           # ... the int8 cache against the reference: a K / V value whose
+                              # f32 bits differ between the packages may round to the next
+                              # code (tests/test_torch_model.py's TOL_INT8; the port's own
+                              # unsharded int8 logits sit 1.2e-4 .. 2.3e-4 from the
+                              # reference's GSPMD steps on (1, 4))
 TIMEOUT_S = 300
 
 REF_EP = """
@@ -109,28 +122,86 @@ sspec = jts.TrainState(params=pspec, opt={"mu": pspec, "nu": pspec, "step": P()}
 jck.save(sys.argv[2], 5, jax.device_put(new, shd.to_shardings(sspec, mesh)))
 as_np = lambda st: {"params": jax.tree.map(np.asarray, st.params),
                     "opt": jax.tree.map(np.asarray, st.opt), "step": np.asarray(st.step)}
-with open(sys.argv[1], "wb") as f:
+
+import os
+with open(sys.argv[1] + ".tmp", "wb") as f:      # the world's ranks wait for the file
     pickle.dump({"moe": spec, "params": jax.tree.map(np.asarray, p), "x": np.asarray(x),
                  "y": np.asarray(y), "aux": float(aux),
                  "train": {"tokens": tokens, "state": as_np(state), "loss": float(loss),
                            "grads": jax.tree.map(np.asarray, grads), "new": as_np(new)}}, f)
+os.replace(sys.argv[1] + ".tmp", sys.argv[1])
+
+# The reference's jitted prefill and decode steps with seq_shard, the caches
+# placed by its cache_specs, on (1, 4) and (2, 2), over the inputs every rank
+# of the world builds too (the port's seeded parameters).
+import _torch_world as world
+from repro.serve import serving
+
+shapes = {"m4": (1, 4), "dm": (2, 2)}
+seq_out = {}
+for name, (arch, over, max_seq, s) in world.SEQ_CASES.items():
+    cfg, inp = world._cfg(arch, get_config, **over), world.seq_inputs(name)
+    tm = build_model(cfg)
+    b = inp["tokens"].shape[0]
+    for m in world.SEQ_MESHES:
+        smesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(shapes[m]),
+                                  ("data", "model"))
+        sctx = shd.ShardCtx(mesh=smesh, dp_axes=("data",), tp_axis="model", seq_shard=True)
+        caches = tm.init_cache(b, max_seq, dtype=jnp.float32)
+        c_shard = shd.to_shardings(shd.cache_specs(cfg, caches, sctx), smesh)
+        rows = NamedSharding(smesh, P("data"))
+        put = lambda a: None if a is None else jax.device_put(a, rows)
+        ps = jax.device_put(inp["params"], shd.to_shardings(
+            shd.param_specs(cfg, inp["params"], sctx), smesh))
+        caches = jax.device_put(caches, c_shard)
+        prefill = jax.jit(serving.make_prefill_step(tm, ctx=sctx), out_shardings=(None, c_shard))
+        lg, caches = prefill(ps, put(inp["tokens"]), caches, put(inp["frames"]), put(inp["pad"]))
+        # make_serve_step's body (its argmax left out: the logits are compared)
+        step = jax.jit(lambda p_, t_, c_, pos_, pad_: tm.decode_step(
+            p_, t_, c_, pos_, ctx=sctx, pad_len=pad_), out_shardings=(None, c_shard))
+        logits = [np.asarray(lg)]
+        for t in range(world.SEQ_STEPS):
+            lg, caches = step(ps, put(inp["steps"][t]), caches, put(np.full((b,), s + t, np.int32)),
+                              put(inp["pad"]))
+            logits.append(np.asarray(lg))
+        seq_out[(name, m)] = logits
+with open(sys.argv[3], "wb") as f:
+    pickle.dump(seq_out, f)
 """
 
 
 @pytest.fixture(scope="module")
 def world_dir(tmp_path_factory):
-    """The world's directory: the reference child's files, then the world's
-    (each rank's results, the checkpoints)."""
+    """The world's directory: the reference child's files and the world's
+    (each rank's results, the checkpoints).  The child and the world run
+    side by side: the ranks run the cases that need nothing of the child
+    first, then wait for ``ref_ep.pkl``; the child writes it, then the
+    reference's sequence-sharded steps (``ref_seq.pkl``)."""
     import multiprocessing as mp
 
     out = tmp_path_factory.mktemp("world")
+    here = os.path.dirname(__file__)
     env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
            "JAX_PLATFORMS": "cpu",
-           "PYTHONPATH": os.path.join(os.path.dirname(__file__), "..", "src")}
-    res = subprocess.run([sys.executable, "-c", textwrap.dedent(REF_EP), str(out / "ref_ep.pkl"),
-                          str(out / "ref_ckpt")],
-                         env=env, capture_output=True, text=True, timeout=TIMEOUT_S)
-    assert res.returncode == 0, res.stderr
+           "PYTHONPATH": os.pathsep.join([os.path.join(here, "..", "src"), here])}
+    with open(out / "ref.err", "w") as err:
+        child = subprocess.Popen([sys.executable, "-c", textwrap.dedent(REF_EP),
+                                  str(out / "ref_ep.pkl"), str(out / "ref_ckpt"),
+                                  str(out / "ref_seq.pkl")],
+                                 env=env, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        world_results = _run_world(mp, out)
+        child.wait(TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    assert child.returncode == 0, (out / "ref.err").read_text()
+    return out, world_results
+
+
+def _run_world(mp, out):
+    """Spawn the world's ranks over ``out``; returns each rank's results."""
     spawn = mp.get_context("spawn")
     procs = [spawn.Process(target=world.rank_main, args=(r, str(out))) for r in range(world.WORLD)]
     for p in procs:
@@ -150,7 +221,7 @@ def world_dir(tmp_path_factory):
                        {"error": f"rank {r} wrote nothing (exit {procs[r].exitcode})"})
     errors = [res.get("error") for res in results if res.get("error")]
     assert not hung and not errors, (len(hung), errors)
-    return out, results
+    return results
 
 
 @pytest.fixture(scope="module")
@@ -220,12 +291,58 @@ def test_sharded_serve_equals_unsharded(ranks, driver):
             assert got["host_syncs"] == got["waves"] > 1
 
 
-def test_mesh_trains_and_refuses_only_seq_shard(ranks):
+def test_mesh_runs_cache_free_steps_alike_under_seq_shard(ranks):
+    """A cache-free forward and a train step on (2, 2): with ``seq_shard``
+    they are the steps without it, bit for bit.  A call over caches without
+    ``max_seq``, or with another than the caches', is refused."""
     for res in ranks:
-        msgs = res["refusals"]
-        assert msgs["train_step"] is None
-        assert "seq_shard execution" in msgs["seq_shard"]
-        assert "seq_shard execution" in msgs["seq_shard_step"]
+        got = res["seq_steps"]
+        assert got["forward_equal"] and got["step_equal"], got
+        assert "needs max_seq=" in got["no_max_seq"], got
+        assert "cut dim 2 to 512" in got["other_max_seq"], got
+
+
+@pytest.fixture(scope="module")
+def ref_seq(world_dir):
+    """The reference's jitted sequence-sharded steps: ``{(case, mesh): [the
+    prefill's logits, then each decode step's]}``."""
+    return pickle.loads((world_dir[0] / "ref_seq.pkl").read_bytes())
+
+
+@pytest.mark.parametrize("mesh", world.SEQ_MESHES)
+@pytest.mark.parametrize("case", sorted(world.SEQ_CASES))
+def test_seq_shard_steps_equal_unsharded_and_reference(ranks, ref_seq, case, mesh):
+    """Caches cut along the sequence on the TP axis (tp 4 on (1, 4), tp 2 on
+    (2, 2)): every rank's prefill and teacher-forced decode logits within
+    ``TOL_SEQ`` x max |logit| of the port's unsharded calls and of the
+    reference's jitted ``make_prefill_step`` / decode step with its caches
+    placed by ``cache_specs`` (the int8 cache against the reference:
+    ``TOL_SEQ_INT8``).  Finite everywhere: at tp 4 the prompt's keys leave the
+    last shard without a valid key for any row (and the decode steps' rows
+    too)."""
+    tol_ref = TOL_SEQ_INT8 if case.endswith("/int8") else TOL_SEQ
+    for r, res in enumerate(ranks):
+        got = res["seq"][case][mesh]
+        lo, hi = got["rows"]
+        assert got["cut"] > 0, (r, got["cut"])           # the caches were cut
+        for i, (a, u, j) in enumerate(zip(got["logits"], res["seq"][case]["unsharded"],
+                                          ref_seq[(case, mesh)])):
+            assert np.isfinite(a).all(), (r, i)
+            scale = np.abs(u).max()
+            assert np.abs(a - u[lo:hi]).max() <= TOL_SEQ * scale, (r, i, "port")
+            assert np.abs(a - j[lo:hi]).max() <= tol_ref * np.abs(j).max(), (r, i, "reference")
+
+
+@pytest.mark.parametrize("driver", world.SERVE_DRIVERS)
+@pytest.mark.parametrize("case", sorted(world.SEQ_CASES))
+def test_seq_shard_serve_equals_unsharded(ranks, case, driver):
+    """``ServeEngine(ctx=)`` with ``seq_shard`` (the continuous driver on (1, 4)
+    and (2, 2), the loop on (2, 2), the chunked driver on (1, 4)): the
+    unsharded engine's tokens, admissions, buckets and host syncs."""
+    for res in ranks:
+        s = res["seq_serve"][(case, driver)]
+        for m in world.SEQ_SERVE_MESHES[driver]:
+            assert s[m] == s["unsharded"], (m, s[m], s["unsharded"])
 
 
 @pytest.mark.parametrize("case", sorted(world.TRAIN_CASES))
