@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
 ``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
-``--phase whisper``, ``--phase vlm_train``, ``--phase dist``, ``--phase dist_train`` or
-``--phase seq_shard`` runs one
+``--phase whisper``, ``--phase vlm_train``, ``--phase dist``, ``--phase dist_train``,
+``--phase seq_shard`` or ``--phase dryrun`` runs one
 phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
@@ -117,6 +117,14 @@ entry points at published full widths:
   ``"MMMMMS"`` unit, W4A4 ``pallas``) through ``ServeEngine(ctx=)`` with
   the caches cut along the sequence (4096 of 8192 positions a rank), held
   to the same tree run whole;
+
+* the device-less dry-run (phase 25, ``repro_torch.launch.dryrun``): one
+  rank of the 256-rank production mesh traced on ``meta`` over a fake
+  process group for stablelm-12b at ``decode_32k`` and ``prefill_32k`` and
+  zamba2-7b at ``long_500k``, with the roofline's three terms (derived, not
+  measured); then stablelm-12b at 20 layers, W4A4 ``dequant``, a decode
+  step and a prefill counted on ``meta`` and run on the card: the counted
+  argument bytes and matmul FLOPs equal the real step's;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``, phase 13, at 10 of
@@ -6532,14 +6540,219 @@ def seq_serve_shared(torch, dev, rank, smoke):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the device-less dry-run and its roofline, beside a real step
+# ---------------------------------------------------------------------------
+
+DRY_CELLS = (("stablelm-12b", "decode_32k"), ("stablelm-12b", "prefill_32k"),
+             ("zamba2-7b", "long_500k"))
+DRY_DIR = ROOT / "build" / "dryrun_torch"   # git-ignored: 25a's artifacts
+DRY_JOBS = 6                  # 25a: ranks traced at a time, each in a spawned process
+DRY_STEPS = {"decode": ("decode", 4, 256),  # 25b: kind, rows, positions (a decode's caches
+             "prefill": ("prefill", 4, 128)}  # hold them and it writes the last)
+DRY_ITERS = 5                 # 25b: timed steps a kind (CUDA events)
+
+
+def phase_dryrun(torch, dev, smi):
+    """Phase 25: the dry-run (``repro_torch.launch.dryrun``) and its roofline.
+
+    25a, on the host (no card): the dry-run's own entry (``run_cells``) on
+    the single-pod mesh for :data:`DRY_CELLS` — rank 0 and the last rank of
+    each, in fake worlds of 256 ranks, :data:`DRY_JOBS` traces at a time in
+    spawned processes started before 25b and joined after its builds and
+    checks (so 25b's timed steps run on a quiet host).  Each cell must be
+    ``traced``; its status, trace seconds, the rank's counts and the three
+    roofline terms (``repro_torch.launch.roofline``: derived, not measured)
+    are printed.
+
+    25b, on the card: stablelm-12b at published widths cut to
+    :data:`N_LAYERS` layers, W4A4 ``dequant`` (the dry-run's
+    ``QUANT_SPEC``), a world of one, no ctx: each step of :data:`DRY_STEPS`
+    is counted on ``meta`` by the dry-run's ``count_step``, then the same
+    tree, caches and inputs are built on the card (``build_cell``) and the
+    same step runs there.  Asserted: the count's ``argument_size_in_bytes``
+    equals the bytes of the tensors the real step receives, and the growth
+    of ``memory_allocated()`` from building them equals the caching
+    allocator's blocks that hold them (``memory_snapshot``: a block rounds
+    its tensor up to 512 B, and a large one keeps a segment's remainder under
+    1 MiB); its ``flops`` equal ``FlopCounterMode`` around the real step,
+    exactly.  Printed: the count's ``temp_size_in_bytes`` beside the rise of
+    ``max_memory_allocated()`` during the real step (after a warm-up step),
+    and the step's time on CUDA events beside its bound ``max(flops / 989
+    TFLOP/s, (argument + output bytes) / 3.35 TB/s)``."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+
+    check(not (dist.is_available() and dist.is_initialized()),
+          "phase 25: an earlier phase left a default process group")
+    t0 = time.perf_counter()
+    host: dict = {}
+
+    def run_host():
+        from repro_torch.launch import dryrun
+
+        try:
+            host["recs"] = dryrun.run_cells([(a, shape, "single", True, "")
+                                             for a, shape in DRY_CELLS],
+                                            results_dir=str(DRY_DIR), jobs=DRY_JOBS)
+        except Exception:                   # reported: the phase fails below
+            host["error"] = traceback.format_exc()[-3000:]
+        host["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run_host)
+    thread.start()
+    try:
+        cells = {name: dryrun_card_build(torch, dev, smi, name) for name in DRY_STEPS}
+    finally:
+        thread.join()
+    out = {"a": dryrun_host_report(host, smi)}
+    out["b"] = {name: dryrun_card_time(torch, smi, name, **c) for name, c in cells.items()}
+    del cells
+    gc.collect()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 25: passed in {out['seconds']:.1f} s (25a {host['seconds']:.1f} s beside 25b's "
+        f"builds)")
+    return out
+
+
+def dryrun_host_report(host, smi):
+    """25a's cells: each must be traced; prints their counts and roofline terms."""
+    from repro_torch.launch import roofline
+
+    check("error" not in host, f"25a: the dry-run raised {host.get('error')}")
+    rows = []
+    for rec in host["recs"]:
+        what = f"{rec['arch']} {rec['shape']}"
+        check(rec["status"] == "traced",
+              f"25a: {what} {rec['status']}: {rec.get('error')} {rec.get('traceback', '')[-1500:]}")
+        full, t = rec["full_analysis"], roofline.cell_terms(rec)
+        row = {"cell": what, "status": rec["status"], "t_trace_s": rec["t_trace_s"],
+               "last_rank_t_trace_s": rec["last_rank"]["t_trace_s"],
+               "argument_bytes_differ": rec["argument_bytes_differ"],
+               "recurrence_scaled": rec["recurrence_scaled"],
+               **{k: full[k] for k in ("flops", "bytes_accessed", "argument_size_in_bytes",
+                                       "output_size_in_bytes", "temp_size_in_bytes",
+                                       "collective_bytes_by_axis")},
+               **{k: t[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                                    "collective_links", "roofline_fraction")}}
+        rows.append(row)
+        log(f"phase 25a [{smi}]: {what} on the (16, 16) mesh, rank 0 of 256: {rec['status']} in "
+            f"{rec['t_trace_s']:.1f} s (the last rank {row['last_rank_t_trace_s']:.1f} s, "
+            f"argument bytes {'differ' if row['argument_bytes_differ'] else 'equal'}); counted "
+            f"(from shapes, not measured): {full['flops']:.4e} matmul FLOPs, "
+            f"{full['bytes_accessed']:.4e} B unfused, arguments "
+            f"{full['argument_size_in_bytes'] / 1e9:.3f} GB, outputs "
+            f"{full['output_size_in_bytes'] / 1e9:.3f} GB, temp peak "
+            f"{full['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+            + ", ".join(f"{a} {b / 1e6:.2f} MB" for a, b in full["collective_bytes_by_axis"].items())
+            + f"; roofline terms ({roofline.LABEL}): compute {t['t_compute_s'] * 1e3:.3f} ms, "
+            f"memory {t['t_memory_s'] * 1e3:.3f} ms, collective {t['t_collective_s'] * 1e3:.3f} ms "
+            f"({', '.join(f'{a} over {k}' for a, k in t['collective_links'].items())}), "
+            f"{t['dominant']}-bound, roofline fraction {t['roofline_fraction']:.4f}")
+    return {"cells": rows, "seconds": host["seconds"]}
+
+
+def dryrun_card_build(torch, dev, smi, name, *, n_layers=N_LAYERS, smoke=False):
+    """25b's count and build of one step (:func:`phase_dryrun`): the count on
+    ``meta``, the same cell on ``dev``, the argument bytes and the FLOPs
+    checked.  ``smoke`` (a CPU rehearsal) takes the smoke config."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    kind, rows, seq = DRY_STEPS[name]
+    cfg = dataclasses.replace(get_config("stablelm-12b", smoke=smoke), n_layers=n_layers)
+    t0 = time.perf_counter()
+    counted = dryrun.count_step(dryrun.build_cell(cfg, kind, rows, seq, device="meta"))
+    t_count = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cell = dryrun.build_cell(cfg, kind, rows, seq, device=dev)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    tensors = {id(t): t for t in tree.tensors(list(cell.args()))}
+    arg_bytes = dryrun.tensor_bytes(*cell.args())
+    want = counted["argument_size_in_bytes"]
+    check(arg_bytes == want,
+          f"25b {name}: the real step receives {arg_bytes} B of tensors, the count says {want}")
+    # The caching allocator rounds a block up to 512 B, and a large block keeps the
+    # remainder of its segment when that is under 1 MiB: the blocks that hold the
+    # step's tensors, read from the allocator, must add up to the growth.
+    blocks = {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+              for b in seg["blocks"] if b["state"] == "active_allocated"}
+    ptrs = {t.untyped_storage().data_ptr() for t in tensors.values() if t.numel()}
+    check(ptrs <= set(blocks), f"25b {name}: {len(ptrs - set(blocks))} of the step's tensors "
+                               f"start no block of the caching allocator")
+    held = sum(blocks.get(p, 0) for p in ptrs)
+    check(held == grown,
+          f"25b {name}: building the step's {len(tensors)} tensors ({arg_bytes} B) grew "
+          f"memory_allocated() by {grown} B; the allocator's blocks holding them: {held} B")
+    slack = max((blocks.get(t.untyped_storage().data_ptr(), 0) - t.untyped_storage().nbytes()
+                 for t in tensors.values() if t.numel()), default=0)
+    cell.step()                            # warm: the library handles and workspaces
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        cell.step()
+    real_flops = fc.get_total_flops()
+    check(real_flops == counted["flops"],
+          f"25b {name}: FlopCounterMode around the real step {real_flops} != the count "
+          f"{counted['flops']:.0f}")
+    log(f"phase 25b [{smi}]: stablelm-12b at published widths, {n_layers} layers, W4A4 dequant, "
+        f"{name} {rows} x {seq}: the count on meta ({t_count:.1f} s) and the real step on "
+        f"{dev.type} agree: {arg_bytes} B of arguments in {len(tensors)} tensors (building them "
+        f"grew memory_allocated() by {grown} B = the allocator's blocks holding them; the "
+        f"largest rounding of one {slack} B), {real_flops} matmul FLOPs (FlopCounterMode around "
+        f"the real step)")
+    return {"cell": cell, "counted": counted, "arg_bytes": arg_bytes, "grown": grown,
+            "n_tensors": len(tensors), "flops": real_flops}
+
+
+def dryrun_card_time(torch, smi, name, *, cell, counted, arg_bytes, grown, n_tensors, flops):
+    """25b's measurements of one step: its peak memory rise beside the count's
+    temp peak, and its time beside the bound (printed, not asserted)."""
+    from repro_torch import hw
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out_bytes = dryrun.tensor_bytes(cell.step())
+    torch.cuda.synchronize()
+    peak_rise = torch.cuda.max_memory_allocated() - base
+    ms = time_ms(torch, lambda _i: cell.step(), DRY_ITERS)
+    card = hw.H100_SXM
+    t_ops, t_bytes = flops / card.peak_flops_bf16, (arg_bytes + out_bytes) / card.hbm_bandwidth
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    temp = counted["temp_size_in_bytes"]
+    res = {"arg_bytes": arg_bytes, "grown_bytes": grown, "n_tensors": n_tensors, "flops": flops,
+           "output_bytes": out_bytes, "counted_output_bytes": counted["output_size_in_bytes"],
+           "temp_size_in_bytes": temp, "peak_rise_bytes": peak_rise,
+           "temp_over_peak_rise": temp / peak_rise if peak_rise else None,
+           "ms": ms, "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "share_of_bound": bound_ms / ms}
+    kind, rows, seq = DRY_STEPS[name]
+    log(f"phase 25b [{smi}]: {name} {rows} x {seq}: the count's temp peak {temp / 1e6:.1f} MB "
+        f"beside the real step's max_memory_allocated() rise {peak_rise / 1e6:.1f} MB (ratio "
+        f"{res['temp_over_peak_rise']:.3f}); the step {ms:.3f} ms on CUDA events ({DRY_ITERS} "
+        f"steps) beside its bound {bound_ms:.4f} ms ({res['bound_by']}: {flops:.4e} FLOPs at "
+        f"989 TFLOP/s, {(arg_bytes + out_bytes) / 1e9:.3f} GB at 3.35 TB/s), "
+        f"{res['share_of_bound']:.4f} of it")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
                                         "deepseek", "zamba2", "rwkv", "whisper", "vlm_train",
-                                        "dist", "dist_train", "seq_shard"),
+                                        "dist", "dist_train", "seq_shard", "dryrun"),
                     help="after the build, run this phase alone and print its result as one "
                          "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
-                         "20, 21, 22, 23 or 24)")
+                         "20, 21, 22, 23, 24 or 25)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -6606,7 +6819,8 @@ def main(argv=None) -> int:
                  "vlm_train": lambda: phase_vlm_train(torch, dev, smi),
                  "dist": lambda: phase_dist(torch, dev, smi),
                  "dist_train": lambda: phase_dist_train(torch, dev, smi),
-                 "seq_shard": lambda: phase_seq_shard(torch, dev, smi)}
+                 "seq_shard": lambda: phase_seq_shard(torch, dev, smi),
+                 "dryrun": lambda: phase_dryrun(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -6680,6 +6894,8 @@ def main(argv=None) -> int:
         lap("23 dist train")
         seq_shard = alone["seq_shard"]()
         lap("24 seq shard")
+        dry = alone["dryrun"]()
+        lap("25 dryrun")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
                         rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"],
                         vlm["d"]["dequant_rel"])
@@ -7057,6 +7273,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "dist", "card": smi, "result": dist_r}, default=str))
     print(json.dumps({"phase": "dist_train", "card": smi, "result": dist_train}, default=str))
     print(json.dumps({"phase": "seq_shard", "card": smi, "result": seq_shard}, default=str))
+    print(json.dumps({"phase": "dryrun", "card": smi, "result": dry}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

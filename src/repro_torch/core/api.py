@@ -83,8 +83,15 @@ class QuantizedLinear:
 def quantize_linear(
     w: torch.Tensor, spec: LutLinearSpec, bias: Optional[torch.Tensor] = None
 ) -> QuantizedLinear:
-    """Quantize a dense ``[K, F]`` weight into a :class:`QuantizedLinear`."""
+    """Quantize a dense ``[K, F]`` weight into a :class:`QuantizedLinear`.
+    On the ``meta`` device only the leaf's shapes and dtypes are made (a
+    restore target, the dry-run's rank state): nothing is computed."""
     k, f = w.shape
+    if w.device.type == "meta":
+        kp = -(-k // packing.codes_per_byte(spec.bw))
+        return QuantizedLinear(
+            codes=torch.empty((f, kp), dtype=torch.uint8, device=w.device),
+            scale=torch.empty((f,), dtype=w.dtype, device=w.device), bias=bias, spec=spec, k=k)
     codes, scale = quantize(w, spec.wspec())          # codes [K,F], scale [1,F]
     codes_t = codes.T                                  # [F, K]
     pad = (-k) % packing.codes_per_byte(spec.bw)

@@ -5,9 +5,11 @@
   packing degree ``p`` against it in every mode, so ``PreparedLinear.p``
   agrees with the reference.
 * ``H100_SXM`` — the published peaks of the card the port runs on (NVIDIA's
-  data sheet, SXM part, dense rates, at the full 700 W power limit).  Used
-  only to compute a kernel's least possible time (its bound); a card set
-  below 700 W runs slower than these.
+  data sheet, SXM part, dense rates, at the full 700 W power limit), and the
+  links of the 8-GPU HGX node it sits in.  Used only to compute a least
+  possible time (a kernel's bound, the dry-run's roofline terms in
+  :mod:`repro_torch.launch.roofline`); a card set below 700 W runs slower
+  than these.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ class GpuCard:
     peak_flops_bf16: float     # FLOP/s, tensor cores, dense
     peak_flops_f32: float      # FLOP/s, CUDA cores (no tensor cores)
     peak_ops_int8: float       # OP/s, tensor cores, dense (one MAC = 2 operations)
+    nvlink_bandwidth: float    # bytes/s each way, one GPU to the others of its node
+    network_bandwidth: float   # bytes/s each way, one GPU to other nodes
+    gpus_per_node: int         # GPUs joined by NVLink
 
 
 H100_SXM = GpuCard(
@@ -30,6 +35,13 @@ H100_SXM = GpuCard(
     peak_flops_bf16=989e12,
     peak_flops_f32=67e12,
     peak_ops_int8=1979e12,
+    # NVIDIA H100 Tensor Core GPU data sheet (SXM): NVLink 900 GB/s, both
+    # directions together, so 450 GB/s each way.
+    nvlink_bandwidth=450e9,
+    # NVIDIA DGX H100 / HGX H100 8-GPU node: one ConnectX-7 port of 400 Gb/s
+    # NDR InfiniBand per GPU, so 50 GB/s each way.
+    network_bandwidth=50e9,
+    gpus_per_node=8,
 )
 
 

@@ -729,10 +729,13 @@ def test_port_imports_no_jax_and_no_reference():
                     "repro_torch.obs.trace", "repro_torch.obs.metrics",
                     "repro_torch.obs.export", "repro_torch.dist.sharding",
                     "repro_torch.dist.collectives", "repro_torch.dist.pipeline",
-                    "repro_torch.dist.runtime", "repro_torch.launch.mesh"}
+                    "repro_torch.dist.runtime", "repro_torch.launch.mesh",
+                    "repro_torch.launch.dryrun", "repro_torch.launch.roofline"}
         assert live_ops <= set(sys.modules), sorted(live_ops - set(sys.modules))
         from repro_torch.kernels import build
         assert not build._loaded            # importing built / loaded nothing
+        import torch.distributed as dist
+        assert not dist.is_initialized()    # importing opened no process group
         print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
         """
     )
