@@ -8,7 +8,7 @@ Run from the repository root on a machine with one CUDA card:
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
 ``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
 ``--phase whisper``, ``--phase vlm_train``, ``--phase dist``, ``--phase dist_train``,
-``--phase seq_shard`` or ``--phase dryrun`` runs one
+``--phase seq_shard``, ``--phase dryrun`` or ``--phase plans_families`` runs one
 phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
@@ -44,7 +44,7 @@ entry points at published full widths:
   decode is held against the cache-free f32 forward (phase 14; 14b at 12 of
   the 26 layers);
 
-* deepseek-v2-lite-16b (phase 17): 14 of its 27 layers at published widths
+* deepseek-v2-lite-16b (phase 17): 4 of its 27 layers at published widths
   (multi-head latent attention with its compressed latent cache; 64 routed
   experts top-6 + 2 shared, the published capacity factor; a dense first
   layer), W4A4 ``pallas`` prepared, bf16, served through ``ServeEngine`` —
@@ -53,23 +53,23 @@ entry points at published full widths:
   then the chunked 4608-token MLA prefill, a 4-layer W1A3 ``lut`` serve and
   a 2-layer f32 prefill against the CPU (logits and expert ids);
 
-* zamba2-7b (phase 18): 27 of its 81 layers at published widths (Mamba2 SSD mixers, and one shared attention + FFN block
-  applied by 4 of them), W4A4 ``pallas`` prepared, bf16, served through
-  ``ServeEngine`` — 82 applied projections a forward on ``lut_dequant_gemm``'s tensor-core
+* zamba2-7b (phase 18): 6 of its 81 layers at published widths (Mamba2 SSD
+  mixers, and one shared attention + FFN block applied by one of them), W4A4 ``pallas`` prepared, bf16, served through
+  ``ServeEngine`` — 19 applied projections a forward on ``lut_dequant_gemm``'s tensor-core
   route, the recurrence in plain torch as the reference's XLA; then a
   6-layer W1A3 ``lut`` serve and a 6-layer f32 prefill against the CPU and
   against a prefill followed by decode steps;
 
-* rwkv6-3b whole (phase 19): all 32 RWKV6 "Finch" layers at published
+* rwkv6-3b (phase 19): 8 of its 32 RWKV6 "Finch" layers at published
   widths (no attention; an O(1) recurrent state a request, the same bytes
   at any context), W4A4 ``pallas`` prepared, bf16, served through
-  ``ServeEngine`` — 256 applied projections a forward on
+  ``ServeEngine`` — 64 applied projections a forward on
   ``lut_dequant_gemm``'s tensor-core route, the WKV recurrence in plain
   torch as the reference's XLA; then a 4-layer W1A3 ``lut`` serve (scan ==
   loop == chunked) and a 2-layer f32 prefill against the CPU and against a
   prefill followed by decode steps;
 
-* whisper-large-v3 (phase 20): 16 of its 32 encoder and 16 of its 32
+* whisper-large-v3 (phase 20): 4 of its 32 encoder and 4 of its 32
   decoder layers at published widths, W4A4 ``pallas`` prepared, bf16 — the transcription
   path: ``Model.prefill(prefix_embeds=)`` over 4 x 1500 frames (the encoder:
   ``flash_attention`` with ``causal=False`` and ``lut_dequant_gemm`` at
@@ -79,7 +79,7 @@ entry points at published full widths:
   W1A3 ``lut`` copy calibrated with frames; the kernels at whisper's
   shapes;
 
-* internvl2-1b whole (phase 21): all 24 layers at published widths, the
+* internvl2-1b (phase 21): 6 of its 24 layers at published widths, the
   stub vision frontend's 256 patches of 1024 projected and prepended to the
   tokens, W4A4 ``pallas`` prepared, bf16, ``attn_impl="flash"`` — a
   cache-free forward over 4 x (256 + 128) positions (``flash_attention`` at
@@ -125,6 +125,18 @@ entry points at published full widths:
   measured); then stablelm-12b at 20 layers, W4A4 ``dequant``, a decode
   step and a prefill counted on ``meta`` and run on the card: the counted
   argument bytes and matmul FLOPs equal the real step's;
+
+* plans, prepared checkpoints and live ops over the trees the autotuner
+  once refused (phase 26): deepseek-v2-lite-16b at 4 layers, zamba2-7b at
+  6, rwkv6-3b at 4 and whisper-large-v3 at 4 + 4, at published widths, W1A3
+  ``lut`` calibrated, bf16 — an analytic plan at 64 MiB served through
+  ``ServeEngine(plan=)`` with the unplanned serve's tokens and
+  ``lut_stream_gemm``'s launches counted per route (the int8 tensor cores
+  and the lookup route) from the plan's applied projections; the planned
+  tree saved with ``save_prepared``, restored and served again; deepseek
+  planned once more by measuring on the card (an expert stack's unit slice
+  too) and hot-swapped mid-serve to a 256 MiB plan; whisper and zamba2
+  killed and replayed by a ``LiveServer``;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``, phase 13, at 10 of
@@ -219,8 +231,9 @@ GEMMA_DECODE = 160            #      decode step 96 of these teacher-forced step
 GEMMA_REQUESTS = 8            # 14b: requests of 3072-4096 prompt tokens (one bucket: 4096)
 GEMMA_NEW = 64                # 14b: new tokens a request
 GEMMA_BUCKET = 4096           # 14b: the requests' prefill bucket (4 x 4096 rows a prefill)
-GEMMA_SERVE_LAYERS = 12       # 14b: gemma2-2b's depth (of 26: 6 "LG" units), to keep
-                              # the script in its time limit (each check holds at any depth)
+GEMMA_SERVE_LAYERS = 12       # 14b: gemma2-2b's depth (of 26: 6 "LG" units), to keep the
+                              # script in its time limit (at 6 layers the allocator rounds
+                              # the caches' blocks past their bytes and the check fails)
 GEMMA_TF_PREFIX = 4032        # 14b: teacher-forced prefill of the cut bf16 profile; the
 GEMMA_TF_DECODE = 96          #      ring wraps at decode step 64 of these steps
 TOL_RING = 3e-3               # 14a: ring vs full-cache decode logits, rtol = atol: the
@@ -1479,6 +1492,19 @@ def plan_routes(plan):
             for path, lp in plan.layers.items()}
 
 
+def applied_routes(params, plan):
+    """``{route: applied projections a forward}``: each projection a
+    ``ServeEngine`` forward applies (:func:`applied_projections`: the shared
+    block per application; no expert stack, no ``W_kup`` / ``W_vup``, no
+    encoder leaf and no cross ``wk`` / ``wv``) on its leaf's
+    ``lut_stream_gemm`` route at the plan's p."""
+    routes = plan_routes(plan)
+    out = {"tc": 0, "lookup": 0, "cuda_core": 0}
+    for path, (n, _k, _f) in applied_projections(params)[1].items():
+        out[routes[path]] += n
+    return out
+
+
 def log_plan(what, plan, routes):
     log(f"phase 13: {what}: {plan.total_bytes:,} B of a {plan.budget_bytes:,} B budget "
         f"({plan.table_bytes:,} B shared tables), meta {plan.meta}")
@@ -1505,35 +1531,26 @@ def chunk_calls(reqs, batch, max_seq):
     return prefills, steps
 
 
-def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="scan"):
-    """Serve ``reqs`` through ``ServeEngine(tree, plan=plan, decode=decode)``
-    (batch 4, max_seq 256), every launch count set to 0 just before the
-    counted run and read just after: the tokens must equal ``want``, the
-    prepared tree the plan's bytes (``verify_capacity``), one host sync per
-    wave (or chunk), and every lut_stream_gemm launch the route of its
-    leaf's pack, counted per route (tensor cores, lookup, CUDA cores) from
-    the plan.  Under ``decode="scan"``
-    also a 4 x 128 prefill's and a decode step's times (CUDA events) and the
-    profiler's device time by kernel, lut_stream_gemm's routes apart."""
-    from repro_torch.serve.serving import Request, ServeEngine
+def counted_plan_serve(torch, eng, plan, reqs, want, *, what):
+    """``reqs`` served by ``eng`` (a ``ServeEngine`` built with ``plan=plan``),
+    every launch count set to 0 just before the counted run and read just
+    after: the tokens must equal ``want``, the applied tree the plan's bytes
+    (``verify_capacity``), one host sync per wave (or chunk) and no other
+    synchronizing call, and every lut_stream_gemm launch the route of its
+    leaf's pack: each projection a forward applies (:func:`applied_routes`)
+    x (prefills + decode steps), counted per route (tensor cores, lookup,
+    CUDA cores), with one ``lut_canon`` launch a projection and no other
+    kernel.  Returns the counts, the records and the wall time."""
+    from repro_torch.serve.serving import Request
     from repro_torch.tune import verify_capacity
 
-    n_units = model.cfg.n_layers
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    held = torch.cuda.memory_allocated(dev)
-    t0 = time.perf_counter()
-    eng = ServeEngine(model, tree, batch=4, max_seq=256, decode=decode, plan=plan, device=dev)
-    torch.cuda.synchronize()
-    prepare_s = time.perf_counter() - t0
     actual = verify_capacity(eng.params, plan)
     eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
     torch.cuda.synchronize()
     outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
     digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
     check(outs == want, f"{what}: tokens (crc32 {digest:08x}) differ from the unplanned serve's")
-    if decode == "scan":
+    if eng.decode == "scan":
         check(eng.host_syncs == len(records), f"{what}: host_syncs {eng.host_syncs} != "
                                               f"waves {len(records)}")
         prefills = sum(1 for r in records if r.admitted)
@@ -1545,31 +1562,50 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
     check(len(sync_warnings) == eng.host_syncs,
           f"{what}: {len(sync_warnings)} synchronizing calls in the serve loop, expected only "
           f"the {eng.host_syncs} token fetches: {sorted(set(sync_warnings))[:3]}")
-    routes = plan_routes(plan)
-    calls = n_units * (prefills + steps)
-    n_tc = sum(r == "tc" for r in routes.values())
-    n_lookup = sum(r == "lookup" for r in routes.values())
-    want_counts = {"lut_stream_gemm": len(routes) * calls, "lut_stream_gemm_tc": n_tc * calls,
-                   "lut_stream_gemm_lookup": n_lookup * calls,
-                   "lut_stream_gemm_canon": len(routes) * calls}
+    per = applied_routes(eng.params, plan)
+    n_proj = sum(per.values())
+    calls = prefills + steps
+    want_counts = {"lut_stream_gemm": n_proj * calls, "lut_stream_gemm_tc": per["tc"] * calls,
+                   "lut_stream_gemm_lookup": per["lookup"] * calls,
+                   "lut_stream_gemm_canon": n_proj * calls}
     got_counts = {k: counts[k] for k in want_counts}
     check(got_counts == want_counts,
-          f"{what}: launches {got_counts} != {want_counts} ({len(routes)} projections, {n_tc} "
-          f"on the tensor cores and {n_lookup} on the lookup route, x {n_units} units x "
-          f"({prefills} prefills + {steps} decode steps))")
+          f"{what}: launches {got_counts} != {want_counts} (applied projections a forward by "
+          f"route {per} x ({prefills} prefills + {steps} decode steps))")
     check(all(n == 0 for name, n in counts.items() if not name.startswith("lut_stream_gemm")),
           f"{what}: the lut path launched another kernel: {counts}")
     n_tok = sum(len(o) for o in outs)
-    peak = torch.cuda.max_memory_allocated(dev)
-    out = dict(prepare_s=prepare_s, wall_s=wall, tok_s=n_tok / wall, tokens_crc32=digest,
-               prefills=prefills, decode_steps=steps, host_syncs=eng.host_syncs,
+    out = dict(tokens=n_tok, wall_s=wall, tok_s=n_tok / wall, tokens_crc32=digest,
+               prefills=prefills,
+               decode_steps=steps, host_syncs=eng.host_syncs, per_forward=per,
                launches=counts["lut_stream_gemm"], launches_tc=counts["lut_stream_gemm_tc"],
                launches_lookup=counts["lut_stream_gemm_lookup"],
                launches_cuda_core=counts["lut_stream_gemm"] - counts["lut_stream_gemm_tc"]
                - counts["lut_stream_gemm_lookup"],
-               launches_canon=counts["lut_stream_gemm_canon"], peak_gb=peak / 1e9,
-               held_before_gb=held / 1e9,
-               prepared_bytes=sum(actual.values()),
+               launches_canon=counts["lut_stream_gemm_canon"],
+               prepared_bytes=sum(actual.values()))
+    return out, records
+
+
+def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="scan"):
+    """Serve ``reqs`` through ``ServeEngine(tree, plan=plan, decode=decode)``
+    (batch 4, max_seq 256), counted and checked by
+    :func:`counted_plan_serve`.  Under ``decode="scan"`` also a 4 x 128
+    prefill's and a decode step's times (CUDA events) and the profiler's
+    device time by kernel, lut_stream_gemm's routes apart."""
+    from repro_torch.serve.serving import ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, tree, batch=4, max_seq=256, decode=decode, plan=plan, device=dev)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    out, records = counted_plan_serve(torch, eng, plan, reqs, want, what=what)
+    peak = torch.cuda.max_memory_allocated(dev)
+    out.update(prepare_s=prepare_s, peak_gb=peak / 1e9, held_before_gb=held / 1e9,
                p={path.rsplit("/", 1)[-1]: lp.p for path, lp in plan.layers.items()})
     if decode == "scan":
         out["prefill_wall_s"] = sum(r.t_decode - r.t_start for r in records)
@@ -1591,8 +1627,9 @@ def serve_plan(torch, dev, model, tree, plan, reqs, want, smi, *, what, decode="
             f"{what}: decode step B=4", device_time_by_kernel(torch, step, 2),
             out["step_ms"], kernel="lut_stream_gemm", card=smi)
         del caches
-    log(f"phase 13: {what}: tokens (crc32 {digest:08x}) equal the unplanned serve's; {n_tok} tokens in "
-        f"{wall:.3f} s ({out['tok_s']:.1f} tok/s end to end, prefill included"
+    log(f"phase 13: {what}: tokens (crc32 {out['tokens_crc32']:08x}) equal the unplanned serve's; "
+        f"{out['tokens']} tokens in {out['wall_s']:.3f} s ({out['tok_s']:.1f} tok/s end to end, "
+        f"prefill included"
         + (f"; prefill {out['prefill_wall_s']:.3f} s + decode {out['decode_wall_s']:.3f} s "
            f"wall over {len(records)} waves" if decode == "scan" else "")
         + f"); {eng.host_syncs} host syncs; lut_stream_gemm {out['launches']} launches "
@@ -3492,7 +3529,7 @@ DS_NEW = 32                   # new tokens a request
 DS_PROMPT = 128               # the longest prompt, and the timed prefill's length
 DS_CHUNKED_SEQ = 4608         # 17b: one row through MLA's chunked branch (> 4096, % 512 == 0)
 DS_LUT_LAYERS = 4             # 17c: depth cut to 1 "F" + 3 "D" units
-DS_SERVE_LAYERS = 14          # 17: depth (of 27: 1 "F" + 13 "D"), to keep the script
+DS_SERVE_LAYERS = 4           # 17: depth (of 27: 1 "F" + 3 "D"), to keep the script
                               # in its time limit (each check holds at any depth)
 TOL_MLA_CHUNKED = 2e-4        # 17b: chunked vs unchunked latent attention (f32), relative to
                               # max |y|: the same per-row sums, in other GEMM shapes
@@ -4204,7 +4241,7 @@ def phase_deepseek(torch, dev, smi):
 
 ZAMBA = "zamba2-7b"
 ZB_LUT_LAYERS = 6             # 18b / 18c: depth cut to one "MMMMMS" unit
-ZB_SERVE_LAYERS = 27          # 18: depth (of 81: 4 "MMMMMS" units + "MMM"), to keep
+ZB_SERVE_LAYERS = 6           # 18: depth (of 81: one "MMMMMS" unit), to keep
                               # the script in its time limit (each check holds at any depth)
 ZB_PROFILED = 32              # 18a: the profiled prefill's length (B = 4): torch.profiler parses
                               # about 4 host events a recurrence step and layer, ~0.5 M at 128
@@ -4236,7 +4273,7 @@ def phase_zamba2(torch, dev, smi):
     attention + FFN block, 32/32 heads of 112, d_ff 14336, applied by each of
     the 13 "S" sublayers) at its published widths.
 
-    18a: :data:`ZB_SERVE_LAYERS` of its 81 layers (4 "MMMMMS" units + "MMM"),
+    18a: :data:`ZB_SERVE_LAYERS` of its 81 layers (one "MMMMMS" unit),
     W4A4 ``pallas`` prepared, bf16, served through
     ``ServeEngine(batch=4, max_seq=512)`` on phase 17's requests (each wave
     led by a 128-token prompt): exact token counts, one host sync a wave and
@@ -4394,6 +4431,8 @@ def phase_zamba2(torch, dev, smi):
 
 
 RWKV = "rwkv6-3b"
+RW_SERVE_LAYERS = 8           # 19a: depth (of 32), to keep the script in its time limit
+                              # (each check holds at any depth)
 RW_LUT_LAYERS = 4             # 19b: depth cut to 4 "R" units
 RW_CPU_LAYERS = 2             # 19c: depth of the f32 card-vs-CPU check
 RW_PROFILED = 32              # 19a: the profiled prefill's length (B = 4), as 18a's
@@ -4424,11 +4463,12 @@ def phase_rwkv(torch, dev, smi):
     """Phase 19: rwkv6-3b (32 RWKV6 "Finch" layers, d_model 2560, 40 heads of
     64, d_ff 8960, vocab 65536; no attention) at its published widths.
 
-    19a: all 32 layers, W4A4 ``pallas`` prepared, bf16, served through
-    ``ServeEngine(batch=4, max_seq=512)`` on phase 17's requests (each wave
-    led by a 128-token prompt): exact token counts, one host sync a wave and
-    no other synchronizing call, ``lut_dequant_gemm`` launched 8 x 32 = 256
-    times a forward, all on the tensor cores, and no other kernel; the
+    19a: :data:`RW_SERVE_LAYERS` of its 32 layers, W4A4 ``pallas`` prepared,
+    bf16, served through ``ServeEngine(batch=4, max_seq=512)`` on phase 17's
+    requests (each wave led by a 128-token prompt): exact token counts, one
+    host sync a wave and no other synchronizing call, ``lut_dequant_gemm``
+    launched 8 a layer a forward, all on the tensor cores, and no other
+    kernel; the
     serve's state bytes equal the count from the shapes and are the same at
     ``max_seq`` 8192; build time, bytes, the decode step and the 4 x 128
     prefill on CUDA events, the profiler's busy / idle and the recurrence's
@@ -4461,11 +4501,11 @@ def phase_rwkv(torch, dev, smi):
     def lap(what):
         laps[what] = time.perf_counter() - t_phase - sum(laps.values())
 
-    cfg = get_config(RWKV)
+    cfg = dataclasses.replace(get_config(RWKV), n_layers=RW_SERVE_LAYERS)
     out = {"laps_s": laps}
     want_per = 8 * cfg.n_layers
 
-    # --- 19a: all 32 layers, W4A4 pallas, bf16, served -----------------------
+    # --- 19a: RW_SERVE_LAYERS layers, W4A4 pallas, bf16, served --------------
     model = build_model(cfg)
     before_gc, base = held_before_build(torch, dev, "phase 19a")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4595,7 +4635,7 @@ WHISPER = "whisper-large-v3"
 WH_MAX_SEQ = 448              # 20a / 20b / 20d: whisper's published decoder context (the caches)
 WH_PROMPT = 4                 # 20a: the prompt prefilled with the frames
 WH_DECODE = 64                # 20a: greedy decode steps after it
-WH_SERVE_LAYERS = 16          # 20a / 20b: 16 encoder + 16 decoder layers (of 32 + 32), to keep
+WH_SERVE_LAYERS = 4           # 20a / 20b: 4 encoder + 4 decoder layers (of 32 + 32), to keep
                               # the script in its time limit (each check holds at any depth)
 WH_CUT_LAYERS = 2             # 20c: 2 encoder + 2 decoder layers
 WH_LUT_LAYERS = 4             # 20d: 4 + 4 layers
@@ -5015,6 +5055,8 @@ VL_TEXT = 128                 # 21a: the cache-free forward's tokens after the 2
 VL_PROMPT = 32                # 21a: the prefill's tokens after the patches
 VL_DECODE = 64                # 21a: greedy decode steps after it
 VL_MAX_SEQ = 512              # 21a: the caches (256 + 32 + 64 positions used)
+VL_SERVE_LAYERS = 6           # 21a: depth (of 24), to keep the script in its time limit
+                              # (21e trains all 24)
 VL_CUT_LAYERS = 2             # 21b: the f32 copy, card vs CPU
 VL_LUT_LAYERS = 4             # 21c: the W1A3 copy
 VL_TRAIN_BATCH = 4            # 21e: B, text tokens a row (after 256 patches), steps, and the
@@ -5091,13 +5133,14 @@ def phase_vlm_train(torch, dev, smi):
     projected by the dense ``frontend_proj`` and prepended to the tokens) at
     its published widths.
 
-    21a, served: W4A4 ``pallas`` prepared, bf16, ``attn_impl="flash"``.  A
-    cache-free forward over 4 x (256 + 128) positions: 168
-    ``lut_dequant_gemm`` (7 a layer) and 24 ``flash_attention`` (head dim
-    64, causal, over 384 positions) launches, all on the tensor cores;
+    21a, served: :data:`VL_SERVE_LAYERS` of its 24 layers, W4A4 ``pallas``
+    prepared, bf16, ``attn_impl="flash"``.  A cache-free forward over 4 x
+    (256 + 128) positions: ``lut_dequant_gemm`` (7 a layer) and
+    ``flash_attention`` (one a layer; head dim 64, causal, over 384
+    positions) launches, all on the tensor cores;
     ``Model.prefill(prefix_embeds=)`` over 4 x (256 + 32) (the caches'
     first 288 positions), then 64 greedy decode steps at offsets from 288
-    (168 ``lut_dequant_gemm`` a step, no flash: the cached attention);
+    (7 ``lut_dequant_gemm`` a layer a step, no flash: the cached attention);
     ``ServeEngine`` text only, as the reference serves (its ``Request``
     carries no patches): 8 requests of 16-128 tokens, 32 new each, one host
     sync a wave.  21b: a 2-layer f32 copy, card against CPU, prefill against
@@ -5135,12 +5178,12 @@ def phase_vlm_train(torch, dev, smi):
     def lap(what):
         laps[what] = time.perf_counter() - t_phase - sum(laps.values())
 
-    cfg = dataclasses.replace(get_config(VLM), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(VLM), attn_impl="flash", n_layers=VL_SERVE_LAYERS)
     P = cfg.frontend_seq
     out = {"laps_s": laps}
     want_fwd = 7 * cfg.n_layers
 
-    # --- 21a: served, all 24 layers ------------------------------------------
+    # --- 21a: served, VL_SERVE_LAYERS layers ---------------------------------
     model = build_model(cfg)
     before_gc, base = held_before_build(torch, dev, "phase 21a")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6745,14 +6788,318 @@ def dryrun_card_time(torch, smi, name, *, cell, counted, arg_bytes, grown, n_ten
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: plans, prepared checkpoints and live ops over the MoE + MLA,
+# recurrent and encoder-decoder trees
+# ---------------------------------------------------------------------------
+
+PF_DIR = ROOT / "build" / "plans_families"   # git-ignored; removed at the end of the phase
+PF_FAMILIES = ((DEEPSEEK, DS_LUT_LAYERS), (ZAMBA, ZB_LUT_LAYERS), (RWKV, RW_LUT_LAYERS),
+               (WHISPER, WH_LUT_LAYERS))     # the depths of 17c, 18b, 19b and 20d
+PF_BUDGET = 64 << 20          # the analytic plans: on each family some applied projections at
+                              # p <= 5 (the tensor cores), some at p = 6-7 (the lookup route),
+                              # some raw at p = 1
+PF_SWAP_BUDGET = 256 << 20    # deepseek's second plan, the hot-swap's target
+PF_MAX_SEQ = 128              # ServeEngine(batch=4, max_seq=PF_MAX_SEQ)
+PF_NEW = (4, 12)              # new tokens a request, from default_rng(26)
+PF_KILL_WAVE = 1              # the LiveServer's injected failure (whisper, zamba2)
+
+
+def pf_requests(cfg):
+    """Phase 26's 8 requests: prompts of 16-64 tokens, the first of each
+    group of 4 exactly 64 (a bucket), and budgets of 4-12 new tokens, from
+    ``default_rng(26)``: several waves, rows in flight at every wave."""
+    import numpy as np
+
+    from repro_torch.serve.serving import Request
+
+    rng = np.random.default_rng(26)
+    lens = rng.integers(16, 65, 8)
+    lens[0] = lens[4] = 64
+    news = rng.integers(PF_NEW[0], PF_NEW[1] + 1, 8)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=int(m)) for n, m in zip(lens, news)]
+
+
+def log_pf_plan(what, plan, params):
+    """The plan's choices, one line a leaf, applied or not (the reference's
+    planner prices every leaf as applied: ROADMAP Queue 3)."""
+    routes = plan_routes(plan)
+    applied = applied_projections(params)[1]
+    log(f"{what}: {plan.total_bytes:,} B of a {plan.budget_bytes:,} B budget "
+        f"({plan.table_bytes:,} B shared tables), {len(plan.layers)} leaves")
+    for path, lp in plan.layers.items():
+        t = f"measured {lp.measured_us:.1f} us, " if lp.measured_us is not None else ""
+        log(f"    {'/'.join(path.split('/')[-3:]):<28} p={lp.p} prepared={int(lp.prepared)} "
+            f"route={routes[path]:<6} x{lp.stack:<4} {lp.capacity_bytes:>12,} B  {t}"
+            f"{'applied x' + str(applied[path][0]) if path in applied else 'decoded or not run'}")
+
+
+def pf_serve(torch, dev, model, tree, plan, reqs, want, *, what, both_routes=True):
+    """``reqs`` served through ``ServeEngine(tree, plan=plan)`` (batch 4,
+    max_seq PF_MAX_SEQ), counted and checked by :func:`counted_plan_serve`:
+    none on the CUDA cores and, with ``both_routes`` (an analytic plan at
+    PF_BUDGET; a measured plan may choose otherwise), some applied
+    projections on each sm90 route.  Returns (the engine, the result)."""
+    from repro_torch.serve.serving import ServeEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, tree, batch=4, max_seq=PF_MAX_SEQ, decode="scan", plan=plan,
+                      device=dev)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    out, records = counted_plan_serve(torch, eng, plan, reqs, want, what=what)
+    per = out["per_forward"]
+    check(per["cuda_core"] == 0 and (not both_routes or per["tc"] > 0 and per["lookup"] > 0),
+          f"{what}: applied projections by route {per}: the plan must put projections on both "
+          f"sm90 routes of lut_stream_gemm and none on the CUDA cores")
+    out.update(apply_s=apply_s, waves=len(records), total_bytes=plan.total_bytes,
+               table_bytes=plan.table_bytes)
+    log(f"{what}: the unplanned serve's tokens (crc32 {out['tokens_crc32']:08x}), "
+        f"{out['tokens']} in {out['wall_s']:.3f} s ({out['tok_s']:.1f} tok/s), {len(records)} "
+        f"waves, {out['host_syncs']} host syncs; lut_stream_gemm {out['launches']} launches = "
+        f"({per['tc']} tensor-core + {per['lookup']} lookup projections a forward) x "
+        f"({out['prefills']} prefills + {out['decode_steps']} decode steps): "
+        f"{out['launches_tc']} tensor cores, {out['launches_lookup']} lookup; lut_canon "
+        f"{out['launches_canon']}; plan applied in {apply_s:.2f} s, "
+        f"{out['prepared_bytes']:,} B checked by verify_capacity")
+    return eng, out
+
+
+def pf_checkpoint(torch, dev, model, params, plan, reqs, want, *, arch, what, smi):
+    """The planned tree saved with ``save_prepared``, restored onto the card
+    with ``restore_prepared`` (the packs rebuilt, the fingerprint checked),
+    and served again: the same tokens.  Returns GB and seconds."""
+    import shutil
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.serve.serving import ServeEngine
+    from repro_torch.tune import verify_capacity
+
+    ckdir = str(PF_DIR / arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_dir = ckpt.save_prepared(ckdir, 0, params)
+    save_s = time.perf_counter() - t0
+    files = sorted(n for n in os.listdir(step_dir) if n.endswith(".npy"))
+    disk = sum(npy_payload_bytes(os.path.join(step_dir, n)) for n in files)
+    t0 = time.perf_counter()
+    restored = ckpt.restore_prepared(ckdir, 0, device=dev, expect_fingerprint=plan.fingerprint)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    verify_capacity(restored, plan)
+    t0 = time.perf_counter()
+    got = ServeEngine(model, restored, batch=4, max_seq=PF_MAX_SEQ, device=dev).generate(reqs)
+    serve_s = time.perf_counter() - t0
+    check(got == want, f"{what}: the restored tree serves other tokens")
+    del restored
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"{what} [{smi}]: save_prepared {len(files)} leaf files, {disk / 1e9:.3f} GB in "
+        f"{save_s:.2f} s; restore_prepared onto the card {restore_s:.2f} s (the files just "
+        f"written: read from the page cache); the restored tree served the same tokens in "
+        f"{serve_s:.2f} s")
+    return dict(leaves=len(files), gb=disk / 1e9, save_s=save_s, restore_s=restore_s,
+                serve_s=serve_s)
+
+
+def pf_family(torch, dev, smi, arch, n_layers):
+    """One family of phase 26 (see :func:`phase_plans_families`)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.core.calibrate import calibrate_tree
+    from repro_torch.ft.supervisor import FailureInjector
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model, prepare_params
+    from repro_torch.serve.ops import LiveServer
+    from repro_torch.serve.serving import ServeEngine
+    from repro_torch.tune import Measurer, plan_model
+    from repro_torch.tune.planner import apply_plan
+
+    what = f"phase 26 {arch}"
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, **(
+        dict(encoder_layers=n_layers) if cfg.is_encdec else {}))
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = model.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+                            .astype(np.int32)).to(dev)
+    if cfg.is_encdec:
+        frames = whisper_frames(torch, dev, cfg, 2, seed=1, dtype=torch.bfloat16)
+        calibrated = calibrate_tree(
+            lambda probed: model.forward(probed, toks, prefix_embeds=frames)[0], raw)
+    else:
+        calibrated = calibrate_tree(lambda probed: model.forward(probed, toks)[0], raw)
+    del raw
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reqs = pf_requests(cfg)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, prepare_params(calibrated, n_hint=4), batch=4, max_seq=PF_MAX_SEQ,
+                      device=dev)
+    want = eng.generate(reqs)
+    del eng
+    unplanned_s = time.perf_counter() - t0
+    check([len(o) for o in want] == [r.max_new_tokens for r in reqs],
+          f"{what}: the unplanned serve's token counts {[len(o) for o in want]}")
+    log(f"{what} [{smi}]: {cfg.n_layers} layers {transformer.segments(cfg)}"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec else "")
+        + f" at published widths, W1A3 lut, bf16, initialized, quantized and calibrated in "
+        f"{build_s:.1f} s; the unplanned serve (every leaf prepared at p = 4) in "
+        f"{unplanned_s:.1f} s: {sum(map(len, want))} tokens")
+    out = dict(n_layers=n_layers, build_s=build_s, unplanned_s=unplanned_s,
+               tokens=sum(map(len, want)))
+
+    t0 = time.perf_counter()
+    plan = plan_model(calibrated, lut_budget_bytes=PF_BUDGET, n_hint=4, measure=False)
+    out["plan_s"] = time.perf_counter() - t0
+    eng, out["serve"] = pf_serve(torch, dev, model, calibrated, plan, reqs, want,
+                                 what=f"{what}: the {PF_BUDGET >> 20} MiB analytic plan")
+    log_pf_plan(f"{what}: the {PF_BUDGET >> 20} MiB analytic plan (planned in "
+                f"{out['plan_s']:.2f} s)", plan, eng.params)
+    out["checkpoint"] = pf_checkpoint(torch, dev, model, eng.params, plan, reqs, want,
+                                      arch=arch, what=f"{what}: checkpoint", smi=smi)
+    planned = eng.params
+    del eng
+
+    if arch == DEEPSEEK:
+        meas = Measurer(cache={})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mplan = plan_model(calibrated, lut_budget_bytes=PF_BUDGET, n_hint=4, measure=True,
+                           measurer=meas)
+        torch.cuda.synchronize()
+        mplan_s = time.perf_counter() - t0
+        expert = {path: lp.measured_us for path, lp in mplan.layers.items()
+                  if path.endswith("moe/w_gate")}
+        check(expert and all(us is not None and us > 0 for us in expert.values()),
+              f"{what}: the measured plan timed no expert stack: {expert}")
+        meng, mserved = pf_serve(torch, dev, model, calibrated, mplan, reqs, want,
+                                 what=f"{what}: the {PF_BUDGET >> 20} MiB measured plan",
+                                 both_routes=False)
+        log_pf_plan(f"{what}: the {PF_BUDGET >> 20} MiB plan measured on the card (planned in "
+                    f"{mplan_s:.1f} s, {meas.misses} candidates timed on a unit slice)",
+                    mplan, meng.params)
+        del meng
+        out["measured"] = dict(plan_s=mplan_s, candidates_measured=meas.misses,
+                               expert_stack_us=expert, **mserved)
+
+        # The hot-swap: plan A's tree serving, plan B's staged at wave 0 and
+        # installed at the wave boundary that follows.
+        plan_b = plan_model(calibrated, lut_budget_bytes=PF_SWAP_BUDGET, n_hint=4, measure=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree_b = apply_plan(calibrated, plan_b, n_hint=4)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        eng = ServeEngine(model, planned, batch=4, max_seq=PF_MAX_SEQ, device=dev)
+        swap = {}
+
+        def on_wave(rec):
+            if rec.wave == 0:
+                t1 = time.perf_counter()
+                eng.request_swap(tree_b)
+                swap["request_s"] = time.perf_counter() - t1
+
+        eng.on_wave = on_wave
+        t0 = time.perf_counter()
+        got = eng.generate(reqs)
+        swap_serve_s = time.perf_counter() - t0
+        eng.on_wave = None
+        check(got == want and eng.swaps == 1 and eng.last_swap_wave == 1
+              and eng.params is tree_b,
+              f"{what}: the hot-swap to the {PF_SWAP_BUDGET >> 20} MiB plan: tokens equal "
+              f"{got == want}, swaps {eng.swaps}, flip at wave {eng.last_swap_wave} (want 1)")
+        out["swap"] = dict(stage_s=stage_s, request_s=swap["request_s"], serve_s=swap_serve_s,
+                           flip_wave=eng.last_swap_wave, total_bytes_b=plan_b.total_bytes)
+        log(f"{what} [{smi}]: hot-swap from the {PF_BUDGET >> 20} MiB plan to the "
+            f"{PF_SWAP_BUDGET >> 20} MiB plan ({plan_b.total_bytes:,} B): staged in "
+            f"{stage_s:.2f} s, requested at wave 0 (drift check {swap['request_s']:.3f} s), "
+            f"flipped at wave {eng.last_swap_wave}; the serve across it {swap_serve_s:.2f} s, "
+            f"the unplanned serve's tokens, no request dropped")
+        del eng, tree_b
+
+    if arch in (ZAMBA, WHISPER):
+        os.makedirs(PF_DIR, exist_ok=True)
+        srv = LiveServer(lambda: ServeEngine(model, planned, batch=4, max_seq=PF_MAX_SEQ,
+                                             device=dev),
+                         log_path=str(PF_DIR / f"{arch}.jsonl"),
+                         injector=FailureInjector(fail_at_waves=(PF_KILL_WAVE,)))
+        t0 = time.perf_counter()
+        got = srv.serve(reqs)
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+        differ = sum(a != b for o, w in zip(got, want) for a, b in zip(o, w))
+        check(srv.restarts == 1, f"{what}: {srv.restarts} restarts, want 1")
+        check(len(got) == len(reqs) and [len(o) for o in got] == [r.max_new_tokens for r in reqs],
+              f"{what}: kill + replay token counts {[len(o) for o in got]}")
+        if cfg.is_encdec:
+            # full caches, no MoE: the replay's prefill computes each row as
+            # the clean serve's decode steps did (the replay identity)
+            check(got == want, f"{what}: kill + replay gave {differ} other tokens than the "
+                               f"clean serve")
+        out["kill_replay"] = dict(restarts=srv.restarts, seconds=live_s, tokens_differing=differ,
+                                  identity_asserted=cfg.is_encdec)
+        log(f"{what} [{smi}]: LiveServer killed at wave {PF_KILL_WAVE}, restarted and replayed "
+            f"in {live_s:.2f} s: 0 requests dropped, each its budget, {differ} of "
+            f"{sum(map(len, want))} tokens other than the clean serve's"
+            + (" (the identity, asserted)" if cfg.is_encdec else
+               " (the pads of the replay's prefill pass through the recurrent state: not the "
+               "clean serve's computation, so not asserted)"))
+    del planned, calibrated
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_plans_families(torch, dev, smi):
+    """Phase 26: plans, prepared checkpoints and live ops over the trees the
+    autotuner once refused: deepseek-v2-lite-16b at 4 layers (MoE expert
+    stacks and MLA's ``W_kup`` / ``W_vup``, decoded, not applied), zamba2-7b
+    at 6 (the shared block, one leaf applied per ``"S"`` sublayer),
+    rwkv6-3b at 4 and whisper-large-v3 at 4 + 4 (the encoder and the cross
+    ``wk`` / ``wv``, not run under ``ServeEngine``), at published widths,
+    W1A3 ``lut``, calibrated (whisper's through frames), bf16.  Each family:
+    an analytic plan at PF_BUDGET served through ``ServeEngine(plan=)`` with
+    the tokens of the unplanned serve and ``lut_stream_gemm``'s launches
+    counted per route from the plan (:func:`pf_serve`); the planned tree
+    through ``save_prepared`` / ``restore_prepared`` and served again.
+    deepseek: a plan measured on the card (``Measurer`` times each
+    candidate on a unit slice, an expert stack's too), served, and a
+    mid-serve hot-swap to the PF_SWAP_BUDGET plan.  zamba2 and whisper: a
+    ``LiveServer`` killed at wave PF_KILL_WAVE and replayed: no request
+    dropped, each its budget; whisper's tokens the clean serve's (its caches
+    are all full caches), zamba2's counted where they differ (its left pads
+    pass through the state, and the replay prefills behind other pads)."""
+    import shutil
+
+    shutil.rmtree(PF_DIR, ignore_errors=True)
+    results = {}
+    try:
+        for arch, n_layers in PF_FAMILIES:
+            t0 = time.perf_counter()
+            results[arch] = pf_family(torch, dev, smi, arch, n_layers)
+            results[arch]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(PF_DIR, ignore_errors=True)
+    log(f"phase 26 [{smi}]: " + ", ".join(f"{a} {r['seconds']:.1f} s" for a, r in results.items()))
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
                                         "deepseek", "zamba2", "rwkv", "whisper", "vlm_train",
-                                        "dist", "dist_train", "seq_shard", "dryrun"),
+                                        "dist", "dist_train", "seq_shard", "dryrun",
+                                        "plans_families"),
                     help="after the build, run this phase alone and print its result as one "
                          "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
-                         "20, 21, 22, 23, 24 or 25)")
+                         "20, 21, 22, 23, 24, 25 or 26)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -6820,7 +7167,8 @@ def main(argv=None) -> int:
                  "dist": lambda: phase_dist(torch, dev, smi),
                  "dist_train": lambda: phase_dist_train(torch, dev, smi),
                  "seq_shard": lambda: phase_seq_shard(torch, dev, smi),
-                 "dryrun": lambda: phase_dryrun(torch, dev, smi)}
+                 "dryrun": lambda: phase_dryrun(torch, dev, smi),
+                 "plans_families": lambda: phase_plans_families(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -6896,6 +7244,8 @@ def main(argv=None) -> int:
         lap("24 seq shard")
         dry = alone["dryrun"]()
         lap("25 dryrun")
+        pf = alone["plans_families"]()
+        lap("26 plans families")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
                         rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"],
                         vlm["d"]["dequant_rel"])
@@ -6972,6 +7322,19 @@ def main(argv=None) -> int:
                 "bound_ms": layer_sum(rs, b, "canon_bound_ms"), "bound_by": "bytes",
                 "library_ms": None}
 
+    def pf_launches(keys):
+        """Phase 26's asserted launches per family and plan."""
+        out = {"at": f"phase 26: deepseek-v2-lite-16b / zamba2-7b / rwkv6-3b / whisper-large-v3 "
+                     f"at {DS_LUT_LAYERS} / {ZB_LUT_LAYERS} / {RW_LUT_LAYERS} / "
+                     f"{WH_LUT_LAYERS} + {WH_LUT_LAYERS} layers, W1A3 lut calibrated, bf16, "
+                     f"ServeEngine(plan=) under the {PF_BUDGET >> 20} MiB analytic plan "
+                     f"(deepseek: and the measured one), counted per route from the plan"}
+        for arch, r in pf.items():
+            runs = {"analytic": r["serve"], **({"measured": r["measured"]} if "measured" in r
+                                               else {})}
+            out[arch] = {name: {k: run[k] for k in keys} for name, run in runs.items()}
+        return out
+
     kernels = {"kernels": [{
         "name": "lut_dequant_gemm",
         "route": "cuda",
@@ -7030,7 +7393,7 @@ def main(argv=None) -> int:
             "prefill": times(zamba2["d"]["dequant_rows"], 4 * DS_PROMPT,
                              zb_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
         "rwkv": {
-            "at": f"phase 19a: rwkv6-3b, all 32 layers, W4A4 pallas, bf16, "
+            "at": f"phase 19a: rwkv6-3b, {RW_SERVE_LAYERS} layers, W4A4 pallas, bf16, "
                   f"ServeEngine(batch=4, max_seq={DS_MAX_SEQ}), 8 requests of 16-{DS_PROMPT} "
                   f"prompt tokens, {DS_NEW} new each; prefill_ms at 4 x {DS_PROMPT} and step_ms "
                   f"on CUDA events, profiles from torch.profiler, the rest on the host clock",
@@ -7055,7 +7418,8 @@ def main(argv=None) -> int:
             "prefill": times(whisper["e"]["dequant_rows"], wh_rows,
                              wh_at(f"B={wh_rows} (the encoder's 4 x 1500 rows), W4, bf16 x"))},
         "vlm": {
-            "at": f"phase 21a: internvl2-1b, all 24 layers, W4A4 pallas, bf16, attn_impl=flash: "
+            "at": f"phase 21a: internvl2-1b, {VL_SERVE_LAYERS} layers, W4A4 pallas, bf16, "
+                  f"attn_impl=flash: "
                   f"the cache-free forward over 4 x (256 patches + {VL_TEXT} tokens), a prefill "
                   f"of 4 x (256 + {VL_PROMPT}) and {VL_DECODE} greedy decode steps (CUDA events), "
                   f"ServeEngine(batch=4, max_seq={VL_MAX_SEQ}) text only; 21b card vs CPU at "
@@ -7147,6 +7511,7 @@ def main(argv=None) -> int:
             **{name: {key: r[key] for key in PLANNED_KEYS if key in r}
                for name, r in planned.items()},
             "candidates": planned["measured_16GiB"]["candidates"]},
+        "plans_families": pf_launches(("launches", "launches_tc", "launches_lookup")),
         "live_ops": {
             "at": f"phase 15: phase 8's model at full width, {LIVE_LAYERS} layers; a: phase 8's "
                   f"requests served from the restored prepared checkpoint; b: the LiveServer "
@@ -7184,6 +7549,7 @@ def main(argv=None) -> int:
                  for p in LOOKUP_PS},
         "planned_serve": {name: {"launches": r["launches_lookup"]} for name, r in planned.items()},
         "live_ops": {"c": {"launches": live["c"]["launches_lookup"]}},
+        "plans_families": pf_launches(("launches_lookup",)),
         "ok": True,
     }, {
         "name": "lut_stream_gemm_canon",
@@ -7200,6 +7566,7 @@ def main(argv=None) -> int:
         "prefill": canon_times(srows, 512, "one layer's 7 projections at N=4x128"),
         "planned_serve": {name: {"launches": r["launches_canon"]} for name, r in planned.items()},
         "live_ops": {k: {"launches": live[k]["launches_canon"]} for k in ("a", "b", "c")},
+        "plans_families": pf_launches(("launches_canon",)),
         "deepseek": {
             "launches": deepseek["c"]["launches_canon"],
             "decode": canon_times(deepseek["e"]["stream_rows"], 4, ds_at("N=4, W1A3 p=4")),
@@ -7274,6 +7641,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "dist_train", "card": smi, "result": dist_train}, default=str))
     print(json.dumps({"phase": "seq_shard", "card": smi, "result": seq_shard}, default=str))
     print(json.dumps({"phase": "dryrun", "card": smi, "result": dry}, default=str))
+    print(json.dumps({"phase": "plans_families", "card": smi, "result": pf}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

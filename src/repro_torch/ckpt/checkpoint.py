@@ -234,10 +234,12 @@ def _whole_leaves(tree, shardings):
 
 
 def _unflatten(like, leaves):
-    """``like``'s structure with its leaves taken in order from the iterator
-    ``leaves``."""
+    """``like``'s structure, each dict in ``like``'s key order, with its
+    leaves taken from the iterator ``leaves`` in jax's order (keys sorted):
+    a restored model tree walks its leaves as the tree it was saved from."""
     if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
     if isinstance(like, (list, tuple)):
         out = [_unflatten(v, leaves) for v in like]
         return out if isinstance(like, list) else tuple(out)

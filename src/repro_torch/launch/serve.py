@@ -60,7 +60,6 @@ import torch
 from repro_torch import timing
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import LutLinearSpec
-from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 from repro_torch.models.profiles import PROFILES, apply_perf_profile
 from repro_torch.serve.serving import Request, ServeEngine
@@ -191,11 +190,6 @@ def _quantize_and_prepare(args, cfg, model):
 def main(argv=None):
     args = build_args(argv)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.plan or args.autotune is not None or args.prepared_ckpt or args.request_log:
-        refused = transformer.unported_for_plans(cfg)
-        if refused:
-            raise SystemExit(f"{cfg.name}: plans, prepared checkpoints and live ops of "
-                             f"{refused} are not ported yet (ROADMAP Queue 1)")
     if args.calibrate is not None and cfg.is_encdec:
         raise SystemExit(f"{cfg.name}: --calibrate runs a forward over tokens alone, and an "
                          f"encoder-decoder forward without frames has no cross keys and values "

@@ -22,7 +22,6 @@ import time
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import LutLinearSpec
-from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 from repro_torch.tune import plan_model
 
@@ -57,10 +56,6 @@ def build_args(argv=None):
 def main(argv=None):
     args = build_args(argv)
     cfg = get_config(args.arch, smoke=args.smoke)
-    refused = transformer.unported_for_plans(cfg)
-    if refused:
-        raise SystemExit(f"{cfg.name}: the autotuner over {refused} is not ported yet "
-                         f"(ROADMAP Queue 1)")
     model = build_model(cfg)
     spec = LutLinearSpec(bw=args.bw, ba=args.ba, mode=args.mode)
     qparams = model.init_quantized(spec, seed=0, device=args.device)

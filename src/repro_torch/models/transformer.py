@@ -89,24 +89,6 @@ def unit_kinds(cfg: ModelConfig) -> set[str]:
     return {ch for pat, _ in segments(cfg) for ch in pat}
 
 
-def unported_for_plans(cfg: ModelConfig) -> Optional[str]:
-    """What keeps a model from the autotuner, prepared checkpoints and live
-    ops (``None`` where nothing does): MoE and MLA trees (expert stacks and
-    ``W_kup`` / ``W_vup`` are decoded, not applied), recurrent trees (a
-    shared leaf is applied once per ``"S"`` unit, and the pads pass through
-    the state, so a replay is not the reference's identity) and
-    encoder-decoder trees (``ServeEngine`` passes no frames: the encoder and
-    the cross ``wk`` / ``wv`` leaves are never applied, so a plan would price
-    leaves that do not run); ROADMAP Queue 1."""
-    if cfg.moe is not None or cfg.attn_kind == "mla":
-        return "an MoE or MLA tree"
-    if unit_kinds(cfg) & RECURRENT_UNITS:
-        return "a tree with recurrent units"
-    if cfg.is_encdec:
-        return "an encoder-decoder tree"
-    return None
-
-
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run: units outside
     :data:`PORTED_UNITS`, or a config without attention whose units are not
@@ -169,14 +151,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     once beside the units) and each encoder unit of an enc-dec model
     (stacked at ``params["encoder"]``, beside ``enc_final_norm`` and the stub
     frontend's dense ``frontend_proj``) — e.g. quantizing it — so a
-    full-width model never holds all its f32 weights at once.  Dict keys come in sorted
-    order, as in the reference's trees (:func:`repro_torch.tree.sort_keys`)."""
+    full-width model never holds all its f32 weights at once.  Dict keys come in
+    the order of the reference's ``init_params``: a stack's keys sorted, as the
+    reference's ``jax.tree.map`` stack rebuilds them
+    (:func:`repro_torch.tree.sort_keys`), every other dict in insertion order,
+    so the quantized leaves walk as in ``Model.quantize(Model.init(key))`` of
+    the reference (plan fingerprints and the planner's tie-breaks follow the
+    walk)."""
     check_supported(cfg)
     unit_fn = unit_fn or (lambda u: u)
     seg_list = []
     for pattern, n_units in segments(cfg):
         units = [unit_fn(unit_init(cfg, pattern, gen, device)) for _ in range(n_units)]
-        seg_list.append(tree.stack(units))
+        seg_list.append(tree.sort_keys(tree.stack(units)))
         del units
     params: dict = {
         "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
@@ -199,7 +186,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
         })
     if cfg.is_encdec:
         enc = [unit_fn(unit_init(cfg, "E", gen, device)) for _ in range(cfg.encoder_layers)]
-        params["encoder"] = tree.stack(enc)
+        params["encoder"] = tree.sort_keys(tree.stack(enc))
         del enc
         params["enc_final_norm"] = (
             layers.rmsnorm_init(cfg.d_model, device)
@@ -208,7 +195,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
         )
     if cfg.frontend is not None:
         params["frontend_proj"] = dense_init(gen, cfg.frontend_dim, cfg.d_model, device=device)
-    return tree.sort_keys(params)
+    return params
 
 
 # ---------------------------------------------------------------------------

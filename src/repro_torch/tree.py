@@ -92,9 +92,10 @@ def unstack(tree, n: int) -> list:
 
 def sort_keys(tree):
     """The tree with every dict's keys in sorted order, recursively: the order
-    jax's tree operations give every reference tree, so both packages walk a
-    model's leaves in one order (plan fingerprints and the planner's
-    tie-breaks follow it)."""
+    of a dict that ``jax.tree.map`` rebuilt, such as the reference's stacked
+    units (its ``_stack``).  A dict the reference builds itself keeps its
+    insertion order, so a model tree is not sorted as a whole
+    (:func:`repro_torch.models.transformer.init_params`)."""
     if isinstance(tree, dict):
         return {k: sort_keys(tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):

@@ -133,7 +133,10 @@ def plan_model(
     states: list[_LayerState] = []
     for path, q in items:
         stack = _leaf_stack(q)
-        unit = _unit_slice(q) if stack > 1 else q
+        # Every stacked leaf is measured on its first unit, a stack of one
+        # too (the reference slices only where stack > 1, and its measured
+        # plan raises on deepseek's one-unit "F" segment: ROADMAP Queue 3).
+        unit = _unit_slice(q)
         f, k = _unit_shape(unit)
         dev = unit.codes.device
         # The q/x sample only feeds the stream candidates' plan-only traffic

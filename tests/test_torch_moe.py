@@ -428,17 +428,13 @@ def test_check_supported_admits_moe_and_mla():
         transformer.check_supported(get_config(arch))
 
 
-@pytest.mark.parametrize("argv", [["--prepared-ckpt", "unused"], ["--request-log", "unused"],
-                                  ["--autotune", "4"], ["tune"]])
-def test_launchers_refuse_what_is_not_ported_for_moe_trees(argv):
-    """Plans, prepared checkpoints and live ops of an MoE or MLA tree are
-    not ported (ROADMAP Queue 1): the launchers say so before building."""
-    from repro_torch.launch import serve as lserve
-    from repro_torch.launch import tune as ltune
+@pytest.mark.parametrize("case", ["--prepared-ckpt", "--request-log", "--autotune", "tune"])
+def test_launchers_refuse_what_is_not_ported_for_moe_trees(case, tmp_path, capsys):
+    """Plans, prepared checkpoints and live ops of an MoE or MLA tree, once
+    refused by the launchers, run now: each flag serves both MoE configs'
+    smoke trees on the CPU (``tests/_torch_launch.py``; parity with the
+    reference: ``tests/test_torch_plans_families.py``)."""
+    from _torch_launch import run_case
 
     for arch in ARCHS:
-        with pytest.raises(SystemExit, match="not ported yet"):
-            if argv == ["tune"]:
-                ltune.main(["--arch", arch, "--smoke", "--analytic", "--device", "cpu"])
-            else:
-                lserve.main(["--arch", arch, "--smoke", "--device", "cpu", *argv])
+        run_case(arch, case, tmp_path / arch, capsys)

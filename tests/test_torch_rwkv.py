@@ -448,12 +448,13 @@ def test_check_supported_admits_rwkv6_only_with_r_units():
         transformer.check_supported(mixed)
 
 
-@pytest.mark.parametrize("argv", [["--prepared-ckpt", "unused"], ["--plan", "unused.json"]])
-def test_launch_serve_refuses_plans_and_checkpoints_for_rwkv(argv):
-    from repro_torch.launch import serve as lserve
+@pytest.mark.parametrize("case", ["--prepared-ckpt", "--plan"])
+def test_launch_serve_refuses_plans_and_checkpoints_for_rwkv(case, tmp_path, capsys):
+    """Once refused, a plan and a prepared checkpoint of rwkv6-3b's smoke
+    tree serve through the launcher now (``tests/_torch_launch.py``)."""
+    from _torch_launch import run_case
 
-    with pytest.raises(SystemExit, match="recurrent units are not ported yet"):
-        lserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *argv])
+    run_case(ARCH, case, tmp_path, capsys)
 
 
 @pytest.mark.parametrize("mode", ["pallas", "lut"])

@@ -545,7 +545,6 @@ def test_check_supported_admits_whisper_and_refuses_a_frontend_without_encoder()
     transformer.check_supported(get_config(ARCH, smoke=True))
     transformer.check_supported(get_config(ARCH))
     assert transformer.segments(get_config(ARCH)) == [("C", 32)]
-    assert transformer.unported_for_plans(get_config(ARCH)) == "an encoder-decoder tree"
     vlm = get_config("internvl2-1b", smoke=True)
     assert vlm.frontend == "vision" and not vlm.is_encdec
     transformer.check_supported(vlm)
@@ -568,18 +567,24 @@ def test_prefix_embeds_prepended_to_the_tokens_raise():
     assert tm.forward(tp, toks)[0].shape == (B, 4, jcfg.vocab_size)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--prepared-ckpt", "unused"], "encoder-decoder tree"),
-    (["--plan", "unused.json"], "encoder-decoder tree"),
-    (["--autotune", "16"], "encoder-decoder tree"),
-    (["--request-log", "unused.jsonl"], "encoder-decoder tree"),
-    (["--mode", "lut", "--calibrate", "16"], "calibrate"),
-])
-def test_launch_serve_refuses_encdec_flags(argv, what):
+@pytest.mark.parametrize("case", ["--prepared-ckpt", "--plan", "--autotune", "--request-log",
+                                  "--calibrate"])
+def test_launch_serve_refuses_encdec_flags(case, tmp_path, capsys):
+    """``--calibrate`` stays refused for an encoder-decoder tree: its forward
+    over tokens alone has no cross keys and values, and the reference raises
+    there too (ROADMAP Queue 3).  A plan, the autotuner, a prepared
+    checkpoint and the request log, once refused, serve whisper's smoke tree
+    text only now (``tests/_torch_launch.py``)."""
     from repro_torch.launch import serve as lserve
 
-    with pytest.raises(SystemExit, match=what):
-        lserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *argv])
+    if case == "--calibrate":
+        with pytest.raises(SystemExit, match="calibrate"):
+            lserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--mode", "lut",
+                         "--calibrate", "16"])
+        return
+    from _torch_launch import run_case
+
+    run_case(ARCH, case, tmp_path, capsys)
 
 
 def test_launch_serve_runs_whisper(capsys):

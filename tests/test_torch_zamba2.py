@@ -293,20 +293,16 @@ def test_check_supported_admits_zamba2():
     assert transformer.segments(get_config(ARCH)) == [("MMMMMS", 13), ("MMM", 1)]
 
 
-@pytest.mark.parametrize("argv", [["--prepared-ckpt", "unused"], ["--request-log", "unused"],
-                                  ["--autotune", "4"], ["--plan", "unused.json"], ["tune"]])
-def test_launchers_refuse_what_is_not_ported_for_recurrent_trees(argv):
-    """Plans and the autotuner, prepared checkpoints and the request log
-    over a tree with recurrent units are not ported (ROADMAP Queue 1): the
-    launchers say so before building."""
-    from repro_torch.launch import serve as lserve
-    from repro_torch.launch import tune as ltune
+@pytest.mark.parametrize("case", ["--prepared-ckpt", "--request-log", "--autotune", "--plan",
+                                  "tune"])
+def test_launchers_refuse_what_is_not_ported_for_recurrent_trees(case, tmp_path, capsys):
+    """Plans and the autotuner, prepared checkpoints and the request log over
+    a tree with recurrent units, once refused by the launchers, run now on
+    zamba2-7b's smoke tree (``tests/_torch_launch.py``; parity with the
+    reference: ``tests/test_torch_plans_families.py``)."""
+    from _torch_launch import run_case
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        if argv == ["tune"]:
-            ltune.main(["--arch", ARCH, "--smoke", "--analytic", "--device", "cpu"])
-        else:
-            lserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *argv])
+    run_case(ARCH, case, tmp_path, capsys)
 
 
 @pytest.mark.parametrize("mode", ["pallas", "lut"])
