@@ -8,8 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 (``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
 ``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
 ``--phase whisper``, ``--phase vlm_train``, ``--phase dist``, ``--phase dist_train``,
-``--phase seq_shard``, ``--phase dryrun`` or ``--phase plans_families`` runs one
-phase alone after the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
+``--phase seq_shard``, ``--phase dryrun``, ``--phase plans_families``, ``--phase
+sharded_plans``, ``--phase llama4`` or ``--phase examples`` runs one phase alone after
+the build; ``--src DIR`` drives the ``repro_torch`` under DIR, so two
 trees' kernels can be compared in one call.)  It builds every kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card, and drives three paths through the port's own
@@ -105,7 +106,7 @@ entry points at published full widths:
   ``(1, 1)`` mesh of an NCCL world of one rank, bit-equal to the plain
   step, its sharded save byte-equal to the plain save and restored
   bit-equal; then a gloo world of two ranks sharing the card, chatglm3-6b
-  at published widths cut to 2 layers, f32: an FSDP + TP step on ``(1, 2)``
+  at published widths cut to 1 layer, f32: an FSDP + TP step on ``(1, 2)``
   and on ``(2, 1)``, every gradient shard held to the local step's, and a
   save from ``(1, 2)`` restored on ``(2, 1)``;
 
@@ -137,6 +138,27 @@ entry points at published full widths:
   planned once more by measuring on the card (an expert stack's unit slice
   too) and hot-swapped mid-serve to a 256 MiB plan; whisper and zamba2
   killed and replayed by a ``LiveServer``;
+
+* ``ServeEngine(plan=, ctx=)`` (phase 27): each rank prepares its raw shard
+  of stablelm-12b (10 layers, W1A3 ``lut`` calibrated) under the global
+  analytic plan, in an NCCL world of 1 (64 MiB and 16 GiB plans) and in a
+  gloo world of 2 ranks sharing the card (mesh (1, 2), 64 MiB): the tokens
+  of the same plan's unsharded serve, ``lut_stream_gemm`` launches per
+  route from the plan's applied projections, one host sync a wave, each
+  rank's prepared bytes the plan's for its shards, a plan that does not
+  match refused;
+
+* llama4-maverick-400b-a17b (phase 28): 4 of its 48 layers at published
+  widths (128 routed experts top-1 + 1 shared, expert hidden 8192, vocab
+  202048), W4A4 ``pallas``, bf16, drawn on the card an expert at a time
+  and served through ``ServeEngine`` with every projection that is not an
+  expert on ``lut_dequant_gemm``'s tensor-core route, the expert stacks
+  decoded a stack at a time, ``max_memory_allocated`` below 80 GB; a
+  2-layer W1A3 ``lut`` copy; the kernels at its shapes;
+
+* the port's examples (phase 29): ``examples/lut_gemm_kernels_torch.py``
+  (``lut_dequant_gemm`` on both routes, ``lut_stream_gemm`` on all three),
+  ``quickstart_torch.py`` and ``serve_quantized_llm_torch.py`` on the card;
 
 the serve paths with continuous batching; and the int-LUT model again under
 the capacity-budgeted autotuner (``repro_torch.tune``, phase 13, at 10 of
@@ -2487,8 +2509,10 @@ def phase_gemma2_serve(torch, dev, smi):
 # ---------------------------------------------------------------------------
 
 LIVE_DIR = ROOT / "build" / "live_ops"   # git-ignored; removed at the end of the phase
-LIVE_LAYERS = 10              # phases 15 and 16: stablelm-12b's depth cut from 40 to keep the
-                              # script in its time limit (each check holds at any depth)
+LIVE_LAYERS = 10              # phases 13, 22a and 27: stablelm-12b's depth cut from 40 to keep
+                              # the script in its time limit (each check holds at any depth)
+LIVE_OPS_LAYERS = 6           # phases 15 and 16 (16a holds its serve to 15's), 10 until the
+                              # script passed ~950 s
 LIVE_BUDGET_SEED = 15         # phase 15: new-token budgets in [4, 16] from default_rng(15) on
                               # phase 8's prompts: 5 admission waves undisturbed
 LIVE_KILL_WAVES = (0, 1, 2)   # 15b: each attempt dies at the next of these waves (per-attempt
@@ -2671,7 +2695,7 @@ def check_replay_identity(torch, dev, model, tree):
 
 
 def phase_live_ops(torch, dev, cfg, smi):
-    """Phase 15: stablelm-12b at full width (LIVE_LAYERS of its 40 layers,
+    """Phase 15: stablelm-12b at full width (LIVE_OPS_LAYERS of its 40 layers,
     seed 0, bf16, W1A3 p=4 lut, calibrated as in phase 8) under live
     operations: (a) a prepared checkpoint saved and restored onto the card
     serves phase 8's requests with the tokens and launches of the in-memory
@@ -2701,7 +2725,7 @@ def phase_live_ops(torch, dev, cfg, smi):
                                        quantized_leaf_items)
 
     out = {"grad_refusal": check_grad_refusal(torch, dev)}
-    cfg = dataclasses.replace(cfg, n_layers=LIVE_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=LIVE_OPS_LAYERS)
     model = build_model(cfg)
     spec = LutLinearSpec(mode="lut", **LUT_SPEC)
     shutil.rmtree(LIVE_DIR, ignore_errors=True)
@@ -3179,7 +3203,7 @@ def slo_summary(slo):
 
 def phase_obs(torch, dev, cfg, smi, lserve=None):
     """Phase 16: ``repro_torch.obs`` on phase 15's model (stablelm-12b at full
-    width, LIVE_LAYERS layers, seed 0, bf16, W1A3 p=4 lut, calibrated and
+    width, LIVE_OPS_LAYERS layers, seed 0, bf16, W1A3 p=4 lut, calibrated and
     prepared).
     (a) ``ServeEngine(obs=)`` serves phase 8's requests with the tokens, host
     syncs, admissions, buckets, launches and synchronizing calls of the
@@ -3211,7 +3235,7 @@ def phase_obs(torch, dev, cfg, smi, lserve=None):
     from repro_torch.tune.plan import quantized_leaf_items
     from repro_torch.tune.planner import _unit_slice
 
-    cfg = dataclasses.replace(cfg, n_layers=LIVE_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=LIVE_OPS_LAYERS)
     shutil.rmtree(OBS_DIR, ignore_errors=True)
     OBS_DIR.mkdir(parents=True)
     out = {}
@@ -3706,14 +3730,29 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what, labels):
         return None
     regions = dict.fromkeys(names, 0.0)
     copies = dict.fromkeys(names, 0.0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+    by_region = {name: {} for name in names}
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    # A kernel is counted at the innermost op that lists it: an op one of whose
+    # descendants lists kernels is skipped (a composite op such as aten::to
+    # may list its child's copy kernel too), and so is a range's own event
+    # (its device-side span, named as the range).
+    outer = set()
+    for e in events:
+        if e.kernels:
+            parent = e.cpu_parent
+            while parent is not None:
+                outer.add(id(parent))
+                parent = parent.cpu_parent
+    for e in events:
+        if not e.kernels or e.name in names or id(e) in outer:
             continue
         region = region_of(e, names)
         if region is not None:
             for k in e.kernels:
-                if kernel not in k.name:
+                if kernel not in k.name and k.name not in names:
                     regions[region] += k.duration / 1e3 / iters
+                    by_region[region][k.name] = by_region[region].get(k.name, 0.0) \
+                        + k.duration / 1e3 / iters
                     if "copy" in k.name.lower():
                         copies[region] += k.duration / 1e3 / iters
     out = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms, kernel_ms=ours,
@@ -3728,6 +3767,9 @@ def region_breakdown(torch, fn, iters, wall_ms, *, kernel, card, what, labels):
         + f"; the rest {out['other_ms']:.2f} ms; largest device ops:")
     for name, ms in out["top"]:
         log(f"    {ms:8.3f} ms  {name[:100]}")
+    for region, ks in by_region.items():
+        top = sorted(((ms, n) for n, ms in ks.items()), reverse=True)[:3]
+        log(f"    region {region}: " + "; ".join(f"{ms:.3f} ms {n[:60]}" for ms, n in top))
     check(all(v > 0 for v in regions.values()),
           f"{what}: a region read no device time: {regions} (a renamed function of the port?)")
     check(out["other_ms"] >= -1e-6 * busy,
@@ -3839,7 +3881,7 @@ def drivers_agree(torch, dev, cfg, n_layers, reqs, what):
 
 
 def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
-                  drivers=("loop",), max_seq=None, keep=False):
+                  drivers=("loop",), max_seq=None, keep=False, max_new=DS_NEW):
     """A copy of ``cfg`` cut to ``n_layers``, W1A3 p=4 ``lut``, calibrated and
     prepared, served on ``reqs`` through ``ServeEngine(batch=4,
     max_seq=512)``: every projection a frozen scale, ``want_per`` applied
@@ -3847,7 +3889,7 @@ def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
     tensor-core route only with one canonicalize launch a projection
     (:func:`check_served` too), and each of ``drivers`` giving the scan
     driver's tokens (each wave led by a bucket).  Phases 17c, 18b, 19b and
-    20d.  An encoder-decoder copy is cut to ``n_layers`` encoder layers too
+    20d, and 28b (``max_new`` new tokens a request).  An encoder-decoder copy is cut to ``n_layers`` encoder layers too
     and calibrated over seeded bf16 frames as well as the tokens
     (``calibrate_tree`` with a closure that passes them: ``Model.prepare(
     calibrate=tokens)`` runs no frames, and the reference raises there);
@@ -3892,7 +3934,7 @@ def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
     leng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
     torch.cuda.synchronize()
     louts, lwall, lrecords, lcounts, lsync = counted_generate(torch, leng, reqs)
-    lprefills, lsteps, llaunches = check_served(lcfg, leng, louts, DS_NEW, lrecords, lcounts, lsync,
+    lprefills, lsteps, llaunches = check_served(lcfg, leng, louts, max_new, lrecords, lcounts, lsync,
                                                 kernel="lut_stream_gemm", what=what)
     check(lcounts["lut_stream_gemm_tc"] == llaunches and lcounts["lut_stream_gemm_lookup"] == 0,
           f"{what}: lut_stream_gemm routes {lcounts}: the W1A3 p=4 pack must take the "
@@ -3910,7 +3952,7 @@ def lut_cut_serve(torch, dev, cfg, n_layers, reqs, smi, *, what, want_per=None,
         others[decode] = dict(host_syncs=other.host_syncs, seconds=time.perf_counter() - t0)
         del other
     ldigest = zlib.crc32(json.dumps([list(map(int, o)) for o in louts]).encode())
-    log(f"{what} [{smi}]: served the 8 requests, {sum(map(len, louts))} tokens in "
+    log(f"{what} [{smi}]: served the {len(reqs)} requests, {sum(map(len, louts))} tokens in "
         f"{lwall:.3f} s; {len(lrecords)} waves, {lprefills} prefills, {lsteps} decode steps, "
         f"{leng.host_syncs} host syncs; lut_stream_gemm {llaunches} launches (= {lper} x "
         f"{lprefills + lsteps}; tensor cores {lcounts['lut_stream_gemm_tc']}, lookup "
@@ -5808,7 +5850,8 @@ def dist_expert_parallel(torch, dev, smi):
 
 DT_STEPS = 3                  # 23a: steps with the ctx and without, from one seed
 DT_ARCH = "chatglm3-6b"       # 23b: published widths, cut to DT_LAYERS layers, f32
-DT_LAYERS = 2                 #      (~0.94 G parameters: both ranks' states < 60 GB)
+DT_LAYERS = 1                 #      (~0.74 G parameters: the save and restore move ~8.9 GB;
+                              #      one layer keeps the script in its time limit)
 DT_B, DT_S = 2, 256           # 23b: rows and tokens a row of the step's batch
 DT_MESHES = ((1, 2), (2, 1))  # 23b: (data, model) meshes of the world of 2
 TOL_DT_GRAD = 1e-5            # 23b: a rank's gradient shards vs the local step's, x the
@@ -7091,15 +7134,678 @@ def phase_plans_families(torch, dev, smi):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: ServeEngine(plan=, ctx=) over sharded leaves
+# ---------------------------------------------------------------------------
+
+SP_BUDGETS = (64 << 20, 16 << 30)   # 27a: the analytic plans (27b: the first)
+SP_REQUESTS, SP_NEW = 4, 4    # 27b: the first 4 of 27a's requests, 4 new tokens each (one wave):
+                              # gloo stages each of a forward's 71 all-gathers through the host
+SP_TIMEOUT_S = 400            # 27b: the two ranks' join
+
+
+def sp_tree(torch, dev, cfg, model):
+    """Phase 27's global raw tree: ``cfg`` (stablelm-12b at LIVE_LAYERS), W1A3
+    p=4 ``lut``, its scales calibrated on 22a's 2 x 16 seeded tokens."""
+    import numpy as np
+
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.core.calibrate import calibrate_tree
+
+    raw = model.init_quantized(LutLinearSpec(mode="lut", **LUT_SPEC), seed=0, device=dev)
+    cal = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))).to(dev)
+    with torch.no_grad():
+        return calibrate_tree(lambda probed: model.forward(probed, cal)[0], raw)
+
+
+def shard_plan_bytes(plan, local, whole):
+    """This rank's prepared bytes by the plan's rule: each leaf's plan bytes
+    times the share of its global leaf's codes the rank holds (``whole``:
+    ``{path: global leaf}``), and the same summed over a tp group of ``tp``
+    ranks as a function of ``tp`` (a replicated leaf counted on every rank)."""
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    items = quantized_leaf_items(local)
+    mine = sum(plan.layers[p].capacity_bytes * q.codes.numel() // whole[p].codes.numel()
+               for p, q in items)
+    group = lambda tp: sum(plan.layers[p].capacity_bytes                  # noqa: E731
+                           * (tp if q.codes.numel() == whole[p].codes.numel() else 1)
+                           for p, q in items)
+    return mine, group
+
+
+def phase_sharded_plans(torch, dev, smi):
+    """Phase 27: ``ServeEngine(plan=, ctx=)``: each rank prepares its raw
+    shard (``shard_tree(param_specs(...))`` of the global raw tree) under the
+    global plan, made by the analytic planner on the global raw tree.  A
+    "world" here is ranks sharing the one card.
+
+    27a: an NCCL world of 1 (phase 22a's), mesh (1, 1): stablelm-12b at
+    :data:`LIVE_LAYERS`, W1A3 p=4 ``lut`` calibrated, under the analytic
+    plans of :data:`SP_BUDGETS`: the tokens of the same plan's unsharded
+    serve in this run, ``lut_stream_gemm`` launches per route = the plan's
+    applied projections x (prefills + steps) (:func:`counted_plan_serve`),
+    one host sync a wave, the rank's prepared bytes (the engine's
+    ``plan_bytes``) the plan's; a plan whose fingerprint does not match is
+    refused.  27b: a gloo world of 2 sharing the card, mesh (1, 2), the same
+    tree and the 64 MiB plan, :data:`SP_REQUESTS` of the requests with
+    :data:`SP_NEW` new tokens each: each rank's tokens the unsharded planned
+    serve's, its launches per route the plan's applied projections x calls,
+    one host sync a wave, its prepared bytes the plan's for its shards, and
+    their sum over the tp group beside the plan's total."""
+    held_before_build(torch, dev, "phase 27")
+    t0 = time.perf_counter()
+    out = {"a": sharded_plans_one(torch, dev, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = sharded_plans_two(torch, dev, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 27: passed in {out['seconds']:.1f} s")
+    return out
+
+
+def sharded_plans_one(torch, dev, smi):
+    """27a (:func:`phase_sharded_plans`)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist as rd
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import ServeEngine
+    from repro_torch.tune import plan_model
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("stablelm-12b"), n_layers=LIVE_LAYERS)
+    model = build_model(cfg)
+    _lens, reqs = serve_requests(cfg, 64, DIST_NEW)
+    out = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        ctx = rd.ShardCtx(init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model")))
+        raw = sp_tree(torch, dev, cfg, model)
+        local = rd.shard_tree(raw, rd.param_specs(cfg, raw, ctx), ctx)
+        whole = dict(quantized_leaf_items(raw))
+        out["build_s"] = time.perf_counter() - t0
+        for budget in SP_BUDGETS:
+            name = f"{budget >> 20}MiB"
+            what = f"phase 27a ({name} plan)"
+            t1 = time.perf_counter()
+            plan = plan_model(raw, lut_budget_bytes=budget, n_hint=4, measure=False)
+            plan_s = time.perf_counter() - t1
+            plain = ServeEngine(model, raw, batch=4, max_seq=256, plan=plan, device=dev)
+            want = plain.generate(reqs)
+            del plain
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng = ServeEngine(model, local, batch=4, max_seq=256, plan=plan, ctx=ctx, device=dev)
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t1
+            res, records = counted_plan_serve(torch, eng, plan, reqs, want, what=what)
+            mine, group = shard_plan_bytes(plan, local, whole)
+            check(eng.plan_bytes == res["prepared_bytes"] == mine,
+                  f"{what}: the rank's prepared bytes {res['prepared_bytes']:,}, the engine's "
+                  f"{eng.plan_bytes:,}, the plan's for its shards {mine:,}")
+            res.update(plan_s=plan_s, apply_s=apply_s, waves=len(records),
+                       plan_bytes=eng.plan_bytes, tp_sum=group(1), total_bytes=plan.total_bytes,
+                       table_bytes=plan.table_bytes)
+            per = res["per_forward"]
+            log(f"{what} [{smi}]: ServeEngine(plan=, ctx=) in an NCCL world of 1 (mesh (1, 1)) "
+                f"gives the unsharded planned serve's tokens (crc32 {res['tokens_crc32']:08x}), "
+                f"{res['tokens']} in {res['wall_s']:.3f} s ({res['tok_s']:.1f} tok/s), "
+                f"{len(records)} waves, {res['host_syncs']} host syncs; lut_stream_gemm "
+                f"{res['launches']} launches = ({per['tc']} tensor-core + {per['lookup']} lookup "
+                f"projections a forward) x ({res['prefills']} prefills + {res['decode_steps']} "
+                f"steps); the rank's prepared bytes {eng.plan_bytes:,} = the plan's for its "
+                f"shards (plan total {plan.total_bytes:,} B, {plan.table_bytes:,} B of shared "
+                f"tables); planned in {plan_s:.2f} s, applied in {apply_s:.2f} s")
+            out[name] = res
+            del eng
+        bad = dataclasses.replace(plan, fingerprint="0" * 32)
+        try:
+            ServeEngine(model, local, batch=4, max_seq=256, plan=bad, ctx=ctx, device=dev)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "does not match the parameter tree" in refused,
+              f"27a: a plan whose fingerprint does not match was not refused: {refused}")
+        out["refused"] = refused
+        log(f"phase 27a: a plan with another fingerprint is refused: {refused}")
+        del raw, local, whole
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_plans_two(torch, dev, smi, *, device="cuda", smoke=False):
+    """27b (:func:`phase_sharded_plans`): spawns the two ranks
+    (:func:`sp_rank`) and reads their results; every process it starts is
+    joined or stopped.  ``device`` / ``smoke`` are for a CPU rehearsal of the
+    control flow."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "sharded_plans2"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=sp_rank, args=(r, sys.path[0], str(root), device, smoke))
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(SP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = root / f"rank{r}.pkl"
+        results.append(pickle.loads(path.read_bytes()) if path.exists() else
+                       {"error": f"rank {r} wrote nothing (exit code {p.exitcode})"})
+    shutil.rmtree(root, ignore_errors=True)
+    errors = [res["error"] for res in results if "error" in res]
+    check(not errors, f"27b: {errors}")
+    r0 = results[0]
+    for r, res in enumerate(results):
+        check(res["tokens"] == r0["want"],
+              f"27b rank {r}: the planned sharded serve's tokens differ from the unsharded "
+              f"planned serve's")
+        check(res["host_syncs"] == res["waves"],
+              f"27b rank {r}: host_syncs {res['host_syncs']} != waves {res['waves']}")
+        check(res["launches"] == res["want_launches"],
+              f"27b rank {r}: lut_stream_gemm launches {res['launches']} != {res['want_launches']}"
+              f" (applied projections a forward by route {res['per_forward']} x "
+              f"({res['prefills']} prefills + {res['steps']} steps))")
+        check(res["bytes"] == res["want_bytes"] == res["plan_bytes"],
+              f"27b rank {r}: prepared bytes {res['bytes']:,}, the plan's for its shards "
+              f"{res['want_bytes']:,}, the engine's {res['plan_bytes']:,}")
+        check(res["tp_sum"] == res["want_tp_sum"],
+              f"27b rank {r}: the tp group's bytes {res['tp_sum']:,} != {res['want_tp_sum']:,}")
+    out = dict(ranks=[{k: v for k, v in res.items() if k not in ("tokens", "want")}
+                      for res in results], seconds=time.perf_counter() - t0)
+    log(f"phase 27b [{smi}]: a gloo world of 2 sharing the card, mesh (1, 2); stablelm-12b "
+        f"{LIVE_LAYERS} layers W1A3 p=4 lut calibrated under the {SP_BUDGETS[0] >> 20} MiB "
+        f"plan: each rank's tokens == the unsharded planned serve's (crc32 "
+        f"{r0['tokens_crc32']:08x}), {r0['n_tokens']} tokens in {r0['wall_s']:.2f} s "
+        f"({r0['tok_s']:.1f} tok/s; unsharded {r0['plain_tok_s']:.1f}), {r0['host_syncs']} host "
+        f"syncs = waves; lut_stream_gemm launches a rank "
+        + ", ".join(f"{x['launches']} (tc {x['launches_tc']}, lookup {x['launches_lookup']})"
+                    for x in results)
+        + f" = {r0['per_forward']} x ({r0['prefills']} + {r0['steps']}); prepared bytes a rank "
+        + ", ".join(f"{x['bytes']:,}" for x in results)
+        + f", summed over the tp group {r0['tp_sum']:,} beside the plan's total "
+          f"{r0['total_bytes']:,} B ({r0['table_bytes']:,} B of shared tables, whole on every "
+          f"rank); {out['seconds']:.1f} s with the processes' start; rank 0's seconds by stage "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r0["laps"].items()))
+    return out
+
+
+def sp_rank(rank, src, root, device, smoke):
+    """One rank of 27b: writes ``<root>/rank<r>.pkl`` (its numbers, or the
+    traceback, which fails the phase in the parent)."""
+    import pickle
+    import traceback
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    res = {}
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"), 2),
+                                rank=rank, world_size=2)
+        try:
+            res = sp_shared(torch, torch.device(device, 0) if device == "cuda"
+                            else torch.device(device), rank, smoke)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:                   # reported: the parent fails the phase
+        res = {"error": f"rank {rank}: {traceback.format_exc()}"}
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def sp_shared(torch, dev, rank, smoke):
+    """27b's body on one rank (:func:`phase_sharded_plans`)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist as rd
+    from repro_torch.configs import get_config
+    from repro_torch.core import PreparedLinear
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import ServeEngine
+    from repro_torch.tune import plan_model
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(what):
+        sync()
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+
+    cfg = dataclasses.replace(get_config("stablelm-12b", smoke=smoke), n_layers=LIVE_LAYERS)
+    model = build_model(cfg)
+    ctx = rd.ShardCtx(init_device_mesh(dev.type, (1, 2), mesh_dim_names=("data", "model")))
+    raw = sp_tree(torch, dev, cfg, model)
+    plan = plan_model(raw, lut_budget_bytes=SP_BUDGETS[0], n_hint=4, measure=False)
+    local = rd.shard_tree(raw, rd.param_specs(cfg, raw, ctx), ctx)
+    whole = dict(quantized_leaf_items(raw))
+    reqs = [dataclasses.replace(r, max_new_tokens=SP_NEW)
+            for r in serve_requests(cfg, 64, DIST_NEW)[1][:SP_REQUESTS]]
+    out = {"laps": laps, "total_bytes": plan.total_bytes, "table_bytes": plan.table_bytes}
+    lap("build")
+    with torch.no_grad():
+        if rank == 0:
+            plain = ServeEngine(model, raw, batch=4, max_seq=256, plan=plan, device=dev)
+            t0 = time.perf_counter()
+            out["want"] = plain.generate(reqs)
+            sync()
+            out["plain_tok_s"] = sum(map(len, out["want"])) / (time.perf_counter() - t0)
+            del plain
+            lap("serve unsharded")
+        del raw
+        eng = ServeEngine(model, local, batch=4, max_seq=256, plan=plan, ctx=ctx, device=dev)
+        lap("apply the plan")
+        # No set_sync_debug_mode: gloo stages CUDA tensors through the host
+        # with synchronizing copies on its own threads (as in 24b).
+        records = []
+        eng.on_wave = records.append
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        outs = eng.generate(reqs)
+        sync()
+        wall, counts = time.perf_counter() - t0, read_launches()
+        lap("serve sharded")
+        per = applied_routes(eng.params, plan)
+        prefills = sum(1 for r in records if r.admitted)
+        steps = sum(r.steps for r in records)
+        calls = prefills + steps
+        got = sum(q.prepared_bytes for _p, q in quantized_leaf_items(eng.params)
+                  if isinstance(q, PreparedLinear))
+        mine, group = shard_plan_bytes(plan, local, whole)
+        tp_sum = torch.tensor([got], dtype=torch.int64)
+        dist.all_reduce(tp_sum, group=ctx.tp_group())
+        n_tok = sum(len(o) for o in outs)
+        out.update(tokens=outs, n_tokens=n_tok, wall_s=wall, tok_s=n_tok / wall,
+                   tokens_crc32=zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode()),
+                   host_syncs=eng.host_syncs, waves=len(records), prefills=prefills, steps=steps,
+                   per_forward=per, launches=counts["lut_stream_gemm"],
+                   launches_tc=counts["lut_stream_gemm_tc"],
+                   launches_lookup=counts["lut_stream_gemm_lookup"],
+                   launches_canon=counts["lut_stream_gemm_canon"],
+                   want_launches=sum(per.values()) * calls if cuda else counts["lut_stream_gemm"],
+                   bytes=got, want_bytes=mine, plan_bytes=eng.plan_bytes,
+                   tp_sum=int(tp_sum.item()), want_tp_sum=group(ctx.tp_size()))
+        if cuda:
+            check(counts["lut_stream_gemm_tc"] == per["tc"] * calls
+                  and counts["lut_stream_gemm_lookup"] == per["lookup"] * calls
+                  and counts["lut_stream_gemm_canon"] == sum(per.values()) * calls,
+                  f"27b rank {rank}: launches by route {counts} != {per} x {calls}")
+        del eng
+        dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: llama4-maverick-400b-a17b at published widths, cut in depth
+# ---------------------------------------------------------------------------
+
+LLAMA4 = "llama4-maverick-400b-a17b"
+L4_LAYERS = 4                 # 28a: 4 of its 48 layers (2 "FD" units): 16.1 GB of W4 expert
+                              # codes beside the 8.3 GB f32 embedding and head
+L4_LUT_LAYERS = 2             # 28b: one "FD" unit, W1A3 p=4 lut ...
+L4_LUT_REQUESTS = 4           # ... serving one wave (its W1 expert decode ~1.3 s a forward)
+L4_MAX_SEQ = 256              # ServeEngine(batch=4, max_seq=L4_MAX_SEQ)
+L4_DRIVER_NEW = 4             # 28a: new tokens a request in the loop / chunked / scan check
+L4_TF_PREFIX = 64             # 28a: the dropless copy's prefill (B = 2) ...
+L4_TF = 8                     # ... and its teacher-forced decode steps
+L4_DROPLESS = 64.0            # the dropless copy's capacity factor
+TOL_L4_FWD = 2.0 ** -6        # prefill + decode vs the cache-free forward, x max |logit| (bf16;
+                              # phase 24b's)
+CARD_BYTES = 80e9             # torch.cuda.max_memory_allocated must stay below one card's 80 GB
+
+
+def llama4_regions():
+    """Phase 28's profiler regions: the expert stacks' decode
+    (``models.model.maybe_dequant``, which ``moe._dispatch_compute`` calls
+    before each expert GEMM), the routing, the dispatch and combine around
+    the expert GEMMs, and the cached attention."""
+    from repro_torch.models import attention, model, moe
+
+    return ((model, "maybe_dequant", "expert dequant"), (moe, "_route", "moe routing"),
+            (moe, "_dispatch_compute", "moe dispatch+combine"),
+            (attention, "_attend_cache_invariant", "cached attention"))
+
+
+def phase_llama4(torch, dev, smi):
+    """Phase 28: llama4-maverick-400b-a17b at its published widths (d 5120,
+    40 / 8 heads of 128, 128 routed experts top-1 + 1 shared, expert hidden
+    8192, vocab 202048), cut in depth: its 24 MoE layers hold 193 GB of W4
+    codes, more than one card.
+
+    28a: :data:`L4_LAYERS` of its 48 layers, W4A4 ``pallas``, bf16, seed-0
+    weights from ``init_quantized`` on the card (each expert drawn and
+    quantized before the next), then ``Model.prepare``; 8 requests of
+    16-128 tokens, 32 new each, through ``ServeEngine(batch=4,
+    max_seq=256)``: exact token counts, one host sync a wave,
+    ``lut_dequant_gemm`` launches = applied projections x forwards, all on
+    the tensor cores (the expert stacks are decoded, a stack at a time, not
+    applied); scan == loop == chunked on bucket-led waves; on a dropless
+    copy prefill + teacher-forced decode against the cache-free forward
+    within :data:`TOL_L4_FWD`; ``torch.cuda.max_memory_allocated()`` below
+    80 GB, beside the resident bytes from the shapes and the transient of
+    one MoE call, measured.  Printed: the init's seconds and peak, the
+    decode step and the 4 x 128 prefill (CUDA events; busy from the
+    profiler, by region, the expert decode one of them), tok/s.  28b:
+    :data:`L4_LUT_LAYERS` layers, W1A3 p=4 ``lut`` calibrated, one wave of
+    :data:`L4_LUT_REQUESTS` requests: ``lut_stream_gemm`` and ``lut_canon``
+    launches per route, scan == loop, its peak.  28c: each distinct applied projection shape at B = 4 and 4 x
+    128 through phases 2 and 6's sweeps."""
+    from repro_torch import hw, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune.plan import quantized_leaf_items
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLAMA4), n_layers=L4_LAYERS)
+    e = cfg.moe
+    model = build_model(cfg)
+    out = {}
+
+    # --- 28a: W4A4 pallas, bf16, served ---------------------------------------
+    _before_gc, base = held_before_build(torch, dev, "phase 28a")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    raw = model.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"), seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev) - base
+    t0 = time.perf_counter()
+    params = model.prepare(raw, n_hint=4)
+    del raw
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev) - base
+    resident = sum(t.numel() * t.element_size() for t in tree.tensors(params))
+    code_bytes = sum(leaf.codes.numel() for _p, leaf in quantized_leaf_items(params))
+    expert_code_bytes = sum(leaf.codes.numel() for p, leaf in quantized_leaf_items(params)
+                            if "moe" in p.split("/") and "shared" not in p.split("/"))
+    held = torch.cuda.memory_allocated(dev) - base
+    per_forward, by_path = applied_projections(params)
+    shapes = projection_shapes(params)
+    log(f"phase 28a: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"hd={cfg.hd} experts={e.n_experts} (+{e.n_shared_experts} shared) top-{e.top_k} "
+        f"d_ff_expert={e.d_ff_expert} capacity_factor={e.capacity_factor} vocab="
+        f"{cfg.vocab_size} layers={cfg.n_layers} of 48 ({cfg.layer_pattern!r} x "
+        f"{cfg.n_layers // 2}), W4A4 pallas, bf16; init_quantized on the card {init_s:.1f} s "
+        f"(peak {init_peak / 1e9:.2f} GB above the {base / 1e9:.2f} GB held before), prepare "
+        f"{prepare_s:.1f} s (peak {build_peak / 1e9:.2f} GB); resident {resident:,} B from the "
+        f"shapes ({expert_code_bytes:,} B of expert codes, {code_bytes:,} B of codes in all), "
+        f"{held:,} B allocated; {per_forward} applied projections per forward "
+        f"({', '.join(f'{p.split('/', 2)[-1]} x{n}' for p, (n, _k, _f) in by_path.items())})")
+
+    eng = ServeEngine(model, params, batch=4, max_seq=L4_MAX_SEQ, decode="scan", device=dev)
+    lens, reqs = bucket_led_requests(cfg)
+    eng.generate([Request(prompt=reqs[0].prompt[:16], max_new_tokens=2)])   # warmup
+    torch.cuda.synchronize()
+    outs, wall, records, counts, sync_warnings = counted_generate(torch, eng, reqs)
+    prefills, steps, launches = check_served(cfg, eng, outs, DS_NEW, records, counts,
+                                             sync_warnings, kernel="lut_dequant_gemm",
+                                             what="phase 28a")
+    digest = zlib.crc32(json.dumps([list(map(int, o)) for o in outs]).encode())
+    n_tok = sum(len(o) for o in outs)
+    host_syncs = eng.host_syncs
+    log(f"phase 28a [{smi}]: served {len(reqs)} requests (prompt lengths {lens.tolist()}), "
+        f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.2f} tok/s end to end); {len(records)} "
+        f"waves, {prefills} prefills, {steps} decode steps, {eng.host_syncs} host syncs, "
+        f"{launches} lut_dequant_gemm launches (= {per_forward} x {prefills + steps}, all on the "
+        f"tensor cores); tokens crc32 {digest:08x}")
+    del eng
+
+    # scan == loop == chunked on the same waves (each led by a bucket), fewer
+    # new tokens a request.
+    short = [dataclasses.replace(r, max_new_tokens=L4_DRIVER_NEW) for r in reqs]
+    drivers, douts = {}, {}
+    for decode in ("scan", "loop", "chunked"):
+        t0 = time.perf_counter()
+        deng = ServeEngine(model, params, batch=4, max_seq=L4_MAX_SEQ, decode=decode, device=dev)
+        douts[decode] = deng.generate(short)
+        drivers[decode] = dict(host_syncs=deng.host_syncs, seconds=time.perf_counter() - t0)
+        del deng
+    check(douts["loop"] == douts["scan"] == douts["chunked"],
+          "28a: decode='loop' / 'chunked' tokens differ from decode='scan' on bucket-led waves")
+    check(douts["scan"] == [o[:L4_DRIVER_NEW] for o in outs],
+          "28a: the shorter serve's tokens are not the first of the full serve's")
+    log(f"phase 28a: decode='loop' and 'chunked' give scan's tokens bit for bit on these waves "
+        f"({L4_DRIVER_NEW} new a request, each wave led by a {DS_PROMPT}-token prompt): "
+        + ", ".join(f"{d} {r['host_syncs']} host syncs, {r['seconds']:.2f} s"
+                    for d, r in drivers.items()))
+
+    # Prefill + teacher-forced decode against the cache-free forward, on a
+    # dropless copy (every expert's load within its capacity: checked).
+    dl = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=L4_DROPLESS)))
+    toks = torch.from_numpy(np.random.default_rng(28).integers(
+        0, cfg.vocab_size, (2, L4_TF_PREFIX + L4_TF))).to(dev)
+    loads, route = [], moe._route
+
+    def recorded(xt, *args):
+        r = route(xt, *args)
+        cap = max(int(xt.shape[0] * e.top_k / e.n_experts * L4_DROPLESS), 4)
+        loads.append((int(torch.bincount(r[1].reshape(-1).long(), minlength=e.n_experts).max()),
+                      cap))
+        return r
+
+    moe._route = recorded
+    try:
+        with torch.no_grad():
+            fwd = dl.forward(params, toks)[0]
+            caches = dl.init_cache(2, L4_MAX_SEQ, torch.float32, device=dev)
+            lg, caches = dl.prefill(params, toks[:, :L4_TF_PREFIX], caches)
+            got = [lg]
+            for t in range(L4_TF):
+                lg, caches = dl.decode_step(params, toks[:, L4_TF_PREFIX + t:L4_TF_PREFIX + t + 1],
+                                            caches, L4_TF_PREFIX + t)
+                got.append(lg)
+    finally:
+        moe._route = route
+    got = torch.cat(got, 1).float()
+    want = fwd[:, L4_TF_PREFIX - 1:].float()
+    scale = want.abs().max().item()
+    fwd_rel = (got - want).abs().max().item() / scale
+    check(all(n <= cap for n, cap in loads), f"28a: the dropless copy dropped: loads {loads}")
+    check(bool(torch.isfinite(got).all()) and got.shape == (2, L4_TF + 1, cfg.vocab_size),
+          f"28a: teacher-forced logits of shape {tuple(got.shape)} or not finite")
+    check(fwd_rel <= TOL_L4_FWD, f"28a: prefill + decode vs the cache-free forward "
+                                 f"{fwd_rel:.3e} x max |logit| > {TOL_L4_FWD}")
+    log(f"phase 28a: dropless copy (capacity_factor {L4_DROPLESS}: the largest expert load "
+        f"{max(n for n, _c in loads)} within its capacity on every call), B = 2: prefill "
+        f"{L4_TF_PREFIX} + {L4_TF} teacher-forced decode steps within {fwd_rel:.3e} x max "
+        f"|logit| of the cache-free forward (tol {TOL_L4_FWD})")
+    del fwd, caches, got, want
+
+    # Times and the profiler's breakdown.
+    eng = ServeEngine(model, params, batch=4, max_seq=L4_MAX_SEQ, device=dev)
+    caches = eng._new_cache()
+    del eng
+    ptoks = torch.randint(0, cfg.vocab_size, (4, DS_PROMPT), device=dev, dtype=torch.int32)
+    pad = torch.zeros((4,), dtype=torch.int32, device=dev)
+    tok, pos = ptoks[:, -1:], torch.full((4,), DS_PROMPT, dtype=torch.int32, device=dev)
+    prefill = lambda: model.prefill(params, ptoks, caches, pad_len=pad)            # noqa: E731
+    step = lambda: model.decode_step(params, tok, caches, pos, pad_len=pad)        # noqa: E731
+    prefill_ms = time_ms(torch, lambda i: prefill(), 3)
+    step_ms = time_ms(torch, lambda i: step(), 5)
+    log("phase 28a: where the device time goes (torch.profiler; wall time from the unprofiled "
+        "runs above):")
+    prefill_prof = region_breakdown(torch, prefill, 2, prefill_ms, kernel="lut_dequant_gemm",
+                                    card=smi, what=f"prefill B=4 x {DS_PROMPT}",
+                                    labels=llama4_regions())
+    step_prof = region_breakdown(torch, step, 3, step_ms, kernel="lut_dequant_gemm", card=smi,
+                                 what=f"decode step B=4 at {DS_PROMPT}", labels=llama4_regions())
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(peak < CARD_BYTES, f"28a: max_memory_allocated {peak / 1e9:.2f} GB >= 80 GB")
+    # The largest transient of a MoE call, measured: the allocator's peak over
+    # one moe_apply of the first MoE layer at the decode step's shape, above
+    # what it held before.  maybe_dequant holds one decoded bf16 stack and the
+    # f32 decode of one expert (its int32 codes, the looked-up values, their
+    # scaled product).
+    seg = params["segments"][-1]
+    moe_layer = tree.index(seg[next(k for k in seg if k.endswith("_D"))]["moe"], 0)
+    xm = torch.randn((4, 1, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        moe.moe_apply(moe_layer, xm, cfg)
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated(dev) - before
+    del moe_layer, xm
+    decode_share = (step_prof["regions_ms"]["expert dequant"] / step_prof["busy_ms"]
+                    if step_prof else None)
+    log(f"phase 28a [{smi}]: prefill B=4 x {DS_PROMPT} tokens {prefill_ms:.2f} ms; decode step "
+        f"B=4 at {DS_PROMPT} {step_ms:.2f} ms ({4e3 / step_ms:.2f} tok/s); "
+        f"torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB (< 80 GB; "
+        f"{(peak - base) / 1e9:.2f} GB above what the card held before the build) beside the "
+        f"resident {resident / 1e9:.2f} GB from the shapes and the largest MoE-call transient "
+        f"{transient / 1e9:.2f} GB (measured over one moe_apply at B=4 x 1: one decoded bf16 "
+        f"expert stack + one expert's f32 decode); the expert "
+        f"decode {decode_share if decode_share is None else round(decode_share, 3)} of the decode "
+        f"step's busy time")
+    out["a"] = dict(
+        launches=launches, launches_tc=counts["lut_dequant_gemm_tc"], per_forward=per_forward,
+        prefills=prefills, decode_steps=steps, host_syncs=host_syncs, waves=len(records),
+        wall_s=wall, tokens=n_tok, tok_s=n_tok / wall, tokens_crc32=digest,
+        init_s=init_s, init_peak_gb=init_peak / 1e9, prepare_s=prepare_s,
+        build_peak_gb=build_peak / 1e9, resident_bytes=resident, code_bytes=code_bytes,
+        expert_code_bytes=expert_code_bytes, moe_transient_bytes=transient,
+        max_memory_allocated_gb=peak / 1e9, held_before_gb=base / 1e9,
+        prefill_ms=prefill_ms, step_ms=step_ms, prefill_profile=prefill_prof,
+        decode_profile=step_prof, expert_decode_share=decode_share, drivers=drivers,
+        forward_rel_err=fwd_rel, dropless_max_load=max(n for n, _c in loads))
+    del params, caches, prefill, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 28b: W1A3 lut calibrated, one unit ------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_b = torch.cuda.memory_allocated(dev)
+    out["b"], lmodel, lparams, _frames = lut_cut_serve(
+        torch, dev, cfg, L4_LUT_LAYERS, short[:L4_LUT_REQUESTS], smi, what="phase 28b",
+        max_seq=L4_MAX_SEQ,
+        max_new=L4_DRIVER_NEW, keep=True)
+    out["b"]["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - base_b) / 1e9
+    caches = lmodel.init_cache(4, L4_MAX_SEQ, torch.float32, device=dev)
+    lmodel.prefill(lparams, ptoks, caches, pad_len=pad)
+    lstep = lambda: lmodel.decode_step(lparams, tok, caches, pos, pad_len=pad)     # noqa: E731
+    out["b"]["step_ms"] = time_ms(torch, lambda i: lstep(), 3)
+    log(f"phase 28b [{smi}]: decode step B=4 at {DS_PROMPT} {out['b']['step_ms']:.2f} ms; peak "
+        f"{out['b']['peak_gb']:.2f} GB above the {base_b / 1e9:.2f} GB held before (the lut "
+        f"prepare builds wpk for all {e.n_experts} experts of each stack, though they are only "
+        f"ever decoded, as the reference does)")
+    del lmodel, lparams, caches, lstep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 28c: the kernels against their plain versions at llama4's shapes ------
+    log(f"phase 28c: {cfg.name}'s {len(shapes)} distinct applied projection shapes (K, F) "
+        f"{shapes}, B = 4 and 4 x {DS_PROMPT}, bf16 x [{smi}]:")
+    rows, rel, abs_err = phase_kernel_times(torch, dev, cfg, hw.H100_SXM, iters=(10, 3, 3),
+                                            label="phase 28c", shapes=shapes)
+    srows, sabs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi, shapes=shapes,
+                                     label="phase 28c")
+    out["c"] = dict(shapes=shapes, dequant_rows=rows, dequant_rel=rel, dequant_abs=abs_err,
+                    stream_rows=srows, stream_abs=sabs)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 28: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_ON_CARD = {"lut_gemm_kernels": "kernel demo OK", "quickstart": "quickstart OK",
+                    "serve_quantized_llm": "serve example OK"}
+
+
+def phase_examples(torch, dev, smi):
+    """Phase 29: ``examples/lut_gemm_kernels_torch.py``,
+    ``quickstart_torch.py`` and ``serve_quantized_llm_torch.py`` run on the
+    card (their default device), in this process (``runpy``), each ending
+    with its reference's last line; the kernel demo launches
+    ``lut_dequant_gemm`` on both routes and ``lut_stream_gemm`` on all three
+    (its own asserts hold each against its plain version and count each
+    launch's route)."""
+    import contextlib
+    import io
+    import runpy
+
+    out = {}
+    t_phase = time.perf_counter()
+    for name, last in EXAMPLES_ON_CARD.items():
+        buf, argv = io.StringIO(), sys.argv
+        sys.argv = [f"{name}_torch.py"]
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(ROOT / "examples" / f"{name}_torch.py"), run_name="__main__")
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        lines = buf.getvalue().strip().splitlines()
+        check(lines and lines[-1] == last, f"29: {name}_torch.py ended with {lines[-3:]}")
+        out[name] = dict(seconds=seconds, last_line=lines[-1], launches=counts)
+        log(f"phase 29 [{smi}]: examples/{name}_torch.py on the card in {seconds:.2f} s, last "
+            f"line {lines[-1]!r}; launches {({k: v for k, v in counts.items() if v})}")
+        for ln in lines[:-1]:
+            log(f"    {ln}")
+    c = out["lut_gemm_kernels"]["launches"]
+    check((c["lut_dequant_gemm"], c["lut_dequant_gemm_tc"], c["lut_stream_gemm"],
+           c["lut_stream_gemm_tc"], c["lut_stream_gemm_lookup"]) == (2, 1, 3, 1, 1),
+          f"29: the kernel demo's launches {c}: lut_dequant_gemm on both routes, "
+          f"lut_stream_gemm on all three")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 29: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
                                         "deepseek", "zamba2", "rwkv", "whisper", "vlm_train",
                                         "dist", "dist_train", "seq_shard", "dryrun",
-                                        "plans_families"),
+                                        "plans_families", "sharded_plans", "llama4",
+                                        "examples"),
                     help="after the build, run this phase alone and print its result as one "
                          "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25 or 26)")
+                         "20, 21, 22, 23, 24, 25, 26, 27, 28 or 29)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -7168,7 +7874,10 @@ def main(argv=None) -> int:
                  "dist_train": lambda: phase_dist_train(torch, dev, smi),
                  "seq_shard": lambda: phase_seq_shard(torch, dev, smi),
                  "dryrun": lambda: phase_dryrun(torch, dev, smi),
-                 "plans_families": lambda: phase_plans_families(torch, dev, smi)}
+                 "plans_families": lambda: phase_plans_families(torch, dev, smi),
+                 "sharded_plans": lambda: phase_sharded_plans(torch, dev, smi),
+                 "llama4": lambda: phase_llama4(torch, dev, smi),
+                 "examples": lambda: phase_examples(torch, dev, smi)}
         if args.phase:
             result = alone[args.phase]()
             print(json.dumps({"phase": args.phase, "src": str(args.src), "card": smi,
@@ -7246,15 +7955,21 @@ def main(argv=None) -> int:
         lap("25 dryrun")
         pf = alone["plans_families"]()
         lap("26 plans families")
+        splans = alone["sharded_plans"]()
+        lap("27 sharded plans")
+        l4 = alone["llama4"]()
+        lap("28 llama4")
+        examples = alone["examples"]()
+        lap("29 examples")
         worst_rel = max(worst_rel, deepseek["e"]["dequant_rel"], zamba2["d"]["dequant_rel"],
                         rwkv["d"]["dequant_rel"], whisper["e"]["dequant_rel"],
-                        vlm["d"]["dequant_rel"])
+                        vlm["d"]["dequant_rel"], l4["c"]["dequant_rel"])
         worst_abs = max(worst_abs, deepseek["e"]["dequant_abs"], zamba2["d"]["dequant_abs"],
                         rwkv["d"]["dequant_abs"], whisper["e"]["dequant_abs"],
-                        vlm["d"]["dequant_abs"])
+                        vlm["d"]["dequant_abs"], l4["c"]["dequant_abs"])
         stream_abs = max(stream_abs, deepseek["e"]["stream_abs"], zamba2["d"]["stream_abs"],
                          rwkv["d"]["stream_abs"], whisper["e"]["stream_abs"],
-                         vlm["d"]["stream_abs"])
+                         vlm["d"]["stream_abs"], l4["c"]["stream_abs"])
         flash_abs = max(flash_abs, whisper["e"]["flash_abs"], vlm["d"]["flash_abs"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -7315,6 +8030,21 @@ def main(argv=None) -> int:
                 f"({', '.join(vlm['d']['shapes'])}), {what} (device time)")
 
     vl_rows = vlm["d"]["rows_b"]
+
+    def l4_at(what):
+        return (f"phase 28c: llama4-maverick-400b-a17b's distinct applied projection shapes, once "
+                f"each ({', '.join(l4['c']['shapes'])}), {what} (device time)")
+
+    def sp_launches(keys):
+        """Phase 27's asserted launches per plan and rank."""
+        return {"at": f"phase 27: stablelm-12b at {LIVE_LAYERS} layers, W1A3 lut calibrated, bf16, "
+                      f"ServeEngine(plan=, ctx=): a: an NCCL world of 1 under the "
+                      f"{SP_BUDGETS[0] >> 20} MiB and {SP_BUDGETS[1] >> 30} GiB analytic plans; "
+                      f"b: a gloo world of 2 ranks sharing the card, mesh (1, 2), the "
+                      f"{SP_BUDGETS[0] >> 20} MiB plan, each rank",
+                "a": {name: {k: splans["a"][name][k] for k in keys}
+                      for name in (f"{b >> 20}MiB" for b in SP_BUDGETS)},
+                "b": [{k: r[k] for k in keys} for r in splans["b"]["ranks"]]}
 
     def canon_times(rs, b, at):
         return {"at": at, "ms": layer_sum(rs, b, "canon_ms"),
@@ -7437,6 +8167,18 @@ def main(argv=None) -> int:
             "prefill": times(vlm["d"]["dequant_rows"], vl_rows,
                              vl_at(f"B={vl_rows} (the forward's 4 x 384 rows), W4, bf16 x"))},
         "dist": dist_at(dist_r, "pallas"),
+        "llama4": {
+            "at": f"phase 28a: llama4-maverick-400b-a17b at published widths, {L4_LAYERS} of 48 "
+                  f"layers, W4A4 pallas, bf16, ServeEngine(batch=4, max_seq={L4_MAX_SEQ}), 8 "
+                  f"requests of 16-{DS_PROMPT} prompt tokens, {DS_NEW} new each; prefill_ms at "
+                  f"4 x {DS_PROMPT} and step_ms on CUDA events, profiles from torch.profiler, "
+                  f"the rest on the host clock",
+            **{k: v for k, v in l4["a"].items() if k not in ("prefill_profile", "drivers")},
+            "decode": times(l4["c"]["dequant_rows"], 4, l4_at("B=4, W4, bf16 x")),
+            "prefill": times(l4["c"]["dequant_rows"], 4 * DS_PROMPT,
+                             l4_at(f"B=4x{DS_PROMPT}, W4, bf16 x"))},
+        "examples": {name: r["launches"]["lut_dequant_gemm"] for name, r in examples.items()
+                     if name != "seconds"},
         "seq_shard": {
             "at": f"phase 24b: zamba2-7b at published widths, one 'MMMMMS' unit, W4A4 pallas, "
                   f"bf16, ServeEngine(ctx=) on a gloo world of 2 sharing the card, mesh (1, 2), "
@@ -7512,8 +8254,20 @@ def main(argv=None) -> int:
                for name, r in planned.items()},
             "candidates": planned["measured_16GiB"]["candidates"]},
         "plans_families": pf_launches(("launches", "launches_tc", "launches_lookup")),
+        "sharded_plans": sp_launches(("launches", "launches_tc", "launches_lookup")),
+        "llama4": {
+            "at": f"phase 28b: llama4-maverick-400b-a17b at published widths, depth cut to "
+                  f"{L4_LUT_LAYERS} layers, W1A3 p=4 lut calibrated + prepared, the first "
+                  f"{L4_LUT_REQUESTS} of phase 28a's requests (one wave) with {L4_DRIVER_NEW} "
+                  f"new tokens each",
+            **l4["b"],
+            "decode": stream_times(l4["c"]["stream_rows"], 4, l4_at("N=4, W1A3 p=4")),
+            "prefill": stream_times(l4["c"]["stream_rows"], 4 * DS_PROMPT,
+                                    l4_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
+        "examples": {name: r["launches"]["lut_stream_gemm"] for name, r in examples.items()
+                     if name != "seconds"},
         "live_ops": {
-            "at": f"phase 15: phase 8's model at full width, {LIVE_LAYERS} layers; a: phase 8's "
+            "at": f"phase 15: phase 8's model at full width, {LIVE_OPS_LAYERS} layers; a: phase 8's "
                   f"requests served from the restored prepared checkpoint; b: the LiveServer "
                   f"serve killed at 3 waves (all attempts); c: the serve across the hot-swap to "
                   f"the 16 GiB plan",
@@ -7550,6 +8304,7 @@ def main(argv=None) -> int:
         "planned_serve": {name: {"launches": r["launches_lookup"]} for name, r in planned.items()},
         "live_ops": {"c": {"launches": live["c"]["launches_lookup"]}},
         "plans_families": pf_launches(("launches_lookup",)),
+        "sharded_plans": sp_launches(("launches_lookup",)),
         "ok": True,
     }, {
         "name": "lut_stream_gemm_canon",
@@ -7567,6 +8322,12 @@ def main(argv=None) -> int:
         "planned_serve": {name: {"launches": r["launches_canon"]} for name, r in planned.items()},
         "live_ops": {k: {"launches": live[k]["launches_canon"]} for k in ("a", "b", "c")},
         "plans_families": pf_launches(("launches_canon",)),
+        "sharded_plans": sp_launches(("launches_canon",)),
+        "llama4": {
+            "launches": l4["b"]["launches_canon"],
+            "decode": canon_times(l4["c"]["stream_rows"], 4, l4_at("N=4, W1A3 p=4")),
+            "prefill": canon_times(l4["c"]["stream_rows"], 4 * DS_PROMPT,
+                                   l4_at(f"N=4x{DS_PROMPT}, W1A3 p=4"))},
         "deepseek": {
             "launches": deepseek["c"]["launches_canon"],
             "decode": canon_times(deepseek["e"]["stream_rows"], 4, ds_at("N=4, W1A3 p=4")),
@@ -7642,6 +8403,9 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "seq_shard", "card": smi, "result": seq_shard}, default=str))
     print(json.dumps({"phase": "dryrun", "card": smi, "result": dry}, default=str))
     print(json.dumps({"phase": "plans_families", "card": smi, "result": pf}, default=str))
+    print(json.dumps({"phase": "sharded_plans", "card": smi, "result": splans}, default=str))
+    print(json.dumps({"phase": "llama4", "card": smi, "result": l4}, default=str))
+    print(json.dumps({"phase": "examples", "card": smi, "result": examples}, default=str))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

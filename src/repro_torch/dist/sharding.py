@@ -38,6 +38,21 @@ The specs are derived from the *raw* quantized tree, as in the reference; a
 rank prepares its own shard after :func:`shard_tree` (a prepared leaf's rows
 are row-local), and a :class:`~repro_torch.core.PreparedLinear` handed to
 :func:`param_specs` raises.
+
+Under a plan (``ServeEngine(plan=, ctx=)``) a rank prepares its raw shard
+by the *global* plan, made on the global raw tree.  The plan's fingerprint
+hashes the global codes shapes, so the rank checks it against the global
+leaves' identities, which :func:`global_codes_shapes` rebuilds from the
+shard and its spec over the mesh (``global_like`` gives the global shapes
+the specs are derived from); every rank of the mesh refuses a plan that does
+not match before any of them serves.  Each ``LayerPlan`` then applies to the
+local leaf at its path unchanged, its ``wcanon`` cap that of the global leaf
+(``tune.planner.apply_plan(shapes=)``).  A prepared leaf's products are
+row-local, so a shard holding ``1/n`` of its leaf's codes holds ``1/n`` of the
+plan's bytes for that leaf, and a replicated leaf all of them
+(``tune.planner.verify_capacity(shapes=)``): a tp group's shards sum to the
+plan's per-leaf bytes, replicated leaves once a rank, and no rank's tree is
+held to the plan's total.
 """
 
 from __future__ import annotations
@@ -551,3 +566,23 @@ def global_like(cfg, local: Any) -> Any:
         return dense
 
     return walk(local, _meta_params(cfg))
+
+
+def global_codes_shapes(cfg, local: Any, ctx: ShardCtx) -> dict:
+    """``{path: codes shape}`` of the global quantized leaves behind one
+    rank's ``local`` shard tree (raw or prepared): each local codes dim
+    times the sizes of the mesh axes its spec shards it over, the specs
+    derived, as :func:`shard_tree` cut them, from the global shapes of
+    :func:`global_like`.  What a rank's plan fingerprint is checked
+    against (module docstring)."""
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    sizes = mesh_axes(ctx.mesh)
+    specs = dict(quantized_leaf_items(param_specs(cfg, global_like(cfg, local), ctx)))
+    out = {}
+    for path, leaf in quantized_leaf_items(local):
+        spec = tuple(specs[path].codes)
+        out[path] = tuple(
+            int(n) * (math.prod(sizes.get(a, 1) for a in _axes_of(spec[d])) if d < len(spec) else 1)
+            for d, n in enumerate(leaf.codes.shape))
+    return out

@@ -16,6 +16,7 @@ prepares each leaf at its autotuned config instead
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import torch
@@ -147,17 +148,33 @@ def prepare_params(params, plan=None, **kw):
     return walk(params)
 
 
+DECODE_CHUNK_BYTES = 1 << 28   # f32 bytes of a stack that maybe_dequant decodes at a time
+
+
 def maybe_dequant(p, dtype=torch.bfloat16):
     """Raw-tensor-or-(Prepared)QuantizedLinear -> dense ``[..., K, F]`` tensor
     (the MoE expert einsums).  A quantized leaf decodes in f32 and is cast to
     ``dtype`` (:func:`repro_torch.models.layers.decode_weight`: from the
     cached ``wcodes`` of a prepared dequant-mode leaf, else from the packed
-    codes); a raw tensor comes back as it is.  A calibration probe is
-    unwrapped: dense einsums consume no activation scale."""
+    codes), a stack's matrices a few at a time (at most
+    :data:`DECODE_CHUNK_BYTES` of f32, at least one matrix), so no f32 stack
+    is held: the decode is elementwise, so the values are
+    ``decode_weight(p).to(dtype)``'s bit for bit, in its layout.  A raw
+    tensor comes back as it is.  A calibration probe is unwrapped: dense
+    einsums consume no activation scale."""
     p = unwrap(p)
-    if isinstance(p, (QuantizedLinear, PreparedLinear)):
+    if not isinstance(p, (QuantizedLinear, PreparedLinear)):
+        return p
+    lead, f = tuple(p.codes.shape[:-2]), p.codes.shape[-2]
+    if not lead:
         return decode_weight(p).to(dtype)
-    return p
+    out = torch.empty(lead + (f, p.k), dtype=dtype, device=p.codes.device)
+    step = max(1, DECODE_CHUNK_BYTES // (4 * f * p.k))
+    for i in itertools.product(*map(range, lead[:-1])):
+        for j in range(0, lead[-1], step):
+            part = i + (slice(j, j + step),)
+            out[part] = decode_weight(tree.tree_map(lambda t: t[part], p)).mT
+    return out.mT
 
 
 @dataclasses.dataclass
@@ -166,23 +183,29 @@ class Model:
 
     cfg: ModelConfig
 
-    def init(self, seed: int = 0, *, device="cuda", unit_fn=None) -> dict:
+    def init(self, seed: int = 0, *, device="cuda", unit_fn=None, expert_fn=None) -> dict:
         """Random f32 parameters from ``torch.Generator(device).manual_seed(seed)``
         (see :func:`repro_torch.models.transformer.init_params`).  On the
         ``meta`` device only the shapes and dtypes are made (the structure a
         checkpoint is restored into)."""
         dev = devices.resolve(device)
         gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
-        return transformer.init_params(self.cfg, gen, device=dev, unit_fn=unit_fn)
+        return transformer.init_params(self.cfg, gen, device=dev, unit_fn=unit_fn,
+                                       expert_fn=expert_fn)
 
     def init_quantized(self, spec: LutLinearSpec, seed: int = 0, *, device="cuda") -> dict:
         """:meth:`init` + :meth:`quantize`, one unit at a time: each unit (and
         zamba2's shared block, drawn once beside them, and each encoder unit
         of an enc-dec model) is drawn in f32,
         quantized, and only then stacked, so a full-width model never holds
-        its f32 projection weights at once."""
+        its f32 projection weights at once.  Each MoE expert is quantized as
+        soon as it is drawn (:func:`repro_torch.models.moe.moe_init`), so the
+        peak is one expert's f32 weights beside the codes made so far.  The
+        draws are :meth:`init`'s: the result is ``quantize(init(seed))`` bit
+        for bit."""
         return self.init(seed, device=device,
-                         unit_fn=lambda u: quantize_model(u, self.cfg, spec))
+                         unit_fn=lambda u: quantize_model(u, self.cfg, spec),
+                         expert_fn=lambda w: quantize_linear(w, spec))
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16, *, device="cuda"):
         return transformer.init_cache(self.cfg, batch, max_seq, dtype,

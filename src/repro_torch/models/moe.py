@@ -53,15 +53,25 @@ import math
 
 import torch
 
+from repro_torch import tree
+from repro_torch.core.calibrate import unwrap
 from repro_torch.dist import runtime
 from repro_torch.models import ffn, layers
 from repro_torch.models.config import ModelConfig
 
 
-def moe_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+def moe_init(cfg: ModelConfig, gen: torch.Generator, device=None, expert_fn=None) -> dict:
     """Router ``[d, E]`` and expert stacks ``w_gate`` / ``w_up`` ``[E, d, f]``,
     ``w_down`` ``[E, f, d]`` (``N(0, 1) / sqrt(fan_in)``, f32), plus the
-    shared experts as one FFN of hidden ``n_shared_experts * f``."""
+    shared experts as one FFN of hidden ``n_shared_experts * f``.
+
+    Each expert of a stack is drawn on its own, one ``[d, f]`` (``[f, d]``)
+    matrix at a time.  With ``expert_fn`` each drawn expert is mapped by it
+    before the next one is drawn and the results are stacked
+    (``Model.init_quantized`` quantizes it there, so a quantized init holds
+    one expert's f32 weights, never a stack's); without it the experts are
+    written into one f32 stack.  The draws are the same either way, so
+    ``init_quantized(seed)`` is ``quantize(init(seed))`` bit for bit."""
     e = cfg.moe
     d, f = cfg.d_model, e.d_ff_expert
 
@@ -69,15 +79,30 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
         return torch.randn(shape, generator=gen, device=device,
                            dtype=torch.float32) * (1.0 / math.sqrt(fan_in))
 
+    def experts(k, n, fan_in):
+        if expert_fn is not None:
+            return tree.stack([expert_fn(normal((k, n), fan_in)) for _ in range(e.n_experts)])
+        out = torch.empty((e.n_experts, k, n), dtype=torch.float32, device=device)
+        for i in range(e.n_experts):
+            out[i] = normal((k, n), fan_in)
+        return out
+
     p = {
         "router": {"w": normal((d, e.n_experts), d)},
-        "w_gate": normal((e.n_experts, d, f), d),
-        "w_up": normal((e.n_experts, d, f), d),
-        "w_down": normal((e.n_experts, f, d), f),
+        "w_gate": experts(d, f, d),
+        "w_up": experts(d, f, d),
+        "w_down": experts(f, d, f),
     }
     if e.n_shared_experts:
         p["shared"] = ffn.ffn_init(cfg, gen, d_ff=e.n_shared_experts * f, device=device)
     return p
+
+
+def _stack_len(leaf) -> int:
+    """Experts in a stack: a raw ``[E, K, F]`` tensor or a quantized
+    (prepared, probed) leaf of ``[E, F, Kp]`` codes, not decoded."""
+    leaf = unwrap(leaf)
+    return (leaf if isinstance(leaf, torch.Tensor) else leaf.codes).shape[0]
 
 
 def _route(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, dp_group=None):
@@ -109,9 +134,9 @@ def _dispatch_compute(
     xt: torch.Tensor,            # [T, d] tokens
     gates: torch.Tensor,         # [T, k] combine weights (normalised)
     eidx: torch.Tensor,          # [T, k] expert ids
-    w_gate: torch.Tensor,        # [El, d, f] local experts
-    w_up: torch.Tensor,
-    w_down: torch.Tensor,        # [El, f, d]
+    w_gate,                      # [El, d, f] local experts: raw or quantized stacks
+    w_up,
+    w_down,                      # [El, f, d]
     *,
     capacity_factor: float,
     act_kind: str,
@@ -121,9 +146,17 @@ def _dispatch_compute(
     """Capacity-slot dispatch over the local expert range ``[e_first,
     e_first + El)``; returns ``[T, d]`` (zero rows where a token's experts
     are all elsewhere).  The capacity counts ``e_total`` experts, as the
-    reference's per-shard capacity does."""
+    reference's per-shard capacity does.
+
+    A quantized stack is decoded (``maybe_dequant``) just before its
+    ``torch.bmm`` and dropped after it, so a call holds one decoded stack
+    at a time: ``w_down`` is decoded once ``gate * up`` is done with
+    ``w_gate`` and ``w_up``.  The products and their order are the
+    reference's."""
+    from repro_torch.models.model import maybe_dequant
+
     t, k = gates.shape
-    n_e, d = w_gate.shape[0], xt.shape[1]
+    n_e, d = _stack_len(w_gate), xt.shape[1]
     cap = max(int((t * k / (e_total or n_e)) * capacity_factor), 4)
     dev = xt.device
     local_e = eidx.reshape(-1).long() - e_first                         # [T*k]
@@ -147,9 +180,13 @@ def _dispatch_compute(
 
     x_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
     xg = x_pad[buf_tok]                                                 # [E, cap, d]
-    h = layers.activation(torch.bmm(xg, w_gate.to(xg.dtype)), act_kind) \
-        * torch.bmm(xg, w_up.to(xg.dtype))
-    out_e = torch.bmm(h, w_down.to(xg.dtype)) * buf_gate[..., None].to(xg.dtype)
+
+    def expert(leaf):
+        return maybe_dequant(leaf, xg.dtype).to(xg.dtype)
+
+    h = layers.activation(torch.bmm(xg, expert(w_gate)), act_kind)
+    h = h * torch.bmm(xg, expert(w_up))
+    out_e = torch.bmm(h, expert(w_down)) * buf_gate[..., None].to(xg.dtype)
 
     # Combine: each token's kept slots, in ascending expert id, added one at
     # a time (no atomics).
@@ -167,12 +204,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None):
     """Returns ``(y [B, S, d] in x.dtype, aux loss)``.  ``ctx`` with a mesh runs
     the sharded branches (module docstring): ``x`` is the rank's dp rows and
     the expert stacks are the rank's shard of them."""
-    from repro_torch.models.model import maybe_dequant
-
     e = cfg.moe
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    experts = [maybe_dequant(p[n], x.dtype) for n in ("w_gate", "w_up", "w_down")]
+    experts = [p[n] for n in ("w_gate", "w_up", "w_down")]
     kw = dict(capacity_factor=e.capacity_factor, act_kind=cfg.ffn_act, e_total=e.n_experts)
     sharded = runtime.active(ctx)
     tp = ctx.tp_size() if sharded else 1
@@ -181,18 +216,18 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None):
     dp_group = ctx.dp_group() if sharded and ctx.dp_size() > 1 else None
     if ep:
         el = e.n_experts // tp
-        if experts[0].shape[0] != el:
+        if _stack_len(experts[0]) != el:
             raise ValueError(
                 f"expert parallelism over {tp} ranks takes {el} local experts a stack; got "
-                f"{experts[0].shape[0]} (cut the tree with shard_tree(param_specs(...)))"
+                f"{_stack_len(experts[0])} (cut the tree with shard_tree(param_specs(...)))"
             )
         gates, eidx, aux = _route(xt, p["router"]["w"], cfg, dp_group)
         y = _dispatch_compute(runtime.copy_in(xt, tp_group), runtime.copy_in(gates, tp_group),
                               eidx, *experts, e_first=ctx.tp_rank() * el, **kw)
         y = runtime.reduce_out(y, tp_group)
     else:
-        if experts[0].shape[0] != e.n_experts:
-            raise ValueError(f"replicated experts: {experts[0].shape[0]} of {e.n_experts}")
+        if _stack_len(experts[0]) != e.n_experts:
+            raise ValueError(f"replicated experts: {_stack_len(experts[0])} of {e.n_experts}")
         x_all = xt if dp_group is None else runtime.gather_shards(xt, 0, dp_group)
         gates, eidx, aux = _route(x_all, p["router"]["w"], cfg)
         y = _dispatch_compute(x_all, gates, eidx, *experts, **kw)

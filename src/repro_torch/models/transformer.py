@@ -109,7 +109,8 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device) -> dict:
+def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device,
+                   expert_fn=None) -> dict:
     d = cfg.d_model
     nrm = layers.rmsnorm_init if cfg.norm_kind == "rmsnorm" else layers.layernorm_init
     if ch in ("M", "S"):
@@ -128,18 +129,21 @@ def _sublayer_init(cfg: ModelConfig, ch: str, gen: torch.Generator, device) -> d
     else:
         p["attn"] = attention.gqa_init(cfg, gen, device)
     if cfg.moe is not None and ch == "D":
-        p["moe"] = moe.moe_init(cfg, gen, device)
+        p["moe"] = moe.moe_init(cfg, gen, device, expert_fn=expert_fn)
     else:
         p["ffn"] = ffn.ffn_init(cfg, gen, device=device)
     return p
 
 
-def unit_init(cfg: ModelConfig, pattern: str, gen: torch.Generator, device) -> dict:
-    return {f"s{i}_{ch}": _sublayer_init(cfg, ch, gen, device) for i, ch in enumerate(pattern)}
+def unit_init(cfg: ModelConfig, pattern: str, gen: torch.Generator, device,
+              expert_fn=None) -> dict:
+    return {f"s{i}_{ch}": _sublayer_init(cfg, ch, gen, device, expert_fn)
+            for i, ch in enumerate(pattern)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
-                unit_fn: Optional[Callable[[dict], dict]] = None) -> dict:
+                unit_fn: Optional[Callable[[dict], dict]] = None,
+                expert_fn: Optional[Callable[[torch.Tensor], object]] = None) -> dict:
     """Random f32 parameters with the reference's distributions
     (``N(0,1)/sqrt(fan_in)`` linears, ``N(0,1)*0.02`` embeddings, unit
     norms), drawn from ``gen``.  The numbers differ from the reference's
@@ -151,7 +155,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     once beside the units) and each encoder unit of an enc-dec model
     (stacked at ``params["encoder"]``, beside ``enc_final_norm`` and the stub
     frontend's dense ``frontend_proj``) — e.g. quantizing it — so a
-    full-width model never holds all its f32 weights at once.  Dict keys come in
+    full-width model never holds all its f32 weights at once.  ``expert_fn``
+    maps each MoE expert ``[K, F]`` as soon as it is drawn, before the next
+    (:func:`repro_torch.models.moe.moe_init`): a unit's f32 expert stacks
+    are never held either.  Dict keys come in
     the order of the reference's ``init_params``: a stack's keys sorted, as the
     reference's ``jax.tree.map`` stack rebuilds them
     (:func:`repro_torch.tree.sort_keys`), every other dict in insertion order,
@@ -162,7 +169,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     unit_fn = unit_fn or (lambda u: u)
     seg_list = []
     for pattern, n_units in segments(cfg):
-        units = [unit_fn(unit_init(cfg, pattern, gen, device)) for _ in range(n_units)]
+        units = [unit_fn(unit_init(cfg, pattern, gen, device, expert_fn))
+                 for _ in range(n_units)]
         seg_list.append(tree.sort_keys(tree.stack(units)))
         del units
     params: dict = {

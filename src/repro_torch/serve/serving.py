@@ -20,7 +20,22 @@ Three schedulers share the prefill/decode functions:
 
 ``ServeEngine(plan=)`` serves through a :class:`repro_torch.tune.ModelPlan`:
 the raw quantized tree is prepared leaf by leaf at the plan's configs
-(``Model.prepare(plan=)``, fingerprint-checked).
+(``Model.prepare(plan=)``, fingerprint-checked).  With ``ctx=`` too,
+``params`` is this rank's raw shard (``shard_tree(param_specs(...))`` of
+the global raw tree) and ``plan`` the global plan, made on the global raw
+tree: the fingerprint is checked against the global leaves' identities,
+rebuilt from the shard and its spec over the mesh
+(:func:`repro_torch.dist.sharding.global_codes_shapes`), and every rank
+refuses a plan that does not match on any rank (their verdicts are
+all-reduced first, so no rank is left waiting in a collective).  Each
+``LayerPlan`` applies to the local leaf at its path unchanged (mode, p,
+tile, prepared, ``wcanon`` with the global leaf's cap); ``n_hint`` is the
+plan's, or ``batch``.  A prepared leaf's products are row-local, so each
+rank's prepared bytes are the plan's per-leaf bytes times the share of each
+leaf's codes it holds (checked, ``verify_capacity(shapes=)``:
+``plan_bytes``); a tp group's shards sum to the plan's per-leaf bytes, a
+replicated leaf counted on every rank.  A hot-swap while a sharded engine
+serves flips at each rank's own next wave (no cross-rank agreement).
 
 **Live operations** (:mod:`repro_torch.serve.ops` drives these hooks):
 
@@ -169,7 +184,15 @@ def admit_merge(caches, new_caches, vecs, new_vecs, mask: torch.Tensor):
 
 
 class ServeEngine:
-    """Continuous-batching serving driver (static batch slots, greedy)."""
+    """Continuous-batching serving driver (static batch slots, greedy).
+
+    With ``plan=`` and ``ctx=`` (module docstring) ``params`` is this rank's
+    raw shard: it is prepared under the global plan, whose fingerprint is
+    checked against the global leaves' identities rebuilt from the shard and
+    its spec over the mesh (``dist.sharding.global_codes_shapes``), each
+    ``LayerPlan`` applied to the local leaf at its path; ``plan_bytes`` is
+    the rank's prepared bytes, the plan's per-leaf bytes times the share of
+    each leaf's codes the rank holds."""
 
     def __init__(
         self,
@@ -197,18 +220,20 @@ class ServeEngine:
         self.model = model
         self.ctx = ctx
         self._sharded = runtime.active(ctx)
-        if self._sharded and plan is not None:
-            raise NotImplementedError(
-                "a plan over sharded leaves is not ported: plan fingerprints hash the global "
-                "codes shapes (ROADMAP Queue 1, plans)"
-            )
         self._rows = runtime.rows_of(batch, ctx)     # this rank's dp rows of the slots
         self._local = self._rows.stop - self._rows.start
         self._dp_group = ctx.dp_group() if self._sharded else None
+        self.plan_bytes = None          # this rank's prepared bytes under a plan
         if plan is not None:
             # Autotuned serving: ``params`` is the raw quantized tree (a
-            # prepared tree is frozen to one config and apply_plan refuses it).
-            params = model.prepare(params, plan=plan, n_hint=batch)
+            # prepared tree is frozen to one config and apply_plan refuses it);
+            # under a ctx, this rank's raw shard of it.
+            shapes = self._global_shapes(params, plan) if self._sharded else None
+            params = model.prepare(params, plan=plan, n_hint=batch, shapes=shapes)
+            if shapes is not None:
+                from repro_torch.tune.planner import verify_capacity
+
+                self.plan_bytes = sum(verify_capacity(params, plan, shapes=shapes).values())
         self.plan = plan
         self.params = params
         self.batch = batch
@@ -226,6 +251,38 @@ class ServeEngine:
         self._swap_pending = None       # (params, on_applied, ready) under _swap_lock
         self._swap_lock = threading.Lock()
         self._serving = False
+
+    def _global_shapes(self, params, plan) -> dict:
+        """The global codes shape of every leaf of this rank's raw shard, once
+        every rank of the mesh has found ``plan``'s fingerprint to be its
+        global tree's.  The verdicts are all-reduced over the TP and dp
+        groups, a rank whose own check raised counting as a refusal, so
+        either every rank raises or none does, and none is left waiting in
+        the collective."""
+        import torch.distributed as dist
+
+        from repro_torch.dist.sharding import global_codes_shapes
+        from repro_torch.tune.plan import param_fingerprint
+        from repro_torch.tune.planner import fingerprint_mismatch
+
+        error, fp = None, None
+        try:
+            shapes = global_codes_shapes(self.model.cfg, params, self.ctx)
+            fp = param_fingerprint(params, shapes)
+        except Exception as e:  # re-raised below, after the other ranks have heard of it
+            error = e
+        agree = torch.tensor([int(error is None and fp == plan.fingerprint)], dtype=torch.int32,
+                             device=self.device)
+        for group in (self.ctx.tp_group(), self.ctx.dp_group()):
+            if group is not None:
+                dist.all_reduce(agree, op=dist.ReduceOp.MIN, group=group)
+        if error is not None:
+            raise error
+        if fp != plan.fingerprint:
+            raise ValueError(fingerprint_mismatch(plan, fp))
+        if not int(agree.item()):
+            raise ValueError(fingerprint_mismatch(plan, fp) + " (on another rank of the mesh)")
+        return shapes
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """The ONLY device->host crossing point — counted so the O(1)-syncs

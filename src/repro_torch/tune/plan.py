@@ -186,28 +186,32 @@ def numerics_family(spec) -> str:
     return spec.mode
 
 
-def leaf_identities(params) -> dict[str, tuple]:
+def leaf_identities(params, shapes: Optional[dict] = None) -> dict[str, tuple]:
     """``path -> (codes.shape, k, bw, ba, w_kind, a_kind, family)`` for every
     quantized leaf: the plan-invariant identity tuple the fingerprint hashes,
-    in plain Python ints and strs."""
+    in plain Python ints and strs.  ``shapes`` — ``{path: codes shape}`` —
+    stands in for the leaves' own codes shapes: a rank's shards hash as the
+    global leaves they were cut from
+    (:func:`repro_torch.dist.sharding.global_codes_shapes`)."""
     out: dict[str, tuple] = {}
     for path, leaf in quantized_leaf_items(params):
         spec = leaf.spec
+        shape = leaf.codes.shape if shapes is None else shapes[path]
         out[path] = (
-            tuple(int(d) for d in leaf.codes.shape), int(leaf.k), int(spec.bw), int(spec.ba),
+            tuple(int(d) for d in shape), int(leaf.k), int(spec.bw), int(spec.ba),
             str(spec.w_kind), str(spec.a_kind), numerics_family(spec),
         )
     return out
 
 
-def param_fingerprint(params) -> str:
+def param_fingerprint(params, shapes: Optional[dict] = None) -> str:
     """Shape fingerprint of a parameter tree's quantized leaves: the sha256
     of ``repr((path, codes.shape, k, bw, ba, w_kind, a_kind, family))`` per
     leaf, first 32 hex digits.  The numerics family of the base mode is a
     plan INPUT, so a plan compiled on a ``lut`` tree refuses a ``dequant``
-    tree of the same shapes."""
+    tree of the same shapes.  ``shapes``: as in :func:`leaf_identities`."""
     h = hashlib.sha256()
-    for path, ident in leaf_identities(params).items():
+    for path, ident in leaf_identities(params, shapes).items():
         h.update(repr((path,) + ident).encode())
     return h.hexdigest()[:32]
 

@@ -254,19 +254,31 @@ def plan_model(
     )
 
 
-def apply_plan(params, plan: ModelPlan, *, strict: bool = True, **kw):
+def fingerprint_mismatch(plan: ModelPlan, fp: str) -> str:
+    """The refusal of a plan whose fingerprint is not the tree's ``fp``."""
+    return (f"plan fingerprint {plan.fingerprint} does not match the "
+            f"parameter tree ({fp}): shapes or quantization changed — "
+            f"re-run the autotuner")
+
+
+def apply_plan(params, plan: ModelPlan, *, strict: bool = True,
+               shapes: Optional[dict] = None, **kw):
     """Replay ``plan`` onto a raw quantized tree: per-leaf spec rewrite +
     weight-stationary prepare (raw leaves stay raw where the plan degraded
     them).  Refuses a fingerprint mismatch and a prepared tree.  ``n_hint``
     defaults to the plan's; ``kw`` forwards to
-    :func:`repro_torch.core.prepare_linear`."""
-    fp = param_fingerprint(params)
+    :func:`repro_torch.core.prepare_linear`.
+
+    ``shapes`` — ``{path: global codes shape}`` — applies the plan to a
+    rank's local shards: the fingerprint is checked against the global
+    leaves' identities, and each leaf's ``wcanon`` entry cap is the one its
+    global leaf gets (its stack, not the shard's: an expert-parallel shard
+    holds fewer experts).  Each :class:`LayerPlan` applies to the local leaf
+    at its path unchanged; a shard is no larger than its leaf, so a table
+    the plan keeps fits the shard."""
+    fp = param_fingerprint(params, shapes)
     if fp != plan.fingerprint:
-        raise ValueError(
-            f"plan fingerprint {plan.fingerprint} does not match the "
-            f"parameter tree ({fp}): shapes or quantization changed — "
-            f"re-run the autotuner"
-        )
+        raise ValueError(fingerprint_mismatch(plan, fp))
     if any(isinstance(q, PreparedLinear) for _, q in quantized_leaf_items(params)):
         raise ValueError("apply_plan takes the raw quantized tree (plans "
                          "rewrite specs before preparing)")
@@ -288,24 +300,38 @@ def apply_plan(params, plan: ModelPlan, *, strict: bool = True, **kw):
         )
         if not lp.prepared:
             return qq
-        stack = _leaf_stack(qq)
+        stack = _leaf_stack(qq) if shapes is None else math.prod(shapes[path][:-2])
         cap = max(WCANON_MAX_ENTRIES // max(stack, 1), 1) if lp.wcanon else 0
         return _prepare_leaf(qq, n_hint=n_hint, wcanon_max_entries=cap, **kw)
 
     return map_quantized_leaves(params, fn)
 
 
-def verify_capacity(prepared_params, plan: ModelPlan) -> dict:
+def verify_capacity(prepared_params, plan: ModelPlan, *, shapes: Optional[dict] = None) -> dict:
     """Check the plan's capacity accounting against the prepared tree, leaf
     by leaf; returns the per-layer actual bytes.  Raises ``AssertionError``
-    where the plan's byte count is not the tree's."""
+    where the plan's byte count is not the tree's.
+
+    With ``shapes`` (``{path: global codes shape}``) the tree is one rank's
+    shards: a prepared leaf's products are row-local (``wpk``, ``wcanon``,
+    ``wcodes`` have one row per output row, an expert stack one block per
+    expert), so a shard holding ``1/n`` of its leaf's codes holds ``1/n`` of
+    the plan's bytes for it, and a replicated leaf all of them.  The plan's
+    totals are not held to a rank's tree."""
     actual: dict[str, int] = {}
     for path, leaf in quantized_leaf_items(prepared_params):
         lp = plan.layers[path]
         got = leaf.prepared_bytes if isinstance(leaf, PreparedLinear) else 0
-        if got != lp.capacity_bytes:
+        want = lp.capacity_bytes
+        if shapes is not None:
+            whole, local = math.prod(shapes[path]), leaf.codes.numel()
+            if (want * local) % whole:
+                raise AssertionError(f"{path}: {want} plan bytes do not divide over "
+                                     f"{whole // local} shards")
+            want = want * local // whole
+        if got != want:
             raise AssertionError(
-                f"{path}: plan says {lp.capacity_bytes} prepared bytes, "
+                f"{path}: plan says {want} prepared bytes, "
                 f"actual pytree has {got}"
             )
         actual[path] = got

@@ -75,6 +75,11 @@ SEQ_PAD = (0, 37)                     # the rows' left pads
 SEQ_SERVE = ((3, 3), (300, 2), (9, 3))   # (prompt, max_new): one prompt over a tp-4
                                          # shard of 256 positions
 SEQ_SERVE_MESHES = {"scan": ("m4", "dm"), "loop": ("dm",), "chunked": ("m4",)}
+PLAN_MESHES = ("m4", "dm")            # ServeEngine(plan=, ctx=) on (1, 4) and (2, 2)
+PLAN_DRIVERS = ("scan", "chunked")
+PLAN_BUDGET = 64 * 1024               # the analytic plan: some leaves raw, the rest at p = 4
+PLAN_BATCH, PLAN_MAX_SEQ = 4, 32
+PLAN_SERVE = ((3, 5), (9, 4), (6, 6), (4, 3), (7, 5), (2, 4))   # (prompt, max_new)
 LAUNCH_ARGV = ["--arch", "chatglm3-6b", "--steps", "4", "--batch", "4", "--seq", "16",
                "--lr", "1e-3", "--ckpt-every", "2", "--device", "cpu"]
 
@@ -115,6 +120,18 @@ def seq_inputs(name) -> dict:
             "pad": np.asarray(SEQ_PAD, np.int32),
             "frames": rng.standard_normal((b, cfg.frontend_seq, cfg.frontend_dim))
             .astype(np.float32) if cfg.is_encdec else None}
+
+
+def plan_requests(vocab: int) -> list:
+    """The planned serve's ``(prompt, max_new)`` pairs (numpy, the same in the
+    ranks and in the JAX child)."""
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, vocab, n).astype(np.int32), m) for n, m in PLAN_SERVE]
+
+
+def plan_calibration(vocab: int) -> np.ndarray:
+    """The tokens the JAX child calibrates the planned tree's scales on."""
+    return np.random.default_rng(7).integers(0, vocab, (2, 8)).astype(np.int32)
 
 
 def _numpy_tree(t):
@@ -289,6 +306,90 @@ def serve_case(driver, meshes):
                      "host_syncs": eng.host_syncs, "waves": len(waves),
                      "buckets": dict(eng.bucket_counts)}
     return out
+
+
+def plan_serve_case(out_dir, meshes):
+    """``ServeEngine(plan=, ctx=)``: stablelm-12b smoke, W1A3 ``lut``, f32, the
+    reference launcher's tree calibrated by the reference and its analytic
+    plan from the port's planner on the global raw tree (both from the JAX
+    child's ``ref_plan_tree.pkl``), each rank serving its raw shard under
+    the global plan per mesh and driver; a plan made on the rank's own
+    shard (its fingerprint hashes the local shapes) is refused on every
+    rank, and so is a mismatch or a failed check on rank 0 alone; each rank's prepared bytes beside what the plan gives for its
+    shards, and their sum over the TP group."""
+    import torch
+    import torch.distributed as dist
+
+    from unittest import mock
+
+    from repro_torch import dist as rd
+    from repro_torch.core import PreparedLinear
+    from repro_torch.dist import sharding as rd_sharding
+    from repro_torch.models.model import Model
+    from repro_torch.serve.serving import Request, ServeEngine
+    from repro_torch.tune import plan_model
+    from repro_torch.tune.plan import quantized_leaf_items
+
+    ref = _wait_for(out_dir, "ref_plan_tree.pkl")
+    cfg = _cfg("stablelm-12b")
+    model, raw = Model(cfg), ref["tree"]
+    plan = plan_model(raw, lut_budget_bytes=PLAN_BUDGET, n_hint=PLAN_BATCH, measure=False)
+    whole = dict(quantized_leaf_items(raw))
+    reqs = [Request(prompt=pr, max_new_tokens=m) for pr, m in plan_requests(cfg.vocab_size)]
+    out = {"plan": plan.to_json(), "child_plan": ref["plan"], "total": plan.total_bytes}
+    for m in PLAN_MESHES:
+        ctx = rd.ShardCtx(meshes[m])
+        local = rd.shard_tree(raw, rd.param_specs(cfg, raw, ctx), ctx)
+        for d in PLAN_DRIVERS:
+            eng = ServeEngine(model, local, batch=PLAN_BATCH, max_seq=PLAN_MAX_SEQ, decode=d,
+                              plan=plan, ctx=ctx, device="cpu")
+            waves = []
+            eng.on_wave = waves.append
+            with torch.no_grad():
+                toks = eng.generate(reqs)
+            items = quantized_leaf_items(eng.params)
+            got = sum(q.prepared_bytes for _p, q in items if isinstance(q, PreparedLinear))
+            want = sum(plan.layers[path].capacity_bytes * q.codes.numel()
+                       // whole[path].codes.numel() for path, q in items)
+            tp = ctx.tp_size()
+            want_tp = sum(plan.layers[path].capacity_bytes
+                          * (tp if q.codes.numel() == whole[path].codes.numel() else 1)
+                          for path, q in items)
+            tp_sum = torch.tensor([got], dtype=torch.int64)
+            dist.all_reduce(tp_sum, group=ctx.tp_group())
+            out[(m, d)] = {"tokens": toks, "admissions": list(eng.admissions),
+                           "host_syncs": eng.host_syncs, "waves": len(waves),
+                           "bytes": got, "want_bytes": want, "plan_bytes": eng.plan_bytes,
+                           "tp_sum": int(tp_sum.item()), "want_tp_sum": want_tp,
+                           "prepared": sum(isinstance(q, PreparedLinear) for _p, q in items)}
+        own = plan_model(local, lut_budget_bytes=PLAN_BUDGET, n_hint=PLAN_BATCH, measure=False)
+        out[(m, "refused")] = _refusal(lambda: ServeEngine(
+            model, local, batch=PLAN_BATCH, max_seq=PLAN_MAX_SEQ, plan=own, ctx=ctx, device="cpu"))
+        # Only rank 0 is handed a plan that does not match; then only rank 0's
+        # own check raises.  Every rank must raise, none wait in a collective.
+        rank0 = dist.get_rank() == 0
+        bad = dataclasses.replace(plan, fingerprint="0" * 32) if rank0 else plan
+        out[(m, "one_rank")] = _refusal(lambda: ServeEngine(
+            model, local, batch=PLAN_BATCH, max_seq=PLAN_MAX_SEQ, plan=bad, ctx=ctx, device="cpu"))
+
+        def broken(*_a, **_k):
+            raise RuntimeError("the global shapes could not be rebuilt")
+
+        with (mock.patch.object(rd_sharding, "global_codes_shapes", broken) if rank0
+              else contextlib.nullcontext()):
+            out[(m, "one_rank_raises")] = _refusal(lambda: ServeEngine(
+                model, local, batch=PLAN_BATCH, max_seq=PLAN_MAX_SEQ, plan=plan, ctx=ctx,
+                device="cpu"))
+    return out
+
+
+def _refusal(build):
+    """``None`` if ``build()`` returns, else the type and message it raised."""
+    try:
+        build()
+    except (ValueError, RuntimeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
 
 
 def seq_shard_steps_case(meshes):
@@ -627,11 +728,16 @@ def launch_case(out_dir, meshes):
 
 
 def _wait_for_reference(out_dir: str, timeout_s: float = 300.0) -> dict:
-    """The JAX child's ``ref_ep.pkl`` once it is there (written whole, then
+    """The JAX child's ``ref_ep.pkl`` once it is there."""
+    return _wait_for(out_dir, "ref_ep.pkl", timeout_s)
+
+
+def _wait_for(out_dir: str, name: str, timeout_s: float = 300.0) -> dict:
+    """The JAX child's file ``name`` once it is there (written whole, then
     renamed into place)."""
     import time
 
-    path = os.path.join(out_dir, "ref_ep.pkl")
+    path = os.path.join(out_dir, name)
     t0 = time.monotonic()
     while not os.path.exists(path):
         if time.monotonic() - t0 > timeout_s:
@@ -668,6 +774,7 @@ def rank_main(rank: int, out_dir: str) -> None:
         res["seq_serve"] = {(name, d): seq_serve_case(name, d, meshes, seq_in[name])
                             for name in SEQ_CASES for d in SERVE_DRIVERS}
         ref = _wait_for_reference(out_dir)["train"]
+        res["plan_serve"] = plan_serve_case(out_dir, meshes)
         res["ep"] = ep_case(out_dir, meshes)
         res["train"] = {name: train_case(name, meshes, ref) for name in TRAIN_CASES}
         res["elastic"] = elastic_case(out_dir, meshes, ref)

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import LutLinearSpec, PreparedLinear, QuantizedLinear  # noqa: E402
 from repro_torch.dist import AxisMesh, ShardCtx  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -42,6 +43,16 @@ ARCHS = ["deepseek-v2-lite-16b", "llama4-maverick-400b-a17b"]
 TOL_ROUTE = 1e-6     # gates and aux: f32 softmax sums in another order
 TOL = 1e-4           # moe_apply and the models' logits, relative to max |value|
 LUT = dict(bw=1, ba=3, p=2, mode="lut")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of this module on one torch thread (its smoke shapes
+    gain nothing from more, and the test workers share the host's cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfgs(arch, dtype="float32", **moe_kw):
@@ -217,6 +228,113 @@ def test_maybe_dequant_equals_reference_on_raw_and_prepared_leaves(quantized, mo
         np.testing.assert_array_equal(bf.float().numpy(), want_bf.astype(np.float32))
     dense = _moe_of(quantized["traw"])["w_up"]
     assert tmodel.maybe_dequant(dense) is dense                     # a raw stack passes
+
+
+@pytest.mark.parametrize("matrices", [1, 3])
+@pytest.mark.parametrize("mode", ["dequant", "pallas"])
+def test_bounded_expert_decode_equals_whole_decode_and_reference(quantized, mode, matrices,
+                                                                  monkeypatch):
+    """``maybe_dequant`` decodes a stack a few matrices at a time (here
+    ``DECODE_CHUNK_BYTES`` set to one matrix's f32 bytes, or three with a
+    shorter last chunk): bit-equal, in the same layout, to the whole-stack
+    formula ``decode_weight(p).to(dtype)`` and to the reference's
+    ``maybe_dequant``, on raw and prepared leaves, in f32 and bf16."""
+    spec = dict(bw=4, ba=4, mode=mode)
+    jq = quantized["jm"].quantize(quantized["jraw"], JSpec(**spec))
+    jp = jmodel.prepare_params(jq, n_hint=4)
+    tq, tp = params_from_numpy(_np(jq), device="cpu"), params_from_numpy(_np(jp), device="cpu")
+    cfg = quantized["tcfg"]
+    assert cfg.moe.n_experts % 3
+    monkeypatch.setattr(tmodel, "DECODE_CHUNK_BYTES",
+                        matrices * 4 * cfg.d_model * cfg.moe.d_ff_expert)
+    for name in ("w_gate", "w_up", "w_down"):
+        for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+            want = np.asarray(jmodel.maybe_dequant(_moe_of(jp)[name], jdt)).astype(np.float32)
+            for leaf in (_moe_of(tq)[name], _moe_of(tp)[name]):
+                got, whole = tmodel.maybe_dequant(leaf, dt), tlayers.decode_weight(leaf).to(dt)
+                assert got.dtype == dt and torch.equal(got, whole)
+                assert got.shape == whole.shape and got.stride() == whole.stride()
+                np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_moe_apply_holds_one_decoded_stack_at_a_time(quantized, monkeypatch):
+    """``moe_apply`` decodes ``w_gate``, ``w_up`` and ``w_down`` in turn, each
+    just before its ``torch.bmm``, and drops each before the next is
+    decoded: a call never holds two decoded stacks.  Decoded a matrix at a
+    time, the output is that of the same call on the stacks decoded
+    beforehand."""
+    import weakref
+
+    cfg = quantized["tcfg"]
+    tq = quantized["tm"].quantize(quantized["traw"], LutLinearSpec(bw=4, ba=4, mode="pallas"))
+    layer = tree.index(_moe_of(tq), 0)
+    x = torch.from_numpy(_x(cfg, (2, 5)))
+    decoded = dict(layer, **{n: tmodel.maybe_dequant(layer[n], x.dtype)
+                             for n in ("w_gate", "w_up", "w_down")})
+    y_whole, aux_whole = tmoe.moe_apply(decoded, x, cfg)
+    refs, alive, real = [], [], tmodel.maybe_dequant
+
+    def spy(p, dtype=torch.bfloat16):
+        alive.append([r() is not None for r in refs])
+        out = real(p, dtype)
+        refs.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(tmodel, "maybe_dequant", spy)
+    monkeypatch.setattr(tmodel, "DECODE_CHUNK_BYTES", 1)
+    y, aux = tmoe.moe_apply(layer, x, cfg)
+    assert alive == [[], [False], [False, False]]
+    assert torch.equal(y, y_whole) and torch.equal(aux, aux_whole)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "lut"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_quantized_is_quantize_of_init(arch, mode):
+    """Each expert is drawn and quantized before the next is drawn, with
+    ``init``'s draws: ``init_quantized(seed)`` is ``quantize(init(seed))`` bit
+    for bit, leaf for leaf."""
+    spec = LutLinearSpec(**(LUT if mode == "lut" else dict(bw=4, ba=4, mode="pallas")))
+    tm = tmodel.build_model(get_config(arch, smoke=True))
+    got, want = tm.init_quantized(spec, 0, device="cpu"), tm.quantize(tm.init(0, device="cpu"),
+                                                                       spec)
+    same = []
+    tree.tree_map(lambda a, b: same.append(a.dtype == b.dtype and torch.equal(a, b)), got, want)
+    assert same and all(same)
+    assert _layout(got) == _layout(want)
+
+
+def _layout(node, path=""):
+    """``[(path, shape, dtype name)]`` of every array of a port or reference
+    tree, in walk order (a quantized leaf's codes and scale)."""
+    if hasattr(node, "codes"):
+        return [(f"{path}/{f}", tuple(getattr(node, f).shape),
+                 str(getattr(node, f).dtype).replace("torch.", "")) for f in ("codes", "scale")]
+    if isinstance(node, dict):
+        return [x for k in node for x in _layout(node[k], f"{path}/{k}")]
+    if isinstance(node, (list, tuple)):
+        return [x for i, v in enumerate(node) for x in _layout(v, f"{path}/{i}")]
+    if node is None:
+        return []
+    return [(path, tuple(node.shape), str(node.dtype).replace("torch.", ""))]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_expert_at_a_time_init_has_the_reference_launchers_tree(arch):
+    """The expert-at-a-time ``init_quantized`` tree has the shapes and dtypes
+    of the reference launcher's ``Model.quantize(Model.init(key))``, walks
+    its quantized leaves in the same order and carries its fingerprint."""
+    from test_torch_plans_families import SPEC, _launcher_tree
+
+    from repro.tune.plan import param_fingerprint as jfingerprint
+    from repro.tune.plan import quantized_leaf_items as jleaf_items
+    from repro_torch.tune.plan import param_fingerprint, quantized_leaf_items
+
+    _jm, jq = _launcher_tree(arch)
+    tq = tmodel.build_model(dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+                            ).init_quantized(LutLinearSpec(**SPEC), device="cpu")
+    assert sorted(_layout(tq)) == sorted(_layout(jq))
+    assert [p for p, _ in quantized_leaf_items(tq)] == [p for p, _ in jleaf_items(jq)]
+    assert param_fingerprint(tq) == jfingerprint(jq)
 
 
 @pytest.mark.parametrize("kind", ["raw", "quantized", "prepared"])

@@ -119,6 +119,7 @@ class _Family:
         self.plan_a = plan_model(self.tq, lut_budget_bytes=BUDGET_A, **kw)
         self.plan_b = plan_model(self.tq, lut_budget_bytes=BUDGET_B, **kw)
         self._ref: dict = {}
+        self._planned: dict = {}
         self._cal = None
         self._cal_tokens = None
 
@@ -132,6 +133,22 @@ class _Family:
             outs = eng.generate(_requests(self.cfg, JRequest))
             self._ref[decode] = (eng, outs, list(eng.admissions), eng.host_syncs)
         return self._ref[decode]
+
+    def planned_serve(self, decode="scan"):
+        """The port's ``ServeEngine(plan=)`` (plan A) and its serve of the ragged
+        requests: (engine, tokens), built once per driver."""
+        if decode not in self._planned:
+            eng = self.engine(decode=decode)
+            self._planned[decode] = (eng, eng.generate(_requests(self.cfg)))
+        return self._planned[decode]
+
+    def reference_prepared(self):
+        """The reference's tree prepared under its plan A: its scan engine's
+        where that engine serves the plan (``ServeEngine(plan=)`` prepares
+        with the plan's ``n_hint``, ``N_HINT``), else ``Model.prepare``."""
+        if self.mla:
+            return self.jm.prepare(self.jq, plan=self.jplan, n_hint=N_HINT)
+        return self.reference_engine("scan")[0].params
 
     def engine(self, tree=None, plan="a", **kw):
         plan = {"a": self.plan_a, "b": self.plan_b, None: None}[plan]
@@ -156,6 +173,16 @@ class _Family:
 @pytest.fixture(scope="module", params=FAMILIES)
 def fam(request):
     return _Family(request.param)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of this module on one torch thread (its smoke shapes
+    gain nothing from more, and the test workers share the host's cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # --- the launchers' walk order ----------------------------------------------
@@ -262,8 +289,8 @@ def test_planned_serve_gives_the_reference_tokens(fam, decode):
     """``ServeEngine(plan=)`` with the same driver: the reference's tokens,
     admissions and host syncs (deepseek: the reference's raw tree)."""
     _jeng, want, admissions, syncs = fam.reference_engine(decode)
-    eng = fam.engine(decode=decode)
-    assert eng.generate(_requests(fam.cfg)) == want
+    eng, got = fam.planned_serve(decode)
+    assert got == want
     assert eng.admissions == admissions and eng.host_syncs == syncs
     assert [len(o) for o in want] == list(BUDGETS)
 
@@ -284,10 +311,8 @@ def test_prepared_checkpoint_is_the_reference_file_for_file_and_round_trips(fam,
     byte-identical leaf files (expert stacks and shared packs charged as the
     reference charges them); the port's restore rebuilds the packs and serves
     the planned serve's tokens."""
-    eng = fam.engine()
-    want = eng.generate(_requests(fam.cfg))
-    dj = jck.save_prepared(str(tmp_path / "j"), 0, fam.jm.prepare(fam.jq, plan=fam.jplan,
-                                                                  n_hint=N_HINT))
+    eng, want = fam.planned_serve("scan")
+    dj = jck.save_prepared(str(tmp_path / "j"), 0, fam.reference_prepared())
     dt = ckpt.save_prepared(str(tmp_path / "t"), 0, eng.params)
     assert json.load(open(os.path.join(dj, "manifest.json"))) == \
         json.load(open(os.path.join(dt, "manifest.json")))
@@ -357,8 +382,8 @@ def test_kill_and_replay_identity(fam, tmp_path):
     replay gives the clean serve's tokens.  whisper: any requests (full
     caches, no MoE).  zamba2 and rwkv6: rows of one prompt length, no
     bucketing, so neither the waves nor the replay pad a row.  deepseek: the
-    same waves on a dropless copy (capacity_factor 64: the capacity no
-    longer cuts rows by the call's token count)."""
+    same waves and its calibrated tree on a dropless copy (capacity_factor
+    64: the capacity no longer cuts rows by the call's token count)."""
     tm, tree = fam.tm, fam.calibrated
     if fam.cfg.is_encdec:
         reqs, kw, fail = _requests(fam.cfg), dict(batch=BATCH), (1,)
@@ -370,7 +395,6 @@ def test_kill_and_replay_identity(fam, tmp_path):
         if fam.cfg.moe is not None:
             tm = build_model(dataclasses.replace(
                 fam.cfg, moe=dataclasses.replace(fam.cfg.moe, capacity_factor=64.0)))
-            tree = _calibrated(tm, tm.init_quantized(LutLinearSpec(**SPEC), device="cpu"))
 
     def factory():
         return ServeEngine(tm, prepare_params(tree, n_hint=N_HINT), max_seq=MAX_SEQ,

@@ -25,6 +25,14 @@ runs the reference).
 * ``ServeEngine(ctx=)`` under the scan, loop and chunked drivers: tokens,
   admissions and bucket counts equal to the unsharded engine's, one host
   sync a wave on every rank;
+* ``ServeEngine(plan=, ctx=)`` on (1, 4) and (2, 2) under the scan and
+  chunked drivers: each rank prepares its raw shard of the reference's
+  calibrated stablelm-12b smoke tree (W1A3 ``lut``, f32) under the global
+  analytic plan and serves the reference's unsharded planned tokens,
+  admissions and host syncs (the JAX child serves them); a plan made on a
+  shard is refused on every rank, and so is a mismatch or a failed check on
+  one rank alone; each rank's prepared bytes are the plan's
+  for its shards;
 * ``seq_shard``: the caches of seven cache branches (full, int8, ring,
   MLA, zamba2's shared block, whisper's cross caches, rwkv6's feature-sharded
   token-shift rows) cut along dim 2 on (1, 4) and (2, 2): prefill and decode
@@ -123,7 +131,29 @@ jck.save(sys.argv[2], 5, jax.device_put(new, shd.to_shardings(sspec, mesh)))
 as_np = lambda st: {"params": jax.tree.map(np.asarray, st.params),
                     "opt": jax.tree.map(np.asarray, st.opt), "step": np.asarray(st.step)}
 
+# The reference launcher's stablelm-12b smoke tree, W1A3 lut, f32, its scales
+# calibrated by the reference, carried into the port with its walk order
+# kept, and the port's analytic plan of it: the world's ranks serve this tree
+# sharded under that plan (ref_plan_tree.pkl); the reference serves it
+# unsharded at the end (ref_plan.pkl).
 import os
+import _torch_world as world
+from repro.core import LutLinearSpec as JSpec
+from repro.core.calibrate import calibrate_tree as jcalibrate
+from repro_torch.convert import params_from_numpy
+from repro_torch.tune import plan_model
+
+pcfg = world._cfg("stablelm-12b", get_config)
+pm = build_model(pcfg)
+ptoks = jnp.asarray(world.plan_calibration(pcfg.vocab_size))
+pq = jcalibrate(lambda p_: pm.forward(p_, ptoks)[0],
+                pm.quantize(pm.init(jax.random.PRNGKey(0)), JSpec(bw=1, ba=3, p=4, mode="lut")))
+pplan = plan_model(params_from_numpy(pq, device="cpu"), lut_budget_bytes=world.PLAN_BUDGET,
+                   n_hint=world.PLAN_BATCH, measure=False)
+with open(sys.argv[4] + ".tmp", "wb") as f:
+    pickle.dump({"tree": params_from_numpy(pq, device="cpu"), "plan": pplan.to_json()}, f)
+os.replace(sys.argv[4] + ".tmp", sys.argv[4])
+
 with open(sys.argv[1] + ".tmp", "wb") as f:      # the world's ranks wait for the file
     pickle.dump({"moe": spec, "params": jax.tree.map(np.asarray, p), "x": np.asarray(x),
                  "y": np.asarray(y), "aux": float(aux),
@@ -167,6 +197,22 @@ for name, (arch, over, max_seq, s) in world.SEQ_CASES.items():
         seq_out[(name, m)] = logits
 with open(sys.argv[3], "wb") as f:
     pickle.dump(seq_out, f)
+
+# The reference's unsharded ServeEngine(plan=) of the same tree and plan.
+from repro.serve.serving import Request as JRequest, ServeEngine as JServeEngine
+from repro.tune.plan import ModelPlan as JModelPlan
+
+jplan = JModelPlan.from_json(pplan.to_json())
+plan_out = {}
+for d in world.PLAN_DRIVERS:
+    eng = JServeEngine(pm, pq, batch=world.PLAN_BATCH, max_seq=world.PLAN_MAX_SEQ, decode=d,
+                       plan=jplan)
+    toks = eng.generate([JRequest(prompt=p_, max_new_tokens=m)
+                         for p_, m in world.plan_requests(pcfg.vocab_size)])
+    plan_out[d] = {"tokens": [list(map(int, t)) for t in toks],
+                   "admissions": list(eng.admissions), "host_syncs": eng.host_syncs}
+with open(sys.argv[5], "wb") as f:
+    pickle.dump(plan_out, f)
 """
 
 
@@ -187,7 +233,8 @@ def world_dir(tmp_path_factory):
     with open(out / "ref.err", "w") as err:
         child = subprocess.Popen([sys.executable, "-c", textwrap.dedent(REF_EP),
                                   str(out / "ref_ep.pkl"), str(out / "ref_ckpt"),
-                                  str(out / "ref_seq.pkl")],
+                                  str(out / "ref_seq.pkl"), str(out / "ref_plan_tree.pkl"),
+                                  str(out / "ref_plan.pkl")],
                                  env=env, stdout=subprocess.DEVNULL, stderr=err)
     try:
         world_results = _run_world(mp, out)
@@ -307,6 +354,81 @@ def ref_seq(world_dir):
     """The reference's jitted sequence-sharded steps: ``{(case, mesh): [the
     prefill's logits, then each decode step's]}``."""
     return pickle.loads((world_dir[0] / "ref_seq.pkl").read_bytes())
+
+
+@pytest.fixture(scope="module")
+def ref_plan(world_dir):
+    """The reference's unsharded ``ServeEngine(plan=)`` per driver: tokens,
+    admissions, host syncs."""
+    return pickle.loads((world_dir[0] / "ref_plan.pkl").read_bytes())
+
+
+def test_rank_plan_is_the_plan_the_reference_serves(ranks):
+    """Each rank's analytic plan of the global raw tree is the plan the JAX
+    child made with the port's planner and the reference served: JSON for
+    JSON."""
+    for res in ranks:
+        assert res["plan_serve"]["plan"] == res["plan_serve"]["child_plan"]
+
+
+@pytest.mark.parametrize("driver", world.PLAN_DRIVERS)
+@pytest.mark.parametrize("mesh", world.PLAN_MESHES)
+def test_planned_sharded_serve_equals_reference_unsharded(ranks, ref_plan, mesh, driver):
+    """``ServeEngine(plan=, ctx=)`` over each rank's raw shard gives the
+    reference's unsharded planned serve's tokens, admissions and host syncs
+    (the int-lut family is integer-exact and the ``lut`` shards are
+    bit-equal to the unsharded layer), one host sync a wave or chunk."""
+    want = ref_plan[driver]
+    for r, res in enumerate(ranks):
+        got = res["plan_serve"][(mesh, driver)]
+        assert [list(map(int, t)) for t in got["tokens"]] == want["tokens"], (r, mesh, driver)
+        assert got["admissions"] == [tuple(a) for a in want["admissions"]], (r, got)
+        assert got["host_syncs"] == want["host_syncs"], (r, got)
+        assert got["prepared"] > 0, got          # the plan prepared some leaves
+        if driver == "scan":
+            assert got["host_syncs"] == got["waves"], got
+
+
+def test_sharded_serve_refuses_a_plan_that_does_not_match(ranks):
+    """A plan made on a rank's own shard hashes the local codes shapes: every
+    rank refuses it with the reference's message, and no rank hangs."""
+    for res in ranks:
+        for m in world.PLAN_MESHES:
+            msg = res["plan_serve"][(m, "refused")]
+            assert msg is not None and "does not match the parameter tree" in msg, (m, msg)
+
+
+@pytest.mark.parametrize("case", ["one_rank", "one_rank_raises"])
+def test_sharded_serve_refusal_on_one_rank_reaches_every_rank(ranks, case):
+    """Rank 0 alone is handed a plan that does not match (``one_rank``), or
+    its own check raises (``one_rank_raises``): rank 0 raises its own error,
+    every other rank refuses the plan for it, and none hangs in the
+    collective."""
+    own = {"one_rank": "ValueError: plan fingerprint 00000000000000000000000000000000 does "
+                       "not match the parameter tree",
+           "one_rank_raises": "RuntimeError: the global shapes could not be rebuilt"}[case]
+    for r, res in enumerate(ranks):
+        for m in world.PLAN_MESHES:
+            msg = res["plan_serve"][(m, case)]
+            assert msg is not None, (r, m)
+            if r == 0:
+                assert msg.startswith(own), (m, msg)
+            else:
+                assert msg.startswith("ValueError: plan fingerprint") and \
+                    msg.endswith("(on another rank of the mesh)"), (r, m, msg)
+
+
+@pytest.mark.parametrize("mesh", world.PLAN_MESHES)
+def test_planned_shards_hold_the_plans_bytes_for_them(ranks, mesh):
+    """Each rank's prepared bytes are the plan's per-leaf bytes times the share
+    of each leaf's codes it holds (the engine's own check agrees); over a TP
+    group they sum to the plan's bytes with each replicated leaf once a
+    rank."""
+    for res in ranks:
+        for d in world.PLAN_DRIVERS:
+            got = res["plan_serve"][(mesh, d)]
+            assert got["bytes"] == got["want_bytes"] == got["plan_bytes"] > 0, got
+            assert got["tp_sum"] == got["want_tp_sum"], got
 
 
 @pytest.mark.parametrize("mesh", world.SEQ_MESHES)
