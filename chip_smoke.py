@@ -5,7 +5,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-(``--phase tc_cp_async``, ``--phase gemma2_serve``, ``--phase live_ops``,
+(``--phase flash``, ``--phase stablelm_forward``, ``--phase tc_cp_async``,
+``--phase gemma2_serve``, ``--phase live_ops``,
 ``--phase obs``, ``--phase deepseek``, ``--phase zamba2``, ``--phase rwkv``,
 ``--phase whisper``, ``--phase vlm_train``, ``--phase dist``, ``--phase dist_train``,
 ``--phase seq_shard``, ``--phase dryrun``, ``--phase plans_families``, ``--phase
@@ -34,6 +35,12 @@ entry points at published full widths:
   ``lut_dequant_gemm``, held against ``attn_impl="xla"``; both kernels are
   also held against their plain versions at this forward's own shapes;
 
+* stablelm-12b's cache-free forward (phase 30, 20 of its 40 layers) over
+  2 x 4096 tokens, W4A4 ``pallas`` prepared, ``attn_impl="flash"`` —
+  ``flash_attention`` at head dim 160 (GQA 32/8, causal) on its tensor-core
+  route, padded to 192 columns, beside 140 ``lut_dequant_gemm`` launches,
+  held against ``attn_impl="xla"`` in bf16 and in f32;
+
 * gemma2-2b served at full width and its published 8192-token context,
   W4A4 ``pallas`` prepared, bf16 — under ``--profile serve`` (ring-window
   caches of 4096 slots on the local layers, int8 K/V with per-row scales on
@@ -59,7 +66,9 @@ entry points at published full widths:
   ``ServeEngine`` — 19 applied projections a forward on ``lut_dequant_gemm``'s tensor-core
   route, the recurrence in plain torch as the reference's XLA; then a
   6-layer W1A3 ``lut`` serve and a 6-layer f32 prefill against the CPU and
-  against a prefill followed by decode steps;
+  against a prefill followed by decode steps; and the served tree's
+  cache-free forward through ``attn_impl="flash"`` (the shared block's head
+  dim 112 on the tensor cores) against ``"xla"``;
 
 * rwkv6-3b (phase 19): 8 of its 32 RWKV6 "Finch" layers at published
   widths (no attention; an O(1) recurrent state a request, the same bytes
@@ -232,6 +241,8 @@ TOL_FORWARD_BF16 = 2.0        # in bf16: the two forwards' relative distance (Fr
                               # other places grows through the residual stream, as bf16
                               # rounding itself does
 FLASH_SEQ = 8192              # gemma2-2b's published context: the forward's length
+STABLELM_FWD = (2, 4096)      # phase 30: B x S of stablelm-12b's cache-free forward (stablelm-2's
+                              # published context: scoring two sequences at full length)
 KERNELS = ("lut_dequant_gemm", "lut_stream_gemm", "flash_attention")
 # The CUDA sources are kernels/build.py's SOURCES, one library each.  The three
 # kernels have two routes each, fixed by what the inputs are and never by the
@@ -672,6 +683,64 @@ def phase_kernel_times(torch, dev, cfg, card, *, bs=(4, 4 * 128), iters=(20, 5, 
         f"plain version (tol {TOL_REL}); worst rel err {worst_rel:.3e}, worst abs err "
         f"{worst_abs:.3e}")
     return rows, worst_rel, worst_abs
+
+
+def phase_dequant_f32_times(torch, dev, cfg, card, smi, *, bs=(4, 4 * 128), iters=(10, 3, 3)):
+    """Phase 12b: ``lut_dequant_gemm`` on **f32 x** (the CUDA-core route,
+    ``lut_dequant_gemm.cu``: the f32 forwards' path) at one layer's 7
+    projection shapes of ``cfg``, W4 int grid, each B of ``bs``: held
+    against the plain version (TOL_REL), then kernel, plain version and f32
+    ``torch.matmul`` on the pre-decoded f32 weight timed (:func:`device_ms`),
+    beside the bound at the f32 CUDA-core rate."""
+    from repro_torch.core.api import LutLinearSpec, dequantize_weights, quantize_linear
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.kernels import lut_dequant_gemm as dq
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    g = QuantSpec(4, "int").grid()
+    rows, worst_rel = [], 0.0
+    for name, (k, f) in layer_shapes(cfg).items():
+        w = torch.randn((k, f), generator=gen, device=dev)
+        q = quantize_linear(w, LutLinearSpec(bw=4))
+        w_t = dequantize_weights(q).T.contiguous()          # [F, K] f32, pre-decoded
+        del w
+        n_copies = max(1, math.ceil(200e6 / q.codes.numel()))   # cold in L2, as phase 2
+        codes = [q.codes.clone() for _ in range(n_copies)]
+        for b in bs:
+            x = torch.randn((b, k), generator=gen, device=dev)
+            check(dq.route(x.dtype, 4, g, k) == "cuda_core", f"{name}: f32 x not on the CUDA cores")
+            before, before_tc = dq.launches, dq.launches_tc
+            y = dq.lut_dequant_gemm(x, q.codes, q.scale, bw=4, k=k, grid_values=g)
+            check(dq.launches > before and dq.launches_tc == before_tc,
+                  f"{name} B={b}: f32 x took the tensor cores")
+            y_plain = ref.lut_dequant_gemm_ref(x, q.codes, q.scale, bw=4, k=k, grid=g)
+            rel = (y - y_plain).abs().max().item() / max(y_plain.abs().max().item(), 1e-30)
+            check(rel <= TOL_REL, f"f32 kernel vs plain at {name} B={b}: rel err {rel:.3e}")
+            worst_rel = max(worst_rel, rel)
+            ms = device_ms(torch, lambda i: dq.lut_dequant_gemm(
+                x, codes[i % n_copies], q.scale, bw=4, k=k, grid_values=g), iters[0])
+            plain = device_ms(torch, lambda i: ref.lut_dequant_gemm_ref(
+                x, codes[i % n_copies], q.scale, bw=4, k=k, grid=g), iters[1])
+            lib = device_ms(torch, lambda i: torch.matmul(x, w_t.T), iters[2])
+            bnd, by = bound_s(b, k, f, 4, 4, card)
+            rows.append(dict(proj=name, B=b, K=k, F=f, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bnd * 1e3, bound_by=by, frac_bound=bnd * 1e3 / ms))
+            log(f"  {name:6s} B={b:4d} K={k:5d} F={f:5d} f32 x: kernel (CUDA cores) {ms:.4f} ms "
+                f"({bnd * 1e3 / ms:.3f} of the bound {bnd * 1e3:.4f} ms, {by}), plain "
+                f"{plain:.4f} ms, torch.matmul(f32 x, f32 decoded) {lib:.4f} ms")
+            del x, y, y_plain
+        del codes, w_t, q
+    torch.cuda.empty_cache()
+    for b in bs:
+        t = {key: sum(r[key] for r in rows if r["B"] == b)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"phase 12b [{smi}]: {cfg.name}'s 7 projections at B={b}, f32 x: kernel "
+            f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of the bound "
+            f"{t['bound_ms']:.4f} ms), "
+            f"plain {t['plain_ms']:.4f} ms, f32 torch.matmul {t['library_ms']:.4f} ms "
+            f"({t['ms'] / t['library_ms']:.2f}x it); worst rel err {worst_rel:.3e}")
+    return rows, worst_rel
 
 
 # ---------------------------------------------------------------------------
@@ -1865,9 +1934,12 @@ def phase_cpu_and_loop(torch, dev, cfg):
 # Phases 9-11: flash_attention vs its plain version; gemma2-2b's forward
 # ---------------------------------------------------------------------------
 
-# (name, B, S, T, H, Hkv, hd, kwargs): the CPU tests' sweep, then the
+# (name, B, S, T, H, Hkv, hd, kwargs): the CPU tests' sweep, the head dims
+# that are no multiple of 64 (zero-filled to the padded width on the tensor
+# cores; each with a window and a softcap for the planted faults), then the
 # full-width shapes: gemma2-2b's local ("L") and global ("G") layers at
-# S = 8192, stablelm-12b's at the serve prefill's longest S = 2048.
+# S = 8192, stablelm-12b's at S = 2048 and at phase 30's forward (2 x 4096),
+# and zamba2-7b's shared block (hd 112) at S = 4096.
 FLASH_CASES = [
     ("sweep", 2, 256, 256, 4, 2, 64, {}),
     ("sweep", 1, 384, 384, 8, 8, 32, dict(window=128)),
@@ -1876,10 +1948,17 @@ FLASH_CASES = [
     ("sweep", 1, 256, 256, 4, 4, 64, dict(causal=False)),
     ("sweep", 1, 130, 130, 2, 2, 64, dict(window=32)),
     ("sweep", 1, 96, 160, 4, 2, 64, dict(window=48, softcap=50.0)),   # T > S, ragged T
+    ("sweep", 2, 70, 90, 4, 2, 16, dict(causal=False, window=30)),
+    ("sweep hd", 1, 256, 256, 4, 2, 96, dict(window=128, softcap=30.0)),
+    ("sweep hd", 2, 200, 300, 4, 4, 112, dict(window=128, softcap=50.0)),   # T > S
+    ("sweep hd", 1, 384, 384, 8, 2, 160, dict(window=160, softcap=50.0)),
     ("gemma2-2b L", 1, FLASH_SEQ, FLASH_SEQ, 8, 4, 256, dict(window=4096, softcap=50.0)),
     ("gemma2-2b G", 1, FLASH_SEQ, FLASH_SEQ, 8, 4, 256, dict(softcap=50.0)),
     ("stablelm-12b", 1, 2048, 2048, 32, 8, 160, {}),
+    ("stablelm-12b fwd", *STABLELM_FWD, STABLELM_FWD[1], 32, 8, 160, {}),
+    ("zamba2-7b", 1, 4096, 4096, 32, 32, 112, {}),
 ]
+FLASH_FAULTS_AT = ("sweep hd", "gemma2-2b")   # cases whose planted faults the row check must catch
 
 
 def flash_kw(kw):
@@ -1957,10 +2036,11 @@ def phase_flash_kernel(torch, dev):
     checks: the whole output against the plain version's bf16 output
     (TOL_FLASH_BF16 x max |out|), and each row against the plain version in
     f32 (TOL_FLASH_BF16_ROW x the row's max |out|), which a dropped softcap
-    or a window off by one key block fails; at gemma2-2b's shapes both
-    faults are planted (the kernel called with those options, held against
-    the plain version with the right ones) and the row check must reject
-    them."""
+    or a window off by one key block fails; at gemma2-2b's shapes and the
+    padded head dims' sweep cases (:data:`FLASH_FAULTS_AT`) both faults are
+    planted (the kernel called with those options, held against the plain
+    version with the right ones) and the row check must reject them.  Every
+    bf16 case takes the tensor cores and gives the same bits twice."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1975,10 +2055,12 @@ def phase_flash_kernel(torch, dev):
         for dtype, tol in ((torch.float32, TOL_FLASH_F32), (torch.bfloat16, TOL_FLASH_BF16)):
             q, k, v = flash_inputs(torch, dev, gen, b, s, t, h, hkv, hd, dtype)
             q = q * q_scale
+            before_tc = fa.launches_tc
             got = fa.flash_attention(q, k, v, **flash_kw(kw))
-            if name.startswith("gemma2-2b") and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 # Deterministic: one CTA per output tile, no atomics.
-                check(fa.route(dtype, hd) == "tc", f"flash {label} bf16 not on the tensor cores")
+                check(fa.launches_tc == before_tc + 1,
+                      f"flash {label} bf16 hd {hd} not on the tensor cores")
                 again = fa.flash_attention(q, k, v, **flash_kw(kw))
                 check(torch.equal(got, again), f"flash {label} bf16: a repeated launch on the "
                                                f"same inputs gave other bits")
@@ -1997,7 +2079,7 @@ def phase_flash_kernel(torch, dev):
                 check(row <= TOL_FLASH_BF16_ROW, f"flash {label} {tuple(q.shape)} {kw} bf16: "
                       f"row error {row:.3e} x the row's max |out| > {TOL_FLASH_BF16_ROW}")
                 worst_row = max(worst_row, row)
-                if name.startswith("gemma2-2b"):
+                if name.startswith(FLASH_FAULTS_AT):
                     for fault, bad_kw in flash_planted_faults(kw, q_scale):
                         bad = fa.flash_attention(q, k, v, **flash_kw(bad_kw))
                         bad_row = flash_row_err(bad, want32)
@@ -2005,7 +2087,8 @@ def phase_flash_kernel(torch, dev):
                         check(bad_row > TOL_FLASH_BF16_ROW,
                               f"flash {label}: planted fault ({fault}) passed the row check: "
                               f"{bad_row:.3e} x the row's max |out|")
-                        planted.append(f"{label}, {fault}: row err {bad_row:.3e} (rejected); "
+                        planted.append(f"{label} (hd {hd}), {fault}: row err {bad_row:.3e} "
+                                       f"(rejected); "
                                        f"max err {bad_err:.3e} against the whole-output "
                                        f"tolerance {bound:.3e} ("
                                        f"{'passes' if bad_err <= bound else 'rejected'})")
@@ -2014,13 +2097,15 @@ def phase_flash_kernel(torch, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"phase 9: flash_attention == plain version on {2 * len(cases)} cases (the CPU "
-        f"sweep, gemma2-2b L and G at S={FLASH_SEQ}, stablelm-12b at S=2048, and the softcapped "
+        f"sweep, hd {sorted({c[6] for c in FLASH_CASES})}, gemma2-2b L and G at "
+        f"S={FLASH_SEQ}, stablelm-12b at S=2048 and 2 x 4096, zamba2-7b at S=4096, and the "
+        f"softcapped "
         f"ones again with q x{FLASH_Q_SCALE:g}; f32 and bf16): worst abs err f32 "
         f"{worst[torch.float32]:.3e} (tol {TOL_FLASH_F32} x max(1, max|out|)), bf16 "
         f"{worst[torch.bfloat16]:.3e} (tol 2^-7 x max|out|); worst bf16 row err against f32 "
-        f"{worst_row:.3e} x the row's max |out| (tol 2^-7); routes: bf16 hd 64/256 tensor "
-        f"cores, hd 32/160 and f32 CUDA cores; repeated bf16 launches bit-equal at "
-        f"{', '.join(repeats)}")
+        f"{worst_row:.3e} x the row's max |out| (tol 2^-7); routes: every bf16 case on the "
+        f"tensor cores (asserted), f32 on the CUDA cores; repeated bf16 launches bit-equal at "
+        f"all {len(repeats)} bf16 cases")
     log("phase 9: planted faults, bf16 (the kernel called with the faulty options):")
     for line in planted:
         log(f"  {line}")
@@ -2075,10 +2160,11 @@ def phase_flash_times(torch, dev, card, smi):
     gen = torch.Generator(device=dev).manual_seed(10)
     rows = []
     for name, b, s, t, h, hkv, hd, kw in FLASH_CASES:
-        if name == "sweep":
+        if name.startswith("sweep"):
             continue
         q, k, v = flash_inputs(torch, dev, gen, b, s, t, h, hkv, hd, torch.bfloat16)
         route = fa.route(q.dtype, hd)
+        check(route == "tc", f"phase 10: {name} (bf16, hd {hd}) not on the tensor cores")
         kern = time_ms(torch, lambda i: fa.flash_attention(q, k, v, **flash_kw(kw)), 5)
         # The CUDA-core kernel at the same bf16 inputs, which the
         # tensor-core route now takes: the redesign's "before".
@@ -2137,41 +2223,116 @@ def flash_forward_times(rows, cfg_layers, fwd):
                         **{r["shape"]: r["cuda_core_ms"] for r in picked}}}
 
 
-def phase_gemma2_forward(torch, dev, smi):
-    """gemma2-2b at its published widths (26 layers), random weights from
-    seed 0, W4A4 pallas prepared, bf16: ``Model.forward`` over B=1 x S=8192
-    tokens with ``attn_impl="flash"``, launch counts set to 0 just before and
-    read just after, held against ``attn_impl="xla"`` on the same tree."""
-    from repro_torch.configs import get_config
-    from repro_torch.core import LutLinearSpec
+def rel_errs(a, b):
+    """(max |a - b| / max |b|, relative Frobenius norm |a - b| / |b|)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max().item() / b.abs().max().item(), ((a - b).norm() / b.norm()).item())
+
+
+def flash_vs_xla(torch, cfg, params, toks, *, what, n_last=512):
+    """The cache-free ``Model.forward(return_hidden=True)`` of ``cfg`` (bf16)
+    over ``toks`` under ``attn_impl="flash"``, launch counts set to 0 just
+    before and read just after, then under ``"xla"`` on the same tree; the
+    same pair in f32 activations, and the bf16 xla forward against the f32
+    one (the bf16 rounding the two bf16 forwards may differ by).  The hidden
+    states and the last ``n_last`` positions' logits are held: f32 flash vs
+    xla within TOL_FORWARD_F32 x max |value|, bf16 flash vs xla (relative
+    Frobenius norm) within TOL_FORWARD_BF16 x the bf16 xla forward's own
+    distance from f32.  Returns ``(launch counts of the flash
+    forward, results)``."""
     from repro_torch.models import transformer
     from repro_torch.models.model import build_model
-    import numpy as np
 
-    cfg = dataclasses.replace(get_config("gemma2-2b"), attn_impl="flash")
-    flash, xla = build_model(cfg), build_model(dataclasses.replace(cfg, attn_impl="xla"))
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = flash.prepare(flash.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
-                                                seed=0, device=dev), n_hint=FLASH_SEQ)
-    torch.cuda.synchronize()
-    log(f"phase 11: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-        f"hd={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.n_layers} "
-        f"(segments {transformer.segments(cfg)}), window {cfg.window}, softcaps {cfg.attn_logit_softcap}/"
-        f"{cfg.final_logit_softcap}, W4A4 pallas prepared in {time.perf_counter() - t0:.1f}s; "
-        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the card")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, FLASH_SEQ)).astype(np.int32)).to(dev)
-    flash.forward(params, toks[:, :512], return_hidden=True)     # warmup
-    torch.cuda.synchronize()
-
+    flash = build_model(dataclasses.replace(cfg, attn_impl="flash"))
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
     reset_launches()
     t0 = time.perf_counter()
     h_flash, caches = flash.forward(params, toks, return_hidden=True)
     torch.cuda.synchronize()
     wall_flash = time.perf_counter() - t0
     counts = read_launches()
-    check(caches is None, "the cache-free forward returned caches")
+    check(caches is None, f"{what}: the cache-free forward returned caches")
+    reset_launches()
+    t0 = time.perf_counter()
+    h_xla, _ = xla.forward(params, toks, return_hidden=True)
+    torch.cuda.synchronize()
+    wall_xla = time.perf_counter() - t0
+    check(read_launches()["flash_attention"] == 0, f"{what}: the xla forward launched "
+                                                    f"flash_attention")
+    b, s = toks.shape
+    check(h_flash.shape == (b, s, cfg.d_model) and h_flash.dtype == torch.bfloat16,
+          f"{what}: hidden states {tuple(h_flash.shape)} {h_flash.dtype}")
+    check(bool(torch.isfinite(h_flash).all()), f"{what}: flash hidden states not finite")
+    n_last = min(n_last, s)
+    lg_flash = transformer.lm_head(params, cfg, h_flash[:, -n_last:])
+    lg_xla = transformer.lm_head(params, cfg, h_xla[:, -n_last:])
+    check(bool(torch.isfinite(lg_flash).all()) and lg_flash.shape == (b, n_last, cfg.vocab_size),
+          f"{what}: flash logits {tuple(lg_flash.shape)} or not finite")
+    agree = (lg_flash.argmax(-1) == lg_xla.argmax(-1)).float().mean().item()
+    bf16 = {"hidden states": rel_errs(h_flash, h_xla), "logits": rel_errs(lg_flash, lg_xla)}
+    del h_flash, lg_flash
+
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    h32 = {impl: build_model(dataclasses.replace(f32_cfg, attn_impl=impl)).forward(
+        params, toks, return_hidden=True)[0] for impl in ("flash", "xla")}
+    lg32 = {impl: transformer.lm_head(params, f32_cfg, h[:, -n_last:]) for impl, h in h32.items()}
+    f32 = {"hidden states": rel_errs(h32["flash"], h32["xla"]),
+           "logits": rel_errs(lg32["flash"], lg32["xla"])}
+    floor = {"hidden states": rel_errs(h_xla, h32["xla"]), "logits": rel_errs(lg_xla, lg32["xla"])}
+    del h32, lg32, h_xla, lg_xla
+    log(f"{what}: Model.forward B={b} x S={s}: flash {wall_flash:.3f} s, xla {wall_xla:.3f} s "
+        f"(host clock, synchronized, first calls); launches {counts}; last-{n_last} argmax "
+        f"agreement flash vs xla (bf16) {agree:.4f}")
+    for key in ("hidden states", "logits"):
+        log(f"  {key}: flash vs xla, bf16: max err {bf16[key][0]:.3e} x max|value|, rel norm "
+            f"{bf16[key][1]:.3e}; f32: max err {f32[key][0]:.3e}, rel norm "
+            f"{f32[key][1]:.3e}; bf16 xla vs f32 xla (bf16 rounding): max err "
+            f"{floor[key][0]:.3e}, rel norm {floor[key][1]:.3e}")
+    for key in ("hidden states", "logits"):
+        check(f32[key][0] <= TOL_FORWARD_F32,
+              f"{what}: flash vs xla {key}, f32: max err {f32[key][0]:.3e} x max|value| > "
+              f"{TOL_FORWARD_F32}")
+        check(bf16[key][1] <= TOL_FORWARD_BF16 * floor[key][1],
+              f"{what}: flash vs xla {key}, bf16: rel norm {bf16[key][1]:.3e} > "
+              f"{TOL_FORWARD_BF16} x the bf16 forward's own rounding {floor[key][1]:.3e}")
+    torch.cuda.empty_cache()
+    return counts, dict(wall_flash_s=wall_flash, wall_xla_s=wall_xla, flash_vs_xla_bf16=bf16,
+                        flash_vs_xla_f32=f32, bf16_vs_f32=floor, argmax_agreement=agree)
+
+
+def phase_flash_forward(torch, dev, smi, cfg, *, batch, seq, phase):
+    """``cfg`` at its published widths (``cfg.n_layers`` layers), random
+    weights from seed 0, W4A4 pallas prepared, bf16: ``Model.forward`` over
+    B=``batch`` x S=``seq`` tokens with ``attn_impl="flash"``, launch counts
+    set to 0 just before and read just after -- one ``flash_attention``
+    launch a layer and 7 ``lut_dequant_gemm`` launches a layer, all on the
+    tensor cores -- held against ``attn_impl="xla"`` on the same tree
+    (:func:`flash_vs_xla`); then both forwards timed on CUDA events and
+    broken down by kernel with ``torch.profiler``."""
+    from repro_torch.core import LutLinearSpec
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    import numpy as np
+
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    flash, xla = build_model(cfg), build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = flash.prepare(flash.init_quantized(LutLinearSpec(bw=4, ba=4, mode="pallas"),
+                                                seed=0, device=dev), n_hint=batch * seq)
+    torch.cuda.synchronize()
+    log(f"phase {phase}: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"hd={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.n_layers} "
+        f"(segments {transformer.segments(cfg)}), window {cfg.window}, softcaps "
+        f"{cfg.attn_logit_softcap}/{cfg.final_logit_softcap}, W4A4 pallas prepared in "
+        f"{time.perf_counter() - t0:.1f}s; {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on "
+        f"the card")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+    flash.forward(params, toks[:, :512], return_hidden=True)     # warmup
+    torch.cuda.synchronize()
+
+    counts, cmp = flash_vs_xla(torch, cfg, params, toks, what=f"phase {phase} [{smi}]")
     check(counts["flash_attention"] == cfg.n_layers,
           f"flash_attention launches {counts['flash_attention']} != {cfg.n_layers} layers")
     check(counts["flash_attention_tc"] == cfg.n_layers,
@@ -2184,67 +2345,15 @@ def phase_gemma2_forward(torch, dev, smi):
           f"7 x {cfg.n_layers} (bf16 x, int grid)")
     check(counts["lut_stream_gemm"] == 0, f"the pallas forward launched lut_stream_gemm: {counts}")
 
-    reset_launches()
-    t0 = time.perf_counter()
-    h_xla, _ = xla.forward(params, toks, return_hidden=True)
-    torch.cuda.synchronize()
-    wall_xla = time.perf_counter() - t0
-    check(read_launches()["flash_attention"] == 0, "the xla forward launched flash_attention")
-
-    check(h_flash.shape == (1, FLASH_SEQ, cfg.d_model) and h_flash.dtype == torch.bfloat16,
-          f"hidden states {tuple(h_flash.shape)} {h_flash.dtype}")
-    check(bool(torch.isfinite(h_flash).all()), "flash hidden states not finite")
-
-    def compare(a, b):
-        """(max abs difference / max |b|, relative Frobenius norm)."""
-        a, b = a.float(), b.float()
-        return ((a - b).abs().max().item() / b.abs().max().item(),
-                ((a - b).norm() / b.norm()).item())
-
-    n_last = min(512, FLASH_SEQ)
-    lg_flash = transformer.lm_head(params, cfg, h_flash[:, -n_last:])
-    lg_xla = transformer.lm_head(params, cfg, h_xla[:, -n_last:])
-    check(bool(torch.isfinite(lg_flash).all()) and lg_flash.shape == (1, n_last, cfg.vocab_size),
-          f"flash logits {tuple(lg_flash.shape)} or not finite")
-    agree = (lg_flash.argmax(-1) == lg_xla.argmax(-1)).float().mean().item()
-    bf16 = {"hidden states": compare(h_flash, h_xla), "logits": compare(lg_flash, lg_xla)}
-
-    # The same tree in f32 activations: flash against xla (the kernel's own
-    # agreement through 26 layers), and the bf16 xla forward against it (the
-    # bf16 rounding that the two bf16 forwards may differ by).
-    f32 = {}
-    f32_cfg = dataclasses.replace(cfg, dtype="float32")
-    h32 = {impl: build_model(dataclasses.replace(f32_cfg, attn_impl=impl)).forward(
-        params, toks, return_hidden=True)[0] for impl in ("flash", "xla")}
-    lg32 = {impl: transformer.lm_head(params, f32_cfg, h[:, -n_last:]) for impl, h in h32.items()}
-    f32["hidden states"] = compare(h32["flash"], h32["xla"])
-    f32["logits"] = compare(lg32["flash"], lg32["xla"])
-    floor = {"hidden states": compare(h_xla, h32["xla"]), "logits": compare(lg_xla, lg32["xla"])}
-    del h32, lg32
-    log(f"phase 11 [{smi}]: Model.forward B=1 x S={FLASH_SEQ}: flash {wall_flash:.3f} s, xla "
-        f"{wall_xla:.3f} s (host clock, synchronized); launches {counts}; last-{n_last} argmax "
-        f"agreement flash vs xla (bf16) {agree:.4f}")
-    for what in ("hidden states", "logits"):
-        log(f"  {what}: flash vs xla, bf16: max err {bf16[what][0]:.3e} x max|value|, rel norm "
-            f"{bf16[what][1]:.3e}; f32: max err {f32[what][0]:.3e}, rel norm "
-            f"{f32[what][1]:.3e}; bf16 xla vs f32 xla (bf16 rounding): max err "
-            f"{floor[what][0]:.3e}, rel norm {floor[what][1]:.3e}")
-    for what in ("hidden states", "logits"):
-        check(f32[what][0] <= TOL_FORWARD_F32,
-              f"flash vs xla {what}, f32: max err {f32[what][0]:.3e} x max|value| > "
-              f"{TOL_FORWARD_F32}")
-        check(bf16[what][1] <= TOL_FORWARD_BF16 * floor[what][1],
-              f"flash vs xla {what}, bf16: rel norm {bf16[what][1]:.3e} > {TOL_FORWARD_BF16} x "
-              f"the bf16 forward's own rounding {floor[what][1]:.3e}")
-
     fwd_flash = time_ms(torch, lambda i: flash.forward(params, toks, return_hidden=True), 2)
     fwd_xla = time_ms(torch, lambda i: xla.forward(params, toks, return_hidden=True), 2)
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"phase 11 [{smi}]: forward (CUDA events, mean of 2): flash {fwd_flash:.2f} ms, xla "
+    log(f"phase {phase} [{smi}]: forward (CUDA events, mean of 2): flash {fwd_flash:.2f} ms, xla "
         f"{fwd_xla:.2f} ms; peak memory {peak / 1e9:.2f} GB")
-    log("phase 11: where the device time goes (torch.profiler, one forward each):")
+    log(f"phase {phase}: where the device time goes (torch.profiler, one forward each):")
     prof = device_time_by_kernel(torch, lambda: flash.forward(params, toks, return_hidden=True), 1)
-    log_breakdown("flash forward", prof, fwd_flash, kernel="flash_attention", card=smi)
+    flash_profile = log_breakdown("flash forward", prof, fwd_flash, kernel="flash_attention",
+                                  card=smi)
 
     def profiled(kernel):
         return None if prof is None else sum(ms for name, (ms, _n) in prof.items()
@@ -2256,20 +2365,44 @@ def phase_gemma2_forward(torch, dev, smi):
         for name, (ms, n) in sorted(prof.items(), key=lambda kv: -kv[1][0]):
             if "lut_dequant_gemm" in name:
                 log(f"    {ms:8.3f} ms {n:5.0f} x  {name[:110]}")
-    log_breakdown("xla forward", device_time_by_kernel(
+    xla_profile = log_breakdown("xla forward", device_time_by_kernel(
         torch, lambda: xla.forward(params, toks, return_hidden=True), 1),
         fwd_xla, kernel="lut_dequant_gemm", card=smi)
-    del params, h_flash, h_xla, lg_flash, lg_xla
+    del params
     torch.cuda.empty_cache()
     return dict(launches=counts["flash_attention"],
-                launches_tc=counts["flash_attention_tc"], wall_flash_s=wall_flash,
-                wall_xla_s=wall_xla, forward_flash_ms=fwd_flash, forward_xla_ms=fwd_xla,
-                flash_vs_xla_bf16=bf16, flash_vs_xla_f32=f32, bf16_vs_f32=floor,
-                argmax_agreement=agree, peak_gb=peak / 1e9,
+                launches_tc=counts["flash_attention_tc"], forward_flash_ms=fwd_flash,
+                forward_xla_ms=fwd_xla, **cmp, peak_gb=peak / 1e9,
                 flash_attention_profiled_ms=profiled("flash_attention"),
                 lut_dequant_gemm_profiled_ms=profiled("lut_dequant_gemm"),
                 lut_dequant_gemm_launches=counts["lut_dequant_gemm"],
-                lut_dequant_gemm_launches_tc=counts["lut_dequant_gemm_tc"])
+                lut_dequant_gemm_launches_tc=counts["lut_dequant_gemm_tc"],
+                flash_profile=flash_profile, xla_profile=xla_profile,
+                at=f"{cfg.name}, {cfg.n_layers} layers, B={batch} x S={seq}, W4A4 pallas, bf16")
+
+
+def phase_gemma2_forward(torch, dev, smi):
+    """Phase 11: gemma2-2b (26 layers) over B=1 x S=8192 tokens through
+    :func:`phase_flash_forward`: 26 ``flash_attention`` launches at hd 256."""
+    from repro_torch.configs import get_config
+
+    return phase_flash_forward(torch, dev, smi, get_config("gemma2-2b"), batch=1, seq=FLASH_SEQ,
+                               phase=11)
+
+
+
+
+def phase_stablelm_forward(torch, dev, smi):
+    """Phase 30: stablelm-12b at published widths, :data:`N_LAYERS` of its 40
+    layers (as phases 3 and 8), over B x S = :data:`STABLELM_FWD` tokens
+    through :func:`phase_flash_forward`: 20 ``flash_attention`` launches at
+    hd 160 (padded to 192 columns on the tensor cores) and 140
+    ``lut_dequant_gemm`` launches, all on the tensor cores."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("stablelm-12b"), n_layers=N_LAYERS)
+    b, s = STABLELM_FWD
+    return phase_flash_forward(torch, dev, smi, cfg, batch=b, seq=s, phase=30)
 
 
 # ---------------------------------------------------------------------------
@@ -4287,6 +4420,7 @@ ZB_SERVE_LAYERS = 6           # 18: depth (of 81: one "MMMMMS" unit), to keep
                               # the script in its time limit (each check holds at any depth)
 ZB_PROFILED = 32              # 18a: the profiled prefill's length (B = 4): torch.profiler parses
                               # about 4 host events a recurrence step and layer, ~0.5 M at 128
+ZB_FLASH_SEQ = 1024           # 18e: the cache-free flash forward's tokens (B = 1)
 
 
 def zamba2_applied(cfg):
@@ -4334,7 +4468,10 @@ def phase_zamba2(torch, dev, smi):
     1e-4 x max |logit|.  18d: each distinct applied shape at B = 4 and 4 x
     128: ``lut_dequant_gemm`` against its plain version (phase 2's sweep),
     ``lut_stream_gemm`` and ``lut_canon`` at W1A3 p=4 against theirs (phase
-    6's), with times.
+    6's), with times.  18e: 18a's tree, the cache-free forward over B = 1 x
+    :data:`ZB_FLASH_SEQ` tokens under ``attn_impl="flash"`` (the shared
+    block's hd 112 on the tensor cores, one launch an "S" sublayer) against
+    ``"xla"`` (:func:`flash_vs_xla`).
 
     The pads of a left-padded row go through the conv and the recurrence,
     as in the reference, so scan == loop == chunked holds only where every
@@ -4442,9 +4579,26 @@ def phase_zamba2(torch, dev, smi):
         held_before_gb=base / 1e9, held_before_gc_gb=before_gc / 1e9, code_bytes=code_bytes,
         param_bytes=param_bytes, kv_cache_bytes=kv_bytes, state_bytes=state_bytes, build_s=build_s,
         prefill_profile=profiles["prefill"], decode_profile=profiles["decode"], drivers=drivers)
-    del eng, caches, prefill, short, step, params
+    del eng, caches, prefill, short, step
     torch.cuda.empty_cache()
     lap("18a")
+
+    # --- 18e: 18a's tree, the cache-free forward through flash (hd 112) -------
+    ftoks = torch.randint(0, cfg.vocab_size, (1, ZB_FLASH_SEQ), device=dev, dtype=torch.int32)
+    fcounts, fcmp = flash_vs_xla(torch, cfg, params, ftoks, what=f"phase 18e [{smi}]")
+    check(fcounts["flash_attention"] == n_s and fcounts["flash_attention_tc"] == n_s,
+          f"phase 18e: flash_attention launches {fcounts['flash_attention']} "
+          f"({fcounts['flash_attention_tc']} on the tensor cores) != {n_s} 'S' sublayers "
+          f"(bf16, hd {cfg.hd})")
+    check(fcounts["lut_dequant_gemm"] == fcounts["lut_dequant_gemm_tc"] == per_forward,
+          f"phase 18e: lut_dequant_gemm launches {fcounts} != {per_forward}, all on the tensor "
+          f"cores")
+    out["e"] = dict(launches=fcounts["flash_attention"],
+                    launches_tc=fcounts["flash_attention_tc"], hd=cfg.hd,
+                    at=f"{cfg.name}, {cfg.n_layers} layers, B=1 x S={ZB_FLASH_SEQ}", **fcmp)
+    del params, ftoks
+    torch.cuda.empty_cache()
+    lap("18e")
 
     # --- 18b: W1A3 lut, calibrated + prepared, one unit ------------------------
     out["b"] = lut_cut_serve(torch, dev, cfg, ZB_LUT_LAYERS, reqs, smi, what="phase 18b",
@@ -7798,14 +7952,15 @@ def phase_examples(torch, dev, smi):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=("tc_cp_async", "gemma2_serve", "live_ops", "obs",
+    ap.add_argument("--phase", choices=("flash", "stablelm_forward", "tc_cp_async",
+                                        "gemma2_serve", "live_ops", "obs",
                                         "deepseek", "zamba2", "rwkv", "whisper", "vlm_train",
                                         "dist", "dist_train", "seq_shard", "dryrun",
                                         "plans_families", "sharded_plans", "llama4",
                                         "examples"),
                     help="after the build, run this phase alone and print its result as one "
-                         "JSON line (phase 6's cp.async repeats, phase 14, 15, 16, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25, 26, 27, 28 or 29)")
+                         "JSON line (phases 9-10, 30, phase 6's cp.async repeats, phase 14, 15, "
+                         "16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28 or 29)")
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="the directory holding the repro_torch whose kernels are built and "
                          "driven (default: this checkout's): run two trees in turns in one "
@@ -7861,7 +8016,10 @@ def main(argv=None) -> int:
                     f"{'PRESENT' if 'C7518' in info['log'] else 'absent'}; "
                     f"{wgmma_waits(info['path'])}")
         cfg = get_config("stablelm-12b")
-        alone = {"tc_cp_async": lambda: phase_tc_cp_async(torch, dev, cfg, hw.H100_SXM, smi),
+        alone = {"flash": lambda: dict(abs_err=phase_flash_kernel(torch, dev),
+                                       rows=phase_flash_times(torch, dev, hw.H100_SXM, smi)),
+                 "stablelm_forward": lambda: phase_stablelm_forward(torch, dev, smi),
+                 "tc_cp_async": lambda: phase_tc_cp_async(torch, dev, cfg, hw.H100_SXM, smi),
                  "gemma2_serve": lambda: phase_gemma2_serve(torch, dev, smi),
                  "live_ops": lambda: phase_live_ops(torch, dev, cfg, smi),
                  "obs": lambda: phase_obs(torch, dev, cfg, smi),
@@ -7899,6 +8057,10 @@ def main(argv=None) -> int:
             torch, dev, get_config("gemma2-2b"), hw.H100_SXM,
             bs=(4, 4 * GEMMA_BUCKET, FLASH_SEQ), iters=(5, 3, 3), label="phase 12")
         lap("12 gemma2 shapes")
+        f32rows, f32_rel = phase_dequant_f32_times(torch, dev, cfg, hw.H100_SXM, smi)
+        lap("12b f32 x")
+        st_fwd = alone["stablelm_forward"]()
+        lap("30 stablelm forward")
         phase_stream_kernel(torch, dev)
         lap("6 stream kernel")
         srows, stream_abs = phase_stream_times(torch, dev, cfg, hw.H100_SXM, smi)
@@ -7922,7 +8084,7 @@ def main(argv=None) -> int:
         lap("2 row invariance")
         rows, rel2, abs2 = phase_kernel_times(torch, dev, cfg, hw.H100_SXM)
         lap("2 stablelm shapes")
-        worst_rel, worst_abs = max(worst_rel, rel2, g_rel), max(worst_abs, abs2, g_abs)
+        worst_rel, worst_abs = max(worst_rel, rel2, g_rel, f32_rel), max(worst_abs, abs2, g_abs)
         serve = phase_serve(torch, dev, cfg, smi, phase=3,
                             spec=LutLinearSpec(bw=4, ba=4, mode="pallas"),
                             kernel="lut_dequant_gemm", max_prompt=96, max_new=32)
@@ -8086,6 +8248,17 @@ def main(argv=None) -> int:
             "launches": fwd["lut_dequant_gemm_launches"],
             "launches_tc": fwd["lut_dequant_gemm_launches_tc"],
             "ms_in_forward": fwd["lut_dequant_gemm_profiled_ms"]},
+        "stablelm_forward": {
+            "at": f"phase 30: {st_fwd['at']}", "launches": st_fwd["lut_dequant_gemm_launches"],
+            "launches_tc": st_fwd["lut_dequant_gemm_launches_tc"],
+            "ms_in_forward": st_fwd["lut_dequant_gemm_profiled_ms"]},
+        "f32_x": {
+            "source": "src/repro_torch/kernels/csrc/lut_dequant_gemm.cu",
+            "decode": times(f32rows, 4, "phase 12b: one stablelm-12b layer's 7 projections at "
+                                        "B=4, W4, f32 x (the CUDA-core route; library: f32 "
+                                        "torch.matmul on the pre-decoded f32 weight; bound at "
+                                        "the f32 CUDA-core rate)"),
+            "prefill": times(f32rows, 512, "phase 12b: the same at B=4x128")},
         "gemma2_serve": {
             "at": f"phase 14b: gemma2-2b, {GEMMA_SERVE_LAYERS} layers, W4A4 pallas, bf16, "
                   f"ServeEngine(batch=4, "
@@ -8366,6 +8539,10 @@ def main(argv=None) -> int:
         **flash_forward_times(frows, get_config("gemma2-2b"), fwd),
         "shapes": frows,
         "forward": fwd,
+        "stablelm_forward": {**st_fwd, "at": f"phase 30: {st_fwd['at']}, causal, 32 / 8 heads of "
+                                              f"160 (tensor cores, padded to 192 columns)"},
+        "zamba2": {"at": f"phase 18e: {zamba2['e']['at']}, the shared block's 32 / 32 heads of "
+                         f"112 (tensor cores, padded to 128 columns)", **zamba2["e"]},
         "rwkv": {"launches": rwkv["a"]["flash_attention_launches"],
                  "at": "phase 19a: rwkv6-3b has no attention (asserted: no launch)"},
         "whisper": {

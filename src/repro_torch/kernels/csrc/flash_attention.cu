@@ -252,6 +252,7 @@ int launch_hd(int nj, const void* q, const void* k, const void* v, void* out, co
     case 2: return launch<T, 2>(q, k, v, out, P, s);
     case 4: return launch<T, 4>(q, k, v, out, P, s);
     case 6: return launch<T, 6>(q, k, v, out, P, s);
+    case 7: return launch<T, 7>(q, k, v, out, P, s);
     case 8: return launch<T, 8>(q, k, v, out, P, s);
     case 10: return launch<T, 10>(q, k, v, out, P, s);
     case 16: return launch<T, 16>(q, k, v, out, P, s);
@@ -261,7 +262,7 @@ int launch_hd(int nj, const void* q, const void* k, const void* v, void* out, co
 
 }  // namespace
 
-// Head dims 16, 32, 64, 96, 128, 160 and 256.  Returns a cudaError_t:
+// Head dims 16, 32, 64, 96, 112, 128, 160 and 256.  Returns a cudaError_t:
 // cudaErrorInvalidValue for arguments the kernel does not take, else the
 // launch's own status (cudaGetLastError right after it).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,

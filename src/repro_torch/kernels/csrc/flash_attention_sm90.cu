@@ -6,16 +6,17 @@
 //                     @ v[b, :, h/rep, :]
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
-// (body _flash_body) for bf16 inputs with head dim 64, 128 or 256.  It
-// computes the same function with the same update per key block:
+// (body _flash_body) for bf16 inputs with any head dim hd that is a multiple
+// of 16 up to 256 (the wrapper's HEAD_DIMS: 16, 32, 64, 96, 112, 128, 160 and
+// 256).  It computes the same function with the same update per key block:
 //
 //   m' = max(m, rowmax s)            p = where(mask, exp(s - m'), 0)
 //   l' = l * e^{m - m'} + rowsum p   acc' = acc * e^{m - m'} + p @ V
 //   out = acc / max(l, 1e-30)
 //
 // with s = q.k * scale, then the softcap, then masked scores set to -1e30.
-// Other head dims (16, 32, 96, 160) and f32 inputs stay on the CUDA-core
-// kernel (flash_attention.cu); the wrapper routes by dtype and head dim.
+// f32 inputs stay on the CUDA-core kernel (flash_attention.cu): TF32 would
+// not keep the reference's 2e-4 tolerance.
 //
 // What bounds it on an H100: 4 * hd operations per visible (query, key) pair
 // and head (the two products) at the 989 TFLOP/s bf16 tensor-core peak; its
@@ -24,21 +25,32 @@
 //
 // * Both products run on the tensor cores as wgmma, f32 accumulation.
 //   S = Q K^T: m64n64k16 with Q and K from shared memory (both K-major: hd is
-//   contiguous).  O += P V: m64n{hd}k16 with P from registers -- the S
+//   contiguous).  O += P V: m64n{HDP}k16 with P from registers -- the S
 //   accumulator fragment, rounded to bf16 and packed in pairs, is the
 //   A-register fragment of the next product -- and V from shared memory,
 //   MN-major (hd contiguous) through the transpose bit.
 // * One CTA owns 128 query rows of one (b, h): two consumer warpgroups of 64
-//   rows each, O in their wgmma accumulator registers (hd / 2 f32 a thread),
+//   rows each, O in their wgmma accumulator registers (HDP / 2 f32 a thread),
 //   m and l in registers; one producer warp issues the TMA loads.
 //   setmaxnreg gives the consumers 240 registers and the producer 24.
 // * K and V arrive by TMA (4-D tensor maps over the [B, T, Hkv, hd] views
 //   with their real strides, 128-byte swizzle, boxes of 64 keys x 64
 //   columns; a head of 256 is four boxes, and the wgmma descriptors step
-//   across them) into a ring of 3 stages (2 at hd 256), full and empty
+//   across them) into a ring of 3 stages (2 at HDP 256), full and empty
 //   mbarriers per stage, so the next block's copy overlaps this block's math.
 //   Q arrives once the same way.  TMA's zero fill covers the ragged S and T
 //   tails: no padding copies, no transposes.
+// * Any head dim on one layout: the kernel is compiled for the padded width
+//   HDP = 64 * ceil(hd / 64) (64, 128, 192 or 256) and takes hd at run time.
+//   The tensor maps keep the real hd as their row extent, so TMA fills the
+//   columns hd .. HDP of the last box with zeros (it reads nothing of the
+//   next head: the bound is the extent, not the row stride; the zero-filled
+//   bytes count toward the barrier's transaction bytes, so each stage still
+//   expects whole boxes, as at the ragged S and T tails).  S = Q K^T runs
+//   HDP / 16 steps, to which the zero columns add exactly 0; O += P V runs at
+//   n = HDP and the columns past hd are not stored.  The padding costs
+//   HDP / hd of the products (1.2x at hd 160, 1.14x at 112); one instance per
+//   padded width keeps the build to 8 kernels.
 // * The softmax hides behind the products twice over: each warpgroup issues
 //   S_i = Q K_i^T together with block i-1's P V and runs block i's softmax
 //   while P V runs, and the two warpgroups take turns to issue (named
@@ -86,29 +98,30 @@ constexpr int THREADS = 128 * (NCWG + 1);
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+// HDP: the padded head dim, 64 * ceil(hd / 64).
+template <int HDP>
 struct Cfg {
-  static constexpr int NCHUNK = HD / 64;             // 128-byte column boxes of a row
-  static constexpr int NST = HD == 256 ? 2 : 3;      // K/V ring stages
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;       // one stage of K (or of V)
+  static constexpr int NCHUNK = HDP / 64;            // 128-byte column boxes of a row
+  static constexpr int NST = HDP == 256 ? 2 : 3;     // K/V ring stages
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;      // one stage of K (or of V)
   static constexpr int NBAR = 1 + 4 * NST;           // q_full; k/v full; k/v empty
   static constexpr int SMEM = Q_BYTES + 2 * NST * KV_BYTES + 8 * NBAR + 1024;
 };
 
 struct Params {
-  int S, T, H, Hkv;
+  int S, T, H, Hkv, hd;
   long long o_b, o_s, o_h;               // output strides, elements
   int causal, has_window, window, has_softcap;
   float softcap, scale;
 };
 
-// S = Q K^T for one warpgroup's 64 rows: hd / 16 steps of 16 -- box kk / 4,
+// S = Q K^T for one warpgroup's 64 rows: HDP / 16 steps of 16 -- box kk / 4,
 // 32 bytes a step within its 128-byte rows (both operands K-major).
-template <int HD>
+template <int HDP>
 __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t qa, uint32_t kb) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < HDP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss_m64n64(s, desc_sw128(qa + (kk / 4) * BQ * 128 + off, 16, 1024),
                     desc_sw128(kb + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
@@ -117,14 +130,15 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t qa, uint32_t k
 
 // O += P V: BK / 16 steps of 16 keys; V is MN-major (hd contiguous), 16 rows
 // a step, its 64-column boxes BK * 128 bytes apart.
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&pa)[4][4],
+template <int HDP>
+__device__ __forceinline__ void issue_pv(float (&o)[HDP / 2], const uint32_t (&pa)[4][4],
                                          uint32_t vb) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t dv = desc_sw128(vb + kk * 16 * 128, BK * 128, 1024);
-    if constexpr (HD == 64) wgmma_rs_m64n64(o, pa[kk], dv);
-    else if constexpr (HD == 128) wgmma_rs_m64n128(o, pa[kk], dv);
+    if constexpr (HDP == 64) wgmma_rs_m64n64(o, pa[kk], dv);
+    else if constexpr (HDP == 128) wgmma_rs_m64n128(o, pa[kk], dv);
+    else if constexpr (HDP == 192) wgmma_rs_m64n192(o, pa[kk], dv);
     else wgmma_rs_m64n256(o, pa[kk], dv);
   }
 }
@@ -210,14 +224,14 @@ __device__ __forceinline__ void fence_pa(uint32_t (&pa)[4][4]) {
   for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
 }
 
-template <int HD, bool CAP>
+template <int HDP, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ out, const Params P) {
-  using C = Cfg<HD>;
-  constexpr int ND = HD / 2;             // O accumulator registers per thread
+  using C = Cfg<HDP>;
+  constexpr int ND = HDP / 2;            // O accumulator registers per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;   // swizzle atoms: 1024 B
   const uint32_t sq = base;                                       // [NCHUNK][BQ][64]
@@ -327,7 +341,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
     bar_sync(my_turn, 2 * 128);
     wgmma_fence();
-    issue_qk<HD>(s, qa, sk);
+    issue_qk<HDP>(s, qa, sk);
     wgmma_commit();
     bar_arrive(their_turn, 2 * 128);
     wgmma_wait<0>();
@@ -344,9 +358,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_pa(pa);
       bar_sync(my_turn, 2 * 128);
       wgmma_fence();
-      issue_qk<HD>(s, qa, sk + st * C::KV_BYTES);
+      issue_qk<HDP>(s, qa, sk + st * C::KV_BYTES);
       wgmma_commit();
-      issue_pv<HD>(o, pa, sv + pst * C::KV_BYTES);
+      issue_pv<HDP>(o, pa, sv + pst * C::KV_BYTES);
       wgmma_commit();
       bar_arrive(their_turn, 2 * 128);
       wgmma_wait<1>();                 // S_i done; P V may still run
@@ -366,7 +380,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_pa(pa);
     bar_sync(my_turn, 2 * 128);
     wgmma_fence();
-    issue_pv<HD>(o, pa, sv + lst * C::KV_BYTES);
+    issue_pv<HDP>(o, pa, sv + lst * C::KV_BYTES);
     wgmma_commit();
     if (wg == 0) bar_arrive(their_turn, 2 * 128);   // warpgroup 1's last turn is the last
     wgmma_wait<0>();
@@ -374,7 +388,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(v_empty(lst));
 
     // out = O / max(l, 1e-30), l summed over the four lanes of each row;
-    // rows past S are not stored (a predicated store, no branch).
+    // rows past S and the padded columns past hd are not stored (predicated
+    // stores, no branch; hd is a multiple of 16, so a thread's column pair
+    // 8j + col0 + {0, 1} is below hd exactly when 8j is).
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -384,10 +400,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       __nv_bfloat16* orow =
           out + b * P.o_b + (long long)min(row, P.S - 1) * P.o_s + h * P.o_h + col0;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HDP / 8; ++j) {
         __nv_bfloat162 v2 = __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
                                                   o[4 * j + 2 * r + 1] * inv);
-        st_global_b32_if(orow + 8 * j, *reinterpret_cast<uint32_t*>(&v2), row < P.S);
+        st_global_b32_if(orow + 8 * j, *reinterpret_cast<uint32_t*>(&v2),
+                         row < P.S && 8 * j < P.hd);
       }
     }
   }
@@ -408,8 +425,10 @@ EncodeTiled encode_tiled() {
 }
 
 // 4-D map over a [B, N, Hh, hd] bf16 view (strides in elements, last dim 1),
-// boxes of `rows` x 64 columns, 128-byte swizzle, zero fill out of bounds.
-// A dim of extent 1 is never stepped; its stride is replaced by 16 bytes.
+// boxes of `rows` x 64 columns, 128-byte swizzle, zero fill out of bounds:
+// the rows past N and, where hd is not a multiple of 64, the columns of the
+// last box past hd.  A dim of extent 1 is never stepped; its stride is
+// replaced by 16 bytes.
 int make_map(CUtensorMap* map, const void* ptr, int B, int N, int Hh, int hd,
              const long long* st /* b, n, h */, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)N, (cuuint64_t)Hh, (cuuint64_t)B};
@@ -427,23 +446,23 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int N, int Hh, int hd,
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-template <int HD>
+template <int HDP>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* out,
            const Params& P, int B, cudaStream_t stream) {
-  auto kern = P.has_softcap ? flash_attention_sm90_kernel<HD, true>
-                            : flash_attention_sm90_kernel<HD, false>;
+  auto kern = P.has_softcap ? flash_attention_sm90_kernel<HDP, true>
+                            : flash_attention_sm90_kernel<HDP, false>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Cfg<HD>::SMEM);
+                                         Cfg<HDP>::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * P.H, (P.S + BQ - 1) / BQ);
-  kern<<<grid, THREADS, Cfg<HD>::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
-                                                  P);
+  kern<<<grid, THREADS, Cfg<HDP>::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+                                                   P);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q, k, v, out; head dims 64, 128 and 256.  Returns a cudaError_t
+// bf16 q, k, v, out; head dims that are multiples of 16 up to 256.  Returns a cudaError_t
 // (cudaErrorInvalidValue for arguments the kernel does not take, else the
 // launch's own status), -1 when libcuda.so.1's cuTensorMapEncodeTiled is not
 // found, or 10000 + the CUresult of a tensor map it refused.
@@ -453,7 +472,7 @@ extern "C" int flash_attention_sm90(const void* q, const void* k, const void* v,
                                     int causal, int has_window, int window, int has_softcap,
                                     float softcap, float scale, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      (hd != 64 && hd != 128 && hd != 256) || (S + BQ - 1) / BQ > 65535 ||
+      hd <= 0 || hd > 256 || hd % 16 != 0 || (S + BQ - 1) / BQ > 65535 ||
       (has_window && window <= 0) || (has_softcap && !(softcap > 0.f)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -462,15 +481,16 @@ extern "C" int flash_attention_sm90(const void* q, const void* k, const void* v,
   if (r == 0) r = make_map(&tv, v, B, T, Hkv, hd, strides + 6, BK);
   if (r != 0) return r;
   Params P;
-  P.S = S; P.T = T; P.H = H; P.Hkv = Hkv;
+  P.S = S; P.T = T; P.H = H; P.Hkv = Hkv; P.hd = hd;
   P.o_b = strides[9]; P.o_s = strides[10]; P.o_h = strides[11];
   P.causal = causal; P.has_window = has_window; P.window = window;
   P.has_softcap = has_softcap; P.softcap = softcap; P.scale = scale;
   cudaGetLastError();  // clear a stale error so the check below is this launch's
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64: return launch<64>(tq, tk, tv, out, P, B, s);
-    case 128: return launch<128>(tq, tk, tv, out, P, B, s);
+  switch ((hd + 63) / 64) {
+    case 1: return launch<64>(tq, tk, tv, out, P, B, s);
+    case 2: return launch<128>(tq, tk, tv, out, P, B, s);
+    case 3: return launch<192>(tq, tk, tv, out, P, B, s);
     default: return launch<256>(tq, tk, tv, out, P, B, s);
   }
 }

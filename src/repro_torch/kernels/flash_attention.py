@@ -9,21 +9,22 @@ the ``[B, S, H, hd]`` output returns to device memory.
 
 What bounds it on an H100: its multiply-adds (``4 * hd`` operations per
 visible (query, key) pair and head; the pairs the masks leave), not its
-bytes.  Two CUDA sources, and a route fixed by dtype and head dim
-(:func:`route`):
+bytes.  Two CUDA sources, and a route fixed by dtype (:func:`route`):
 
-* ``"tc"`` -- bf16 with hd 64, 128 or 256 (gemma2-2b's 256 on the forward's
-  path): ``csrc/flash_attention_sm90.cu``, on the tensor cores.  bf16
-  ``wgmma`` for both products (f32 accumulation; P rounded to bf16 before
-  ``P @ V``, which the reference's f32 kernel does not do -- the TPU's MXU
-  does at default precision), K/V fed by TMA into a ring of stages, one
-  producer warp and two consumer warpgroups of 64 query rows taking turns,
-  each block's softmax run while the previous block's ``P @ V`` runs,
-  against the 989 TFLOP/s bf16 peak.
+* ``"tc"`` -- bf16 at every head dim of :data:`HEAD_DIMS` (gemma2-2b's 256,
+  stablelm-12b's 160, zamba2-7b's 112, whisper's and internvl2's 64):
+  ``csrc/flash_attention_sm90.cu``, on the tensor cores, one instance per
+  padded width ``64 * ceil(hd / 64)`` (the tensor maps keep the real hd, so
+  TMA zero-fills the columns up to the padded width; the columns past hd are
+  not stored).  bf16 ``wgmma`` for both products (f32 accumulation; P
+  rounded to bf16 before ``P @ V``, which the reference's f32 kernel does
+  not do -- the TPU's MXU does at default precision), K/V fed by TMA into a
+  ring of stages, one producer warp and two consumer warpgroups of 64
+  query rows taking turns, each block's softmax run while the previous
+  block's ``P @ V`` runs, against the 989 TFLOP/s bf16 peak.
 * ``"cuda_core"`` -- f32 inputs (the reference's f32 compute: TF32 would not
-  keep the 2e-4 tolerance) and bf16 head dims 16, 32, 96 and 160, whose rows
-  do not split into 64-element TMA boxes: ``csrc/flash_attention.cu``, a
-  simple version on the CUDA cores with ``fmaf``, f32 tiles in shared memory.
+  keep the 2e-4 tolerance): ``csrc/flash_attention.cu``, a simple version on
+  the CUDA cores with ``fmaf``, f32 tiles in shared memory.
 
 Both skip key blocks wholly masked by the causal mask or the window, mask
 the ragged tails in the kernel, read q/k/v in place through their strides
@@ -34,8 +35,9 @@ The wrapper checks device, dtypes, shapes and strides, allocates the output,
 launches on the current stream and raises on a launch error.  It counts its
 launches in :data:`launches` and those of the tensor-core route also in
 :data:`launches_tc` (plain integers, reset by the caller).
-:func:`cuda_core_yardstick` runs the CUDA-core kernel on shapes routed to the
-tensor cores, only to time the redesign against the kernel it replaced.
+:func:`cuda_core_yardstick` runs the CUDA-core kernel on bf16 inputs, which
+route to the tensor cores, only to time the redesign against the kernel it
+replaced.
 """
 
 from __future__ import annotations
@@ -51,20 +53,19 @@ from repro_torch.kernels import build
 launches = 0          # incremented once per kernel launch (either route), nowhere else
 launches_tc = 0       # incremented once per launch of the tensor-core route, nowhere else
 
-HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
-TC_HEAD_DIMS = (64, 128, 256)       # bf16 head dims of the tensor-core route
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 160, 256)   # every full config's hd among them
 
 _fns: dict = {}
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The kernel a call runs on, fixed by the inputs' dtype and head dim:
-    ``"tc"`` (``flash_attention_sm90.cu``) or ``"cuda_core"``
-    (``flash_attention.cu``)."""
+    ``"tc"`` (``flash_attention_sm90.cu``) for bf16, ``"cuda_core"``
+    (``flash_attention.cu``) for f32, at every head dim of :data:`HEAD_DIMS`."""
     if dtype not in (torch.float32, torch.bfloat16) or hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16 inputs with head "
                          f"dims {HEAD_DIMS}; got {dtype}, hd {hd}")
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cuda_core"
+    return "tc" if dtype == torch.bfloat16 else "cuda_core"
 
 
 def _kernel(which: str):

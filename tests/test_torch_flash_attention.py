@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -25,7 +26,9 @@ TOL_BF16_ROW = 2.0**-7  # bf16, each row against the plain version in f32, relat
 Q_SCALE = 16.0          # q scaled so that the scores reach the softcap (std 16 before the cap)
 
 # (B, S, H, Hkv, hd), T (None: T = S), kwargs: the reference's sweep
-# (tests/test_kernels.py::test_flash_attention_sweep), then T != S.
+# (tests/test_kernels.py::test_flash_attention_sweep), then T != S, then the
+# head dims no multiple of 64 that full configs have: zamba2-7b's 112 and
+# stablelm-12b's 160 (the tensor-core route pads them to 128 / 192 columns).
 SWEEP = [
     ((2, 256, 4, 2, 64), None, {}),
     ((1, 384, 8, 8, 32), None, dict(window=128)),
@@ -35,6 +38,13 @@ SWEEP = [
     ((1, 130, 2, 2, 64), None, dict(window=32)),
     ((1, 96, 4, 2, 64), 160, dict(window=48, softcap=50.0)),   # T > S, ragged T
 ]
+PADDED_HD = [
+    ((1, 130, 4, 4, 112), None, {}),
+    ((1, 96, 4, 2, 112), 130, dict(window=48, softcap=50.0)),  # T > S, ragged T
+    ((1, 130, 4, 1, 160), None, {}),
+    ((1, 96, 4, 2, 160), 130, dict(window=48, softcap=50.0)),
+]
+SWEEP += PADDED_HD
 
 
 def _qkv(shape, t, seed_key):
@@ -105,6 +115,21 @@ def test_plain_flash_attention_bf16_matches_reference_kernel():
                                atol=TOL_BF16 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("shape,t,kw", PADDED_HD)
+def test_plain_flash_attention_bf16_at_padded_head_dims_matches_reference_kernel(shape, t, kw):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.flash_attention import flash_attention as jflash
+
+    q, k, v = _qkv(shape, t, ("bf16", shape, t, sorted(kw.items())))
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(jflash(jq, jk, jv, **kw).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = tops.flash_attention(tq, tk, tv, **_kw(kw))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=TOL_BF16 * np.abs(want).max())
+
+
 def test_flash_attention_entry_point_routes_by_device():
     q = torch.zeros((1, 4, 2, 16))
     out = tops.flash_attention(q, q[:, :, :1], q[:, :, :1])
@@ -122,18 +147,29 @@ def test_flash_attention_kernel_refuses_cpu_tensors():
 
 
 def test_flash_attention_route_table():
-    """The kernel a call takes is fixed by dtype and head dim alone: bf16 at
-    hd 64/128/256 on the tensor cores, every other (dtype, hd) on the CUDA
-    cores; head dims neither kernel takes are refused."""
+    """The kernel a call takes is fixed by dtype and head dim alone: bf16 on
+    the tensor cores and f32 on the CUDA cores, at every head dim of
+    HEAD_DIMS; head dims neither kernel takes are refused."""
     from repro_torch.kernels import flash_attention as fa
 
+    assert fa.HEAD_DIMS == (16, 32, 64, 96, 112, 128, 160, 256)
     for hd in fa.HEAD_DIMS:
         assert fa.route(torch.float32, hd) == "cuda_core"
-        assert fa.route(torch.bfloat16, hd) == ("tc" if hd in (64, 128, 256) else "cuda_core")
-    assert fa.TC_HEAD_DIMS == (64, 128, 256)
+        assert fa.route(torch.bfloat16, hd) == "tc"
     for dtype, hd in ((torch.bfloat16, 48), (torch.float32, 512), (torch.float16, 64)):
         with pytest.raises(ValueError, match="head dims"):
             fa.route(dtype, hd)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_flash_attention_routes_every_full_config_head_dim(arch):
+    """Every full-width config's head dim is taken on the card: bf16 on the
+    tensor cores, f32 on the CUDA cores (zamba2-7b's 112 was refused)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    hd = get_config(arch).hd
+    assert fa.route(torch.bfloat16, hd) == "tc", (arch, hd)
+    assert fa.route(torch.float32, hd) == "cuda_core", (arch, hd)
 
 
 # (fault, q scale): what a kernel computes with in place of the right options
@@ -194,7 +230,9 @@ def test_cuda_flash_attention_matches_plain_version():
     cases = SWEEP + [((1, 300, 8, 4, 256), None, dict(window=100, softcap=50.0)),
                      ((1, 200, 4, 1, 160), None, {}),
                      ((2, 70, 4, 2, 16), 90, dict(causal=False, window=30))]
-    cases += [((1, 130, 4, 2, 128), None, dict(window=64, softcap=30.0)),
+    cases += [((1, 200, 4, 2, 96), None, dict(window=64, softcap=30.0)),
+              ((2, 70, 4, 4, 112), 90, dict(causal=False, window=30)),
+              ((1, 130, 4, 2, 128), None, dict(window=64, softcap=30.0)),
               ((2, 70, 4, 2, 128), 90, dict(causal=False, window=30)),
               ((4, 1500, 20, 20, 64), None, dict(causal=False))]   # whisper's encoder
     for shape, t, kw in cases:
@@ -261,3 +299,4 @@ def test_cuda_tensor_core_flash_attention_gemma2_like_and_deterministic():
                                                      **_kw(kw)))
         assert row <= TOL_BF16_ROW, (shape, kw, q_scale, row)
         assert torch.equal(got, again), (shape, kw, q_scale)
+

@@ -223,11 +223,42 @@ def test_gemma2_lut_calibration_through_flash_matches_reference(gemma):
 
 
 # ---------------------------------------------------------------------------
+# stablelm-12b's head dim, 160 (the tensor-core route pads it to 192 columns
+# on the card), at a narrow width: 2 layers, d 320, 2 / 1 heads, through
+# attn_impl="flash", f32, on trees converted from the reference.
+# ---------------------------------------------------------------------------
+
+
+def _hd160_cfgs():
+    kw = dict(n_layers=2, d_model=320, n_heads=2, n_kv_heads=1, head_dim=160, d_ff=640,
+              dtype="float32", attn_impl="flash")
+    jcfg = dataclasses.replace(jget_config("stablelm-12b", smoke=True), **kw)
+    tcfg = dataclasses.replace(get_config("stablelm-12b", smoke=True), **kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg) and tcfg.hd == 160
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("tree", ["dense", "pallas_prepared"])
+def test_stablelm_head_dim_160_flash_forward_matches_reference(tree):
+    jcfg, tcfg = _hd160_cfgs()
+    jm, tm = jbuild(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    if tree == "pallas_prepared":
+        jp = jm.prepare(jm.quantize(jp, JSpec(bw=4, ba=4, mode="pallas")))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    want = jm.forward(jp, jnp.asarray(toks))[0]
+    got, caches = tm.forward(tp, torch.from_numpy(toks))
+    assert caches is None and got.shape == (2, 24, jcfg.vocab_size)
+    _logits_close(got, want)
+
+
+# ---------------------------------------------------------------------------
 # The §Perf cache features: mirrors of tests/test_perf_features.py, each
 # also held against the reference's logits on the same converted tree
 # ---------------------------------------------------------------------------
 
-TOL_INT8 = 1e-3    # int8 KV cache, relative to max |logit|: a K/V value whose f32
+TOL_INT8 = 1e-3   # int8 KV cache, relative to max |logit|: a K/V value whose f32
                    # bits differ between the packages may round to the next code
 
 
